@@ -5,19 +5,35 @@
 
 Run from the root of the repository, on a machine with a CUDA device.
 Phases, each fatal on failure:
-  1. build K1 (csrc/chain_keys.cu) with nvcc;
-  2. kernel: K1 against its plain torch version on the card, bit for bit,
-     for every T of the ladder at D = 2^14 and 2^20, B = 32;
-  3. main path: the port's App ingests N synthetic hackernews documents
+  1. build K1 (csrc/chain_keys.cu) and K3 (csrc/osa.cu) with nvcc, one
+     process per source, into one library; print ptxas registers/spills;
+  2. kernels: K1 against its plain torch version on the card, bit for
+     bit, for every T of the ladder at D = 2^14 and 2^20, B = 32; K3
+     against its plain version byte for byte over a 2^20-word seeded
+     vocabulary (lengths 0-32, non-ASCII codepoints, padding rows), 17
+     query words (m = 0 and 32 among them) at max_dist 1 and 2, and two
+     of them against the host pass (ops/levenshtein.py) on 2^16 words;
+  3. keyword path: the port's App ingests N synthetic hackernews documents
      (default 1,000,000, so D = 2^20) over POST /indexes/hn/documents,
      then 32 client threads send a fixed query set to
-     POST /indexes/hn/search; every response must equal the host scorer
-     (the reference's, shared by the port; it needs no jax), K1 must have
-     launched, and the device path must have served with no device error;
-  4. timing: K1 and its plain version at D = 2^20, B = 32, T = 3.
+     POST /indexes/hn/search; every response must equal the port's host
+     scorer, K1 must have launched, and the device path must have served
+     with no device error;
+  4. typo path: a second App ingests a corpus whose vocabulary holds
+     2^20 distinct words (utils/synthetic.py::generate_large_vocab) over
+     POST /indexes/typo/documents, then 32 client threads send typo
+     queries to POST /indexes/typo/search; every response must equal the
+     same store's answer with the host OSA pass, K3 must have launched,
+     and no device error may occur;
+  5. timing: K1 and its plain version at D = 2^20, B = 32, T = 3; K3 and
+     its plain version (byte for byte equal again) on the typo path's own
+     resident vocabulary (n = 2^20, max_dist 2) for every word the typo
+     pass put through K3, and for the words nearest 5 and 10 letters the
+     whole typo-pass device call with its readback and the host pass.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
-repository, it exits non-zero and prints no result.
+repository, it exits non-zero and prints no result. The run fails if any
+module of jax or of the JAX package is loaded at its end.
 """
 
 from __future__ import annotations
@@ -32,7 +48,16 @@ import time
 
 K1_SOURCE = "meilisearch_tpu_torch/csrc/chain_keys.cu"
 K1_REPLACES = "meilisearch_tpu/ops/pallas_scorer.py:256"
+K3_SOURCE = "meilisearch_tpu_torch/csrc/osa.cu"
+K3_REPLACES = "meilisearch_tpu/ops/device_osa.py:50"
+# the card's peaks for the bounds: HBM3 bytes/s (data sheet) and int32
+# lanes (Hopper white paper: 64 INT32 units per SM, 132 SMs, 1.98 GHz)
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 64 * 132 * 1.98e9
 THREADS = 32
+# the typo path's vocabulary: above the device gate (2^19 words), and the
+# n = 2^20 rows at which K3 is timed
+TYPO_VOCAB_WORDS = 1 << 20
 SETTINGS = {
     "searchableAttributes": ["title", "url", "author"],
     "filterableAttributes": ["author", "points", "num_comments"],
@@ -78,10 +103,10 @@ def build_phase() -> None:
 
     t0 = time.perf_counter()
     _build.load_library()
-    say(f"K1 build: {time.perf_counter() - t0:.3f} s"
+    say(f"K1 + K3 build: {time.perf_counter() - t0:.3f} s"
         f" (nvcc {_build.build_seconds:.3f} s; 0 = already built)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
 
 
@@ -112,6 +137,89 @@ def kernel_phase(device) -> int:
     return worst
 
 
+def osa_vocab(n: int, seed: int):
+    """(mat (n, 32) int32, lens (n,) int32) numpy: seeded pseudo-words of
+    lengths 0-32 over a small alphabet with a few non-ASCII codepoints
+    (so matches and transpositions occur), zero rows past each length,
+    and padding rows (length 0) at the end and at random."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alphabet = np.array([ord(c) for c in "abcdefghijklmn"] + [0xE9, 0xDF, 0x436, 0x1F600])
+    weights = np.r_[np.full(14, 1.0), np.full(4, 0.25)]
+    mat = alphabet[rng.choice(len(alphabet), size=(n, 32), p=weights / weights.sum())]
+    lens = np.where(rng.random(n) < 0.8, rng.integers(3, 13, n), rng.integers(0, 33, n))
+    lens[-4096:] = 0
+    mat = np.where(np.arange(32)[None, :] < lens[:, None], mat, 0)
+    return mat.astype(np.int32), lens.astype(np.int32)
+
+
+def osa_queries(mat, lens, seed: int) -> list:
+    """17 query words as codepoint lists: the empty word, a 32-letter
+    word, and words taken from the vocabulary with 0-3 edits."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = [[], mat[int(np.flatnonzero(lens == 32)[0])].tolist()]
+    rows = rng.choice(np.flatnonzero(lens >= 4), size=15, replace=False)
+    for k, r in enumerate(rows):
+        w = mat[r, : lens[r]].tolist()
+        for _ in range(k % 4):
+            i = int(rng.integers(1, len(w)))
+            if rng.random() < 0.5:
+                w[i - 1], w[i] = w[i], w[i - 1]  # a transposition
+            else:
+                w[i] = int(mat[int(rng.integers(0, len(mat))), 0] or 0x61)
+        out.append(w)
+    return out
+
+
+def osa_kernel_phase(device) -> int:
+    """K3 against osa_device_torch on the card at n = 2^20, and two
+    queries against the host pass on 2^16 words; returns the max abs
+    error (0 when byte-exact; anything else raises)."""
+    import numpy as np
+    import torch
+
+    from meilisearch_tpu_torch.ops.device_osa import osa_device, osa_device_torch
+    from meilisearch_tpu_torch.ops.levenshtein import osa_distances
+
+    mat_np, lens_np = osa_vocab(1 << 20, seed=11)
+    say(f"K3 edge-case vocabulary, 2^20 rows: {warp_lengths(lens_np)}")
+    mat = torch.from_numpy(mat_np).to(device)
+    lens = torch.from_numpy(lens_np).to(device)
+    worst, checked = 0, 0
+    for qi, word in enumerate(osa_queries(mat_np, lens_np, seed=12)):
+        q = np.zeros(32, np.int32)
+        q[: len(word)] = word
+        qt = torch.from_numpy(q).to(device)
+        for max_dist in (1, 2):
+            got = osa_device(mat, lens, qt, len(word), max_dist)
+            torch.cuda.synchronize()
+            want = osa_device_torch(mat, lens, qt, len(word), max_dist)
+            err = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"K3 disagrees with osa_device_torch: m={len(word)}")
+            worst = max(worst, err)
+            checked += 1
+            if qi in (2, 9):
+                # the host pass on real (non-padding) rows of a 2^16 slice
+                sl = slice(0, 1 << 16)
+                real = lens_np[sl] > 0
+                text = "".join(map(chr, word))
+                full_h, prefix_h = osa_distances(text, mat_np[sl], lens_np[sl], max_dist)
+                for g, h in zip(got, (full_h, prefix_h)):
+                    if not np.array_equal(g[sl].cpu().numpy()[real], h[real]):
+                        raise AssertionError(
+                            f"K3 disagrees with the host pass: m={len(word)}"
+                        )
+                say(f"K3 m={len(word)} max_dist={max_dist}: equal to the host pass"
+                    f" on {int(real.sum())} words of a 2^16 slice")
+    say(f"K3 n=2^20: {checked} (query, max_dist) cases byte-exact against"
+        f" osa_device_torch, max_abs_err={worst}")
+    return worst
+
+
 def _strip(res: dict) -> dict:
     hits = res["hits"]
     out = {
@@ -126,7 +234,7 @@ def _strip(res: dict) -> dict:
 def ingest(app, client, n_docs: int):
     """Index `n_docs` synthetic hackernews documents as "hn" over
     POST /indexes/hn/documents; returns the index's store."""
-    from meilisearch_tpu_torch.ops.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
     from meilisearch_tpu_torch.search.device_batch import _plane_docs
 
     client.update_settings("hn", SETTINGS)
@@ -182,41 +290,11 @@ def main_path_phase(device, n_docs: int) -> dict:
 
         serving_stats(reset=True)
         LAUNCHES.reset()
-        answers: list = []
-        latencies: list = []
-        errors: list = []
-        lock = threading.Lock()
-
-        def client_loop(k: int) -> None:
-            try:
-                for r in range(2):
-                    for j in range(len(QUERIES)):
-                        qi = (j + k + r) % len(QUERIES)
-                        t = time.perf_counter()
-                        res = client.search("hn", dict(QUERIES[qi]))
-                        dt = time.perf_counter() - t
-                        with lock:
-                            answers.append((qi, res.status, res.json))
-                            latencies.append(dt)
-            except BaseException as err:  # noqa: BLE001 — reported below
-                with lock:
-                    errors.append(repr(err))
-
-        threads = [threading.Thread(target=client_loop, args=(k,)) for k in range(THREADS)]
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        wall = time.perf_counter() - t0
+        answers, errors = serve(client, "hn", QUERIES)
         launches = LAUNCHES.value
         stats = serving_stats()
-        if errors or any(th.is_alive() for th in threads):
+        if errors:
             raise AssertionError(f"client threads failed: {errors[:3]}")
-        lat = sorted(latencies)
-        say(f"served {len(answers)} searches from {THREADS} threads in {wall:.3f} s:"
-            f" {len(answers) / wall:.2f} QPS, p50 {lat[len(lat) // 2] * 1e3:.3f} ms,"
-            f" p99 {lat[int(len(lat) * 0.99)] * 1e3:.3f} ms")
         say(f"serving stats: {json.dumps(stats)}")
         say(f"K1 launches during the main path: {launches}")
 
@@ -233,9 +311,125 @@ def main_path_phase(device, n_docs: int) -> dict:
             raise AssertionError("K1 was not launched on the main path")
         if stats["device_served"] <= 0 or stats["device_errors"] != 0:
             raise AssertionError(f"device path did not serve cleanly: {stats}")
-        return {"launches": launches, "qps": len(answers) / wall}
+        return {"launches": launches}
     finally:
         app.search_batcher.stop()
+
+
+def typo_path_phase(device, n_words: int) -> dict:
+    """A second App whose index vocabulary holds `n_words` distinct words:
+    32 clients send typo queries; every response must equal the same
+    store's answer with the host OSA pass, and K3 must have launched.
+    Returns K3's launches, the store (its vocabulary stays resident on the
+    device) and the words the typo pass put through K3."""
+    from meilisearch_tpu_torch.api.app import App, TestClient
+    from meilisearch_tpu_torch.ops import device_osa
+    from meilisearch_tpu_torch.search.device_batch import serving_stats
+    from meilisearch_tpu_torch.search.perform import perform_search
+    from meilisearch_tpu_torch.utils.synthetic import generate_large_vocab
+
+    app = App(device=device)
+    try:
+        client = TestClient(app)
+        client.update_settings("typo", {"searchableAttributes": ["title"]})
+        t0 = time.perf_counter()
+        _vocab, docs, queries = generate_large_vocab(n_words)
+        say(f"typo corpus: {len(docs)} docs over a {n_words}-word vocabulary,"
+            f" generated in {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        res = client.post("/indexes/typo/documents", body=docs)
+        if res.status != 202:
+            raise AssertionError(f"ingest refused: {res.status} {res.json}")
+        task = app.scheduler.wait_for_task(res.json["taskUid"], timeout=900.0)
+        if task.to_json()["status"] != "succeeded":
+            raise AssertionError(f"ingest failed: {task.to_json()}")
+        del docs
+        store = app.scheduler.index("typo")
+        n_base = len(store.vocab_snapshot().base_words)
+        say(f"typo ingest: {time.perf_counter() - t0:.3f} s over HTTP,"
+            f" base vocabulary {n_base} words")
+        if n_base < device_osa.MIN_DEVICE_VOCAB:
+            raise AssertionError("the vocabulary is below the device OSA gate")
+
+        # the answers with the host OSA pass, then cold derivation caches
+        # so the served queries run the typo pass again, on the device
+        t0 = time.perf_counter()
+        store.osa_device = None
+        expected = [_strip(perform_search(store, dict(q))) for q in queries]
+        store.osa_device = app.device
+        store._derivation_store_cache = None
+        store._derivation_merge_cache = None
+        say(f"host OSA pass answers: {time.perf_counter() - t0:.3f} s,"
+            f" hits per query {[len(e['ids']) for e in expected]}")
+        if not all(e["ids"] for e in expected):
+            raise AssertionError("a typo query found nothing on the host pass")
+
+        serving_stats(reset=True)
+        device_osa.LAUNCHES.reset()
+        answers, errors = serve(client, "typo", queries)
+        launches = device_osa.LAUNCHES.value
+        stats = serving_stats()
+        if errors:
+            raise AssertionError(f"client threads failed: {errors[:3]}")
+        bad = sum(
+            1 for qi, status, body in answers
+            if status != 200 or _strip(body) != expected[qi]
+        )
+        say(f"typo path: {len(answers) - bad}/{len(answers)} responses equal to"
+            f" the host OSA pass; K3 launches {launches}; serving stats"
+            f" {json.dumps(stats)}")
+        if bad:
+            raise AssertionError(f"{bad} typo responses differ from the host pass")
+        if launches <= 0:
+            raise AssertionError("K3 was not launched on the typo path")
+        if stats["device_errors"] != 0:
+            raise AssertionError(f"device errors on the typo path: {stats}")
+        # every cold term with a typo budget ran the device pass once
+        # (keys: word, max_typo, is_prefix, is_ngram)
+        terms = store._derivation_store_cache["base_terms"]
+        words = sorted({key[0] for key in terms if key[1] >= 1})
+        return {"launches": launches, "store": store, "words": words}
+    finally:
+        app.search_batcher.stop()
+
+
+def serve(client, uid: str, queries: list) -> tuple[list, list]:
+    """THREADS clients each send every query twice, in rotated orders;
+    returns ([(query index, status, body)], [errors])."""
+    answers: list = []
+    latencies: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client_loop(k: int) -> None:
+        try:
+            for r in range(2):
+                for j in range(len(queries)):
+                    qi = (j + k + r) % len(queries)
+                    t = time.perf_counter()
+                    res = client.search(uid, dict(queries[qi]))
+                    dt = time.perf_counter() - t
+                    with lock:
+                        answers.append((qi, res.status, res.json))
+                        latencies.append(dt)
+        except BaseException as err:  # noqa: BLE001 — reported by the caller
+            with lock:
+                errors.append(repr(err))
+
+    threads = [threading.Thread(target=client_loop, args=(k,)) for k in range(THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        errors.append("a client thread did not finish")
+    lat = sorted(latencies) or [0.0]
+    say(f"served {len(answers)} searches from {THREADS} threads in {wall:.3f} s:"
+        f" {len(answers) / wall:.2f} QPS, p50 {lat[len(lat) // 2] * 1e3:.3f} ms,"
+        f" p99 {lat[int(len(lat) * 0.99)] * 1e3:.3f} ms")
+    return answers, errors
 
 
 def _median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -256,20 +450,163 @@ def _median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def timing_phase(device, card: str) -> tuple[float, float]:
+def k1_bound_ms(args, T: int) -> tuple[float, str]:
+    """The least time K1 could take on these inputs: the larger of the
+    bytes it must move (each distinct pool row named, the bitmaps and the
+    small inputs read once; keys, bitmap and counts written once) over
+    the HBM rate, and its integer operations over the int32 rate. The
+    operation count is per (query, document) pair, counting fused
+    instructions (IADD3, LOP3, byte extract, min) in csrc/chain_keys.cu:
+    about 35 for t = 0, 75 for each later term, 3 per ExactAttribute
+    level and 4 for the masks."""
+    import torch
+
+    byte_pool, rows, adj, mand, use_valid, universe, live = args
+    B, D = rows.shape[0], byte_pool.shape[1] * 4
+    n_rows = int(torch.unique(rows).numel())
+    small = sum(int(x.numel()) * 4 for x in (rows, adj, mand, use_valid))
+    moved = n_rows * D + 4 * (universe.numel() + live.numel()) + small
+    moved += B * D * 4 + B * (D // 32) * 4 + B * 4
+    ops = (35 + 75 * (T - 1) + 3 * (T + 1) + 4) * B * D
+    return max(moved / HBM_BYTES_S, ops / INT32_OPS_S) * 1e3, (
+        "bytes" if moved / HBM_BYTES_S > ops / INT32_OPS_S else "operations"
+    )
+
+
+def k3_bound_ms(lens, m: int, max_dist: int) -> tuple[float, str]:
+    """The least time K3 could take for one query word of `m` letters over
+    a vocabulary of these lengths (numpy; 0 = padding row): the larger of
+    the bytes it must move over the HBM rate and its integer operations
+    over the int32 rate. Bytes: the 32-byte sectors that hold each word's
+    letters (a padding row needs none), the lengths and the query read
+    once, the two int8 outputs written once. Operations: about 8 per DP
+    cell, counted only over the band that can reach the outputs clipped
+    at max_dist + 1 (|i - j| <= max_dist + 1: a cell off it is already
+    above the clip), min(len, i + max_dist + 1) - max(1, i - max_dist - 1)
+    + 1 cells for query row i."""
+    import numpy as np
+
+    counts = np.bincount(np.asarray(lens, np.int64), minlength=33)
+    length = np.arange(len(counts))
+    moved = 32 * int((counts * ((length + 7) // 8)).sum()) + 4 * len(lens) + 4 * 32
+    moved += 2 * len(lens)
+    cells = 0
+    for i in range(1, m + 1):
+        hi = np.minimum(length, i + max_dist + 1)
+        cells += int((counts * np.maximum(hi - max(1, i - max_dist - 1) + 1, 0)).sum())
+    t_bytes, t_ops = moved / HBM_BYTES_S, 8 * cells / INT32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def timing_phase(device, card: str, typo: dict) -> dict:
     from meilisearch_tpu_torch.ops.chain_keys import chain_keys, chain_keys_torch
     from meilisearch_tpu_torch.ops.synthetic import kernel_args, scorer_inputs
 
+    out = {}
     args = kernel_args(scorer_inputs(3, 1 << 20, 32, seed=7), device)
     # plain, kernel, kernel, plain: both sides see the same card state
     plain = [_median_ms(lambda: chain_keys_torch(*args, T=3), reps=5)]
     kernel = [_median_ms(lambda: chain_keys(*args, T=3), reps=30)]
     kernel.append(_median_ms(lambda: chain_keys(*args, T=3), reps=30))
     plain.append(_median_ms(lambda: chain_keys_torch(*args, T=3), reps=5))
-    k_ms, p_ms = statistics.median(kernel), statistics.median(plain)
-    say(f"timing D=2^20 B=32 T=3 on {card}: K1 {k_ms:.4f} ms (runs {kernel}),"
-        f" chain_keys_torch {p_ms:.4f} ms (runs {plain})")
-    return k_ms, p_ms
+    bound, by = k1_bound_ms(args, 3)
+    out["chain_keys"] = {"ms": statistics.median(kernel),
+                         "plain_ms": statistics.median(plain),
+                         "bound_ms": bound, "bound_by": by}
+    say(f"timing D=2^20 B=32 T=3 on {card}: K1 {out['chain_keys']['ms']:.4f} ms"
+        f" (runs {kernel}), chain_keys_torch {out['chain_keys']['plain_ms']:.4f} ms"
+        f" (runs {plain}), bound {bound:.4f} ms ({by})")
+    del args
+    out["osa"] = osa_timing(card, typo)
+    return out
+
+
+def warp_lengths(lens) -> str:
+    """The word lengths K3's warps see: the mean length of the real rows,
+    and the mean over warps (32 consecutive rows, one thread each) of the
+    longest, the length every lane of the warp runs its DP rows to."""
+    import numpy as np
+
+    lens = np.asarray(lens)
+    longest = lens[: len(lens) // 32 * 32].reshape(-1, 32).max(axis=1)
+    return (f"mean word length {lens[lens > 0].mean():.3f}, mean longest per"
+            f" warp {longest.mean():.3f}")
+
+
+def osa_timing(card: str, typo: dict) -> dict:
+    """K3 on the typo path's resident vocabulary (`store._device_vocab`),
+    for every word the typo pass put through it, at the pass's max_dist 2:
+    held byte for byte against its plain version, then timed in turns
+    (plain, kernel, kernel, plain). For the words nearest 5 and 10 letters
+    also the whole device call with its readback and the host pass, on a
+    host clock. Returns the kernels line's numbers: the mean per launch
+    over those words, and the largest error."""
+    import numpy as np
+    import torch
+
+    from meilisearch_tpu_torch.ops.device_osa import (
+        osa_device,
+        osa_device_torch,
+        osa_distances_device,
+    )
+    from meilisearch_tpu_torch.ops.levenshtein import MAX_LEN, osa_distances
+
+    store, words = typo["store"], typo["words"]
+    mat_np, lens_np = store._derivation_store_cache["packed"]
+    _, dv = store._device_vocab
+    lens_all = dv.lens.cpu().numpy()
+    say(f"K3 timing vocabulary, {dv.n} rows: {warp_lengths(lens_all)}")
+    rows = []
+    for word in words:
+        cps = [ord(c) for c in word[:MAX_LEN]]
+        m = len(cps)
+        q = np.zeros(MAX_LEN, np.int32)
+        q[:m] = cps
+        qt = torch.from_numpy(q).to(dv.device)
+        got = osa_device(dv.mat, dv.lens, qt, m, 2)
+        torch.cuda.synchronize()
+        want = osa_device_torch(dv.mat, dv.lens, qt, m, 2)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K3 disagrees with osa_device_torch on {word!r}")
+        err = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
+        plain = [_median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qt, m, 2), 3, 1)]
+        kernel = [_median_ms(lambda: osa_device(dv.mat, dv.lens, qt, m, 2), reps=20)]
+        kernel.append(_median_ms(lambda: osa_device(dv.mat, dv.lens, qt, m, 2), reps=20))
+        plain.append(_median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qt, m, 2), 3, 1))
+        bound, by = k3_bound_ms(lens_all, m, 2)
+        rows.append({"m": m, "ms": statistics.median(kernel),
+                     "plain_ms": statistics.median(plain), "bound_ms": bound,
+                     "bound_by": by, "err": err})
+        say(f"timing K3 n={dv.n} max_dist=2 m={m} ({word!r}) on {card}:"
+            f" {rows[-1]['ms']:.4f} ms (runs {kernel}), osa_device_torch"
+            f" {rows[-1]['plain_ms']:.4f} ms (runs {plain}), bound {bound:.4f} ms"
+            f" ({by}), byte-exact")
+    for target in (5, 10):
+        word = min(words, key=lambda w: (abs(len(w) - target), w))
+        calls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            osa_distances_device(store, mat_np, lens_np, word)
+            calls.append((time.perf_counter() - t0) * 1e3)
+        K = min(MAX_LEN, len(word) + 2)  # the host pass's column trim
+        host = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            osa_distances(word, mat_np[:, :K], np.minimum(lens_np, K))
+            host.append((time.perf_counter() - t0) * 1e3)
+        say(f"timing typo pass m={len(word)} ({word!r}), {dv.n_real} words on {card}:"
+            f" osa_distances_device with readback, host clock, median of 10"
+            f" {statistics.median(calls):.3f} ms; host pass (levenshtein.osa_distances,"
+            f" {K} columns) {statistics.median(host):.3f} ms (runs {host})")
+    mean = {k: statistics.fmean(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    # the limiter of the larger part of the summed bound
+    ops_part = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    by = "operations" if 2 * ops_part >= sum(r["bound_ms"] for r in rows) else "bytes"
+    say(f"K3 over the typo pass's {len(rows)} words (m {min(r['m'] for r in rows)}"
+        f"-{max(r['m'] for r in rows)}), mean per launch: {mean['ms']:.4f} ms,"
+        f" plain {mean['plain_ms']:.4f} ms, bound {mean['bound_ms']:.4f} ms ({by}),"
+        f" {mean['ms'] / mean['bound_ms']:.1f}x the bound")
+    return {**mean, "bound_by": by, "max_abs_err": max(r["err"] for r in rows)}
 
 
 def main() -> int:
@@ -295,20 +632,27 @@ def main() -> int:
     card = card_line()
     say(card)
     build_phase()
-    err = kernel_phase(device)
-    served = main_path_phase(device, opts.docs)
-    k_ms, p_ms = timing_phase(device, card)
+    k1_err = kernel_phase(device)
+    k3_err = osa_kernel_phase(device)
+    keyword = main_path_phase(device, opts.docs)
+    typo = typo_path_phase(device, TYPO_VOCAB_WORDS)
+    timing = timing_phase(device, card, typo)
+    k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     leaked = [
         m for m, mod in sys.modules.items()
-        if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "flax")
+        if mod is not None
+        and m.split(".")[0] in ("jax", "jaxlib", "flax", "meilisearch_tpu")
     ]
     if leaked:
-        raise AssertionError(f"jax was imported: {leaked[:5]}")
-    print(json.dumps({"kernels": [{
-        "name": "chain_keys", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": served["launches"],
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-    }]}))
+        raise AssertionError(f"jax or the JAX package was imported: {leaked[:5]}")
+    print(json.dumps({"kernels": [
+        {"name": "chain_keys", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_REPLACES, "launches": keyword["launches"],
+         "max_abs_err": k1_err, **timing["chain_keys"], "library_ms": None},
+        {"name": "osa", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": typo["launches"],
+         "max_abs_err": k3_err, **timing["osa"], "library_ms": None},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

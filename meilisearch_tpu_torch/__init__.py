@@ -1,20 +1,46 @@
 """meilisearch_tpu_torch — the PyTorch/CUDA port of meilisearch_tpu.
 
-The JAX package (`meilisearch_tpu`) stays the reference. This package
-serves the keyword-search device path on an NVIDIA H100 and shares every
-host module of the reference by import; it imports `torch` and never
-`jax`.
+A search engine with Meilisearch's HTTP API and ranking semantics, whose
+device path runs on an NVIDIA H100 through torch and hand-written CUDA
+kernels. The package stands alone: it imports `torch`, never `jax`, and
+nothing of the JAX package (`meilisearch_tpu`), which stays the reference
+it is tested against. Its sub-packages mirror the reference's layout:
 
-Layer map (port-owned modules only; the rest is `meilisearch_tpu`):
-  api/app.py, api/server.py    — App + server entry with the port batcher
-  engine/batcher.py            — drains into the port's perform_search_many
-  search/perform.py            — perform_search_many on the port search_many
-  search/device_batch.py       — device half of keyword search
-  index/device_arena.py        — the plane pool as a torch tensor
-  ops/arena_scorer.py          — planes_chain_topk (K1 + torch selection)
-  ops/chain_keys.py + csrc/    — K1, the hand-written chain-DP kernel
-  ops/arena_host.py            — jax-free copies of the host merge helpers
-  _hooks.py                    — routes shared host code away from jax
+  api      — HTTP routes, server, /multi-search federation
+  engine   — task queue, scheduler, index registry, search batcher
+  types    — settings, tasks, error DTOs
+  index    — the store, postings, packed snapshots, the device plane pool
+  search   — query terms (typo pass), graph, scorer, filters, facets, the
+             batched device search (search/device_batch.py)
+  vector   — embedders and vector search (host legs)
+  ops      — the kernels and their plain torch versions: K1 chain keys
+             (csrc/chain_keys.cu), K3 whole-vocabulary OSA (csrc/osa.cu),
+             the selection tail (arena_scorer.py), the host OSA pass
+             (levenshtein.py), the nvcc build (_build.py)
 """
 
 __version__ = "0.1.0"
+
+
+def _tune_malloc() -> None:
+    """Keep large heap blocks pooled instead of mmap'd per allocation.
+
+    On lazily-backed VM memory (Firecracker and friends), every fresh
+    mmap'd page faults in at single-digit MB/s while rewrites of touched
+    pages run at GB/s — measured here: a 200 MB numpy copy costs 24 s on
+    first-touch pages vs 0.15 s into reused ones. glibc malloc mmaps (and
+    munmaps!) every block over 128 KB, so each large numpy temporary pays
+    first-touch again. Raising the mmap/trim thresholds turns those into
+    heap reuse. No-op on non-glibc platforms."""
+    import ctypes
+
+    try:
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
+        libc.mallopt(M_MMAP_THRESHOLD, 1 << 30)
+        libc.mallopt(M_TRIM_THRESHOLD, 1 << 30)
+    except Exception:
+        pass
+
+
+_tune_malloc()

@@ -1,0 +1,3 @@
+from .app import App, Request, Response, TestClient
+
+__all__ = ["App", "Request", "Response", "TestClient"]

@@ -1,0 +1,3 @@
+from .store import IndexStore, FieldsIdsMap, flatten_json, facet_string_normalize
+
+__all__ = ["IndexStore", "FieldsIdsMap", "flatten_json", "facet_string_normalize"]

@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
 Every `csrc/*.cu` file compiles into one shared library with a plain C
-interface, at first use, into `meilisearch_tpu_torch/_build/`. The file
-name carries a hash of the sources and the flags, so an edited source
-builds anew and a finished build is reused by later processes. Nothing
-here runs at import time.
+interface, at first use, into `meilisearch_tpu_torch/_build/`: one nvcc
+per source, all started together, then one link. The file name carries a
+hash of the sources and the flags, so an edited source builds anew and a
+finished build is reused by later processes. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -51,9 +51,13 @@ def _nvcc() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.mst_chain_keys
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    fn = lib.mst_chain_keys  # K1, csrc/chain_keys.cu
+    fn.argtypes = [ptr] * 10 + [cint] * 4 + [ptr]
+    fn.restype = cint
+    fn = lib.mst_osa  # K3, csrc/osa.cu
+    fn.argtypes = [ptr] * 3 + [cint] * 3 + [ptr] * 2 + [cint, ptr]
+    fn.restype = cint
     return lib
 
 
@@ -84,16 +88,37 @@ def _build() -> Path:
     out = BUILD_DIR / f"libmst_kernels_{digest.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{build_log[-4000:]}"
+        nvcc = _nvcc()
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
+            for src, obj in zip(sources, objs)
+        ]
+        logs = [
+            f"== {src.name}\n{proc.communicate()[0]}"
+            for src, proc in zip(sources, procs)
+        ]
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append(link.returncode)
+        build_seconds = time.perf_counter() - t0
+        build_log = "\n".join(logs)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log[-4000:]}")
         os.replace(tmp, out)  # atomic: either of two concurrent builds wins
     return out

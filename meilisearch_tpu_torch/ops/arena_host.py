@@ -1,14 +1,9 @@
-"""Host half of the arena scorer, free of jax.
+"""Host half of the arena scorer: the packed rank key's bit layout, the
+numpy mirror of the chain DP (the delta overlay scores minor-write
+docids with it) and the exact merges of the device candidate lists.
 
-Copies of `_key_layout`, `INVALID_KEY`, `TOPK`, `MASK_SLOTS`,
-`packed_chain_dp_np`, `merge_topk_host` and `merge_topk_sort_host` from
-`meilisearch_tpu/ops/arena_scorer.py`. They are copies, not imports,
-because that module imports jax at module level, and the port runs where
-jax is not installed. `tests/test_torch_host_half.py` pins each copy to
-its original; `_hooks.install_jaxfree_aliases` registers this module under
-the original's name where jax is absent, so the reference's shared host
-code (`score_delta`, `_device_scores`, `_finish_device_result`) finds
-these helpers there.
+The device half is `ops/arena_scorer.py`; K1 (`ops/chain_keys.py`) reads
+the key layout from here.
 """
 
 from __future__ import annotations
@@ -59,8 +54,6 @@ def packed_chain_dp_np(
     device kernel (search/device_batch.py score_delta overlay). Returns
     (key (n,), BIG, sh_ea, sh_w). `mand` ((T,) 0/1 or None) follows the
     same mandatory-term semantics as _packed_chain_dp."""
-    import numpy as np
-
     sh_ea, sh_ps, sh_fd, sh_px, sh_ty, sh_w, total = _key_layout(T)
     BIG = np.int32(1 << total)
     n = present.shape[-1]
@@ -125,8 +118,6 @@ def merge_topk_host(
     proven prefix caps at the strictly-below-kth run — every below-kth
     base doc is present and the delta overlay is always complete, so that
     prefix's order is exact; the first kth-valued position is not."""
-    import numpy as np
-
     invalid_key = np.int32(INVALID_KEY)
     idx = np.concatenate([idx1, idx2])
     key = np.concatenate([key1, key2])
@@ -195,8 +186,6 @@ def merge_topk_sort_host(
     Returns (docids int32 padded with -1, n_exact, total): positions past
     n_exact are not proven; a page extending there must fall back to the
     host scorer."""
-    import numpy as np
-
     sh_fd = _key_layout(T)[2]
     low_mask = (1 << sh_fd) - 1
     invalid_key = np.int32(INVALID_KEY)

@@ -3,8 +3,7 @@
 Used to hold K1 and the selection tail against their references (the
 tests, against the JAX package; `chip_smoke.py`, against the plain torch
 versions on the card). Byte values cover the whole 0..254 range, so the
-exact flag (bit 7) and the -1 absence sentinel (0xFF) both occur. The
-reference's hackernews-like corpus generator is re-exported beside them.
+exact flag (bit 7) and the -1 absence sentinel (0xFF) both occur.
 """
 
 from __future__ import annotations
@@ -12,9 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from meilisearch_tpu.index.device_arena import pack_bitmap, pack_plane
-from meilisearch_tpu.utils.synthetic import generate_hackernews_like  # noqa: F401
-
+from ..index.device_arena import pack_bitmap, pack_plane
 from .chain_keys import n_rows
 
 

@@ -1,0 +1,3 @@
+from .executor import Search, SearchResult
+
+__all__ = ["Search", "SearchResult"]

@@ -1,8 +1,10 @@
 """The port's SearchBatcher: drains reach the port's device path, and
-drain_wall_s is recorded on every drain, host mode included (the
-reference batcher added it only in device mode, so host-mode runs read
-0 after any number of drains), and a broken kernel fails the search
-instead of being answered by the host scorer."""
+drain_wall_s is recorded on every drain, host mode included (the JAX
+package's batcher adds it only in device mode, so host-mode runs read 0
+after any number of drains), and a broken kernel fails the search
+instead of being answered by the host scorer. The port's answers are held
+against the JAX package's, each package on its own store built from the
+same documents."""
 
 import time
 
@@ -10,23 +12,22 @@ import numpy as np
 import pytest
 import torch
 
-from meilisearch_tpu.index.store import IndexStore
-from meilisearch_tpu.search.device_batch import _plane_docs
-from meilisearch_tpu.search.perform import perform_search
+from meilisearch_tpu.index.store import IndexStore as JaxStore
+from meilisearch_tpu.search.perform import perform_search as jax_perform_search
 from meilisearch_tpu_torch.engine import batcher as batcher_mod
 from meilisearch_tpu_torch.engine.batcher import SearchBatcher
+from meilisearch_tpu_torch.index.store import IndexStore
 from meilisearch_tpu_torch.ops import _build
 from meilisearch_tpu_torch.search import device_batch as db
-from meilisearch_tpu_torch.search.device_batch import serving_stats
+from meilisearch_tpu_torch.search.device_batch import _plane_docs, serving_stats
 from meilisearch_tpu_torch.search.perform import perform_search_many as port_search_many
 
 WORDS = ["quick", "brown", "fox", "lazy", "dog", "rust", "search", "engine"]
 
 
-@pytest.fixture(scope="module")
-def store():
+def _build_store(cls):
     rng = np.random.default_rng(11)
-    s = IndexStore("batch", primary_key="id")
+    s = cls("batch", primary_key="id")
     s.settings.apply_json({"filterableAttributes": ["points"]})
     s.add_documents([
         {"id": i, "title": " ".join(rng.choice(WORDS, size=4)),
@@ -36,8 +37,18 @@ def store():
     return s
 
 
+@pytest.fixture(scope="module")
+def store():
+    return _build_store(IndexStore)
+
+
+@pytest.fixture(scope="module")
+def jax_store():
+    return _build_store(JaxStore)
+
+
 @pytest.mark.parametrize("strict", [False, True])
-def test_every_drain_records_wall_time(store, strict):
+def test_every_drain_records_wall_time(store, jax_store, strict):
     batcher = SearchBatcher(torch.device("cpu"), strict=strict)
     try:
         before = serving_stats()
@@ -45,7 +56,7 @@ def test_every_drain_records_wall_time(store, strict):
                    {"q": "lazy dgo"}]
         for q in queries:
             got = batcher.submit(store, dict(q))
-            want = perform_search(store, dict(q))
+            want = jax_perform_search(jax_store, dict(q))
             assert [h["id"] for h in got["hits"]] == [h["id"] for h in want["hits"]]
         after = serving_stats()
     finally:
@@ -118,8 +129,7 @@ def test_failed_warmup_reaches_the_callers(store, monkeypatch, loaded):
 def test_http_search_fails_when_k1_failed_to_build(monkeypatch):
     """The port's App on a (faked) CUDA device with a compiler that
     refuses: the search answers 500, never 200 from the host scorer."""
-    from meilisearch_tpu.api.app import TestClient
-    from meilisearch_tpu_torch.api.app import App
+    from meilisearch_tpu_torch.api.app import App, TestClient
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(_build, "load_library", _refused)
@@ -132,3 +142,29 @@ def test_http_search_fails_when_k1_failed_to_build(monkeypatch):
         assert res.status == 500, res.json
     finally:
         app.search_batcher.stop()
+
+
+def test_boot_warm_raises_when_the_kernels_failed_to_build(monkeypatch):
+    """The server's synchronous boot warm (`App.warm_devices`) builds the
+    kernels and warms every index; a refused build raises there, before
+    the socket opens. On the CPU it warms with nothing to build."""
+    from meilisearch_tpu_torch.api.app import App, TestClient
+
+    cpu_app = App(device="cpu")
+    try:
+        docs = [{"id": i, "title": f"quick fox {i}"} for i in range(50)]
+        assert TestClient(cpu_app).add_documents("k", docs)["status"] == "succeeded"
+        cpu_app.warm_devices()
+    finally:
+        cpu_app.search_batcher.stop()
+        cpu_app.scheduler.stop()
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(_build, "load_library", _refused)
+    app = App(device=CUDA)
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            app.warm_devices()
+    finally:
+        app.search_batcher.stop()
+        app.scheduler.stop()

@@ -1,13 +1,14 @@
 """Tests that need the card (marked `cuda`; they skip without a GPU).
 
-This file imports no jax, so it runs where jax is absent:
+This file imports no jax and nothing of the JAX package, so it runs where
+jax is absent:
 
-    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest --noconftest tests/test_torch_cuda.py tests/test_torch_device_osa.py -m cuda -q
 
-(`--noconftest`: tests/conftest.py sets up jax for the reference's
+(`--noconftest`: tests/conftest.py sets up jax for the JAX package's
 tests.) K1 is held against its plain torch version bit for bit, a refused
-launch must raise, and the port's search path on the card must answer
-exactly as the host scorer."""
+launch must raise, and the port's search path on the card, typo pass
+included, must answer exactly as its host scorer."""
 
 import sys
 
@@ -15,11 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from meilisearch_tpu.search.device_batch import T_LADDER
 from meilisearch_tpu_torch._hooks import block_jax
 from meilisearch_tpu_torch.ops import _build
 from meilisearch_tpu_torch.ops import chain_keys as ck
 from meilisearch_tpu_torch.ops.synthetic import kernel_args, scorer_inputs
+from meilisearch_tpu_torch.search.device_batch import T_LADDER
 
 pytestmark = pytest.mark.cuda
 B = 4
@@ -63,14 +64,16 @@ def test_refused_launch_raises(cuda_device):
 
 
 def test_search_path_on_the_card_matches_host(cuda_device):
-    from meilisearch_tpu.index.store import IndexStore
-    from meilisearch_tpu.search.perform import perform_search
+    from meilisearch_tpu_torch.index.store import IndexStore
+    from meilisearch_tpu_torch.ops import device_osa
     from meilisearch_tpu_torch.search.device_batch import serving_stats
-    from meilisearch_tpu_torch.search.perform import perform_search_many
+    from meilisearch_tpu_torch.search.perform import perform_search, perform_search_many
 
     words = ["quick", "brown", "fox", "lazy", "dog", "rust", "search", "engine"]
     rng = np.random.default_rng(3)
     store = IndexStore("card", primary_key="id")
+    # the typo pass on the card whatever the vocabulary size (K3)
+    store.osa_device, store.osa_strict = cuda_device, True
     store.settings.apply_json(
         {"filterableAttributes": ["points"], "sortableAttributes": ["points"]}
     )
@@ -85,13 +88,17 @@ def test_search_path_on_the_card_matches_host(cuda_device):
         {"q": "lazy dog", "facets": ["points"], "showRankingScore": True},
         {"q": '"brown fox" rust', "matchingStrategy": "all"},
     ]
-    before = ck.LAUNCHES.value
+    before, osa_before = ck.LAUNCHES.value, device_osa.LAUNCHES.value
     served = serving_stats()["device_served"]
     got = perform_search_many(
         store, [dict(q) for q in queries], device=cuda_device, strict=True
     )
     assert ck.LAUNCHES.value > before
+    assert device_osa.LAUNCHES.value > osa_before
     assert serving_stats()["device_served"] - served == len(queries)
+    # the host scorer with the host typo pass, from cold derivation caches
+    store.osa_device = None
+    store._derivation_store_cache = store._derivation_merge_cache = None
     for q, g in zip(queries, got):
         w = perform_search(store, dict(q))
         assert [h["id"] for h in g["hits"]] == [h["id"] for h in w["hits"]], q

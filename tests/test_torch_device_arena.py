@@ -4,6 +4,7 @@ boundaries, cached rows, reset_rows, a reset at capacity and a generation
 change — the two pools hold the same words and the same row ids."""
 
 import numpy as np
+import pytest
 import torch
 
 from meilisearch_tpu.index.device_arena import DeviceArena as RefArena
@@ -73,10 +74,14 @@ def test_pool_matches_reference_through_resets():
 
 
 def test_get_arena_is_the_ports_own():
+    """The store's arena is a torch pool on the named device; asking with
+    (store, D) only, as build_descriptor does, keeps that device."""
     store = _Store()
-    store._device_arena = "reference arena"
+    with pytest.raises(RuntimeError, match="name a device"):
+        get_arena(store, D)
     cpu = torch.device("cpu")
     arena = get_arena(store, D, cpu)
-    assert store._torch_arena is arena and store._device_arena == "reference arena"
+    assert isinstance(arena, DeviceArena) and store._device_arena is arena
+    assert arena.device == cpu
     assert get_arena(store, D) is arena  # as build_descriptor asks
     assert get_arena(store, 2 * D, cpu) is not arena

@@ -4,10 +4,9 @@ A subprocess makes `jax`, `jaxlib` and `flax` unimportable — either as if
 they were not installed (a meta-path finder refusing them) or with the
 port's own `block_jax`, which process entry points call where jax is
 installed — then boots the port's App on the CPU, ingests ~2,000
-synthetic documents and serves a typo query, a showRankingScore query and
-a query after a minor write. Each must answer 200 and jax must never
-load. Without the port's aliases the shared typo pass imports the
-jax-only device OSA module and the first typo query answers 500. Last,
+synthetic documents and serves a typo query (its typo pass on the device
+route, strict), a showRankingScore query and a query after a minor write.
+Each must answer 200, and neither jax nor the JAX package may load. Last,
 the port's server entry must refuse to start where CUDA is missing."""
 
 import os
@@ -39,10 +38,9 @@ block_jax()
 CHILD = r'''
 import sys
 
-from meilisearch_tpu.utils.synthetic import generate_hackernews_like
 from meilisearch_tpu_torch.api.app import App, TestClient
-from meilisearch_tpu_torch.ops import device_osa_stub
 from meilisearch_tpu_torch.search.device_batch import serving_stats
+from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
 
 app = App(device="cpu", strict=True)
 c = TestClient(app)
@@ -60,11 +58,11 @@ task = c.add_documents("hn", [{"id": 99999, "title": "searhc engine zzfresh"}])
 assert task["status"] == "succeeded", task
 r = c.search("hn", {"q": "zzfresh", "showRankingScore": True})
 assert r.status == 200 and [h["id"] for h in r.json["hits"]] == [99999], r.json
-assert not [m for m, mod in sys.modules.items()
-            if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "flax")]
+assert not [m for m, mod in sys.modules.items() if mod is not None
+            and m.split(".")[0] in ("jax", "jaxlib", "flax", "meilisearch_tpu")]
 st = serving_stats()
 assert st["device_served"] >= 4 and st["device_errors"] == 0, st
-assert device_osa_stub.calls > 0
+assert app.scheduler.index("hn")._device_vocab is not None  # K3's route ran
 app.search_batcher.stop()
 print("NOJAX_OK")
 '''

@@ -1,20 +1,22 @@
 """The keyword-search slice end to end: the port's search_many (torch, on
-the CPU) against the reference's device search_many (jax, STRICT), on the
-store and queries of tests/test_device_batch.py plus facet and
+the CPU) against the JAX package's device search_many (jax, STRICT), on
+the store and queries of tests/test_device_batch.py plus facet and
 showRankingScore cases, before and after minor writes (the delta overlay
 of tests/test_incremental.py); then one HTTP-level case, port App against
-reference App. Docids, totals, facet distributions and _rankingScore must
-be exactly equal."""
+the JAX package's App. Each package builds its own store from the same
+documents and takes the same writes. Docids, totals, facet distributions
+and _rankingScore must be exactly equal."""
 
 import numpy as np
 import pytest
 import torch
 
 from meilisearch_tpu.api.app import App as RefApp
-from meilisearch_tpu.api.app import TestClient
-from meilisearch_tpu.index.store import IndexStore
+from meilisearch_tpu.api.app import TestClient as RefClient
+from meilisearch_tpu.index.store import IndexStore as RefStore
 from meilisearch_tpu.search.perform import perform_search_many as ref_search_many
-from meilisearch_tpu_torch.api.app import App
+from meilisearch_tpu_torch.api.app import App, TestClient
+from meilisearch_tpu_torch.index.store import IndexStore
 from meilisearch_tpu_torch.search.device_batch import serving_stats
 from meilisearch_tpu_torch.search.perform import perform_search_many
 
@@ -100,9 +102,9 @@ def strict_reference(monkeypatch):
     monkeypatch.setenv("MEILI_TPU_DEVICE_STRICT", "1")
 
 
-def _check(store):
+def _check(ref_store, store):
     before = serving_stats()
-    want = ref_search_many(store, [dict(q) for q in QUERIES])
+    want = ref_search_many(ref_store, [dict(q) for q in QUERIES])
     got = perform_search_many(store, [dict(q) for q in QUERIES], device=CPU, strict=True)
     _assert_same(want, got, QUERIES)
     after = serving_stats()
@@ -111,33 +113,38 @@ def _check(store):
 
 
 def test_search_many_matches_reference_through_minor_writes(strict_reference):
-    store = IndexStore("parity", primary_key="id")
-    store.settings.apply_json(SETTINGS)
-    store.add_documents(_docs())
-    _check(store)
-    base_gen = store.base_generation
+    stores = (RefStore("parity", primary_key="id"), IndexStore("parity", primary_key="id"))
+    for st in stores:
+        st.settings.apply_json(SETTINGS)
+        st.add_documents(_docs())
+    _check(*stores)
+    base_gen = stores[1].base_generation
 
     rng = np.random.default_rng(9)
-    store.add_documents([
+    added = [
         {"id": 1000 + j, "title": "zzznovel " + " ".join(rng.choice(WORDS, size=3)),
          "points": int(rng.integers(0, 100)), "category": "red"}
         for j in range(3)
-    ])
-    store.add_documents([  # edits reuse docids
+    ]
+    edited = [  # edits reuse docids
         {"id": int(i), "title": " ".join(rng.choice(WORDS, size=4)),
          "points": int(rng.integers(0, 100))}
         for i in rng.integers(0, 400, size=2)
-    ])
-    store.delete_documents([str(int(rng.integers(0, 400)))])
-    assert store.base_generation == base_gen and store.delta_docids
-    _check(store)
+    ]
+    deleted = [str(int(rng.integers(0, 400)))]
+    for st in stores:
+        st.add_documents([dict(d) for d in added])
+        st.add_documents([dict(d) for d in edited])
+        st.delete_documents(list(deleted))
+    assert stores[1].base_generation == base_gen and stores[1].delta_docids
+    _check(*stores)
 
 
 def test_http_search_matches_reference_app(monkeypatch):
     monkeypatch.delenv("MEILI_TPU_DEVICE_STRICT", raising=False)
     ref_app, app = RefApp(), App(device="cpu", strict=True)
     try:
-        clients = [TestClient(ref_app), TestClient(app)]
+        clients = [RefClient(ref_app), TestClient(app)]
         for c in clients:
             c.update_settings("hn", SETTINGS)
             assert c.add_documents("hn", _docs())["status"] == "succeeded"
@@ -148,5 +155,6 @@ def test_http_search_matches_reference_app(monkeypatch):
             _assert_same([want.json], [got.json], [q])
         assert serving_stats()["device_served"] - before >= len(QUERIES) - 2
     finally:
-        ref_app.search_batcher.stop()
-        app.search_batcher.stop()
+        for a in (ref_app, app):
+            a.search_batcher.stop()
+            a.scheduler.stop()
