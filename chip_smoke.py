@@ -10,9 +10,11 @@ Phases, each fatal on failure:
   2. kernels: K1 against its plain torch version on the card, bit for
      bit, for every T of the ladder at D = 2^14 and 2^20, B = 32; K3
      against its plain version byte for byte over a 2^20-word seeded
-     vocabulary (lengths 0-32, non-ASCII codepoints, padding rows), 17
-     query words (m = 0 and 32 among them) at max_dist 1 and 2, and two
-     of them against the host pass (ops/levenshtein.py) on 2^16 words;
+     vocabulary (lengths 0-32, non-ASCII codepoints, padding rows) kept
+     resident with its length order, 19 query words (m = 0 and 32 among
+     them, 32 distinct codepoints, 32 codepoints that collide under the
+     query table's first multiplier) at max_dist 1 and 2, and three of
+     them against the host pass (ops/levenshtein.py) on 2^16 words;
   3. keyword path: the port's App ingests N synthetic hackernews documents
      (default 1,000,000, so D = 2^20) over POST /indexes/hn/documents,
      then 32 client threads send a fixed query set to
@@ -28,8 +30,12 @@ Phases, each fatal on failure:
   5. timing: K1 and its plain version at D = 2^20, B = 32, T = 3; K3 and
      its plain version (byte for byte equal again) on the typo path's own
      resident vocabulary (n = 2^20, max_dist 2) for every word the typo
-     pass put through K3, and for the words nearest 5 and 10 letters the
-     whole typo-pass device call with its readback and the host pass.
+     pass put through K3, each launch timed from the profiler's trace of
+     the pass's own call, cold (the L2 cache flushed first) and warm,
+     beside the bound the function needs; the vocabulary's upload with its
+     length order; and for the words nearest 5 and 10 letters the whole
+     typo-pass device call split into query table, kernel, readback and
+     numpy, and the host pass.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -55,6 +61,16 @@ K3_REPLACES = "meilisearch_tpu/ops/device_osa.py:50"
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 64 * 132 * 1.98e9
 THREADS = 32
+# the integer instructions per letter read of csrc/osa.cu's recurrence,
+# counted in its sm_90a SASS (cuobjdump -sass): the transposition and
+# diagonal-zero vectors and the deltas (nine LOP3, one add, three shifts)
+# and the score at bit m - 1 (two shifts, two ands, one add) with its
+# running minimum. Not counted: the match-mask lookup (a hash, a shared
+# load, a compare), which another way of finding the mask could spare,
+# and the loop's cut test and branch
+OSA_OPS_PER_LETTER = 19
+K3_KERNEL = "osa_kernel"  # csrc/osa.cu's kernel, by name in a profiler trace
+L2_FLUSH_BYTES = 256 << 20  # written before a cold K3 launch: 5x the 50 MB L2
 # the typo path's vocabulary: above the device gate (2^19 words), and the
 # n = 2^20 rows at which K3 is timed
 TYPO_VOCAB_WORDS = 1 << 20
@@ -155,12 +171,22 @@ def osa_vocab(n: int, seed: int):
 
 
 def osa_queries(mat, lens, seed: int) -> list:
-    """17 query words as codepoint lists: the empty word, a 32-letter
-    word, and words taken from the vocabulary with 0-3 edits."""
+    """19 query words as codepoint lists: the empty word, a 32-letter
+    word, 32 distinct codepoints up to U+1F600, 32 codepoints that share
+    one slot under the query table's first multiplier (so the table must
+    find another), and words taken from the vocabulary with 0-3 edits."""
     import numpy as np
 
+    from meilisearch_tpu_torch.ops.device_osa import FIRST_MULT, SLOT_BITS
+
+    def slot(c: int) -> int:
+        return ((c * FIRST_MULT) & 0xFFFFFFFF) >> (32 - SLOT_BITS)
+
     rng = np.random.default_rng(seed)
-    out = [[], mat[int(np.flatnonzero(lens == 32)[0])].tolist()]
+    distinct = [ord(c) for c in "abcdefghijklmn"] + [0xE9, 0xDF, 0x436, 0x1F600]
+    distinct += [0x41 + k for k in range(14)]
+    collide = [c for c in range(0x61, 0x40000) if slot(c) == slot(0x61)][:32]
+    out = [[], mat[int(np.flatnonzero(lens == 32)[0])].tolist(), distinct, collide]
     rows = rng.choice(np.flatnonzero(lens >= 4), size=15, replace=False)
     for k, r in enumerate(rows):
         w = mat[r, : lens[r]].tolist()
@@ -175,34 +201,35 @@ def osa_queries(mat, lens, seed: int) -> list:
 
 
 def osa_kernel_phase(device) -> int:
-    """K3 against osa_device_torch on the card at n = 2^20, and two
-    queries against the host pass on 2^16 words; returns the max abs
+    """K3 against osa_device_torch on the card at n = 2^20 (the rows
+    resident with their length order, as the typo path keeps them), and
+    three queries against the host pass on 2^16 words; returns the max abs
     error (0 when byte-exact; anything else raises)."""
     import numpy as np
     import torch
 
-    from meilisearch_tpu_torch.ops.device_osa import osa_device, osa_device_torch
+    from meilisearch_tpu_torch.ops.device_osa import DeviceVocab, osa_device, osa_device_torch
     from meilisearch_tpu_torch.ops.levenshtein import osa_distances
 
     mat_np, lens_np = osa_vocab(1 << 20, seed=11)
     say(f"K3 edge-case vocabulary, 2^20 rows: {warp_lengths(lens_np)}")
-    mat = torch.from_numpy(mat_np).to(device)
-    lens = torch.from_numpy(lens_np).to(device)
+    dv = DeviceVocab(mat_np, lens_np, device)
+    mat, lens = dv.mat, dv.lens
     worst, checked = 0, 0
     for qi, word in enumerate(osa_queries(mat_np, lens_np, seed=12)):
         q = np.zeros(32, np.int32)
         q[: len(word)] = word
-        qt = torch.from_numpy(q).to(device)
+        qt = torch.from_numpy(q)  # the kernel takes the query on the host
         for max_dist in (1, 2):
-            got = osa_device(mat, lens, qt, len(word), max_dist)
+            got = osa_device(mat, lens, qt, len(word), max_dist, dv.order)
             torch.cuda.synchronize()
-            want = osa_device_torch(mat, lens, qt, len(word), max_dist)
+            want = osa_device_torch(mat, lens, qt.to(device), len(word), max_dist)
             err = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
             if not all(torch.equal(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"K3 disagrees with osa_device_torch: m={len(word)}")
             worst = max(worst, err)
             checked += 1
-            if qi in (2, 9):
+            if qi in (3, 4, 11):
                 # the host pass on real (non-padding) rows of a 2^16 slice
                 sl = slice(0, 1 << 16)
                 real = lens_np[sl] > 0
@@ -314,6 +341,7 @@ def main_path_phase(device, n_docs: int) -> dict:
         return {"launches": launches}
     finally:
         app.search_batcher.stop()
+        app.scheduler.stop()
 
 
 def typo_path_phase(device, n_words: int) -> dict:
@@ -391,6 +419,7 @@ def typo_path_phase(device, n_words: int) -> dict:
         return {"launches": launches, "store": store, "words": words}
     finally:
         app.search_batcher.stop()
+        app.scheduler.stop()
 
 
 def serve(client, uid: str, queries: list) -> tuple[list, list]:
@@ -476,25 +505,33 @@ def k1_bound_ms(args, T: int) -> tuple[float, str]:
 def k3_bound_ms(lens, m: int, max_dist: int) -> tuple[float, str]:
     """The least time K3 could take for one query word of `m` letters over
     a vocabulary of these lengths (numpy; 0 = padding row): the larger of
-    the bytes it must move over the HBM rate and its integer operations
-    over the int32 rate. Bytes: the 32-byte sectors that hold each word's
-    letters (a padding row needs none), the lengths and the query read
-    once, the two int8 outputs written once. Operations: about 8 per DP
-    cell, counted only over the band that can reach the outputs clipped
-    at max_dist + 1 (|i - j| <= max_dist + 1: a cell off it is already
+    the bytes the function must move over the HBM rate and its integer
+    operations over the int32 rate. Every OSA distance is at least the
+    length difference, D[m][j] >= |m - j|, and the outputs are clipped at
+    max_dist + 1. Bytes: the 4-byte length of every row; for a word of
+    len >= m - max_dist, the 32-byte sectors that hold its letters
+    j < min(len, m + max_dist) (none at m = 0, where the outputs follow
+    from the length); the two int8 outputs. Operations: the cheaper of
+    8 per DP cell of the band |i - j| <= max_dist + 1 (a cell off it is
     above the clip), min(len, i + max_dist + 1) - max(1, i - max_dist - 1)
-    + 1 cells for query row i."""
+    + 1 cells for query row i, and OSA_OPS_PER_LETTER per letter read, the
+    bit-vector recurrence's instructions in csrc/osa.cu."""
     import numpy as np
 
     counts = np.bincount(np.asarray(lens, np.int64), minlength=33)
     length = np.arange(len(counts))
-    moved = 32 * int((counts * ((length + 7) // 8)).sum()) + 4 * len(lens) + 4 * 32
-    moved += 2 * len(lens)
+    if m == 0:
+        needed = np.zeros_like(length)
+    else:
+        needed = np.where(length >= max(m - max_dist, 1), np.minimum(length, m + max_dist), 0)
+    n = len(lens)
+    moved = 4 * n + 32 * int((counts * ((needed + 7) // 8)).sum()) + 2 * n
     cells = 0
     for i in range(1, m + 1):
         hi = np.minimum(length, i + max_dist + 1)
         cells += int((counts * np.maximum(hi - max(1, i - max_dist - 1) + 1, 0)).sum())
-    t_bytes, t_ops = moved / HBM_BYTES_S, 8 * cells / INT32_OPS_S
+    ops = min(8 * cells, OSA_OPS_PER_LETTER * int((counts * needed).sum()))
+    t_bytes, t_ops = moved / HBM_BYTES_S, ops / INT32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -533,21 +570,66 @@ def warp_lengths(lens) -> str:
             f" warp {longest.mean():.3f}")
 
 
+def k3_launch_ms(runs: list, device) -> list:
+    """K3's device time per launch, from torch.profiler's CUDA trace: for
+    each (call, reps, cold) of `runs`, in order, `reps` calls of `call`,
+    each of which must launch K3 once, and each after a write of
+    L2_FLUSH_BYTES when `cold` (so K3 finds the L2 cache as a typo term
+    between searches finds it); returns, per run, the ms of each launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    runs[0][0]()  # untraced warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for call, reps, cold in runs:
+            for _ in range(reps):
+                if cold:
+                    flush.fill_(1)
+                call()
+        torch.cuda.synchronize()
+    launches = sorted(
+        (e.time_range.start, e.time_range.elapsed_us() / 1e3)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and K3_KERNEL in e.name
+    )
+    want = sum(reps for _call, reps, _cold in runs)
+    if len(launches) != want:
+        raise AssertionError(f"the trace holds {len(launches)} K3 launches, not {want}")
+    out, k = [], 0
+    for _call, reps, _cold in runs:
+        out.append([ms for _start, ms in launches[k : k + reps]])
+        k += reps
+    return out
+
+
 def osa_timing(card: str, typo: dict) -> dict:
     """K3 on the typo path's resident vocabulary (`store._device_vocab`),
     for every word the typo pass put through it, at the pass's max_dist 2:
     held byte for byte against its plain version, then timed in turns
-    (plain, kernel, kernel, plain). For the words nearest 5 and 10 letters
-    also the whole device call with its readback and the host pass, on a
-    host clock. Returns the kernels line's numbers: the mean per launch
-    over those words, and the largest error."""
+    (plain, kernel, plain; the plain version with CUDA events per call).
+    The kernel is timed per launch from the trace of the pass's own call
+    (`k3_launch_ms` over `osa_distances_device`), 10 calls cold, the L2
+    cache flushed before each (the kernels line's time), and 10 warm. Also
+    the wrapper per call (CUDA events around one `osa_device` call, the
+    host's query table included), the vocabulary's upload with its length
+    order, and for the words nearest 5 and 10 letters the whole call split
+    into its parts and the host pass. Returns the kernels line's numbers:
+    the mean per launch over the words, and the largest error."""
     import numpy as np
     import torch
 
     from meilisearch_tpu_torch.ops.device_osa import (
+        DeviceVocab,
+        launch,
+        length_order,
         osa_device,
         osa_device_torch,
         osa_distances_device,
+        query_params,
+        query_tensor,
     )
     from meilisearch_tpu_torch.ops.levenshtein import MAX_LEN, osa_distances
 
@@ -555,58 +637,102 @@ def osa_timing(card: str, typo: dict) -> dict:
     mat_np, lens_np = store._derivation_store_cache["packed"]
     _, dv = store._device_vocab
     lens_all = dv.lens.cpu().numpy()
-    say(f"K3 timing vocabulary, {dv.n} rows: {warp_lengths(lens_all)}")
+    say(f"K3 timing vocabulary, {dv.n} rows: vocabulary order:"
+        f" {warp_lengths(lens_all)}; length order (dv.order):"
+        f" {warp_lengths(lens_all[dv.order.cpu().numpy()])}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = DeviceVocab(mat_np, lens_np, dv.device)
+    torch.cuda.synchronize()
+    upload = (time.perf_counter() - t0) * 1e3
+    order_ms = _median_ms(lambda: length_order(fresh.lens), reps=5)
+    del fresh
+    say(f"DeviceVocab upload of {dv.n_real} words ({dv.n} rows) on {card}:"
+        f" {upload:.3f} ms host clock with its length order; the order alone"
+        f" {order_ms:.4f} ms (CUDA events)")
     rows = []
     for word in words:
-        cps = [ord(c) for c in word[:MAX_LEN]]
-        m = len(cps)
-        q = np.zeros(MAX_LEN, np.int32)
-        q[:m] = cps
-        qt = torch.from_numpy(q).to(dv.device)
-        got = osa_device(dv.mat, dv.lens, qt, m, 2)
+        q, m = query_tensor(word)
+        qd = q.to(dv.device)
+        got = osa_device(dv.mat, dv.lens, q, m, 2, dv.order)
         torch.cuda.synchronize()
-        want = osa_device_torch(dv.mat, dv.lens, qt, m, 2)
+        want = osa_device_torch(dv.mat, dv.lens, qd, m, 2)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"K3 disagrees with osa_device_torch on {word!r}")
         err = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
-        plain = [_median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qt, m, 2), 3, 1)]
-        kernel = [_median_ms(lambda: osa_device(dv.mat, dv.lens, qt, m, 2), reps=20)]
-        kernel.append(_median_ms(lambda: osa_device(dv.mat, dv.lens, qt, m, 2), reps=20))
-        plain.append(_median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qt, m, 2), 3, 1))
+        plain = _median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qd, m, 2), 3, 1)
+        call = _median_ms(lambda: osa_device(dv.mat, dv.lens, q, m, 2, dv.order), reps=20)
         bound, by = k3_bound_ms(lens_all, m, 2)
-        rows.append({"m": m, "ms": statistics.median(kernel),
-                     "plain_ms": statistics.median(plain), "bound_ms": bound,
-                     "bound_by": by, "err": err})
-        say(f"timing K3 n={dv.n} max_dist=2 m={m} ({word!r}) on {card}:"
-            f" {rows[-1]['ms']:.4f} ms (runs {kernel}), osa_device_torch"
-            f" {rows[-1]['plain_ms']:.4f} ms (runs {plain}), bound {bound:.4f} ms"
-            f" ({by}), byte-exact")
+        rows.append({"word": word, "m": m, "plain": [plain], "bound_ms": bound,
+                     "bound_by": by, "err": err, "call_ms": call})
+    runs = []
+    for word in words:
+        def call(word=word):
+            osa_distances_device(store, mat_np, lens_np, word)
+        runs += [(call, 10, True), (call, 10, False)]
+    traced = k3_launch_ms(runs, dv.device)
+    for k, row in enumerate(rows):
+        row["cold"], row["warm"] = traced[2 * k], traced[2 * k + 1]
+        row["ms"], row["warm_ms"] = statistics.median(row["cold"]), statistics.median(row["warm"])
+        q, m = query_tensor(row["word"])
+        qd = q.to(dv.device)
+        row["plain"].append(_median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qd, m, 2), 3, 1))
+        row["plain_ms"] = statistics.median(row["plain"])
+        say(f"timing K3 n={dv.n} max_dist=2 m={row['m']} ({row['word']!r}) on {card}:"
+            f" per launch cold {row['ms']:.4f} ms (of {len(row['cold'])},"
+            f" {min(row['cold']):.4f}-{max(row['cold']):.4f}), warm {row['warm_ms']:.4f} ms;"
+            f" wrapper per call {row['call_ms']:.4f} ms; osa_device_torch"
+            f" {row['plain_ms']:.4f} ms (runs {row['plain']}); bound {row['bound_ms']:.4f} ms"
+            f" ({row['bound_by']}); byte-exact")
+    by_word = {row["word"]: row for row in rows}
     for target in (5, 10):
         word = min(words, key=lambda w: (abs(len(w) - target), w))
-        calls = []
+        parts: dict = {k: [] for k in ("whole", "table", "launch", "readback", "numpy")}
         for _ in range(10):
             t0 = time.perf_counter()
             osa_distances_device(store, mat_np, lens_np, word)
-            calls.append((time.perf_counter() - t0) * 1e3)
+            t1 = time.perf_counter()
+            q, m = query_tensor(word)
+            params = query_params(q[:m].tolist(), 2)
+            t2 = time.perf_counter()
+            full, prefix = launch(dv.mat, dv.lens, dv.order, params)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            full, prefix = full[: dv.n_real].cpu(), prefix[: dv.n_real].cpu()
+            t4 = time.perf_counter()
+            full.numpy().astype(np.int32), prefix.numpy().astype(np.int32)
+            t5 = time.perf_counter()
+            for key, dt in (("whole", t1 - t0), ("table", t2 - t1), ("launch", t3 - t2),
+                            ("readback", t4 - t3), ("numpy", t5 - t4)):
+                parts[key].append(dt * 1e3)
+        med = {k: statistics.median(v) for k, v in parts.items()}
         K = min(MAX_LEN, len(word) + 2)  # the host pass's column trim
         host = []
         for _ in range(2):
             t0 = time.perf_counter()
             osa_distances(word, mat_np[:, :K], np.minimum(lens_np, K))
             host.append((time.perf_counter() - t0) * 1e3)
-        say(f"timing typo pass m={len(word)} ({word!r}), {dv.n_real} words on {card}:"
-            f" osa_distances_device with readback, host clock, median of 10"
-            f" {statistics.median(calls):.3f} ms; host pass (levenshtein.osa_distances,"
+        say(f"timing typo pass m={len(word)} ({word!r}), {dv.n_real} words on {card},"
+            f" medians of 10: osa_distances_device with readback {med['whole']:.3f} ms"
+            f" (host clock); its parts: query table {med['table']:.3f} ms, launch to"
+            f" sync {med['launch']:.3f} ms (host clock; the kernel alone"
+            f" {by_word[word]['ms']:.4f} ms cold, {by_word[word]['warm_ms']:.4f} ms warm,"
+            f" on the device clock), readback {med['readback']:.3f} ms,"
+            f" numpy {med['numpy']:.3f} ms; host pass (levenshtein.osa_distances,"
             f" {K} columns) {statistics.median(host):.3f} ms (runs {host})")
-    mean = {k: statistics.fmean(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    mean = {k: statistics.fmean(r[k] for r in rows)
+            for k in ("ms", "warm_ms", "plain_ms", "bound_ms", "call_ms")}
     # the limiter of the larger part of the summed bound
     ops_part = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     by = "operations" if 2 * ops_part >= sum(r["bound_ms"] for r in rows) else "bytes"
     say(f"K3 over the typo pass's {len(rows)} words (m {min(r['m'] for r in rows)}"
-        f"-{max(r['m'] for r in rows)}), mean per launch: {mean['ms']:.4f} ms,"
-        f" plain {mean['plain_ms']:.4f} ms, bound {mean['bound_ms']:.4f} ms ({by}),"
-        f" {mean['ms'] / mean['bound_ms']:.1f}x the bound")
-    return {**mean, "bound_by": by, "max_abs_err": max(r["err"] for r in rows)}
+        f"-{max(r['m'] for r in rows)}), mean per launch: kernel cold {mean['ms']:.4f} ms"
+        f" ({mean['ms'] / mean['bound_ms']:.2f}x the bound), warm {mean['warm_ms']:.4f} ms"
+        f" ({mean['warm_ms'] / mean['bound_ms']:.2f}x), wrapper per call"
+        f" {mean['call_ms']:.4f} ms, plain {mean['plain_ms']:.4f} ms, bound"
+        f" {mean['bound_ms']:.4f} ms ({by})")
+    return {"ms": mean["ms"], "plain_ms": mean["plain_ms"], "bound_ms": mean["bound_ms"],
+            "bound_by": by, "max_abs_err": max(r["err"] for r in rows)}
 
 
 def main() -> int:

@@ -56,7 +56,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [ptr] * 10 + [cint] * 4 + [ptr]
     fn.restype = cint
     fn = lib.mst_osa  # K3, csrc/osa.cu
-    fn.argtypes = [ptr] * 3 + [cint] * 3 + [ptr] * 2 + [cint, ptr]
+    fn.argtypes = [ptr] * 4 + [cint] + [ptr] * 3
     fn.restype = cint
     return lib
 

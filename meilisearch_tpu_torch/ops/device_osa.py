@@ -7,13 +7,18 @@ launches the kernel or raises; for a CPU tensor it runs
 `osa_device_torch`, the same function in plain torch.
 
 The vocabulary lives on the device as a (n, MAX_LEN) int32 codepoint
-matrix per base vocabulary (`DeviceVocab`), n padded to a power of two.
-The host pass (`ops/levenshtein.py`) serves small vocabularies and the
-delta vocabulary of minor writes; it is also the oracle the tests hold
-this module against.
+matrix per base vocabulary (`DeviceVocab`), n padded to a power of two,
+with `order`, its row ids sorted by length, so that the kernel's warps
+take words of one length. The kernel is bit-parallel over the query: the
+host turns the query into a hash table of position masks
+(`query_table`) passed to the kernel by value. The host pass
+(`ops/levenshtein.py`) serves small vocabularies and the delta vocabulary
+of minor writes; it is also the oracle the tests hold this module against.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -27,7 +32,13 @@ from .levenshtein import INF, MAX_LEN
 MIN_DEVICE_VOCAB = 1 << 19
 PADDING_FULL = 9999  # full distance of a padding row, before the clip
 LAUNCHES = LaunchCounter()
-BLOCK = 128  # threads per block; one thread per vocabulary word
+SLOT_BITS = 7  # the query table's 128 slots (csrc/osa.cu kSlotBits)
+SLOTS = 1 << SLOT_BITS
+# query_table tries the odd multipliers FIRST_MULT + k * MULT_STEP (mod
+# 2^32) for k < MAX_TRIES; with 32 distinct keys in 128 slots about one
+# multiplier in 70 is collision-free, with 10 keys about two in three
+FIRST_MULT, MULT_STEP, MAX_TRIES = 0x9E3779B1, 0x3C6EF372, 1 << 16
+PY_TRIES, MULT_BLOCK = 8, 64
 
 
 def _vocab_bucket(n: int) -> int:
@@ -80,9 +91,10 @@ def osa_device_torch(dict_mat, dict_lens, q, m: int, max_dist: int):
     )
 
 
-def _check(dict_mat, dict_lens, q, m: int, max_dist: int) -> int:
-    """Validate K3's inputs; returns n."""
-    tensors = {"dict_mat": dict_mat, "dict_lens": dict_lens, "q": q}
+def _check(dict_mat, dict_lens, q, m: int, max_dist: int, order) -> int:
+    """Validate K3's inputs; returns n. `q` lies on the CPU whatever the
+    device: the kernel takes the query on the host."""
+    tensors = {"dict_mat": dict_mat, "dict_lens": dict_lens, "q": q, "order": order}
     for name, x in tensors.items():
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
@@ -90,13 +102,17 @@ def _check(dict_mat, dict_lens, q, m: int, max_dist: int) -> int:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.device != dict_mat.device:
-            raise ValueError(f"{name} is on {x.device}, dict_mat on {dict_mat.device}")
+    if q.device.type != "cpu":
+        raise ValueError(f"q must lie on the CPU, not on {q.device}")
+    for name in ("dict_lens", "order"):
+        if tensors[name].device != dict_mat.device:
+            raise ValueError(f"{name} is on {tensors[name].device}, dict_mat on {dict_mat.device}")
     if dict_mat.dim() != 2 or dict_mat.shape[1] != MAX_LEN or dict_mat.shape[0] < 1:
         raise ValueError(f"dict_mat must be (n, {MAX_LEN}), got {tuple(dict_mat.shape)}")
     n = dict_mat.shape[0]
-    if tuple(dict_lens.shape) != (n,):
-        raise ValueError(f"dict_lens has shape {tuple(dict_lens.shape)}, want ({n},)")
+    for name in ("dict_lens", "order"):
+        if tuple(tensors[name].shape) != (n,):
+            raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, want ({n},)")
     if tuple(q.shape) != (MAX_LEN,):
         raise ValueError(f"q has shape {tuple(q.shape)}, want ({MAX_LEN},)")
     if not 0 <= m <= MAX_LEN:
@@ -112,11 +128,101 @@ def check_launch(rc: int) -> None:
         raise RuntimeError(f"osa kernel launch failed: cudaError_t {rc}")
 
 
-def osa_device(dict_mat, dict_lens, q, m: int, max_dist: int):
-    """K3. Returns (full (n,), prefix_min (n,)) int8 on the inputs' device,
-    clipped to max_dist + 1. CPU tensors run `osa_device_torch`; CUDA
-    tensors launch the kernel on the current stream (asynchronously)."""
-    n = _check(dict_mat, dict_lens, q, m, max_dist)
+def _free_mult(keys: list[int]) -> int:
+    """The first multiplier of the sequence under which `keys` take
+    distinct slots. Up to about 20 distinct codepoints a few tries do,
+    and the first PY_TRIES are cheapest in Python; past them the search
+    takes MULT_BLOCK multipliers at a time in numpy (32 keys need about 70)."""
+    shift = 32 - SLOT_BITS
+    for k in range(PY_TRIES):
+        mult = (FIRST_MULT + k * MULT_STEP) & 0xFFFFFFFF
+        if len({((c * mult) & 0xFFFFFFFF) >> shift for c in keys}) == len(keys):
+            return mult
+    low32 = np.uint64(0xFFFFFFFF)
+    cols = np.array(keys, np.uint64)[None, :]
+    for k0 in range(PY_TRIES, MAX_TRIES, MULT_BLOCK):
+        k = np.arange(k0, k0 + MULT_BLOCK, dtype=np.uint64)[:, None]
+        mults = (np.uint64(FIRST_MULT) + k * np.uint64(MULT_STEP)) & low32
+        ranked = np.sort(((mults * cols) & low32) >> np.uint64(shift), axis=1)
+        free = (ranked[:, 1:] != ranked[:, :-1]).all(axis=1)
+        if free.any():
+            return int(mults[int(np.argmax(free)), 0])
+    raise RuntimeError(f"no collision-free query table for {sorted(keys)}")
+
+
+def query_table(cps: list[int]) -> tuple[int, list[int], list[int]]:
+    """The kernel's view of the query: (mult, key, mask), SLOTS entries
+    each. Every distinct codepoint c of `cps` (at most 32, any value up to
+    0x10FFFF) sits alone in slot ((c * mult) mod 2^32) >> (32 - SLOT_BITS)
+    with its position mask (bit i set where cps[i] == c); the other slots
+    hold key -1, which no codepoint equals, and mask 0."""
+    masks: dict[int, int] = {}
+    for i, c in enumerate(cps):
+        masks[c] = masks.get(c, 0) | (1 << i)
+    mult = _free_mult(list(masks))
+    key, mask = [-1] * SLOTS, [0] * SLOTS
+    for c, bits in masks.items():
+        slot = ((c * mult) & 0xFFFFFFFF) >> (32 - SLOT_BITS)
+        key[slot], mask[slot] = c, bits
+    return mult, key, mask
+
+
+class OsaQuery(ctypes.Structure):
+    """csrc/osa.cu's OsaQuery, the kernel's by-value query parameter."""
+
+    _fields_ = [
+        ("key", ctypes.c_int32 * SLOTS),
+        ("mask", ctypes.c_uint32 * SLOTS),
+        ("mult", ctypes.c_uint32),
+        ("m", ctypes.c_int32),
+        ("max_dist", ctypes.c_int32),
+    ]
+
+
+def query_params(cps: list[int], max_dist: int) -> OsaQuery:
+    """The kernel's query parameter for the codepoints `cps`."""
+    mult, key, mask = query_table(cps)
+    params = OsaQuery(mult=mult, m=len(cps), max_dist=max_dist)
+    params.key[:] = key
+    params.mask[:] = mask
+    return params
+
+
+def length_order(dict_lens: torch.Tensor) -> torch.Tensor:
+    """The row ids stably sorted by length, as int32 on the lengths'
+    device: the kernel's thread t takes word order[t]."""
+    return torch.sort(dict_lens, stable=True).indices.to(torch.int32)
+
+
+def launch(dict_mat, dict_lens, order, params: OsaQuery):
+    """One launch of K3 on the current stream, on inputs `osa_device`
+    has checked and a query `query_params` has prepared."""
+    from ._build import load_library
+
+    dev = dict_mat.device
+    n = dict_mat.shape[0]
+    full = torch.empty(n, dtype=torch.int8, device=dev)
+    prefix = torch.empty(n, dtype=torch.int8, device=dev)
+    rc = load_library().mst_osa(
+        dict_mat.data_ptr(), dict_lens.data_ptr(), order.data_ptr(),
+        ctypes.addressof(params), n, full.data_ptr(), prefix.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch(rc)
+    LAUNCHES.add()
+    return full, prefix
+
+
+def osa_device(dict_mat, dict_lens, q, m: int, max_dist: int, order):
+    """K3. Returns (full (n,), prefix_min (n,)) int8 on dict_mat's device,
+    clipped to max_dist + 1. `q` is the (MAX_LEN,) int32 query on the CPU
+    (the kernel takes it as a parameter) and `order` the rows sorted by
+    length, `DeviceVocab.order` (or `length_order(dict_lens)`): a
+    permutation of 0..n-1, which is not checked here; the kernel skips a
+    row id out of range, and leaves unwritten the rows it would have named.
+    CPU tensors run `osa_device_torch`; CUDA tensors launch the kernel on
+    the current stream (asynchronously)."""
+    _check(dict_mat, dict_lens, q, m, max_dist, order)
     dev = dict_mat.device
     if dev.type == "cpu":
         return osa_device_torch(dict_mat, dict_lens, q, m, max_dist)
@@ -124,24 +230,14 @@ def osa_device(dict_mat, dict_lens, q, m: int, max_dist: int):
         raise ValueError(f"osa_device runs on cuda or cpu tensors, not {dev}")
     if dict_mat.data_ptr() % 16:
         raise ValueError("dict_mat must be 16-byte aligned")
-    from ._build import load_library
-
-    lib = load_library()
-    full = torch.empty(n, dtype=torch.int8, device=dev)
-    prefix = torch.empty(n, dtype=torch.int8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mst_osa(
-        dict_mat.data_ptr(), dict_lens.data_ptr(), q.data_ptr(), m, max_dist, n,
-        full.data_ptr(), prefix.data_ptr(), BLOCK, stream,
-    )
-    check_launch(rc)
-    LAUNCHES.add()
-    return full, prefix
+    params = query_params(q[:m].tolist(), max_dist)
+    return launch(dict_mat, dict_lens, order, params)
 
 
 class DeviceVocab:
     """One base vocabulary's codepoint matrix and lengths on a device,
-    rows padded to the power-of-two bucket with 0-length padding rows."""
+    rows padded to the power-of-two bucket with 0-length padding rows, and
+    `order`, the row ids stably sorted by length (built once per upload)."""
 
     def __init__(self, mat: np.ndarray, lens: np.ndarray, device: torch.device):
         self.n_real = len(lens)
@@ -153,6 +249,7 @@ class DeviceVocab:
             lens = np.pad(lens, (0, pad))
         self.mat = torch.from_numpy(np.ascontiguousarray(mat, np.int32)).to(device)
         self.lens = torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(device)
+        self.order = length_order(self.lens)
 
 
 def get_device_vocab(store, mat, lens, device: torch.device) -> DeviceVocab:
@@ -181,19 +278,25 @@ def device_osa_available(store, n_words: int) -> bool:
     return device.type == "cuda" and n_words >= MIN_DEVICE_VOCAB
 
 
+def query_tensor(query: str) -> tuple[torch.Tensor, int]:
+    """The query's first MAX_LEN codepoints as a 0-padded (MAX_LEN,) int32
+    CPU tensor, and their count m."""
+    cps = [ord(c) for c in query[:MAX_LEN]]
+    q = np.zeros(MAX_LEN, dtype=np.int32)
+    q[: len(cps)] = cps
+    return torch.from_numpy(q), len(cps)
+
+
 def osa_distances_device(
     store, mat, lens, query: str, max_dist: int = 2
 ) -> tuple[np.ndarray, np.ndarray]:
     """Drop-in for levenshtein.osa_distances over the full base
     vocabulary on `store.osa_device`: numpy int32 (full, prefix_min)
-    clipped to max_dist + 1 (a 2 MB readback at 1M words)."""
+    clipped to max_dist + 1 (a 2 MB readback at 1M words). The query
+    stays on the host: the kernel takes it as a parameter."""
     dv = get_device_vocab(store, mat, lens, store.osa_device)
-    cps = [ord(c) for c in query[:MAX_LEN]]
-    q = np.zeros(MAX_LEN, dtype=np.int32)
-    q[: len(cps)] = cps
-    full, prefix = osa_device(
-        dv.mat, dv.lens, torch.from_numpy(q).to(dv.device), len(cps), max_dist
-    )
+    q, m = query_tensor(query)
+    full, prefix = osa_device(dv.mat, dv.lens, q, m, max_dist, dv.order)
     full = full[: dv.n_real].cpu().numpy().astype(np.int32)
     prefix = prefix[: dv.n_real].cpu().numpy().astype(np.int32)
     return full, prefix
