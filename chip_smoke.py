@@ -5,8 +5,9 @@
 
 Run from the root of the repository, on a machine with a CUDA device.
 Phases, each fatal on failure:
-  1. build K1 (csrc/chain_keys.cu) and K3 (csrc/osa.cu) with nvcc, one
-     process per source, into one library; print ptxas registers/spills;
+  1. build K1 (csrc/chain_keys.cu), K3 (csrc/osa.cu) and K4h
+     (csrc/hamming.cu) with nvcc, one process per source, into one
+     library; print ptxas registers/spills;
   2. kernels: K1 against its plain torch version on the card, bit for
      bit, for every T of the ladder at D = 2^14 and 2^20, B = 32; K3
      against its plain version byte for byte over a 2^20-word seeded
@@ -14,9 +15,11 @@ Phases, each fatal on failure:
      resident with its length order, 19 query words (m = 0 and 32 among
      them, 32 distinct codepoints, 32 codepoints that collide under the
      query table's first multiplier) at max_dist 1 and 2, and three of
-     them against the host pass (ops/levenshtein.py) on 2^16 words;
+     them against the host pass (ops/levenshtein.py) on 2^16 words; K4h
+     against its plain version element for element at n = 2^18 + 3 rows
+     for W = 1, 4, 12, 24 and 48 sign words, aligned and not;
   3. keyword path: the port's App ingests N synthetic hackernews documents
-     (default 1,000,000, so D = 2^20) over POST /indexes/hn/documents,
+     (default 500,000, so D = 2^19) over POST /indexes/hn/documents,
      then 32 client threads send a fixed query set to
      POST /indexes/hn/search; every response must equal the port's host
      scorer, K1 must have launched, and the device path must have served
@@ -27,15 +30,33 @@ Phases, each fatal on failure:
      queries to POST /indexes/typo/search; every response must equal the
      same store's answer with the host OSA pass, K3 must have launched,
      and no device error may occur;
-  5. timing: K1 and its plain version at D = 2^20, B = 32, T = 3; K3 and
-     its plain version (byte for byte equal again) on the typo path's own
-     resident vocabulary (n = 2^20, max_dist 2) for every word the typo
-     pass put through K3, each launch timed from the profiler's trace of
-     the pass's own call, cold (the L2 cache flushed first) and warm,
-     beside the bound the function needs; the vocabulary's upload with its
-     length order; and for the words nearest 5 and 10 letters the whole
-     typo-pass device call split into query table, kernel, readback and
-     numpy, and the host pass.
+  5. vector path (hn150k-bge768): a third App ingests 150,000 synthetic
+     hackernews documents with a 768-dimension userProvided embedder
+     (every 7th document two vectors: 171,429 rows, padded to 2^18 on the
+     card) over POST /indexes/vec/documents, uploads the matrix
+     (App.warm_devices), and 32 client threads send 20 hybrid searches
+     (semanticRatio 1.0 and 0.5, with and without a filter) and 4
+     /similar requests. Against the same store's numpy host pass: the
+     float round must give the same hits (a group whose host scores lie
+     within 1e-6 compared as a set), scores within 1e-5 and the same
+     semanticHitCount, through the float leg; after PATCH settings
+     switches the embedder to binaryQuantized, every response must be
+     equal, through K4h; no device error may occur;
+  6. timing: K1 and its plain version at D = 2^20, B = 32, T = 3, K1 per
+     launch from the profiler's trace, cold (the L2 cache flushed first)
+     and warm, five repeats; K3 and its plain version (byte for byte
+     equal again) on the typo path's own resident vocabulary (n = 2^20,
+     max_dist 2) for every word the typo pass put through K3, each launch
+     timed from the profiler's trace of the pass's own call, cold and
+     warm, beside the bound the function needs; the vocabulary's upload
+     with its length order; and for the words nearest 5 and 10 letters
+     the whole typo-pass device call split into query table, kernel,
+     readback and numpy, and the host pass; K4h per launch, cold and
+     warm, on the vector path's resident sign words (n = 2^18, W = 24),
+     its plain version (equal again) and its bound; the float leg's
+     device work, its torch.matmul alone, its bound; both legs' kernels
+     by device time; both legs' whole search_async call and their numpy
+     host passes.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -45,7 +66,9 @@ module of jax or of the JAX package is loaded at its end.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import resource
 import statistics
 import subprocess
 import sys
@@ -56,10 +79,17 @@ K1_SOURCE = "meilisearch_tpu_torch/csrc/chain_keys.cu"
 K1_REPLACES = "meilisearch_tpu/ops/pallas_scorer.py:256"
 K3_SOURCE = "meilisearch_tpu_torch/csrc/osa.cu"
 K3_REPLACES = "meilisearch_tpu/ops/device_osa.py:50"
-# the card's peaks for the bounds: HBM3 bytes/s (data sheet) and int32
-# lanes (Hopper white paper: 64 INT32 units per SM, 132 SMs, 1.98 GHz)
+K4H_SOURCE = "meilisearch_tpu_torch/csrc/hamming.cu"
+K4H_REPLACES = "meilisearch_tpu/vector/store.py:388"
+# the card's peaks for the bounds: HBM3 bytes/s (data sheet), int32 lanes
+# (Hopper white paper: 64 INT32 units per SM, 132 SMs, 1.98 GHz), 32-bit
+# population counts (16 per clock per SM, the CUDA C++ programming guide's
+# throughput table for compute capability 9.0) and float32 outside the
+# tensor cores (data sheet)
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 64 * 132 * 1.98e9
+POPC_OPS_S = 16 * 132 * 1.98e9
+FP32_FLOP_S = 67e12
 THREADS = 32
 # the integer instructions per letter read of csrc/osa.cu's recurrence,
 # counted in its sm_90a SASS (cuobjdump -sass): the transposition and
@@ -69,11 +99,29 @@ THREADS = 32
 # load, a compare), which another way of finding the mask could spare,
 # and the loop's cut test and branch
 OSA_OPS_PER_LETTER = 19
-K3_KERNEL = "osa_kernel"  # csrc/osa.cu's kernel, by name in a profiler trace
-L2_FLUSH_BYTES = 256 << 20  # written before a cold K3 launch: 5x the 50 MB L2
+# the kernels, by name in a profiler trace
+K1_KERNEL, K3_KERNEL, K4H_KERNEL = "chain_keys_kernel", "osa_kernel", "hamming_kernel"
+L2_FLUSH_BYTES = 256 << 20  # written before a cold launch: 5x the 50 MB L2
+REPEATS = 5  # repeats of a kernel's cold and warm launches in the timing phase
+SENTINELS = 4  # launches that open a traced session, not timed (launch_ms)
 # the typo path's vocabulary: above the device gate (2^19 words), and the
 # n = 2^20 rows at which K3 is timed
 TYPO_VOCAB_WORDS = 1 << 20
+# the vector path's configuration, hn150k-bge768: 150,000 hackernews-like
+# documents and a userProvided embedder of 768 dimensions, the width of
+# BAAI/bge-base-en-v1.5 (Meilisearch's default huggingFace model); the
+# vectors are seeded draws around 512 centres, every 7th document two
+VEC_DOCS, VEC_DIM, VEC_CENTRES, VEC_BATCH, VEC_SEED = 150_000, 768, 512, 10_000, 2024
+VEC_SETTINGS = {
+    "searchableAttributes": ["title", "url", "author"],
+    "filterableAttributes": ["points"],
+    "embedders": {"default": {"source": "userProvided", "dimensions": VEC_DIM}},
+}
+VEC_TEXT = ["rust", "database", "machine learning", "cloud", "python web"]
+# the float round: a run of hits whose host scores lie within SCORE_TIE of
+# each other is compared as a set (cuBLAS and numpy sum in other orders,
+# which moves a float32 cosine by a few ulps); scores within SCORE_ATOL
+SCORE_TIE, SCORE_ATOL = 1e-6, 1e-5
 SETTINGS = {
     "searchableAttributes": ["title", "url", "author"],
     "filterableAttributes": ["author", "points", "num_comments"],
@@ -119,7 +167,7 @@ def build_phase() -> None:
 
     t0 = time.perf_counter()
     _build.load_library()
-    say(f"K1 + K3 build: {time.perf_counter() - t0:.3f} s"
+    say(f"K1 + K3 + K4h build: {time.perf_counter() - t0:.3f} s"
         f" (nvcc {_build.build_seconds:.3f} s; 0 = already built)")
     for line in _build.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
@@ -150,6 +198,34 @@ def kernel_phase(device) -> int:
             if not same:
                 raise AssertionError(f"K1 disagrees with chain_keys_torch at D={D} T={T}")
             worst = max(worst, err)
+    return worst
+
+
+def hamming_kernel_phase(device) -> int:
+    """K4h against hamming_rows_torch on the card at n = 2^18 + 3 rows (not
+    a multiple of the block) of seeded words, bit 31 set on half of them,
+    for W = 1, 4, 12, 24 and 48: the matrix 16-byte aligned and, on a view
+    one word in, not. Returns the max abs error (0 when equal; anything
+    else raises)."""
+    import torch
+
+    from meilisearch_tpu_torch.ops.hamming import hamming_rows, hamming_rows_torch
+
+    n, worst = (1 << 18) + 3, 0
+    for W in (1, 4, 12, 24, 48):
+        gen = torch.Generator().manual_seed(4000 + W)
+        flat = torch.randint(-(1 << 31), 1 << 31, (n * W + 1,), generator=gen,
+                             dtype=torch.int64).to(torch.int32).to(device)
+        q = flat[-W:].clone()
+        for mat in (flat[: n * W].view(n, W), flat[1:].view(n, W)):
+            got = hamming_rows(mat, q)
+            torch.cuda.synchronize()
+            want = hamming_rows_torch(mat, q)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K4h disagrees with hamming_rows_torch at W={W}")
+            worst = max(worst, int((got.long() - want.long()).abs().max()))
+    say(f"K4h n={n} W=1,4,12,24,48, aligned and not: equal to hamming_rows_torch,"
+        f" max_abs_err={worst}")
     return worst
 
 
@@ -317,7 +393,7 @@ def main_path_phase(device, n_docs: int) -> dict:
 
         serving_stats(reset=True)
         LAUNCHES.reset()
-        answers, errors = serve(client, "hn", QUERIES)
+        answers, errors = serve(client, [("/indexes/hn/search", q) for q in QUERIES])
         launches = LAUNCHES.value
         stats = serving_stats()
         if errors:
@@ -382,9 +458,9 @@ def typo_path_phase(device, n_words: int) -> dict:
         # the answers with the host OSA pass, then cold derivation caches
         # so the served queries run the typo pass again, on the device
         t0 = time.perf_counter()
-        store.osa_device = None
+        store.device = None
         expected = [_strip(perform_search(store, dict(q))) for q in queries]
-        store.osa_device = app.device
+        store.device = app.device
         store._derivation_store_cache = None
         store._derivation_merge_cache = None
         say(f"host OSA pass answers: {time.perf_counter() - t0:.3f} s,"
@@ -394,7 +470,7 @@ def typo_path_phase(device, n_words: int) -> dict:
 
         serving_stats(reset=True)
         device_osa.LAUNCHES.reset()
-        answers, errors = serve(client, "typo", queries)
+        answers, errors = serve(client, [("/indexes/typo/search", q) for q in queries])
         launches = device_osa.LAUNCHES.value
         stats = serving_stats()
         if errors:
@@ -422,9 +498,9 @@ def typo_path_phase(device, n_words: int) -> dict:
         app.scheduler.stop()
 
 
-def serve(client, uid: str, queries: list) -> tuple[list, list]:
-    """THREADS clients each send every query twice, in rotated orders;
-    returns ([(query index, status, body)], [errors])."""
+def serve(client, requests: list) -> tuple[list, list]:
+    """THREADS clients each send every (path, body) POST request twice, in
+    rotated orders; returns ([(request index, status, body)], [errors])."""
     answers: list = []
     latencies: list = []
     errors: list = []
@@ -433,10 +509,11 @@ def serve(client, uid: str, queries: list) -> tuple[list, list]:
     def client_loop(k: int) -> None:
         try:
             for r in range(2):
-                for j in range(len(queries)):
-                    qi = (j + k + r) % len(queries)
+                for j in range(len(requests)):
+                    qi = (j + k + r) % len(requests)
+                    path, body = requests[qi]
                     t = time.perf_counter()
-                    res = client.search(uid, dict(queries[qi]))
+                    res = client.post(path, body=dict(body))
                     dt = time.perf_counter() - t
                     with lock:
                         answers.append((qi, res.status, res.json))
@@ -455,10 +532,226 @@ def serve(client, uid: str, queries: list) -> tuple[list, list]:
     if any(th.is_alive() for th in threads):
         errors.append("a client thread did not finish")
     lat = sorted(latencies) or [0.0]
-    say(f"served {len(answers)} searches from {THREADS} threads in {wall:.3f} s:"
+    say(f"served {len(answers)} requests from {THREADS} threads in {wall:.3f} s:"
         f" {len(answers) / wall:.2f} QPS, p50 {lat[len(lat) // 2] * 1e3:.3f} ms,"
         f" p99 {lat[int(len(lat) * 0.99)] * 1e3:.3f} ms")
     return answers, errors
+
+
+def vector_batch(docs: list, start: int, centres) -> list:
+    """docs[start : start + VEC_BATCH] with their `_vectors`: seeded draws
+    around the centres (noise 0.5 a dimension), two for every 7th
+    document; built just before the batch is posted."""
+    import numpy as np
+
+    rng = np.random.default_rng([VEC_SEED, start])
+    batch = docs[start : start + VEC_BATCH]
+    counts = [2 if (start + i) % 7 == 0 else 1 for i in range(len(batch))]
+    rows = centres[rng.integers(0, len(centres), sum(counts))]
+    rows = rows + 0.5 * rng.standard_normal(rows.shape, dtype=np.float32)
+    out, r = [], 0
+    for doc, k in zip(batch, counts):
+        vecs = rows[r : r + k].tolist()
+        out.append({**doc, "_vectors": {"default": vecs if k == 2 else vecs[0]}})
+        r += k
+    return out
+
+
+def vector_requests(store) -> list:
+    """The vector path's 24 requests: for 5 stored vectors (plus noise),
+    hybrid at semanticRatio 1.0 and, with a text q, 0.5, each with and
+    without `filter` (the full-column leg), limit 20, offset 10 for every
+    other one, showRankingScore; and 4 POST /similar, 2 filtered."""
+    import numpy as np
+
+    rng = np.random.default_rng(VEC_SEED + 1)
+    ids = rng.choice(VEC_DOCS, 9, replace=False)
+    per_doc = store.vectors["default"]
+    out = []
+    for r in range(5):
+        base = per_doc[store.external_to_internal[str(ids[r])]][0]
+        vec = (base + 0.05 * rng.standard_normal(VEC_DIM)).astype(np.float32).tolist()
+        for ratio in (1.0, 0.5):
+            for filt in (None, "points > 1000"):
+                body = {"vector": vec, "hybrid": {"semanticRatio": ratio, "embedder": "default"},
+                        "limit": 20, "offset": 10 * (r % 2), "showRankingScore": True}
+                if ratio < 1.0:
+                    body["q"] = VEC_TEXT[r]
+                if filt:
+                    body["filter"] = filt
+                out.append(("/indexes/vec/search", body))
+    for j, doc_id in enumerate(ids[5:]):
+        body = {"id": int(doc_id), "embedder": "default", "limit": 20,
+                "offset": 10 * (j % 2), "showRankingScore": True}
+        if j >= 2:
+            body["filter"] = "points > 1000"
+        out.append(("/indexes/vec/similar", body))
+    return out
+
+
+def _vector_answer(body: dict) -> tuple:
+    hits = body["hits"]
+    return ([h["id"] for h in hits], [h["_rankingScore"] for h in hits],
+            body.get("semanticHitCount"))
+
+
+def _same_within_ties(got: tuple, want: tuple) -> bool:
+    """The float round's rule: semanticHitCount equal, scores within
+    SCORE_ATOL, ids in order except inside a run of hits whose host
+    scores lie within SCORE_TIE of each other, compared as a set."""
+    ids_g, sc_g, shc_g = got
+    ids_w, sc_w, shc_w = want
+    if shc_g != shc_w or len(ids_g) != len(ids_w):
+        return False
+    if any(abs(a - b) > SCORE_ATOL for a, b in zip(sc_g, sc_w)):
+        return False
+    start = 0
+    for i in range(1, len(ids_w) + 1):
+        if i == len(ids_w) or abs(sc_w[i] - sc_w[i - 1]) > SCORE_TIE:
+            if set(ids_g[start:i]) != set(ids_w[start:i]):
+                return False
+            start = i
+    return True
+
+
+def _request_kind(path: str, body: dict) -> str:
+    kind = "similar" if path.endswith("/similar") else f"ratio {body['hybrid']['semanticRatio']}"
+    return kind + (" filtered" if "filter" in body else "")
+
+
+def one_by_one(client, requests: list, label: str) -> list:
+    """Each request once, one at a time; prints the median ms by kind and
+    returns the answers (each must be 200 with hits)."""
+    answers, by_kind = [], {}
+    for path, body in requests:
+        t = time.perf_counter()
+        res = client.post(path, body=dict(body))
+        by_kind.setdefault(_request_kind(path, body), []).append((time.perf_counter() - t) * 1e3)
+        if res.status != 200 or not res.json["hits"]:
+            raise AssertionError(f"{label}: {path} {res.status} {str(res.json)[:300]}")
+        answers.append(_vector_answer(res.json))
+    say(f"{label}, one request at a time, median ms by kind: "
+        + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in sorted(by_kind.items())))
+    return answers
+
+
+def vector_round(app, client, store, requests: list, exact: bool) -> dict:
+    """The expected answers from the same store with its device unbound
+    (the numpy host pass), then the requests one at a time on the card
+    (timed), then THREADS clients on the card; every answer must agree
+    (exactly, or by the float round's rule). Returns the K4h launches and
+    float-leg calls of the served run."""
+    from meilisearch_tpu_torch.ops import hamming
+    from meilisearch_tpu_torch.search.device_batch import serving_stats
+    from meilisearch_tpu_torch.vector import store as vstore
+
+    store.device = None
+    expected = one_by_one(client, requests, "host pass")
+    store.device = app.device
+    say(f"host pass semanticHitCount {[e[2] for e in expected]}")
+    one_by_one(client, requests, "on the card")
+
+    serving_stats(reset=True)
+    hamming.LAUNCHES.reset()
+    vstore.FLOAT_LEGS.reset()
+    answers, errors = serve(client, requests)
+    launches, float_legs = hamming.LAUNCHES.value, vstore.FLOAT_LEGS.value
+    stats = serving_stats()
+    if errors:
+        raise AssertionError(f"client threads failed: {errors[:3]}")
+    bad = reordered = 0
+    for qi, status, body in answers:
+        if status != 200:
+            bad += 1
+            continue
+        got = _vector_answer(body)
+        same = got == expected[qi]
+        if not same and not exact and _same_within_ties(got, expected[qi]):
+            same, reordered = True, reordered + (got[0] != expected[qi][0])
+        if not same:
+            bad += 1
+            if bad <= 3:
+                path, req = requests[qi]
+                say(f"MISMATCH {_request_kind(path, req)}: got {got}, want {expected[qi]}")
+    kind = "binary (exact)" if exact else "float (ids within ties, scores 1e-5)"
+    say(f"vector path, {kind}: {len(answers) - bad}/{len(answers)} responses agree with"
+        f" the host pass ({reordered} with ids reordered within a tie group); K4h launches {launches},"
+        f" float-leg calls {float_legs}; serving stats {json.dumps(stats)}")
+    if bad:
+        raise AssertionError(f"{bad} vector responses differ from the host pass")
+    if stats["device_errors"] != 0:
+        raise AssertionError(f"device errors on the vector path: {stats}")
+    return {"launches": launches, "float_legs": float_legs}
+
+
+def vector_path_phase(device) -> dict:
+    """hn150k-bge768 through a third App: ingest over HTTP, upload, serve
+    the float round, switch the embedder to binaryQuantized, serve the
+    binary round. Returns K4h's launches and the two searchers (the
+    float one keeps its resident matrix for the timing phase)."""
+    import numpy as np
+
+    from meilisearch_tpu_torch.api.app import App, TestClient
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.store import VectorSearcher
+
+    app = App(device=device)
+    try:
+        client = TestClient(app)
+        client.update_settings("vec", VEC_SETTINGS)
+        t0 = time.perf_counter()
+        docs = generate_hackernews_like(VEC_DOCS, seed=VEC_SEED)
+        centres = np.random.default_rng(VEC_SEED).standard_normal(
+            (VEC_CENTRES, VEC_DIM), dtype=np.float32
+        )
+        uid = None
+        for start in range(0, VEC_DOCS, VEC_BATCH):
+            res = client.post("/indexes/vec/documents", body=vector_batch(docs, start, centres))
+            if res.status != 202:
+                raise AssertionError(f"ingest refused: {res.status} {res.json}")
+            uid = res.json["taskUid"]
+        del docs
+        task = app.scheduler.wait_for_task(uid, timeout=900.0)
+        if task.to_json()["status"] != "succeeded":
+            raise AssertionError(f"ingest failed: {task.to_json()}")
+        store = app.scheduler.index("vec")
+        rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        say(f"vector ingest: {VEC_DOCS} docs with {VEC_DIM}-dim vectors over HTTP in"
+            f" {time.perf_counter() - t0:.3f} s (generation included); process peak RSS"
+            f" {rss_gb:.3f} GiB")
+        t0 = time.perf_counter()
+        app.warm_devices()
+        float_searcher = VectorSearcher(store, "default")
+        m_dev, n = float_searcher._device[("matrix", app.device)]
+        say(f"warm_devices (float matrix upload): {time.perf_counter() - t0:.3f} s;"
+            f" {n} rows, {m_dev.shape[0]} on the card, {m_dev.numel() * 4 / 1e6:.1f} MB")
+        if n != VEC_DOCS + (VEC_DOCS + 6) // 7:
+            raise AssertionError(f"unexpected rows: {n}")
+        requests = vector_requests(store)
+        float_round = vector_round(app, client, store, requests, exact=False)
+        if float_round["float_legs"] <= 0:
+            raise AssertionError("the float leg did not run on the vector path")
+
+        t0 = time.perf_counter()
+        res = client.update_settings("vec", {"embedders": {"default": {"binaryQuantized": True}}})
+        if res["status"] != "succeeded":
+            raise AssertionError(f"the switch to binaryQuantized failed: {res}")
+        say(f"PATCH settings binaryQuantized: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        app.warm_devices()
+        binary_searcher = VectorSearcher(store, "default")
+        if not binary_searcher.quantized:
+            raise AssertionError("the embedder is not binary-quantized")
+        say(f"warm_devices (sign words pack + upload): {time.perf_counter() - t0:.3f} s")
+        binary_round = vector_round(app, client, store, requests, exact=True)
+        if binary_round["launches"] <= 0:
+            raise AssertionError("K4h was not launched on the vector path")
+        query = np.asarray(requests[0][1]["vector"], np.float32)
+        return {"launches": binary_round["launches"], "float": float_searcher,
+                "binary": binary_searcher, "query": query / np.linalg.norm(query)}
+    finally:
+        app.search_batcher.stop()
+        app.scheduler.stop()
 
 
 def _median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -535,7 +828,7 @@ def k3_bound_ms(lens, m: int, max_dist: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def timing_phase(device, card: str, typo: dict) -> dict:
+def timing_phase(device, card: str, typo: dict, vector: dict) -> dict:
     from meilisearch_tpu_torch.ops.chain_keys import chain_keys, chain_keys_torch
     from meilisearch_tpu_torch.ops.synthetic import kernel_args, scorer_inputs
 
@@ -543,19 +836,132 @@ def timing_phase(device, card: str, typo: dict) -> dict:
     args = kernel_args(scorer_inputs(3, 1 << 20, 32, seed=7), device)
     # plain, kernel, kernel, plain: both sides see the same card state
     plain = [_median_ms(lambda: chain_keys_torch(*args, T=3), reps=5)]
-    kernel = [_median_ms(lambda: chain_keys(*args, T=3), reps=30)]
-    kernel.append(_median_ms(lambda: chain_keys(*args, T=3), reps=30))
+    events = _median_ms(lambda: chain_keys(*args, T=3), reps=30)
+    k1 = repeated_launch_ms(K1_KERNEL, lambda: chain_keys(*args, T=3), device)
     plain.append(_median_ms(lambda: chain_keys_torch(*args, T=3), reps=5))
     bound, by = k1_bound_ms(args, 3)
-    out["chain_keys"] = {"ms": statistics.median(kernel),
-                         "plain_ms": statistics.median(plain),
+    out["chain_keys"] = {"ms": k1["cold_ms"], "plain_ms": statistics.median(plain),
                          "bound_ms": bound, "bound_by": by}
-    say(f"timing D=2^20 B=32 T=3 on {card}: K1 {out['chain_keys']['ms']:.4f} ms"
-        f" (runs {kernel}), chain_keys_torch {out['chain_keys']['plain_ms']:.4f} ms"
-        f" (runs {plain}), bound {bound:.4f} ms ({by})")
+    say(f"timing D=2^20 B=32 T=3 on {card}: K1 per launch (trace, median of"
+        f" {REPEATS} repeats of 10) cold {k1['cold_ms']:.4f} ms (repeats"
+        f" {_spread(k1['cold'])}), warm {k1['warm_ms']:.4f} ms (repeats"
+        f" {_spread(k1['warm'])}); wrapper back to back (CUDA events, median of 30)"
+        f" {events:.4f} ms; chain_keys_torch {out['chain_keys']['plain_ms']:.4f} ms"
+        f" (runs {plain}); bound {bound:.4f} ms ({by}); cold"
+        f" {bound / k1['cold_ms']:.2f} of the bound")
     del args
     out["osa"] = osa_timing(card, typo)
+    out["hamming"] = vector_timing(card, vector)
     return out
+
+
+def k4h_bound_ms(n: int, w: int) -> tuple[float, str]:
+    """The least time K4h could take on an (n, w) matrix: the larger of
+    the bytes it must move (the matrix and the query read once, the n
+    int32 distances written once) over the HBM rate, and its n * w
+    population counts over the card's POPC rate (the XORs and adds go to
+    other units at a higher rate)."""
+    moved = n * w * 4 + w * 4 + n * 4
+    t_bytes, t_ops = moved / HBM_BYTES_S, n * w / POPC_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def float_leg_bound_ms(n: int, dim: int, kb: int) -> tuple[float, str]:
+    """The least time the float leg could take: the matrix, the norms and
+    the query read once and the kb (value, index) pairs written once, over
+    the HBM rate; its 2 * n * dim float32 operations over the card's
+    float32 rate outside the tensor cores."""
+    moved = n * dim * 4 + n * 4 + dim * 4 + kb * 12
+    t_bytes, t_ops = moved / HBM_BYTES_S, 2 * n * dim / FP32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def leg_breakdown(label: str, call, device, reps: int = 10) -> None:
+    """Print the device time per call of each kernel that `call` launches
+    (torch.profiler, `reps` calls back to back), and their sum. Only the
+    kernels count: a torch op's entry repeats its kernels' device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize(device)
+    rows = sorted(((e.self_device_time_total / reps / 1e3, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    say(f"  {label}: device time per call {sum(ms for ms, _ in rows):.4f} ms in"
+        f" {len(rows)} kernels; " + "; ".join(f"{ms:.4f} {name[:60]}" for ms, name in rows[:6]))
+
+
+def vector_timing(card: str, vector: dict) -> dict:
+    """K4h on the vector path's resident sign words (n = 2^18, W = 24):
+    equal to its plain version, then plain, kernel (traced per launch,
+    cold and warm, REPEATS repeats), plain; its bound. The float leg on
+    the resident float matrix: its device work (CUDA events around
+    `_device_topk_dispatch`), its torch.matmul alone (the library call),
+    its bound. Both legs' whole search_async call and their numpy host
+    passes, on the host clock. Returns the kernels line's numbers."""
+    import numpy as np
+    import torch
+
+    from meilisearch_tpu_torch.ops.hamming import hamming_rows, hamming_rows_torch
+    from meilisearch_tpu_torch.vector.store import _device_topk_dispatch, _pack_signs
+
+    binary, floating, q = vector["binary"], vector["float"], vector["query"]
+    dev = binary.device
+    m_dev, n = binary._device[("matrix", dev)]
+    n_pad, w = m_dev.shape
+    qd = torch.from_numpy(_pack_signs(q[None, :])[0].view(np.int32)).to(dev)
+    got = hamming_rows(m_dev, qd)
+    torch.cuda.synchronize()
+    want = hamming_rows_torch(m_dev, qd)
+    if not torch.equal(got, want):
+        raise AssertionError("K4h disagrees with hamming_rows_torch on the resident sign words")
+    err = int((got.long() - want.long()).abs().max())
+    plain = [_median_ms(lambda: hamming_rows_torch(m_dev, qd), reps=5)]
+    k4 = repeated_launch_ms(K4H_KERNEL, lambda: hamming_rows(m_dev, qd), dev)
+    plain.append(_median_ms(lambda: hamming_rows_torch(m_dev, qd), reps=5))
+    bound, by = k4h_bound_ms(n_pad, w)
+    say(f"timing K4h n={n_pad} W={w} on {card}: per launch (trace, median of {REPEATS}"
+        f" repeats of 10) cold {k4['cold_ms']:.4f} ms (repeats {_spread(k4['cold'])}),"
+        f" warm {k4['warm_ms']:.4f} ms (repeats {_spread(k4['warm'])});"
+        f" hamming_rows_torch {statistics.median(plain):.4f} ms (runs {plain}); bound"
+        f" {bound:.4f} ms ({by}); cold {bound / k4['cold_ms']:.2f} of the bound; equal")
+
+    k = 30  # offset + limit of the path's paged requests
+    fm, fn = floating._device[("matrix", dev)]
+    qf = torch.from_numpy(q).to(dev)
+    lib = _median_ms(lambda: torch.matmul(fm, qf), reps=20)
+    leg = _median_ms(lambda: _device_topk_dispatch(floating, q, k), reps=20)
+    bin_leg = _median_ms(lambda: _device_topk_dispatch(binary, q, k), reps=20)
+    kb = 1 << (4 * k - 1).bit_length()
+    fbound, fby = float_leg_bound_ms(fm.shape[0], fm.shape[1], kb)
+    whole = {}
+    for name, searcher in (("float", floating), ("binary", binary)):
+        host = copy.copy(searcher)
+        host.device = None  # the numpy pass over the same matrix
+        for side, s in ((name, searcher), (name + " host", host)):
+            times = []
+            for _ in range(20 if side == name else 5):
+                t0 = time.perf_counter()
+                s.search_async(q, k)()
+                times.append((time.perf_counter() - t0) * 1e3)
+            whole[side] = statistics.median(times)
+    for name, searcher in (("float", floating), ("binary", binary)):
+        leg_breakdown(f"the {name} leg", lambda s=searcher: _device_topk_dispatch(s, q, k), dev)
+    say(f"timing float leg n={fm.shape[0]} dim={fm.shape[1]} k={k} (kb={kb}) on {card}:"
+        f" device work (CUDA events around _device_topk_dispatch, median of 20)"
+        f" {leg:.4f} ms; torch.matmul alone {lib:.4f} ms; bound {fbound:.4f} ms ({fby});"
+        f" the binary leg's device work {bin_leg:.4f} ms")
+    say(f"timing search_async(q, {k})() on {card}, host clock, medians: float"
+        f" {whole['float']:.3f} ms, binary {whole['binary']:.3f} ms; numpy host pass:"
+        f" float {whole['float host']:.3f} ms, binary {whole['binary host']:.3f} ms")
+    return {"ms": k4["cold_ms"], "plain_ms": statistics.median(plain),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
 
 
 def warp_lengths(lens) -> str:
@@ -570,12 +976,15 @@ def warp_lengths(lens) -> str:
             f" warp {longest.mean():.3f}")
 
 
-def k3_launch_ms(runs: list, device) -> list:
-    """K3's device time per launch, from torch.profiler's CUDA trace: for
-    each (call, reps, cold) of `runs`, in order, `reps` calls of `call`,
-    each of which must launch K3 once, and each after a write of
-    L2_FLUSH_BYTES when `cold` (so K3 finds the L2 cache as a typo term
-    between searches finds it); returns, per run, the ms of each launch."""
+def launch_ms(kernel: str, runs: list, device) -> list:
+    """A kernel's device time per launch, from torch.profiler's CUDA trace:
+    for each (call, reps, cold) of `runs`, in order, `reps` calls of
+    `call`, each of which must launch the kernel whose traced name holds
+    `kernel` once, and each after a write of L2_FLUSH_BYTES when `cold` (so
+    the kernel finds the L2 cache as a call between searches finds it);
+    returns, per run, the ms of each launch. The trace may miss the first
+    launches of a session (a 10 us kernel lost 2 of 100 on the card), so
+    SENTINELS calls open it and the runs take the last launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -584,6 +993,9 @@ def k3_launch_ms(runs: list, device) -> list:
     runs[0][0]()  # untraced warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            runs[0][0]()
+        torch.cuda.synchronize()
         for call, reps, cold in runs:
             for _ in range(reps):
                 if cold:
@@ -593,16 +1005,35 @@ def k3_launch_ms(runs: list, device) -> list:
     launches = sorted(
         (e.time_range.start, e.time_range.elapsed_us() / 1e3)
         for e in prof.events()
-        if e.device_type == DeviceType.CUDA and K3_KERNEL in e.name
+        if e.device_type == DeviceType.CUDA and kernel in e.name
     )
     want = sum(reps for _call, reps, _cold in runs)
-    if len(launches) != want:
-        raise AssertionError(f"the trace holds {len(launches)} K3 launches, not {want}")
-    out, k = [], 0
+    if not want <= len(launches) <= want + SENTINELS:
+        raise AssertionError(f"the trace holds {len(launches)} {kernel} launches,"
+                             f" not {want} (+ up to {SENTINELS} sentinels)")
+    if len(launches) < want + SENTINELS:
+        say(f"  the trace of {kernel} kept {len(launches)} of {want + SENTINELS} launches"
+            f" ({SENTINELS} sentinels first)")
+    out, k = [], len(launches) - want
     for _call, reps, _cold in runs:
         out.append([ms for _start, ms in launches[k : k + reps]])
         k += reps
     return out
+
+
+def repeated_launch_ms(kernel: str, call, device) -> dict:
+    """REPEATS repeats of 10 cold and 10 warm launches of `call`, traced:
+    the median of the repeats' medians, cold and warm, with each list."""
+    traced = launch_ms(kernel, [(call, 10, cold) for _ in range(REPEATS)
+                                for cold in (True, False)], device)
+    cold = [statistics.median(t) for t in traced[0::2]]
+    warm = [statistics.median(t) for t in traced[1::2]]
+    return {"cold": cold, "warm": warm, "cold_ms": statistics.median(cold),
+            "warm_ms": statistics.median(warm)}
+
+
+def _spread(xs: list) -> str:
+    return f"{min(xs):.4f}-{max(xs):.4f}"
 
 
 def osa_timing(card: str, typo: dict) -> dict:
@@ -611,7 +1042,7 @@ def osa_timing(card: str, typo: dict) -> dict:
     held byte for byte against its plain version, then timed in turns
     (plain, kernel, plain; the plain version with CUDA events per call).
     The kernel is timed per launch from the trace of the pass's own call
-    (`k3_launch_ms` over `osa_distances_device`), 10 calls cold, the L2
+    (`launch_ms` over `osa_distances_device`), 10 calls cold, the L2
     cache flushed before each (the kernels line's time), and 10 warm. Also
     the wrapper per call (CUDA events around one `osa_device` call, the
     host's query table included), the vocabulary's upload with its length
@@ -670,7 +1101,7 @@ def osa_timing(card: str, typo: dict) -> dict:
         def call(word=word):
             osa_distances_device(store, mat_np, lens_np, word)
         runs += [(call, 10, True), (call, 10, False)]
-    traced = k3_launch_ms(runs, dv.device)
+    traced = launch_ms(K3_KERNEL, runs, dv.device)
     for k, row in enumerate(rows):
         row["cold"], row["warm"] = traced[2 * k], traced[2 * k + 1]
         row["ms"], row["warm_ms"] = statistics.median(row["cold"]), statistics.median(row["warm"])
@@ -737,7 +1168,9 @@ def osa_timing(card: str, typo: dict) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--docs", type=int, default=1_000_000)
+    # the keyword path's depth: 500,000 documents (D = 2^19) keep the whole
+    # run, vector path included, near half of its 1200 s limit
+    parser.add_argument("--docs", type=int, default=500_000)
     opts = parser.parse_args()
     try:
         import torch
@@ -760,10 +1193,13 @@ def main() -> int:
     build_phase()
     k1_err = kernel_phase(device)
     k3_err = osa_kernel_phase(device)
+    k4_err = hamming_kernel_phase(device)
     keyword = main_path_phase(device, opts.docs)
     typo = typo_path_phase(device, TYPO_VOCAB_WORDS)
-    timing = timing_phase(device, card, typo)
+    vector = vector_path_phase(device)
+    timing = timing_phase(device, card, typo, vector)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
+    k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [
         m for m, mod in sys.modules.items()
         if mod is not None
@@ -778,6 +1214,9 @@ def main() -> int:
         {"name": "osa", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": typo["launches"],
          "max_abs_err": k3_err, **timing["osa"], "library_ms": None},
+        {"name": "hamming", "route": "cuda", "source": K4H_SOURCE,
+         "replaces": K4H_REPLACES, "launches": vector["launches"],
+         "max_abs_err": k4_err, **timing["hamming"], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

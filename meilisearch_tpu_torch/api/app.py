@@ -2,9 +2,10 @@
 
 The App serves on an explicit torch device: `POST /indexes/{uid}/search`
 drains through `app.search_batcher` and `/multi-search` through
-`perform_search_many`, both on `app.device`, and the typo pass of every
+`perform_search_many`, both on `app.device`; the typo pass of every
 index runs its whole-vocabulary OSA on that device (K3) where the
-vocabulary is large enough.
+vocabulary is large enough, and its vector searches keep their matrices
+there (K4h for binary-quantized embedders).
 
 Reference: crates/meilisearch/src/routes/mod.rs:87-110 (top-level scopes) and
 routes/indexes/mod.rs:42-54 (per-index sub-routes). The app object dispatches
@@ -159,7 +160,7 @@ class App:
         register_misc_routes(self)
         register_index_routes(self)
         if self.device.type == "cuda":
-            # build the kernels (K1 and K3, one library) while documents
+            # build the kernels (K1, K3 and K4h, one library) while documents
             # are ingested, off the serving path
             from ..ops._build import load_library
 
@@ -168,10 +169,12 @@ class App:
             ).start()
 
     def warm_devices(self) -> None:
-        """Build the kernels and warm every loaded index's plane bucket on
-        this App's device, waiting for both (the server's synchronous boot
-        warm). Raises when a build or a warm-up fails."""
+        """Build the kernels, warm every loaded index's plane bucket and
+        upload its embedders' vector matrices on this App's device,
+        waiting for all of it (the server's synchronous boot warm). Raises
+        when a build, a warm-up or an upload fails."""
         from ..search.device_batch import warm_kernels
+        from ..vector.store import warm_vector_kernels
 
         if self.device.type == "cuda":
             from ..ops._build import load_library
@@ -179,6 +182,7 @@ class App:
             load_library()
         for store in self.scheduler.list_indexes():
             warm_kernels(store, self.device, wait=True)
+            warm_vector_kernels(store)
 
     # -- route registration ----------------------------------------------
 

@@ -62,21 +62,23 @@ class IndexMap:
         self.budget_bytes = _default_budget_bytes()
         self.on_load = None  # callback(store) after a deferred/evicted load
         self.evictions = 0  # observability / tests
-        # the typo pass's device and strictness, stamped on every store
-        # this map holds (App.__init__ binds them)
-        self.osa_device = None
+        # the device of the typo pass and the vector legs, and the typo
+        # pass's strictness, stamped on every store this map holds
+        # (App.__init__ binds them)
+        self.device = None
         self.osa_strict = False
 
     def bind_device(self, device, strict: bool) -> None:
-        """Run the typo pass of every store held here on `device`
-        (ops/device_osa.py), stores loaded later included."""
-        self.osa_device = device
+        """Run the typo pass (ops/device_osa.py) and the vector legs
+        (vector/store.py) of every store held here on `device`, stores
+        loaded later included."""
+        self.device = device
         self.osa_strict = strict
         for store in self._loaded.values():
             self._bind(store)
 
     def _bind(self, store) -> None:
-        store.osa_device = self.osa_device
+        store.device = self.device
         store.osa_strict = self.osa_strict
 
     # -- registration -------------------------------------------------------

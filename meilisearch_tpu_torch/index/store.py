@@ -292,10 +292,11 @@ class IndexStore:
         self._delta_version = 0
         self._vocab_snapshot: Any = None
         self._lock = threading.RLock()
-        # the typo pass's device (a torch.device; None: the host pass
-        # only) and whether every term goes to it whatever the vocabulary
-        # size (ops/device_osa.py); an App binds its own (engine/index_map.py)
-        self.osa_device: Any = None
+        # the device of the typo pass (ops/device_osa.py) and of the
+        # vector legs (vector/store.py): a torch.device, or None for the
+        # host passes only; and whether every typo term goes to it whatever
+        # the vocabulary size. An App binds its own (engine/index_map.py)
+        self.device: Any = None
         self.osa_strict = False
         self._snapshot_cache: Any = None
         self._snapshot_generation = -1

@@ -58,6 +58,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.mst_osa  # K3, csrc/osa.cu
     fn.argtypes = [ptr] * 4 + [cint] + [ptr] * 3
     fn.restype = cint
+    fn = lib.mst_hamming  # K4h, csrc/hamming.cu
+    fn.argtypes = [ptr] * 2 + [cint] * 2 + [ptr] * 2
+    fn.restype = cint
     return lib
 
 

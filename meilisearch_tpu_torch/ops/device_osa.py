@@ -266,11 +266,11 @@ def get_device_vocab(store, mat, lens, device: torch.device) -> DeviceVocab:
 
 
 def device_osa_available(store, n_words: int) -> bool:
-    """Gate: the store's typo pass has a device (`store.osa_device`), and
+    """Gate: the store's typo pass has a device (`store.device`), and
     either the vocabulary is large enough for the device pass to beat the
     host pass on CUDA or the store is strict (`store.osa_strict`, which
     also takes a CPU device, the tests' plain-version route)."""
-    device = getattr(store, "osa_device", None)
+    device = getattr(store, "device", None)
     if device is None:
         return False
     if getattr(store, "osa_strict", False):
@@ -291,10 +291,10 @@ def osa_distances_device(
     store, mat, lens, query: str, max_dist: int = 2
 ) -> tuple[np.ndarray, np.ndarray]:
     """Drop-in for levenshtein.osa_distances over the full base
-    vocabulary on `store.osa_device`: numpy int32 (full, prefix_min)
+    vocabulary on `store.device`: numpy int32 (full, prefix_min)
     clipped to max_dist + 1 (a 2 MB readback at 1M words). The query
     stays on the host: the kernel takes it as a parameter."""
-    dv = get_device_vocab(store, mat, lens, store.osa_device)
+    dv = get_device_vocab(store, mat, lens, store.device)
     q, m = query_tensor(query)
     full, prefix = osa_device(dv.mat, dv.lens, q, m, max_dist, dv.order)
     full = full[: dv.n_real].cpu().numpy().astype(np.int32)

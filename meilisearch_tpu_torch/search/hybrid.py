@@ -96,14 +96,16 @@ def execute_hybrid(
     from ..vector.store import VectorSearcher
 
     # unfiltered searches pass universe=None: the searcher only holds
-    # live documents (rebuilt per generation)
+    # live documents (rebuilt per generation), and a None universe lets
+    # it select top-k ON the device (a few KB read back instead of the
+    # full (n,) similarity column)
     universe = None
     if keyword_search.filter_docids is not None:
         universe = filtered_universe(store, keyword_search.filter_docids)
     searcher = VectorSearcher(store, embedder_name)
     wanted = offset + limit
-    # the semantic side completes after the keyword search below (its
-    # device leg, which overlapped the two, is a later slice: K4)
+    # dispatch the semantic side NOW (async on the accelerator) so its
+    # device round trip overlaps the host keyword search below
     semantic_future = searcher.search_async(query_vector, wanted, universe)
 
     distinct_field = (
@@ -151,7 +153,8 @@ def execute_hybrid(
         )
         return result, len(docids)
 
-    # hybrid: merge both ranked lists by weighted global score
+    # hybrid: merge both ranked lists by weighted global score (the
+    # semantic side is already in flight on the device)
     keyword_search.compute_scores = True
     keyword_search.offset = 0
     keyword_search.limit = wanted

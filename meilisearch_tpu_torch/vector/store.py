@@ -1,4 +1,4 @@
-"""Vector store: exact nearest-neighbor search + IVF at scale (host legs).
+"""Vector store: exact nearest-neighbor search + IVF at scale.
 
 Reference behavior: milli/src/vector/store.rs — arroy (random-projection
 trees) / hannoy (HNSW, M=16/M0=32/efC=125) ANN over LMDB, with a
@@ -6,10 +6,22 @@ linear-scan fallback below 300k items or <10% filter ratio (store.rs:22-27).
 
 Design:
   * an exact dot-product top-k over a per-(embedder, index generation)
-    matrix, recall 1.0. The device legs of the JAX package (the resident
-    matrix, the device matmul / hamming top-k: K4) are a later slice of
-    the port; every search here runs the numpy pass, as the JAX package
-    does with no accelerator.
+    matrix, recall 1.0. The store's device (`store.device`, bound by the
+    App: engine/index_map.py) picks the legs: None runs the numpy pass;
+    a torch device keeps the matrix resident there (uploaded once per
+    generation, rows padded to a power-of-two bucket) and computes the
+    similarity column and its top-k there, the JAX package's device legs
+    under their names. On a CUDA device the binary-quantized legs go
+    through K4h (ops/hamming.py, csrc/hamming.cu); on the CPU through its
+    plain torch version. Every device failure raises (counted in
+    `serving_stats()["device_errors"]`); nothing falls back to the host.
+  * the float leg is one `torch.matmul` (cuBLAS on the card) in full
+    float32: it needs `torch.backends.cuda.matmul.allow_tf32 = False`,
+    PyTorch's default, and raises otherwise (TF32 keeps about three
+    digits and would move near-ties).
+  * the device top-k is `lax.top_k`'s: equal values lower row first, and
+    +0.0 above -0.0 (`_topk_desc`), so the hits and their order equal the
+    JAX package's.
   * binaryQuantized stores SIGN BITS packed 32/word (32x smaller than the
     f32 matrix; the reference's BQ exists for exactly this memory cut,
     store.rs hamming path). Scoring is hamming via XOR+popcount:
@@ -17,18 +29,30 @@ Design:
     (1+cos)/2 equals the exact cosine of the quantized vectors.
   * IVF partitioning above MEILI_TPU_IVF_THRESHOLD vectors (default 1M):
     k-means centroids (nlist ~ sqrt(n)), lists contiguous in a reordered
-    matrix; a query scans the nprobe nearest lists exactly. Same API,
-    recall reported by tests against the exact path.
+    matrix; a query scans the nprobe nearest lists exactly, on the host.
+    Same API, recall reported by tests against the exact path.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..index.store import IndexStore
+from ..ops.chain_keys import LaunchCounter
+from ..ops.hamming import hamming_rows
+
+# the JAX package's gate (below it its host matmul beat a TPU's dispatch
+# cost); not yet re-derived for the H100
+DEVICE_MIN_ROWS = 4096
+_RESIDENT_LOCK = threading.Lock()  # one upload of a matrix, however many callers
+FLOAT_LEGS = LaunchCounter()  # float-leg products issued on a torch device
+
 
 def _ivf_threshold() -> int:
     return int(os.environ.get("MEILI_TPU_IVF_THRESHOLD", "1000000"))
@@ -49,11 +73,12 @@ def _pack_signs(matrix: np.ndarray) -> np.ndarray:
 
 
 class VectorSearcher:
-    """Per-(index, embedder) exact/IVF search."""
+    """Per-(index, embedder) exact/IVF search, on the store's device."""
 
     def __init__(self, store: IndexStore, embedder: str):
         self.store = store
         self.embedder = embedder
+        self.device = store.device
         # cached on the store itself (an id(store)-keyed global dict would
         # serve stale matrices when a freed store's id is reused)
         caches = getattr(store, "_vector_searcher_cache", None)
@@ -69,6 +94,7 @@ class VectorSearcher:
                 self.quantized,
                 self.dim,
                 self._ivf,
+                self._device,
             ) = cached[1]
             return
         per_doc = store.vectors.get(embedder, {})
@@ -96,6 +122,7 @@ class VectorSearcher:
             self.matrix = np.zeros((0, 0), dtype=np.float32)
             self.norms = np.zeros(0)
         self._ivf = self._build_ivf()
+        self._device = {}  # residents: (name, device) -> (tensor, n)
         caches[embedder] = (
             store.generation,
             (
@@ -105,6 +132,7 @@ class VectorSearcher:
                 self.quantized,
                 self.dim,
                 self._ivf,
+                self._device,
             ),
         )
 
@@ -159,12 +187,24 @@ class VectorSearcher:
 
     def _cosine_rows(self, rows_idx, q: np.ndarray):
         """Cosine of the unit query against rows (None = all rows)."""
+        on_device = (
+            self.device is not None
+            and rows_idx is None
+            and self.matrix.shape[0] >= DEVICE_MIN_ROWS
+        )
         m = self.matrix if rows_idx is None else self.matrix[rows_idx]
         if self.quantized:
             qbits = _pack_signs(q[None, :])[0]
-            ham = np.bitwise_count(m ^ qbits[None, :]).sum(axis=1)
+            if on_device:
+                with _counted():
+                    ham = _device_hamming(self, qbits)
+            else:
+                ham = np.bitwise_count(m ^ qbits[None, :]).sum(axis=1)
             # sign vectors: dot = dim - 2h; ||a||=||b||=sqrt(dim)
             return (self.dim - 2.0 * ham.astype(np.float32)) / self.dim
+        if on_device:
+            with _counted():
+                return _device_cosine(self, q)
         return (m @ q) / (self.norms if rows_idx is None else self.norms[rows_idx])
 
     def search(
@@ -178,21 +218,45 @@ class VectorSearcher:
     def search_async(
         self, query: np.ndarray, k: int, universe: Optional[set] = None
     ):
-        """A closure that completes the search: the hybrid path calls it
-        after its keyword search (the device leg that overlapped the two is
-        a later slice)."""
+        """Dispatch the device-side similarity work NOW, return a closure
+        that completes the search. The device work is queued on the
+        current stream, so the hybrid path overlaps it with the host
+        keyword search (the reference runs ANN then keyword serially,
+        hybrid.rs:87-104). With no universe the device leg also selects
+        the top-k on the device, so the readback is a few KB instead of
+        the full (n,) similarity column."""
         if self.matrix.size == 0:
             return lambda: []
         q = np.asarray(query, dtype=np.float32)
         qn = np.linalg.norm(q)
         q = q / (qn if qn else 1.0)
+
+        if (
+            self.device is not None
+            and universe is None
+            and self._ivf is None
+            and self.matrix.shape[0] >= DEVICE_MIN_ROWS
+        ):
+            with _counted():
+                pending = _device_topk_dispatch(self, q, k)
+
+            def finish():
+                with _counted():
+                    out = _device_topk_collect(self, pending, k)
+                if out is not None:
+                    return out
+                # per-doc dedup exhausted the fetch bucket: the exact
+                # answer needs the full column
+                return self._search_sync(q, k, universe)
+
+            return finish
         return lambda: self._search_sync(q, k, universe)
 
     def _search_sync(
         self, q: np.ndarray, k: int, universe
     ) -> list[tuple[int, float]]:
-        """Full-column scoring (IVF probes, filtered universes). `q` is
-        unit-normalized."""
+        """Full-column scoring path (IVF probes, filtered universes, tiny
+        corpora, device-top-k dedup shortfall). `q` is unit-normalized."""
 
         rows_idx = None
         if self._ivf is not None:
@@ -239,3 +303,170 @@ class VectorSearcher:
             if len(out) >= k:
                 break
         return out
+
+
+@contextmanager
+def _counted():
+    """Count a raise of the device legs in serving_stats' device_errors."""
+    from ..search.device_batch import _stats_add
+
+    try:
+        yield
+    except Exception:
+        _stats_add(device_errors=1)
+        raise
+
+
+def warm_vector_kernels(store: IndexStore) -> None:
+    """Upload each embedder's matrix to the store's device OFF the serving
+    path (and build the kernels: the first query would otherwise pay
+    both). Raises when an upload or a leg fails."""
+    if store.device is None:
+        return
+    for name in store.settings.embedders or {}:
+        s = VectorSearcher(store, name)
+        if s.matrix.shape[0] >= DEVICE_MIN_ROWS and s._ivf is None:
+            q = np.zeros(s.dim, np.float32)
+            q[0] = 1.0
+            s.search_async(q, 10)()
+
+
+def _resident(searcher: VectorSearcher, name: str, host_array: np.ndarray, fill=0):
+    """Device-resident copy of a per-generation array on the searcher's
+    device, uploaded once and padded with `fill` rows to a pow2 bucket of
+    at least DEVICE_MIN_ROWS rows, so every query of the generation sees
+    one shape. Returns (tensor, n real rows). uint32 sign words go up as
+    int32 (their bit pattern)."""
+    key = (name, searcher.device)
+    dev = searcher._device.get(key)
+    if dev is None:
+        with _RESIDENT_LOCK:
+            dev = searcher._device.get(key)
+            if dev is None:
+                if host_array.dtype == np.uint32:
+                    host_array = host_array.view(np.int32)
+                host = torch.from_numpy(np.ascontiguousarray(host_array))
+                n = host.shape[0]
+                n_pad = max(DEVICE_MIN_ROWS, 1 << (n - 1).bit_length())
+                buf = torch.full(
+                    (n_pad,) + tuple(host.shape[1:]), fill,
+                    dtype=host.dtype, device=searcher.device,
+                )
+                buf[:n].copy_(host)
+                dev = (buf, n)
+                searcher._device[key] = dev
+    return dev
+
+
+def _cos_column(searcher: VectorSearcher, m_dev, unit_query: np.ndarray):
+    """The float leg over the resident padded matrix: (n_pad,) float32
+    (M @ q) / norms, in full float32."""
+    if m_dev.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the vector float leg needs full float32 matmuls:"
+            " torch.backends.cuda.matmul.allow_tf32 is True"
+        )
+    n_dev, _ = _resident(searcher, "norms", searcher.norms, fill=1.0)
+    q = torch.from_numpy(np.ascontiguousarray(unit_query, np.float32))
+    FLOAT_LEGS.add()
+    return torch.matmul(m_dev, _upload(q, m_dev.device)) / n_dev
+
+
+def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A small host tensor on `device`. To a CUDA device it is copied from
+    pinned memory without waiting for the stream: a blocking copy waits
+    for all the work queued before it, so the dispatch would stall."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _ham_column(m_dev, query_bits: np.ndarray):
+    """K4h over the resident padded sign words: (n_pad,) int32."""
+    q = torch.from_numpy(np.ascontiguousarray(query_bits).view(np.int32))
+    return hamming_rows(m_dev, _upload(q, m_dev.device))
+
+
+def _ham_cos(ham: torch.Tensor, dim: int) -> torch.Tensor:
+    """cos = (dim - 2 ham) / dim of sign vectors in float32, rounded as
+    the JAX package and the numpy host pass round it: one IEEE division.
+    The divisor is a tensor filled on ham's device: torch divides a CUDA
+    tensor by a CPU scalar through the scalar's reciprocal (a * (1 / dim)),
+    which is an ulp off for some ham."""
+    divisor = torch.full((), float(dim), dtype=torch.float32, device=ham.device)
+    return (dim - 2.0 * ham.float()) / divisor
+
+
+def _device_cosine(searcher, unit_query):
+    """The full similarity column (M @ q) / norms on the device, read back."""
+    m_dev, n = _resident(searcher, "matrix", searcher.matrix)
+    return _cos_column(searcher, m_dev, unit_query)[:n].cpu().numpy()
+
+
+def _topk_desc(vals: torch.Tensor, kb: int):
+    """`lax.top_k(vals, kb)` of a float32 vector: the kb largest values in
+    descending order, equal values lower index first, +0.0 above -0.0 (a
+    total order on the bits). `torch.topk` alone orders ties otherwise, so
+    it selects here on a unique int64 key: the high word the value's bits
+    made order-preserving as a signed integer (negative floats' magnitude
+    bits flipped), the low word 2^32 - 1 - index. Returns (values, index)."""
+    bits = vals.view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    low = 0xFFFFFFFF - torch.arange(vals.numel(), device=vals.device)
+    key = ordered * (1 << 32) + low
+    idx = 0xFFFFFFFF - (torch.topk(key, kb, sorted=True).values & 0xFFFFFFFF)
+    return vals[idx], idx
+
+
+def _device_topk_dispatch(searcher, q: np.ndarray, k: int):
+    """Queue the matmul/hamming + the on-device top-k over the resident
+    matrix on the current stream. Returns (vals, idx, kb, n_live) device
+    tensors. The fetch bucket kb is a pow2 >= 4k so per-doc dedup
+    (multiple vectors per document) almost never falls back to the full
+    column; padded and beyond-n rows are masked to -2 (< any cosine) so
+    they sort past every real row."""
+    m_dev, n = _resident(searcher, "matrix", searcher.matrix)
+    n_pad = m_dev.shape[0]
+    kb = 1 << (max(4 * k, 64) - 1).bit_length()
+    if kb > n_pad:
+        kb = n_pad
+    if searcher.quantized:
+        cos = _ham_cos(_ham_column(m_dev, _pack_signs(q[None, :])[0]), searcher.dim)
+    else:
+        cos = _cos_column(searcher, m_dev, q)
+    cos[n:] = -2.0
+    vals, idx = _topk_desc(cos, kb)
+    return vals, idx, kb, n
+
+
+def _device_topk_collect(searcher, pending, k):
+    """Read back the dispatched top-k, dedup to per-document hits. None =
+    the kb bucket ran out before k distinct documents while live rows
+    remained (caller re-runs the full column)."""
+    vals_d, idx_d, kb, n = pending
+    vals = vals_d.cpu().numpy()
+    idx = idx_d.cpu().numpy()
+    out: list[tuple[int, float]] = []
+    seen: set = set()
+    consumed = 0
+    for v, i in zip(vals, idx):
+        if v <= -1.5:  # masked pad row: every later entry is one too
+            consumed = n  # all live rows were ranked before the pads
+            break
+        consumed += 1
+        docid = int(searcher.docids[i])
+        if docid in seen:
+            continue
+        seen.add(docid)
+        out.append((docid, float(np.clip((1.0 + v) / 2.0, 0.0, 1.0))))
+        if len(out) >= k:
+            return out
+    if consumed >= n:
+        return out
+    return None
+
+
+def _device_hamming(searcher, query_bits):
+    """XOR + popcount (K4h) over the resident packed sign matrix, read back."""
+    m_dev, n = _resident(searcher, "matrix", searcher.matrix)
+    return _ham_column(m_dev, query_bits)[:n].cpu().numpy()

@@ -6,9 +6,10 @@ jax is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py tests/test_torch_device_osa.py -m cuda -q
 
 (`--noconftest`: tests/conftest.py sets up jax for the JAX package's
-tests.) K1 is held against its plain torch version bit for bit, a refused
-launch must raise, and the port's search path on the card, typo pass
-included, must answer exactly as its host scorer."""
+tests.) K1 and K4h are held against their plain torch versions bit for
+bit, a refused launch must raise, the port's search path on the card,
+typo pass included, must answer exactly as its host scorer, and the vector
+legs on the card as its numpy host pass."""
 
 import sys
 
@@ -73,7 +74,7 @@ def test_search_path_on_the_card_matches_host(cuda_device):
     rng = np.random.default_rng(3)
     store = IndexStore("card", primary_key="id")
     # the typo pass on the card whatever the vocabulary size (K3)
-    store.osa_device, store.osa_strict = cuda_device, True
+    store.device, store.osa_strict = cuda_device, True
     store.settings.apply_json(
         {"filterableAttributes": ["points"], "sortableAttributes": ["points"]}
     )
@@ -97,7 +98,7 @@ def test_search_path_on_the_card_matches_host(cuda_device):
     assert device_osa.LAUNCHES.value > osa_before
     assert serving_stats()["device_served"] - served == len(queries)
     # the host scorer with the host typo pass, from cold derivation caches
-    store.osa_device = None
+    store.device = None
     store._derivation_store_cache = store._derivation_merge_cache = None
     for q, g in zip(queries, got):
         w = perform_search(store, dict(q))
@@ -162,3 +163,89 @@ def test_server_entry_serves_on_the_card(cuda_device, tmp_path):
     finally:
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
+
+
+@pytest.mark.parametrize("W", [1, 4, 12, 24, 48])
+@pytest.mark.parametrize("n", [1, 4099, 1 << 18])
+def test_hamming_kernel_matches_plain(cuda_device, n, W):
+    """K4h against hamming_rows_torch: rows not a multiple of the block,
+    words with bit 31 set, the 16-byte path (W % 4 == 0) and the word
+    path; and an unaligned matrix, which takes the word path."""
+    from meilisearch_tpu_torch.ops import hamming
+
+    gen = torch.Generator().manual_seed(n * 64 + W)
+    words = torch.randint(-(1 << 31), 1 << 31, (n * W + 1,), generator=gen, dtype=torch.int64)
+    flat = words.to(torch.int32).to(cuda_device)
+    q = flat[:W].clone()
+    for mat in (flat[: n * W].view(n, W), flat[1:].view(n, W)):  # aligned, unaligned
+        before = hamming.LAUNCHES.value
+        got = hamming.hamming_rows(mat, q)
+        torch.cuda.synchronize()
+        assert hamming.LAUNCHES.value == before + 1
+        assert torch.equal(got, hamming.hamming_rows_torch(mat, q))
+
+
+def test_hamming_refused_launch_raises(cuda_device):
+    from meilisearch_tpu_torch.ops import hamming
+
+    lib = _build.load_library()
+    w = hamming.MAX_WORDS + 1
+    mat = torch.zeros((4, w), dtype=torch.int32, device=cuda_device)
+    out = torch.empty(4, dtype=torch.int32, device=cuda_device)
+    rc = lib.mst_hamming(mat.data_ptr(), mat.data_ptr(), 4, w, out.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+    assert rc != 0  # q would not fit the kernel's shared memory
+    with pytest.raises(RuntimeError):
+        hamming.check_launch(rc)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_vector_legs_on_the_card_match_host(cuda_device, quantized):
+    """The vector legs on the card against the numpy host pass of the same
+    store: top-k (unfiltered) and the full column (filtered). Binary
+    results exact; float docids in order and scores within 1e-5 (cuBLAS
+    sums in another order than numpy)."""
+    from meilisearch_tpu_torch.index.store import IndexStore
+    from meilisearch_tpu_torch.ops import hamming
+    from meilisearch_tpu_torch.vector.store import VectorSearcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(8)
+    conf = {"source": "userProvided", "dimensions": 768}
+    if quantized:
+        conf["binaryQuantized"] = True
+    store = IndexStore("vec", primary_key="id")
+    store.settings.apply_json({"embedders": {"e": conf}})
+    store.add_documents([
+        {"id": i, "_vectors": {"e": rng.standard_normal((2 if i % 7 == 0 else 1, 768)).tolist()}}
+        for i in range(5000)
+    ])
+    universe = {int(d) for d in rng.choice(5000, 700, replace=False)}
+    # two random queries and two near stored vectors (high similarities)
+    queries = [rng.standard_normal(768).astype(np.float32) for _ in range(2)]
+    queries += [(store.vectors["e"][d][0] + 0.05 * rng.standard_normal(768)).astype(np.float32)
+                for d in (3, 4000)]
+    store.device = cuda_device
+    before = hamming.LAUNCHES.value
+    got = [VectorSearcher(store, "e").search(q, k, u)
+           for q in queries for k in (1, 20) for u in (None, universe)]
+    assert (hamming.LAUNCHES.value - before) == (len(got) if quantized else 0)
+    store.device = None
+    want = [VectorSearcher(store, "e").search(q, k, u)
+            for q in queries for k in (1, 20) for u in (None, universe)]
+    for g, w in zip(got, want):
+        assert [d for d, _ in g] == [d for d, _ in w]
+        if quantized:
+            assert [s for _, s in g] == [s for _, s in w]
+        else:
+            np.testing.assert_allclose([s for _, s in g], [s for _, s in w], atol=1e-5)
+
+
+@pytest.mark.parametrize("dim", [32, 100, 768, 1536])
+def test_hamming_cosine_on_the_card_rounds_as_the_host(cuda_device, dim):
+    from meilisearch_tpu_torch.vector.store import _ham_cos
+
+    ham = np.arange(dim + 1, dtype=np.int32)
+    want = (dim - 2.0 * ham.astype(np.float32)) / dim
+    got = _ham_cos(torch.from_numpy(ham).to(cuda_device), dim).cpu().numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))

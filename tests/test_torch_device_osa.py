@@ -291,7 +291,7 @@ def test_device_vocab_orders_rows_by_length_once_per_upload(monkeypatch):
     words = ["quick", "quack", "brown", "fox", "lazy", "dog"]
     wmat, wlens = pack_words(words)
     store = _Store()
-    store.osa_device = torch.device("cpu")
+    store.device = torch.device("cpu")
     for q in ("quick", "brwn", "fx"):
         osa.osa_distances_device(store, wmat, wlens, q)
     assert len(builds) == 1  # one order per upload, reused by every query
@@ -359,18 +359,18 @@ def test_refused_launch_raises():
 
 
 class _Store:
-    osa_device = None
+    device = None
     osa_strict = False
 
 
 def test_gate():
     store = _Store()
     assert not osa.device_osa_available(store, 1 << 20)  # no device: host
-    store.osa_device = torch.device("cpu")
+    store.device = torch.device("cpu")
     assert not osa.device_osa_available(store, 1 << 20)  # CPU: host
     store.osa_strict = True
     assert osa.device_osa_available(store, 10)  # strict: any size
-    store.osa_device, store.osa_strict = torch.device("cuda", 0), False
+    store.device, store.osa_strict = torch.device("cuda", 0), False
     assert not osa.device_osa_available(store, osa.MIN_DEVICE_VOCAB - 1)
     assert osa.device_osa_available(store, osa.MIN_DEVICE_VOCAB)
 
@@ -385,7 +385,7 @@ def test_distances_device_matches_host_and_caches_the_vocabulary():
     })
     mat, lens = pack_words(words)
     store = _Store()
-    store.osa_device = torch.device("cpu")
+    store.device = torch.device("cpu")
     for q in ("ace", "fedcba", "abcdefab", "a", "abcabcabcabcabc", ""):
         hf, hp = osa_distances(q, mat, lens)
         df, dp = osa.osa_distances_device(store, mat, lens, q)
@@ -433,7 +433,7 @@ def test_typo_derivations_match_the_jax_package(monkeypatch):
     monkeypatch.setenv("MEILI_TPU_DEVICE_STRICT", "1")
     want = derive(JaxStore("t"), JaxContext)
     port = IndexStore("t")
-    port.osa_device, port.osa_strict = torch.device("cpu"), True
+    port.device, port.osa_strict = torch.device("cpu"), True
     calls = []
     real = osa.osa_distances_device
     monkeypatch.setattr(
@@ -454,7 +454,7 @@ def test_typo_pass_device_error_raises_and_is_counted(monkeypatch):
 
     monkeypatch.setattr(osa, "osa_distances_device", refused)
     store = IndexStore("t")
-    store.osa_device, store.osa_strict = torch.device("cpu"), True
+    store.device, store.osa_strict = torch.device("cpu"), True
     store.add_documents([dict(d) for d in DERIVATION_DOCS])
     ctx = DerivationContext(store, store.settings)
     before = serving_stats()["device_errors"]
@@ -481,7 +481,7 @@ def test_typo_search_through_both_apps(monkeypatch):
             c.update_settings("typo", {"searchableAttributes": ["title"]})
             assert c.add_documents("typo", docs)["status"] == "succeeded"
         store = app.scheduler.index("typo")
-        assert store.osa_device == torch.device("cpu") and store.osa_strict
+        assert store.device == torch.device("cpu") and store.osa_strict
         for q in queries:
             want, got = (c.search("typo", dict(q)) for c in clients)
             assert want.status == got.status == 200, (q, got.json)

@@ -14,7 +14,7 @@ adjacent-word pair of the typo queries of 5 letters or more (the terms
 that get a typo budget), at max_dist 2, calls the tree's
 `ops.device_osa.osa_distances_device`, the typo pass's own entry point:
   - its answer must equal the tree's plain version on the rows it uploaded;
-  - K3 is timed per launch by this checkout's `chip_smoke.k3_launch_ms`,
+  - K3 is timed per launch by this checkout's `chip_smoke.launch_ms`,
     10 calls cold (the L2 cache flushed before each) and 10 warm.
 It prints the card's name and power limit, one JSON line per run with the
 means over the words, and a last JSON line with all runs.
@@ -42,10 +42,11 @@ def _chip_smoke():
 
 
 class _Store:
-    """What `osa_distances_device` needs of an index store."""
+    """What `osa_distances_device` needs of an index store (trees before
+    the vector slice name the attribute `osa_device`)."""
 
     def __init__(self, device):
-        self.osa_device = device
+        self.device = self.osa_device = device
 
 
 def measure(tree: str) -> dict:
@@ -92,7 +93,7 @@ def measure(tree: str) -> dict:
             osa.osa_distances_device(store, mat, lens, word)
 
         runs += [(call, 10, True), (call, 10, False)]
-    traced = timer.k3_launch_ms(runs, store.osa_device)
+    traced = timer.launch_ms(timer.K3_KERNEL, runs, store.device)
     rows = [{"word": w, "m": len(w), "cold_ms": statistics.median(traced[2 * k]),
              "warm_ms": statistics.median(traced[2 * k + 1])} for k, w in enumerate(words)]
     return {
