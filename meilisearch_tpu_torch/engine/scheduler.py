@@ -70,9 +70,8 @@ def _host_warm(stores) -> None:
     typo-pass build to the FIRST query (measured 41 s cold at a
     600k-word vocabulary). It must NOT run after every drained ingest
     batch: packing the growing vocabulary on a thread steals the GIL from
-    the next chunk (measured 3x slower HTTP ingest at 1M). The device
-    kernels are the App's to build (api/app.py), not the scheduler's.
-    Never raises."""
+    the next chunk (measured 3x slower HTTP ingest at 1M). The device half
+    is `_device_warm`. Never raises."""
     for store in stores:
         try:
             from ..search.perform import perform_search
@@ -82,6 +81,29 @@ def _host_warm(stores) -> None:
             perform_search(store, {"q": "warm up", "limit": 1})
         except Exception:
             pass
+
+
+def _device_warm(stores) -> None:
+    """Warm each store's device off the serving path, as the JAX package's
+    `_kick_warm` does: build K1 and launch it at the store's plane bucket
+    (search/device_batch.py::warm_kernels), and upload every embedder's
+    matrix (vector/store.py::warm_vector_kernels), so the first search of a
+    new generation finds it resident. A store bound to no device is
+    skipped. A failure is logged and counted in `device_errors` (by the
+    warm-up itself); the next search of that store on the device meets it
+    again and raises, nothing is served from the host."""
+    from ..search.device_batch import device_batch_enabled, warm_kernels
+    from ..vector.store import warm_vector_kernels
+
+    for store in stores:
+        if store.device is None:
+            continue
+        try:
+            if device_batch_enabled():
+                warm_kernels(store, store.device, wait=True)
+            warm_vector_kernels(store)
+        except Exception:
+            log.exception("device warm of index `%s` failed", store.uid)
 
 
 class IndexScheduler:
@@ -142,6 +164,10 @@ class IndexScheduler:
         # test-only fault injection (reference test_utils.rs FailureLocation)
         self.failure_locations: set[str] = set()
         self.on_task_finished: Optional[Callable[[Task], None]] = None
+        # the device warm-ups started (`wait_device_warm` joins them) and
+        # whether a batch is between its start and its warm-up
+        self._warm_threads: list[threading.Thread] = []
+        self._in_batch = False
         self._thread = threading.Thread(
             target=self._run, name="scheduler", daemon=True
         )
@@ -224,12 +250,43 @@ class IndexScheduler:
         if self.network.get("shards") and store.shard_topology is None:
             store.set_shard_topology(sorted(self.network["shards"]))
         # the packed-v3 open is O(1); warm the host query caches (vocab
-        # pack, scorer tables) off the serving path
-        import threading
-
+        # pack, scorer tables) and the device off the serving path
         threading.Thread(
             target=_host_warm, args=([store],), daemon=True
         ).start()
+        self._kick_device_warm([store])
+
+    def _kick_device_warm(self, stores) -> None:
+        """Start `_device_warm(stores)` on a thread `wait_device_warm` joins."""
+        stores = [s for s in stores if s.device is not None]
+        if not stores:
+            return
+        th = threading.Thread(
+            target=_device_warm, args=(stores,), name="device-warm", daemon=True
+        )
+        with self.lock:
+            self._warm_threads = [t for t in self._warm_threads if t.is_alive()]
+            self._warm_threads.append(th)
+        th.start()
+
+    def wait_device_warm(self, timeout: float = 60.0) -> bool:
+        """Wait until the batch in progress, if any, has started its device
+        warm-up and every warm-up started so far has ended. Returns False
+        when `timeout` seconds pass first. After `wait_for_task` of a write
+        this returns once that write's warm-up is done."""
+        import time
+
+        deadline = time.monotonic() + timeout
+        with self.wake:
+            while self._in_batch:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self.wake.wait(left)
+            threads = list(self._warm_threads)
+        for th in threads:
+            th.join(max(0.0, deadline - time.monotonic()))
+        return not any(th.is_alive() for th in threads)
 
     def index(self, uid: str) -> IndexStore:
         with self.lock:
@@ -397,6 +454,7 @@ class IndexScheduler:
                                 self.journal.log_finish(task)
             self._maybe_checkpoint()
             with self.wake:
+                self._in_batch = False
                 self.wake.notify_all()
 
     def _enqueued(self) -> list[Task]:
@@ -583,6 +641,7 @@ class IndexScheduler:
                                      "finished": 0, "total": len(tasks)}],
                           "percentage": 0.0}
         with self.lock:
+            self._in_batch = True
             for task in tasks:
                 task.status = TaskStatus.PROCESSING
                 task.started_at = batch.started_at
@@ -656,6 +715,18 @@ class IndexScheduler:
                             )
                     except Exception:
                         pass
+        # warm the device of every index this batch wrote, off the serving
+        # path, except an index with more tasks queued (the JAX package's
+        # rule: that warm-up would be outgrown at once and would compete
+        # with the ingest)
+        with self.lock:
+            pending = {t.index_uid for t in self._enqueued() if t.index_uid}
+        warm = []
+        for uid in sorted({t.index_uid for t in tasks if t.index_uid} - pending):
+            store = self.indexes.get(uid)
+            if store is not None and store.documents:
+                warm.append(store)
+        self._kick_device_warm(warm)
         self._breakpoint("batch_processed")
         statuses: dict[str, int] = {}
         types: dict[str, int] = {}

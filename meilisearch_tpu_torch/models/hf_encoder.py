@@ -1,23 +1,46 @@
-"""In-process text embedding.
+"""In-process text embedding on the store's device (K8).
 
 Reference behavior: milli vector/embedder/hf.rs — a BERT-family checkpoint
 pulled from the hub, tokenized, mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
-embeddings (LRU-cached upstream). Zero-egress deployments can point
-`model` at a local path.
+embeddings (LRU-cached upstream). Zero-egress deployments point `model`
+at a local path.
 
-This is the torch branch of the JAX package's encoder, on the CPU. Its
-Flax branch (a jitted forward on the accelerator, K8) becomes a torch
-forward on CUDA in a later slice of the port.
+The JAX package runs transformers' Flax BERT under `jax.jit` (its
+`FlaxTextEncoder`). The port computes the same function with its own
+pieces and no transformers: the checkpoint directory is read by
+models/checkpoint.py, texts are tokenized on the host by
+models/wordpiece.py, and models/bert.py's `BertModel` runs on the device
+under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
+the first token's state; otherwise the mean over the attention mask), and
+the result is L2-normalized in numpy exactly as there. Only a local
+checkpoint directory is read: nothing is downloaded.
+
+`device=None` is the CPU, the host pass. On a CUDA device a failure
+raises; nothing is retried on the CPU.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from functools import lru_cache
 from typing import Optional
 
 import numpy as np
 import torch
+
+from ..ops.chain_keys import LaunchCounter
+from .checkpoint import build_model, load_checkpoint
+from .wordpiece import WordPiece
+
+# Texts per forward pass. 256 texts of 128 tokens give each linear layer
+# 32,768 rows, enough to fill the card; at the 512-token limit, the largest
+# live tensors of a bge-base pass, the (256, 12, 512, 512) float32 scores
+# and their softmax, take 3.2 GB each. On a CUDA device the chunk shrinks
+# until its worst case fits a quarter of the free memory.
+CHUNK_TEXTS = 256
+FORWARDS = LaunchCounter()  # encoder forward passes, any device
 
 
 class TextEncoder:
@@ -25,40 +48,71 @@ class TextEncoder:
         self,
         model_name: str,
         pooling: str = "useModel",  # useModel|forceMean|forceCls
+        device: Optional[torch.device] = None,
         max_len: int = 512,
     ):
         self.model_name = model_name
         self.pooling = pooling
+        self.device = torch.device("cpu") if device is None else torch.device(device)
         self.max_len = max_len
+        # texts, their real (unpadded) tokens and the wall seconds encoded
+        self.texts = self.tokens = 0
+        self.seconds = 0.0
         self._model = None
         self._tokenizer = None
+        self._lock = threading.Lock()
 
-    def _load(self):
-        if self._tokenizer is not None:
-            return
-        from transformers import AutoModel, AutoTokenizer
+    def _load(self) -> None:
+        with self._lock:
+            if self._model is not None:
+                return
+            ckpt = load_checkpoint(self.model_name)
+            self._tokenizer = WordPiece.from_config(ckpt.vocab, ckpt.tokenizer)
+            self._model = build_model(ckpt).to(self.device)
 
-        self._tokenizer = AutoTokenizer.from_pretrained(self.model_name)
-        self._model = AutoModel.from_pretrained(self.model_name)
-        self._model.eval()
+    def chunk_texts(self) -> int:
+        """Texts per forward pass on this encoder's device."""
+        if self.device.type != "cuda":
+            return CHUNK_TEXTS
+        c = self._model.config
+        L, heads = self.max_len, c["num_attention_heads"]
+        # per text at max_len: scores, their bias sum and softmax, and the
+        # hidden, intermediate and projection activations, float32
+        per_text = 4 * (3 * heads * L * L + L * (6 * c["hidden_size"] + 2 * c["intermediate_size"]))
+        free, _total = torch.cuda.mem_get_info(self.device)
+        return max(1, min(CHUNK_TEXTS, free // 4 // per_text))
 
-    def encode(self, texts: list[str], normalize: bool = True) -> np.ndarray:
-        self._load()
-        tok = self._tokenizer(
-            texts,
-            return_tensors="pt",
-            padding=True,
-            truncation=True,
-            max_length=self.max_len,
-        )
-        with torch.no_grad():
-            hidden = self._model(**tok).last_hidden_state
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """Pooled (B, hidden) float32 on the device for host-tokenized ids."""
+        ids, mask = self._upload(input_ids), self._upload(attention_mask)
+        with torch.inference_mode():
+            FORWARDS.add()
+            hidden = self._model(ids, mask)
             if self.pooling == "forceCls":
-                emb = hidden[:, 0].numpy()
-            else:
-                mask = tok["attention_mask"][:, :, None].to(hidden.dtype)
-                emb = ((hidden * mask).sum(1) / mask.sum(1).clamp(1e-9)).numpy()
-        emb = emb.astype(np.float32)
+                return hidden[:, 0]
+            m = mask[:, :, None].to(hidden.dtype)
+            return (hidden * m).sum(1) / m.sum(1).clamp(min=1e-9)
+
+    def encode(self, texts: list, normalize: bool = True) -> np.ndarray:
+        t0 = time.perf_counter()
+        self._load()
+        hidden = self._model.config["hidden_size"]
+        emb = np.empty((len(texts), hidden), np.float32)
+        step = self.chunk_texts()
+        tokens = 0
+        for s in range(0, len(texts), step):
+            ids, mask = self._tokenizer(texts[s : s + step], self.max_len)
+            tokens += int(mask.sum())
+            emb[s : s + len(ids)] = self.forward(ids, mask).float().cpu().numpy()
+        with self._lock:
+            self.texts += len(texts)
+            self.tokens += tokens
+            self.seconds += time.perf_counter() - t0
         if normalize:
             norms = np.linalg.norm(emb, axis=1, keepdims=True)
             norms[norms == 0] = 1.0
@@ -67,11 +121,12 @@ class TextEncoder:
 
 
 @lru_cache(maxsize=4)
-def encoder(model_name: str, pooling: str) -> TextEncoder:
-    return TextEncoder(model_name, pooling)
+def encoder(model_name: str, pooling: str, device: Optional[torch.device] = None) -> TextEncoder:
+    return TextEncoder(model_name, pooling, device)
 
 
 def encode_text(
-    model_name: str, text: str, pooling: str = "useModel"
+    model_name: str, text: str, pooling: str = "useModel",
+    device: Optional[torch.device] = None,
 ) -> Optional[np.ndarray]:
-    return encoder(model_name, pooling).encode([text])[0]
+    return encoder(model_name, pooling, device).encode([text])[0]

@@ -4,15 +4,17 @@ Reference: milli/src/vector/embedder/ — Embedder enum: HuggingFace (in-process
 inference), OpenAI, Ollama, REST, UserProvided, Composite
 (embedder/mod.rs:23-35); search-time embeddings are LRU-cached.
 
-Local inference runs through transformers' torch models (models/hf_encoder.py)
-and the remote embedders are host HTTP calls.
+Local inference (`huggingFace`) runs the port's BERT (models/hf_encoder.py)
+on the device the index is bound to (`store.device`; None = the CPU), for
+documents at indexing and for queries at search; the remote embedders are
+host HTTP calls. A failure of the local model is a VECTOR_EMBEDDING_ERROR
+and counts in `serving_stats()["device_errors"]` when a device is bound.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -95,11 +97,12 @@ def validate_embedder_settings(name: str, conf: dict) -> None:
 class Embedder:
     """Dispatch over embedder sources."""
 
-    def __init__(self, name: str, conf: dict):
+    def __init__(self, name: str, conf: dict, device=None):
         self.name = name
         self.conf = conf
         self.source = conf.get("source", "openAi")
         self.dimensions = conf.get("dimensions")
+        self.device = device  # the local model's torch device (None: the CPU)
 
     def embed_search(self, text: str) -> np.ndarray:
         key = hashlib.sha256(
@@ -134,7 +137,7 @@ class Embedder:
                 ErrorCode.INVALID_EMBEDDER,
                 f"`.embedders.{self.name}`: Missing field `{which}`.",
             )
-        return Embedder(f"{self.name}.{which}", sub_conf)
+        return Embedder(f"{self.name}.{which}", sub_conf, self.device)
 
     def embed_documents(self, texts: list) -> np.ndarray:
         """Index-time batch embedding (reference Embedder::embed_index;
@@ -149,32 +152,27 @@ class Embedder:
         if self.source == "composite":
             return self._sub_embedder("indexingEmbedder").embed_documents(texts)
         if self.source == "huggingFace":
-            try:
-                from ..models.hf_encoder import encoder
-
-                model_name = self.conf.get("model", "BAAI/bge-base-en-v1.5")
-                pooling = self.conf.get("pooling", "useModel")
-                return encoder(model_name, pooling).encode(list(texts))
-            except EngineError:
-                raise
-            except Exception as err:
-                raise EngineError(
-                    ErrorCode.VECTOR_EMBEDDING_ERROR,
-                    f"Error while generating embeddings with embedder"
-                    f" `{self.name}`: {err}",
-                )
+            return self._local_model(list(texts))
         return np.stack([self._embed_rest(t) for t in texts])
 
     def _embed_huggingface(self, text: str) -> np.ndarray:
+        return self._local_model([text])[0]
+
+    def _local_model(self, texts: list) -> np.ndarray:
+        """The huggingFace model's embeddings of `texts` on this embedder's
+        device. Any failure is a VECTOR_EMBEDDING_ERROR, counted in
+        device_errors when a device is bound; nothing retries on the CPU."""
         try:
-            from ..models.hf_encoder import encode_text
+            from ..models.hf_encoder import encoder
 
             model_name = self.conf.get("model", "BAAI/bge-base-en-v1.5")
             pooling = self.conf.get("pooling", "useModel")
-            return encode_text(model_name, text, pooling)
-        except EngineError:
-            raise
+            return encoder(model_name, pooling, self.device).encode(texts)
         except Exception as err:
+            if self.device is not None:
+                from ..search.device_batch import _stats_add
+
+                _stats_add(device_errors=1)
             raise EngineError(
                 ErrorCode.VECTOR_EMBEDDING_ERROR,
                 f"Error while generating embeddings with embedder"
@@ -265,16 +263,6 @@ class Embedder:
         return np.asarray(emb, dtype=np.float32)
 
 
-@lru_cache(maxsize=4)
-def _load_hf_model(model_name: str):
-    from transformers import AutoModel, AutoTokenizer
-
-    tokenizer = AutoTokenizer.from_pretrained(model_name)
-    model = AutoModel.from_pretrained(model_name)
-    model.eval()
-    return model, tokenizer
-
-
 _search_cache: dict = {}
 
 
@@ -345,7 +333,7 @@ def ensure_document_embeddings(store) -> None:
         source = conf.get("source", "openAi")
         if source == "userProvided":
             continue
-        embedder = Embedder(name, conf)
+        embedder = Embedder(name, conf, store.device)
         doc_conf = (
             conf.get("indexingEmbedder", {}) if source == "composite" else conf
         )
@@ -430,4 +418,4 @@ def get_embedder(store, name: Optional[str]) -> Embedder:
             ErrorCode.INVALID_EMBEDDER,
             f"Cannot find embedder with name `{name}`.",
         )
-    return Embedder(name, conf)
+    return Embedder(name, conf, store.device)

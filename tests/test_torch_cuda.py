@@ -8,8 +8,9 @@ jax is absent:
 (`--noconftest`: tests/conftest.py sets up jax for the JAX package's
 tests.) K1 and K4h are held against their plain torch versions bit for
 bit, a refused launch must raise, the port's search path on the card,
-typo pass included, must answer exactly as its host scorer, and the vector
-legs on the card as its numpy host pass."""
+typo pass included, must answer exactly as its host scorer, the vector
+legs on the card as its numpy host pass, and the text encoder (K8) on the
+card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -249,3 +250,88 @@ def test_hamming_cosine_on_the_card_rounds_as_the_host(cuda_device, dim):
     want = (dim - 2.0 * ham.astype(np.float32)) / dim
     got = _ham_cos(torch.from_numpy(ham).to(cuda_device), dim).cpu().numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+ENC_WORDS = ["rust", "search", "engine", "cloud", "database", "machine", "learning", "gpu"]
+
+
+def _tiny_checkpoint(path, seed=0):
+    """A 2-layer, width-32 BERT checkpoint written by the port itself (no
+    transformers where the card is): seeded torch weights, a small vocab."""
+    from meilisearch_tpu_torch.models.bert import BertModel
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    letters = "abcdefghijklmnopqrstuvwxyz0123456789"
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *ENC_WORDS, *letters,
+             *("##" + c for c in letters), *".,:/-!?"]
+    config = {"vocab_size": len(vocab), "hidden_size": 32, "num_hidden_layers": 2,
+              "num_attention_heads": 4, "intermediate_size": 64,
+              "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12}
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, BertModel(config).state_dict(), vocab)
+    return str(path)
+
+
+def _enc_texts(n, seed):
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(ENC_WORDS, size=int(k))) + f" #{i}!"
+            for i, k in enumerate(rng.integers(0, 40, n))]
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+def test_encoder_on_the_card_matches_the_cpu(cuda_device, tmp_path, pooling):
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _tiny_checkpoint(tmp_path, seed=1)
+    texts = _enc_texts(20, seed=2)
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
+def test_encoder_chunks_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """Chunks of 3 texts on the card, each padded to its own longest,
+    against one CPU pass; the chunk size read from the card's memory."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _tiny_checkpoint(tmp_path, seed=3)
+    texts = _enc_texts(11, seed=4)
+    card = hf_encoder.TextEncoder(path, "useModel", device=cuda_device)
+    chunk = hf_encoder.CHUNK_TEXTS
+    monkeypatch.setattr(hf_encoder, "CHUNK_TEXTS", 3)
+    before = hf_encoder.FORWARDS.value
+    got = card.encode(texts)
+    assert hf_encoder.FORWARDS.value - before == 4
+    assert card.chunk_texts() == 3
+    monkeypatch.setattr(hf_encoder, "CHUNK_TEXTS", chunk)
+    assert 1 <= card.chunk_texts() <= chunk
+    want = hf_encoder.TextEncoder(path, "useModel", device=None).encode(texts)
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
+def test_encoder_refused_launch_raises(cuda_device, tmp_path):
+    """With TF32 on, the forward on the card refuses to launch: the embedder
+    raises VECTOR_EMBEDDING_ERROR, counts a device error and retries
+    nothing on the CPU."""
+    from meilisearch_tpu_torch.models import hf_encoder
+    from meilisearch_tpu_torch.search.device_batch import serving_stats
+    from meilisearch_tpu_torch.types.errors import EngineError, ErrorCode
+    from meilisearch_tpu_torch.vector.embedders import Embedder
+
+    path = _tiny_checkpoint(tmp_path, seed=5)
+    embedder = Embedder("e", {"source": "huggingFace", "model": path}, cuda_device)
+    before, forwards = serving_stats()["device_errors"], hf_encoder.FORWARDS.value
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(EngineError) as err:
+            embedder.embed_documents(_enc_texts(4, seed=6))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert err.value.code == ErrorCode.VECTOR_EMBEDDING_ERROR
+    assert "allow_tf32" in str(err.value)
+    assert serving_stats()["device_errors"] == before + 1
+    assert hf_encoder.FORWARDS.value == forwards + 1  # one attempt, on the card

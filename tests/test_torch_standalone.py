@@ -1,6 +1,7 @@
 """The port stands alone: no file of `meilisearch_tpu_torch/` imports the
-JAX package or jax, and every module of the port imports in a process
-where `meilisearch_tpu`, jax, jaxlib and flax cannot be imported."""
+JAX package, jax, transformers or safetensors, and every module of the
+port imports in a process where `meilisearch_tpu`, jax, jaxlib, flax,
+transformers and safetensors cannot be imported."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "meilisearch_tpu_torch"
-FORBIDDEN = ("meilisearch_tpu", "jax", "jaxlib", "flax")
+FORBIDDEN = ("meilisearch_tpu", "jax", "jaxlib", "flax", "transformers", "safetensors")
 FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
 
 
@@ -48,7 +49,7 @@ import importlib
 import pkgutil
 import sys
 
-for name in ("meilisearch_tpu", "jax", "jaxlib", "flax"):
+for name in ("meilisearch_tpu", "jax", "jaxlib", "flax", "transformers", "safetensors"):
     sys.modules[name] = None  # import raises ImportError
 
 import meilisearch_tpu_torch
