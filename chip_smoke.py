@@ -16,8 +16,10 @@ Phases, each fatal on failure:
      them, 32 distinct codepoints, 32 codepoints that collide under the
      query table's first multiplier) at max_dist 1 and 2, and three of
      them against the host pass (ops/levenshtein.py) on 2^16 words; K4h
-     against its plain version element for element at n = 2^18 + 3 rows
-     for W = 1, 4, 12, 24 and 48 sign words, aligned and not;
+     in both modes against its plain versions element for element (the
+     keyed mode's cosines and keys bit for bit, at n_live = 1, n - 5 and
+     n) at n = 2^18 + 3 rows for W = 1, 3, 4, 12, 24 and 48 sign words,
+     aligned and not;
   3. keyword path: the port's App ingests N synthetic hackernews documents
      (default 500,000, so D = 2^19) over POST /indexes/hn/documents,
      then 32 client threads send a fixed query set to
@@ -51,12 +53,14 @@ Phases, each fatal on failure:
      warm, beside the bound the function needs; the vocabulary's upload
      with its length order; and for the words nearest 5 and 10 letters
      the whole typo-pass device call split into query table, kernel,
-     readback and numpy, and the host pass; K4h per launch, cold and
-     warm, on the vector path's resident sign words (n = 2^18, W = 24),
-     its plain version (equal again) and its bound; the float leg's
-     device work, its torch.matmul alone, its bound; both legs' kernels
-     by device time; both legs' whole search_async call and their numpy
-     host passes;
+     readback and numpy, and the host pass; K4h per launch in each mode
+     (ham over every row; keyed, the mode of the binary leg's top-k,
+     over the path's live rows), cold and warm, on the vector path's
+     resident sign words (n = 2^18, W = 24), its plain versions (equal
+     again) and each mode's bound; the float leg's device work, its
+     torch.matmul alone, its bound; both legs' kernels by device time
+     and their launches per call; both legs' whole search_async call and
+     their numpy host passes;
   7. encoder path (hn150k-bgebase-hf): a checkpoint at
      BAAI/bge-base-en-v1.5's published width (BERT, vocab 30,522, hidden
      768, 12 layers, 12 heads, intermediate 3,072; seeded random weights,
@@ -121,6 +125,8 @@ OSA_OPS_PER_LETTER = 19
 K1_KERNEL, K3_KERNEL, K4H_KERNEL = "chain_keys_kernel", "osa_kernel", "hamming_kernel"
 L2_FLUSH_BYTES = 256 << 20  # written before a cold launch: 5x the 50 MB L2
 REPEATS = 5  # repeats of a kernel's cold and warm launches in the timing phase
+# K4h's checked widths: 32, 96, 100, 384, 768 and 1536 dimensions
+HAM_WIDTHS = (1, 3, 4, 12, 24, 48)
 SENTINELS = 4  # launches that open a traced session, not timed (launch_ms)
 # the typo path's vocabulary: above the device gate (2^19 words), and the
 # n = 2^20 rows at which K3 is timed
@@ -234,31 +240,48 @@ def kernel_phase(device) -> int:
 
 
 def hamming_kernel_phase(device) -> int:
-    """K4h against hamming_rows_torch on the card at n = 2^18 + 3 rows (not
-    a multiple of the block) of seeded words, bit 31 set on half of them,
-    for W = 1, 4, 12, 24 and 48: the matrix 16-byte aligned and, on a view
-    one word in, not. Returns the max abs error (0 when equal; anything
-    else raises)."""
+    """K4h's two modes against their plain versions on the card at
+    n = 2^18 + 3 rows (not a multiple of a tile) of seeded words, bit 31
+    set on half of them, for W = 1, 3, 4, 12, 24 and 48: the matrix
+    16-byte aligned and, on a view one word in, not; the keyed mode at
+    n_live = 1, n - 5 and n. Returns the max abs error (0 when equal,
+    cosines and keys bit for bit; anything else raises)."""
     import torch
 
-    from meilisearch_tpu_torch.ops.hamming import hamming_rows, hamming_rows_torch
+    from meilisearch_tpu_torch.ops import hamming
 
     n, worst = (1 << 18) + 3, 0
-    for W in (1, 4, 12, 24, 48):
+    for W in HAM_WIDTHS:
         gen = torch.Generator().manual_seed(4000 + W)
         flat = torch.randint(-(1 << 31), 1 << 31, (n * W + 1,), generator=gen,
                              dtype=torch.int64).to(torch.int32).to(device)
         q = flat[-W:].clone()
         for mat in (flat[: n * W].view(n, W), flat[1:].view(n, W)):
-            got = hamming_rows(mat, q)
+            got = hamming.hamming_rows(mat, q)
             torch.cuda.synchronize()
-            want = hamming_rows_torch(mat, q)
-            if not torch.equal(got, want):
-                raise AssertionError(f"K4h disagrees with hamming_rows_torch at W={W}")
-            worst = max(worst, int((got.long() - want.long()).abs().max()))
-    say(f"K4h n={n} W=1,4,12,24,48, aligned and not: equal to hamming_rows_torch,"
-        f" max_abs_err={worst}")
+            worst = max(worst, k4h_err(got, hamming.hamming_rows_torch(mat, q), f"ham W={W}"))
+            for n_live in (1, n - 5, n):
+                got = hamming.hamming_keyed(mat, q, 32 * W, n_live)
+                torch.cuda.synchronize()
+                want = hamming.hamming_keyed_torch(mat, q, 32 * W, n_live)
+                worst = max(worst, k4h_err(got, want, f"keyed W={W} n_live={n_live}"))
+    say(f"K4h n={n} W={','.join(map(str, HAM_WIDTHS))}, aligned and not: ham, and keyed at"
+        f" n_live = 1, n - 5, n, bit for bit equal to the plain versions, max_abs_err={worst}")
     return worst
+
+
+def k4h_err(got, want, what: str) -> float:
+    """K4h's output, `ham` or the keyed mode's (cos, key), against its
+    plain version's: raises unless every tensor is equal bit for bit;
+    returns the max abs error (0)."""
+    import torch
+
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    bits = [(g.view(torch.int32), w.view(torch.int32)) if g.dtype == torch.float32 else (g, w)
+            for g, w in pairs]
+    if not all(torch.equal(g, w) for g, w in bits):
+        raise AssertionError(f"K4h ({what}) disagrees with its plain version")
+    return max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
 
 
 def osa_vocab(n: int, seed: int):
@@ -1118,14 +1141,17 @@ def timing_phase(device, card: str, typo: dict, vector: dict) -> dict:
     return out
 
 
-def k4h_bound_ms(n: int, w: int) -> tuple[float, str]:
+def k4h_bound_ms(n: int, w: int, n_live: int | None = None) -> tuple[float, str]:
     """The least time K4h could take on an (n, w) matrix: the larger of
-    the bytes it must move (the matrix and the query read once, the n
-    int32 distances written once) over the HBM rate, and its n * w
-    population counts over the card's POPC rate (the XORs and adds go to
-    other units at a higher rate)."""
-    moved = n * w * 4 + w * 4 + n * 4
-    t_bytes, t_ops = moved / HBM_BYTES_S, n * w / POPC_OPS_S
+    the bytes it must move over the HBM rate and its population counts
+    over the card's POPC rate (the XORs and adds go to other units at a
+    higher rate). Mode ham (n_live None): the matrix and the query read
+    once, n int32 distances written once. Mode keyed: only the first
+    n_live rows read (the pad rows' outputs do not depend on the matrix),
+    n float32 cosines and n int64 keys written once."""
+    n_read, out_bytes = (n, 4) if n_live is None else (n_live, 12)
+    moved = n_read * w * 4 + w * 4 + n * out_bytes
+    t_bytes, t_ops = moved / HBM_BYTES_S, n_read * w / POPC_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -1165,17 +1191,20 @@ def leg_breakdown(label: str, call, device, reps: int = 10) -> tuple[float, floa
 
 
 def vector_timing(card: str, vector: dict) -> dict:
-    """K4h on the vector path's resident sign words (n = 2^18, W = 24):
-    equal to its plain version, then plain, kernel (traced per launch,
-    cold and warm, REPEATS repeats), plain; its bound. The float leg on
-    the resident float matrix: its device work (CUDA events around
-    `_device_topk_dispatch`), its torch.matmul alone (the library call),
-    its bound. Both legs' whole search_async call and their numpy host
-    passes, on the host clock. Returns the kernels line's numbers."""
+    """K4h on the vector path's resident sign words (n = 2^18, W = 24), in
+    each mode (ham over every row; keyed with the path's n_live rows
+    live): equal to its plain version, then plain, kernel (traced per
+    launch, cold and warm, REPEATS repeats), plain; each mode's bound. The
+    float leg on the resident float matrix: its device work (CUDA events
+    around `_device_topk_dispatch`), its torch.matmul alone (the library
+    call), its bound. Both legs' kernels and launches per call, and their
+    whole search_async call and numpy host passes on the host clock.
+    Returns the kernels line's numbers: the keyed mode's, the one the
+    binary leg's top-k launches."""
     import numpy as np
     import torch
 
-    from meilisearch_tpu_torch.ops.hamming import hamming_rows, hamming_rows_torch
+    from meilisearch_tpu_torch.ops import hamming
     from meilisearch_tpu_torch.vector.store import _device_topk_dispatch, _pack_signs
 
     binary, floating, q = vector["binary"], vector["float"], vector["query"]
@@ -1183,21 +1212,29 @@ def vector_timing(card: str, vector: dict) -> dict:
     m_dev, n = binary._device[("matrix", dev)]
     n_pad, w = m_dev.shape
     qd = torch.from_numpy(_pack_signs(q[None, :])[0].view(np.int32)).to(dev)
-    got = hamming_rows(m_dev, qd)
-    torch.cuda.synchronize()
-    want = hamming_rows_torch(m_dev, qd)
-    if not torch.equal(got, want):
-        raise AssertionError("K4h disagrees with hamming_rows_torch on the resident sign words")
-    err = int((got.long() - want.long()).abs().max())
-    plain = [_median_ms(lambda: hamming_rows_torch(m_dev, qd), reps=5)]
-    k4 = repeated_launch_ms(K4H_KERNEL, lambda: hamming_rows(m_dev, qd), dev)
-    plain.append(_median_ms(lambda: hamming_rows_torch(m_dev, qd), reps=5))
-    bound, by = k4h_bound_ms(n_pad, w)
-    say(f"timing K4h n={n_pad} W={w} on {card}: per launch (trace, median of {REPEATS}"
-        f" repeats of 10) cold {k4['cold_ms']:.4f} ms (repeats {_spread(k4['cold'])}),"
-        f" warm {k4['warm_ms']:.4f} ms (repeats {_spread(k4['warm'])});"
-        f" hamming_rows_torch {statistics.median(plain):.4f} ms (runs {plain}); bound"
-        f" {bound:.4f} ms ({by}); cold {bound / k4['cold_ms']:.2f} of the bound; equal")
+    modes = {
+        "ham": (lambda: hamming.hamming_rows(m_dev, qd),
+                lambda: hamming.hamming_rows_torch(m_dev, qd), k4h_bound_ms(n_pad, w)),
+        "keyed": (lambda: hamming.hamming_keyed(m_dev, qd, binary.dim, n),
+                  lambda: hamming.hamming_keyed_torch(m_dev, qd, binary.dim, n),
+                  k4h_bound_ms(n_pad, w, n)),
+    }
+    lines = {}
+    for mode, (call, plain_call, (bound, by)) in modes.items():
+        got = call()
+        torch.cuda.synchronize()
+        err = k4h_err(got, plain_call(), f"{mode} on the resident sign words")
+        plain = [_median_ms(plain_call, reps=5)]
+        k4 = repeated_launch_ms(K4H_KERNEL, call, dev)
+        plain.append(_median_ms(plain_call, reps=5))
+        say(f"timing K4h {mode} n={n_pad} n_live={n} W={w} on {card}: per launch (trace,"
+            f" median of {REPEATS} repeats of 10) cold {k4['cold_ms']:.4f} ms (repeats"
+            f" {_spread(k4['cold'])}), warm {k4['warm_ms']:.4f} ms (repeats"
+            f" {_spread(k4['warm'])}); plain version {statistics.median(plain):.4f} ms (runs"
+            f" {plain}); bound {bound:.4f} ms ({by}); cold {bound / k4['cold_ms']:.2f}, warm"
+            f" {bound / k4['warm_ms']:.2f} of the bound; equal")
+        lines[mode] = {"ms": k4["cold_ms"], "plain_ms": statistics.median(plain),
+                       "bound_ms": bound, "bound_by": by, "max_abs_err": err}
 
     k = 30  # offset + limit of the path's paged requests
     fm, fn = floating._device[("matrix", dev)]
@@ -1227,8 +1264,7 @@ def vector_timing(card: str, vector: dict) -> dict:
     say(f"timing search_async(q, {k})() on {card}, host clock, medians: float"
         f" {whole['float']:.3f} ms, binary {whole['binary']:.3f} ms; numpy host pass:"
         f" float {whole['float host']:.3f} ms, binary {whole['binary host']:.3f} ms")
-    return {"ms": k4["cold_ms"], "plain_ms": statistics.median(plain),
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    return lines["keyed"]
 
 
 def warp_lengths(lens) -> str:

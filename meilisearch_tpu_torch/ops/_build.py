@@ -59,7 +59,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [ptr] * 4 + [cint] + [ptr] * 3
     fn.restype = cint
     fn = lib.mst_hamming  # K4h, csrc/hamming.cu
-    fn.argtypes = [ptr] * 2 + [cint] * 2 + [ptr] * 2
+    fn.argtypes = [ptr] * 2 + [cint] * 5 + [ptr] * 4
     fn.restype = cint
     return lib
 

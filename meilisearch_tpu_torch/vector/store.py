@@ -12,16 +12,17 @@ Design:
     generation, rows padded to a power-of-two bucket) and computes the
     similarity column and its top-k there, the JAX package's device legs
     under their names. On a CUDA device the binary-quantized legs go
-    through K4h (ops/hamming.py, csrc/hamming.cu); on the CPU through its
-    plain torch version. Every device failure raises (counted in
+    through K4h (ops/hamming.py, csrc/hamming.cu), whose keyed mode also
+    writes the top-k's cosine, pad mask and sort key; on the CPU through
+    its plain torch version. Every device failure raises (counted in
     `serving_stats()["device_errors"]`); nothing falls back to the host.
   * the float leg is one `torch.matmul` (cuBLAS on the card) in full
     float32: it needs `torch.backends.cuda.matmul.allow_tf32 = False`,
     PyTorch's default, and raises otherwise (TF32 keeps about three
     digits and would move near-ties).
   * the device top-k is `lax.top_k`'s: equal values lower row first, and
-    +0.0 above -0.0 (`_topk_desc`), so the hits and their order equal the
-    JAX package's.
+    +0.0 above -0.0 (`_topk_from_key` on `ops.hamming.topk_key`), so the
+    hits and their order equal the JAX package's.
   * binaryQuantized stores SIGN BITS packed 32/word (32x smaller than the
     f32 matrix; the reference's BQ exists for exactly this memory cut,
     store.rs hamming path). Scoring is hamming via XOR+popcount:
@@ -45,7 +46,7 @@ import torch
 
 from ..index.store import IndexStore
 from ..ops.chain_keys import LaunchCounter
-from ..ops.hamming import hamming_rows
+from ..ops.hamming import hamming_keyed, hamming_rows, topk_key
 
 # the JAX package's gate (below it its host matmul beat a TPU's dispatch
 # cost); not yet re-derived for the H100
@@ -381,20 +382,10 @@ def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
-def _ham_column(m_dev, query_bits: np.ndarray):
-    """K4h over the resident padded sign words: (n_pad,) int32."""
+def _query_words(query_bits: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The query's sign words on `device`, int32 (their bit pattern)."""
     q = torch.from_numpy(np.ascontiguousarray(query_bits).view(np.int32))
-    return hamming_rows(m_dev, _upload(q, m_dev.device))
-
-
-def _ham_cos(ham: torch.Tensor, dim: int) -> torch.Tensor:
-    """cos = (dim - 2 ham) / dim of sign vectors in float32, rounded as
-    the JAX package and the numpy host pass round it: one IEEE division.
-    The divisor is a tensor filled on ham's device: torch divides a CUDA
-    tensor by a CPU scalar through the scalar's reciprocal (a * (1 / dim)),
-    which is an ulp off for some ham."""
-    divisor = torch.full((), float(dim), dtype=torch.float32, device=ham.device)
-    return (dim - 2.0 * ham.float()) / divisor
+    return _upload(q, device)
 
 
 def _device_cosine(searcher, unit_query):
@@ -407,13 +398,14 @@ def _topk_desc(vals: torch.Tensor, kb: int):
     """`lax.top_k(vals, kb)` of a float32 vector: the kb largest values in
     descending order, equal values lower index first, +0.0 above -0.0 (a
     total order on the bits). `torch.topk` alone orders ties otherwise, so
-    it selects here on a unique int64 key: the high word the value's bits
-    made order-preserving as a signed integer (negative floats' magnitude
-    bits flipped), the low word 2^32 - 1 - index. Returns (values, index)."""
-    bits = vals.view(torch.int32)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
-    low = 0xFFFFFFFF - torch.arange(vals.numel(), device=vals.device)
-    key = ordered * (1 << 32) + low
+    it selects on `topk_key`. Returns (values, index)."""
+    return _topk_from_key(vals, topk_key(vals), kb)
+
+
+def _topk_from_key(vals: torch.Tensor, key: torch.Tensor, kb: int):
+    """The top-k of `vals` by its unique int64 `key` (`topk_key`, or K4h's
+    keyed mode): the kb largest keys, the index decoded from each key's
+    low word. Returns (values, index)."""
     idx = 0xFFFFFFFF - (torch.topk(key, kb, sorted=True).values & 0xFFFFFFFF)
     return vals[idx], idx
 
@@ -431,11 +423,13 @@ def _device_topk_dispatch(searcher, q: np.ndarray, k: int):
     if kb > n_pad:
         kb = n_pad
     if searcher.quantized:
-        cos = _ham_cos(_ham_column(m_dev, _pack_signs(q[None, :])[0]), searcher.dim)
+        qw = _query_words(_pack_signs(q[None, :])[0], m_dev.device)
+        cos, key = hamming_keyed(m_dev, qw, searcher.dim, n)
+        vals, idx = _topk_from_key(cos, key, kb)
     else:
         cos = _cos_column(searcher, m_dev, q)
-    cos[n:] = -2.0
-    vals, idx = _topk_desc(cos, kb)
+        cos[n:] = -2.0
+        vals, idx = _topk_desc(cos, kb)
     return vals, idx, kb, n
 
 
@@ -467,6 +461,7 @@ def _device_topk_collect(searcher, pending, k):
 
 
 def _device_hamming(searcher, query_bits):
-    """XOR + popcount (K4h) over the resident packed sign matrix, read back."""
+    """XOR + popcount (K4h) over the live rows of the resident packed sign
+    matrix, read back."""
     m_dev, n = _resident(searcher, "matrix", searcher.matrix)
-    return _ham_column(m_dev, query_bits)[:n].cpu().numpy()
+    return hamming_rows(m_dev[:n], _query_words(query_bits, m_dev.device)).cpu().numpy()

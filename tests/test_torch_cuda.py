@@ -6,11 +6,11 @@ jax is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py tests/test_torch_device_osa.py -m cuda -q
 
 (`--noconftest`: tests/conftest.py sets up jax for the JAX package's
-tests.) K1 and K4h are held against their plain torch versions bit for
-bit, a refused launch must raise, the port's search path on the card,
-typo pass included, must answer exactly as its host scorer, the vector
-legs on the card as its numpy host pass, and the text encoder (K8) on the
-card as the same checkpoint on the CPU."""
+tests.) K1 and K4h (both modes) are held against their plain torch
+versions bit for bit, a refused launch must raise, the port's search
+path on the card, typo pass included, must answer exactly as its host
+scorer, the vector legs on the card as its numpy host pass, and the text
+encoder (K8) on the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -166,17 +166,30 @@ def test_server_entry_serves_on_the_card(cuda_device, tmp_path):
         assert proc.wait(timeout=60) == 0
 
 
-@pytest.mark.parametrize("W", [1, 4, 12, 24, 48])
-@pytest.mark.parametrize("n", [1, 4099, 1 << 18])
-def test_hamming_kernel_matches_plain(cuda_device, n, W):
-    """K4h against hamming_rows_torch: rows not a multiple of the block,
-    words with bit 31 set, the 16-byte path (W % 4 == 0) and the word
-    path; and an unaligned matrix, which takes the word path."""
-    from meilisearch_tpu_torch.ops import hamming
+HAM_WIDTHS = [1, 3, 4, 12, 24, 48]  # 32, 96, 100, 384, 768 and 1536 dimensions
+HAM_ROWS = [1, 4099, 1 << 18, (1 << 18) + 3]  # rows not a multiple of a tile too
 
+
+def _sign_words(n, W, device):
+    """A flat (n * W + 1,) int32 tensor of seeded words (bit 31 set on
+    about half) on the card: `flat[:n * W]` is a 16-byte-aligned (n, W)
+    matrix, `flat[1:]` the same shape one word in."""
     gen = torch.Generator().manual_seed(n * 64 + W)
     words = torch.randint(-(1 << 31), 1 << 31, (n * W + 1,), generator=gen, dtype=torch.int64)
-    flat = words.to(torch.int32).to(cuda_device)
+    return words.to(torch.int32).to(device)
+
+
+@pytest.mark.parametrize("W", HAM_WIDTHS)
+@pytest.mark.parametrize("n", HAM_ROWS)
+def test_hamming_kernel_matches_plain(cuda_device, n, W):
+    """K4h's ham mode against hamming_rows_torch: rows not a multiple of
+    the tile, words with bit 31 set, the compile-time widths (W = 4, 12,
+    24, 48), the word-by-word widths and the rows left past the last
+    16-byte copy (W = 1, 3); and an unaligned matrix, which takes the
+    plain path."""
+    from meilisearch_tpu_torch.ops import hamming
+
+    flat = _sign_words(n, W, cuda_device)
     q = flat[:W].clone()
     for mat in (flat[: n * W].view(n, W), flat[1:].view(n, W)):  # aligned, unaligned
         before = hamming.LAUNCHES.value
@@ -186,6 +199,26 @@ def test_hamming_kernel_matches_plain(cuda_device, n, W):
         assert torch.equal(got, hamming.hamming_rows_torch(mat, q))
 
 
+@pytest.mark.parametrize("W", HAM_WIDTHS)
+@pytest.mark.parametrize("n", HAM_ROWS)
+def test_hamming_keyed_kernel_matches_plain(cuda_device, n, W):
+    """K4h's keyed mode against hamming_keyed_torch, cos and key bit for
+    bit, for n_live 1, n - 5 and n, aligned and one word in."""
+    from meilisearch_tpu_torch.ops import hamming
+
+    flat = _sign_words(n, W, cuda_device)
+    q = flat[-W:].clone()
+    for mat in (flat[: n * W].view(n, W), flat[1:].view(n, W)):
+        for n_live in sorted({1, max(n - 5, 0), n}):
+            before = hamming.LAUNCHES.value
+            cos, key = hamming.hamming_keyed(mat, q, 32 * W, n_live)
+            torch.cuda.synchronize()
+            assert hamming.LAUNCHES.value == before + 1
+            want_cos, want_key = hamming.hamming_keyed_torch(mat, q, 32 * W, n_live)
+            assert torch.equal(cos.view(torch.int32), want_cos.view(torch.int32))
+            assert torch.equal(key, want_key)
+
+
 def test_hamming_refused_launch_raises(cuda_device):
     from meilisearch_tpu_torch.ops import hamming
 
@@ -193,9 +226,15 @@ def test_hamming_refused_launch_raises(cuda_device):
     w = hamming.MAX_WORDS + 1
     mat = torch.zeros((4, w), dtype=torch.int32, device=cuda_device)
     out = torch.empty(4, dtype=torch.int32, device=cuda_device)
-    rc = lib.mst_hamming(mat.data_ptr(), mat.data_ptr(), 4, w, out.data_ptr(),
-                         torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.mst_hamming(mat.data_ptr(), mat.data_ptr(), 4, w, hamming.MODE_HAM, 0, 4,
+                         out.data_ptr(), None, None, stream)
     assert rc != 0  # q would not fit the kernel's shared memory
+    with pytest.raises(RuntimeError):
+        hamming.check_launch(rc)
+    rc = lib.mst_hamming(mat.data_ptr(), mat.data_ptr(), 4, 4, hamming.MODE_KEYED, 128, 5,
+                         None, out.data_ptr(), out.data_ptr(), stream)
+    assert rc != 0  # n_live above n
     with pytest.raises(RuntimeError):
         hamming.check_launch(rc)
 
@@ -244,12 +283,22 @@ def test_vector_legs_on_the_card_match_host(cuda_device, quantized):
 
 @pytest.mark.parametrize("dim", [32, 100, 768, 1536])
 def test_hamming_cosine_on_the_card_rounds_as_the_host(cuda_device, dim):
-    from meilisearch_tpu_torch.vector.store import _ham_cos
+    """Every cosine a hamming distance can give, bit for bit as the host
+    divides: `ham_cos` on the card, and K4h's keyed mode on rows whose
+    distance to a zero query is 0..dim."""
+    from meilisearch_tpu_torch.ops import hamming
 
     ham = np.arange(dim + 1, dtype=np.int32)
     want = (dim - 2.0 * ham.astype(np.float32)) / dim
-    got = _ham_cos(torch.from_numpy(ham).to(cuda_device), dim).cpu().numpy()
+    got = hamming.ham_cos(torch.from_numpy(ham).to(cuda_device), dim).cpu().numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    W = (dim + 31) // 32
+    bits = np.arange(W * 32)[None, :] < ham[:, None]  # row h: its first h bits set
+    mat = np.packbits(bits, axis=1, bitorder="little").view(np.int32).reshape(dim + 1, W)
+    cos, _key = hamming.hamming_keyed(torch.from_numpy(mat).to(cuda_device),
+                                      torch.zeros(W, dtype=torch.int32, device=cuda_device),
+                                      dim, dim + 1)
+    assert np.array_equal(cos.cpu().numpy().view(np.int32), want.view(np.int32))
 
 
 ENC_WORDS = ["rust", "search", "engine", "cloud", "database", "machine", "learning", "gpu"]

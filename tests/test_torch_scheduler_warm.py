@@ -110,10 +110,11 @@ def test_an_index_with_queued_tasks_is_not_warmed(app, monkeypatch):
 
 
 def test_a_failed_warm_is_counted_and_the_next_search_raises(app, monkeypatch):
-    def broken(mat, q):
+    def broken(*args):
         raise RuntimeError("hamming kernel launch failed: cudaError_t 1")
 
-    monkeypatch.setattr(vs, "hamming_rows", broken)
+    monkeypatch.setattr(vs, "hamming_keyed", broken)  # the top-k leg
+    monkeypatch.setattr(vs, "hamming_rows", broken)  # the full column
     client = TestClient(app)
     client.update_settings("w", _settings(quantized=True))
     before = serving_stats()["device_errors"]

@@ -109,7 +109,7 @@ def test_hamming_cosine_rounds_as_the_host(dim):
     pass and the JAX package compute it."""
     ham = np.arange(dim + 1, dtype=np.int32)
     want = (dim - 2.0 * ham.astype(np.float32)) / dim
-    got = vs._ham_cos(torch.from_numpy(ham), dim).numpy()
+    got = hamming.ham_cos(torch.from_numpy(ham), dim).numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
@@ -285,10 +285,11 @@ def test_warm_vector_kernels_uploads():
 def test_a_device_failure_raises_and_is_counted(monkeypatch):
     _, pstore = _stores(_multi(4200, 64, seed=18), 64, quantized=True)
 
-    def broken(mat, q):
+    def broken(*args):
         raise RuntimeError("hamming kernel launch failed: cudaError_t 1")
 
-    monkeypatch.setattr(vs, "hamming_rows", broken)
+    monkeypatch.setattr(vs, "hamming_keyed", broken)  # the top-k leg
+    monkeypatch.setattr(vs, "hamming_rows", broken)  # the full column
     before = serving_stats()["device_errors"]
     with pytest.raises(RuntimeError, match="cudaError_t 1"):
         vs.VectorSearcher(pstore, "e").search(np.ones(64, np.float32), 5)
