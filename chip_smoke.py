@@ -5,9 +5,9 @@
 
 Run from the root of the repository, on a machine with a CUDA device.
 Phases, each fatal on failure:
-  1. build K1 (csrc/chain_keys.cu), K3 (csrc/osa.cu) and K4h
-     (csrc/hamming.cu) with nvcc, one process per source, into one
-     library; print ptxas registers/spills;
+  1. build K1 (csrc/chain_keys.cu), K3 (csrc/osa.cu), K4h
+     (csrc/hamming.cu) and K6 (csrc/chain_dp.cu) with nvcc, one process
+     per source, into one library; print ptxas registers/spills;
   2. kernels: K1 against its plain torch version on the card, bit for
      bit, for every T of the ladder at D = 2^14 and 2^20, B = 32; K3
      against its plain version byte for byte over a 2^20-word seeded
@@ -19,7 +19,11 @@ Phases, each fatal on failure:
      in both modes against its plain versions element for element (the
      keyed mode's cosines and keys bit for bit, at n_live = 1, n - 5 and
      n) at n = 2^18 + 3 rows for W = 1, 3, 4, 12, 24 and 48 sign words,
-     aligned and not;
+     aligned and not; K6 in both modes against its plain versions bit for
+     bit (costs, keys, and the docids of every candidate after the
+     stable 3-key sort) for T = 1, 2, 3, 4, 8 and 16 at N = 2^14 + 3 and
+     2^19, with INF addends, unmatched and invalid columns and docids
+     above 2^23;
   3. keyword path: the port's App ingests N synthetic hackernews documents
      (default 500,000, so D = 2^19) over POST /indexes/hn/documents,
      then 32 client threads send a fixed query set to
@@ -78,7 +82,18 @@ Phases, each fatal on failure:
      new generation's matrix must be resident before the first search,
      whose time is printed beside the same request with the upload on its
      path; one query's forward and one indexing chunk are timed on the
-     device clock, the chunk against its float32 bound.
+     device clock, the chunk against its float32 bound;
+  8. chain scorer and scatter-gather (run right after phase 3, on its
+     store): `entry.entry()` once against the plain version;
+     `entry.dryrun_multichip(1)` in a one-rank NCCL group over 500,000
+     documents (keyword, typo, tie-block and filter top-10, facet
+     histogram and vector top-10, each against the host); the executor
+     path with MEILI_TPU_DEVICE=1 over the dry run's queries and QUERIES
+     on phase 3's store (bound to the card), every response equal to
+     MEILI_TPU_DEVICE=0 and K6 launched; K6 per launch in each mode,
+     cold and warm, at T = 4 and the broadest query's candidate count,
+     its bound and plain version, the 3-key sort, and the whole
+     run_device call against the host pass's run_raw; its wall time.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -88,6 +103,7 @@ module of jax or of the JAX package is loaded at its end.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import resource
@@ -103,6 +119,8 @@ K3_SOURCE = "meilisearch_tpu_torch/csrc/osa.cu"
 K3_REPLACES = "meilisearch_tpu/ops/device_osa.py:50"
 K4H_SOURCE = "meilisearch_tpu_torch/csrc/hamming.cu"
 K4H_REPLACES = "meilisearch_tpu/vector/store.py:388"
+K6_SOURCE = "meilisearch_tpu_torch/csrc/chain_dp.cu"
+K6_REPLACES = "meilisearch_tpu/ops/device_scorer.py:56"
 # the card's peaks for the bounds: HBM3 bytes/s (data sheet), int32 lanes
 # (Hopper white paper: 64 INT32 units per SM, 132 SMs, 1.98 GHz), 32-bit
 # population counts (16 per clock per SM, the CUDA C++ programming guide's
@@ -123,11 +141,32 @@ THREADS = 32
 OSA_OPS_PER_LETTER = 19
 # the kernels, by name in a profiler trace
 K1_KERNEL, K3_KERNEL, K4H_KERNEL = "chain_keys_kernel", "osa_kernel", "hamming_kernel"
+K6_KERNEL = "chain_dp_kernel"
 L2_FLUSH_BYTES = 256 << 20  # written before a cold launch: 5x the 50 MB L2
 REPEATS = 5  # repeats of a kernel's cold and warm launches in the timing phase
 # K4h's checked widths: 32, 96, 100, 384, 768 and 1536 dimensions
 HAM_WIDTHS = (1, 3, 4, 12, 24, 48)
-SENTINELS = 4  # launches that open a traced session, not timed (launch_ms)
+# launches that open a traced session, not timed, the first followed by a
+# wait (launch_ms): the whole script's later sessions lost up to 26
+SENTINELS = 32
+TRACE_SETTLE_S = 0.25
+# the chain scorer's checks: K6 at every T of this ladder, at these widths
+K6_TERMS = (1, 2, 3, 4, 8, 16)
+K6_WIDTHS = ((1 << 14) + 3, 1 << 19)
+# K6's int32 operations per column, counted in csrc/chain_dp.cu with each
+# compare folded into its predicate (ISETP with a predicate operand): the
+# first term's 3 visits of 6 adds; each later term's 9 visits of 6 adds,
+# 9 lexicographic mins of 12 compares and 6 selects, 3 mask selects and
+# 4 skip adds; the final 3 mins and the clip; the keys mode's packing
+K6_OPS_FIRST, K6_OPS_TERM, K6_OPS_FINAL, K6_OPS_PACK = 18, 223, 60, 30
+# the dry run's depth: the keyword phase's
+DRYRUN_DOCS = 500_000
+# the dry run's queries (meilisearch_tpu_torch/entry.py), served through
+# the executor with MEILI_TPU_DEVICE=1 beside QUERIES
+CHAIN_QUERIES = [
+    {"q": "rust database"}, {"q": "machin learnin"}, {"q": "zebra stripe"},
+    {"q": "python", "filter": "points > 2500"}, {"q": "rust"},
+]
 # the typo path's vocabulary: above the device gate (2^19 words), and the
 # n = 2^20 rows at which K3 is timed
 TYPO_VOCAB_WORDS = 1 << 20
@@ -205,7 +244,7 @@ def build_phase() -> None:
 
     t0 = time.perf_counter()
     _build.load_library()
-    say(f"K1 + K3 + K4h build: {time.perf_counter() - t0:.3f} s"
+    say(f"K1 + K3 + K4h + K6 build: {time.perf_counter() - t0:.3f} s"
         f" (nvcc {_build.build_seconds:.3f} s; 0 = already built)")
     for line in _build.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
@@ -469,7 +508,8 @@ def main_path_phase(device, n_docs: int) -> dict:
             raise AssertionError("K1 was not launched on the main path")
         if stats["device_served"] <= 0 or stats["device_errors"] != 0:
             raise AssertionError(f"device path did not serve cleanly: {stats}")
-        return {"launches": launches}
+        # the store and its host answers serve phase 8's executor path
+        return {"launches": launches, "store": store, "expected": expected}
     finally:
         app.search_batcher.stop()
         app.scheduler.stop()
@@ -553,9 +593,10 @@ def typo_path_phase(device, n_words: int) -> dict:
         app.scheduler.stop()
 
 
-def serve(client, requests: list) -> tuple[list, list]:
-    """THREADS clients each send every (path, body) POST request twice, in
-    rotated orders; returns ([(request index, status, body)], [errors])."""
+def serve(client, requests: list, rounds: int = 2) -> tuple[list, list]:
+    """THREADS clients each send every (path, body) POST request `rounds`
+    times, in rotated orders; returns ([(request index, status, body)],
+    [errors])."""
     answers: list = []
     latencies: list = []
     errors: list = []
@@ -563,7 +604,7 @@ def serve(client, requests: list) -> tuple[list, list]:
 
     def client_loop(k: int) -> None:
         try:
-            for r in range(2):
+            for r in range(rounds):
                 for j in range(len(requests)):
                     qi = (j + k + r) % len(requests)
                     path, body = requests[qi]
@@ -709,7 +750,8 @@ def vector_round(app, client, store, requests: list, exact: bool) -> dict:
     serving_stats(reset=True)
     hamming.LAUNCHES.reset()
     vstore.FLOAT_LEGS.reset()
-    answers, errors = serve(client, requests)
+    # one round a client: 768 requests (two took 160-250 s of the run)
+    answers, errors = serve(client, requests, rounds=1)
     launches, float_legs = hamming.LAUNCHES.value, vstore.FLOAT_LEGS.value
     stats = serving_stats()
     if errors:
@@ -1285,9 +1327,12 @@ def launch_ms(kernel: str, runs: list, device) -> list:
     `call`, each of which must launch the kernel whose traced name holds
     `kernel` once, and each after a write of L2_FLUSH_BYTES when `cold` (so
     the kernel finds the L2 cache as a call between searches finds it);
-    returns, per run, the ms of each launch. The trace may miss the first
-    launches of a session (a 10 us kernel lost 2 of 100 on the card), so
-    SENTINELS calls open it and the runs take the last launches."""
+    returns, per run, the ms of each launch. The trace may miss a
+    session's first launches (a 10 us kernel lost 2 of 100 on the card;
+    in the whole script's later sessions K1 lost 11-15, K3 10-12 and K4h
+    21-26, whether or not the session first waited 0.25 s), so SENTINELS
+    calls open it, the first followed by a wait of TRACE_SETTLE_S, and the
+    runs take the last launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1296,7 +1341,10 @@ def launch_ms(kernel: str, runs: list, device) -> list:
     runs[0][0]()  # untraced warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(SENTINELS):
+        runs[0][0]()
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+        for _ in range(SENTINELS - 1):
             runs[0][0]()
         torch.cuda.synchronize()
         for call, reps, cold in runs:
@@ -1469,6 +1517,250 @@ def osa_timing(card: str, typo: dict) -> dict:
             "bound_by": by, "max_abs_err": max(r["err"] for r in rows)}
 
 
+def dp_inputs(T: int, N: int, seed: int, device):
+    """K6's inputs: `example_inputs` with INF addends where a class is
+    absent, every 13th column matched by no term, every 11th invalid and
+    docids above 2^23 from column N // 2 on (clipped in key_lo2: full-key
+    ties); and an int32 exactness addend for the cost mode. On `device`."""
+    import torch
+
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    cm, pc, fc, pos, em, docids, valid = (x.clone() for x in ds.example_inputs(T=T, N=N, seed=seed))
+    gen = torch.Generator().manual_seed(seed)
+    absent = ~cm & (torch.rand(cm.shape, generator=gen) < 0.5)
+    fc[absent] = ds.INF
+    pos[absent] = ds.INF
+    cm[:, :, ::13] = False
+    valid[::11] = False
+    docids[N // 2 :] = (1 << 23) + torch.arange(N - N // 2, dtype=torch.int32)
+    exact_cost = torch.randint(0, 3, (T, N), generator=gen, dtype=torch.int32)
+    keys = tuple(x.to(device) for x in (cm, pc, fc, pos, em, docids, valid))
+    return keys, exact_cost.to(device)
+
+
+def chain_dp_kernel_phase(device) -> int:
+    """K6 in both modes against its plain versions on the card, bit for
+    bit, for every T of K6_TERMS at each of K6_WIDTHS: the cost matrix,
+    the three keys, and the docids sorted by the stable 3-key sort (every
+    candidate). Returns the max abs error (0; anything else raises)."""
+    import torch
+
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    worst = 0
+    for N in K6_WIDTHS:
+        for T in K6_TERMS:
+            keys, exact_cost = dp_inputs(T, N, 600 + T, device)
+            got = [ds.chain_cost_matrix(*keys[:4], exact_cost), *ds.chain_query_keys(*keys)]
+            docs = ds.chain_query_topk(*keys, k=N)[0]
+            torch.cuda.synchronize()
+            want = [ds.chain_cost_matrix_torch(*keys[:4], exact_cost),
+                    *ds.chain_query_keys_torch(*keys)]
+            want_docs = ds.chain_query_topk_torch(*keys, k=N)[0]
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            same_docs = torch.equal(docs, want_docs)
+            say(f"K6 N={N} T={T}: cost and keys bit-exact={same} max_abs_err={err},"
+                f" sorted docids equal={same_docs}, ranked"
+                f" {int((got[1] < ds.INVALID_HI).sum())} of {N}")
+            if not (same and same_docs):
+                raise AssertionError(f"K6 disagrees with its plain version at N={N} T={T}")
+            worst = max(worst, err)
+    return worst
+
+
+def k6_bound_ms(T: int, N: int, keys: bool) -> tuple[float, str]:
+    """The least time K6 could take on a (T, 3, N) query: the larger of
+    the bytes it must move (masks, pair costs, fid and position addends,
+    exactness, docids and valid in keys mode, each read once; the (6, N)
+    costs or the three keys written once) over the HBM rate, and its
+    int32 operations (K6_OPS_*) over the int32 rate."""
+    moved = N * (3 * T + 9 * (T - 1) + 24 * T + (T + 5 + 12 if keys else 4 * T + 24))
+    ops = N * (K6_OPS_FIRST + K6_OPS_TERM * (T - 1) + K6_OPS_FINAL + (K6_OPS_PACK if keys else 0))
+    t_bytes, t_ops = moved / HBM_BYTES_S, ops / INT32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def chain_scorer_phase(device, card: str, keyword: dict) -> dict:
+    """Phase 8: the chain scorer (K6) and the scatter-gather (K7) on the
+    card. (b) `entry()` once, against the plain version; (c)
+    `dryrun_multichip(1)` in a one-rank NCCL group at DRYRUN_DOCS; (d)
+    the executor path: with MEILI_TPU_DEVICE=1, `perform_search` over
+    CHAIN_QUERIES and QUERIES on the keyword phase's store (bound to the
+    card), each response equal to the same store's answer with
+    MEILI_TPU_DEVICE=0, K6 launched; (e) K6 per launch cold and warm in
+    each mode at T = 4 and the N of the broadest query's candidates, its
+    bound and plain version, the 3-key sort, and the whole run_device
+    call against the host run_raw on the host clock. Returns the kernels
+    line's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from meilisearch_tpu_torch.entry import dryrun_multichip, entry
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+    from meilisearch_tpu_torch.search import scorer as scorer_mod
+    from meilisearch_tpu_torch.search.perform import perform_search
+
+    t_phase = time.perf_counter()
+    if not dist.is_nccl_available():
+        raise AssertionError("torch.distributed has no NCCL on this machine")
+    # (b) the flagship step
+    fn, args = entry()
+    got = fn(*args)
+    want = ds.chain_query_topk_torch(*args, k=10)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("entry() differs from the plain version")
+    say(f"entry(): chain_query_topk T=4 N=8192 k=10 on {got[0].device}: docs"
+        f" {got[0].tolist()} equal to the plain version (docs and keys)")
+    # (c) the dry run in a one-rank NCCL group
+    t0 = time.perf_counter()
+    before = ds.LAUNCHES.value
+    dryrun_multichip(1, device="cuda", n_docs=DRYRUN_DOCS)
+    say(f"dryrun_multichip(1, cuda, {DRYRUN_DOCS} docs): passed in"
+        f" {time.perf_counter() - t0:.3f} s, K6 launches {ds.LAUNCHES.value - before}"
+        " (one NCCL rank: no collective across cards is measured)")
+
+    # (d) the executor path
+    store, expected = keyword["store"], keyword["expected"]
+    queries = CHAIN_QUERIES + QUERIES
+    run_device = scorer_mod.FusedScorer.run_device
+    calls, answers, taken = [], [], []  # taken: (candidates, query) of K6's calls
+    scorer_mod.FusedScorer.run_device = _timed(run_device, calls)
+    try:
+        with _device_dp("0"):
+            t0 = time.perf_counter()
+            expected = [_strip(perform_search(store, dict(q))) for q in CHAIN_QUERIES] + expected
+            say(f"host answers of the chain queries: {time.perf_counter() - t0:.3f} s")
+        with _device_dp("1"):
+            ds.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            for q in queries:
+                start = len(calls)
+                answers.append(_strip(perform_search(store, dict(q))))
+                taken += [(c[0], q) for c in calls[start:] if c[1]]
+            wall = time.perf_counter() - t0
+            launches = ds.LAUNCHES.value
+    finally:
+        scorer_mod.FusedScorer.run_device = run_device
+    bad = [q for q, a, w in zip(queries, answers, expected) if a != w]
+    say(f"executor path (MEILI_TPU_DEVICE=1, store on {store.device}):"
+        f" {len(queries) - len(bad)}/{len(queries)} responses equal to MEILI_TPU_DEVICE=0;"
+        f" run_device took {len(taken)} of {len(calls)} scorer calls; K6 launches"
+        f" {launches}; {wall:.3f} s")
+    if bad:
+        raise AssertionError(f"the device DP's responses differ: {bad[:3]}")
+    if launches <= 0:
+        raise AssertionError("K6 was not launched on the executor path")
+
+    # (e) timing at the broadest query's candidates
+    n_broad, broad = max(taken, key=lambda c: c[0])
+    out = chain_dp_timing(device, card, n_broad)
+    out["launches"] = launches
+    run_device_timing(store, card, broad, n_broad)
+    say(f"phase 8 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+@contextlib.contextmanager
+def _device_dp(flag: str):
+    """MEILI_TPU_DEVICE set to `flag` inside the block, put back after."""
+    import os
+
+    prior = os.environ.get("MEILI_TPU_DEVICE")
+    os.environ["MEILI_TPU_DEVICE"] = flag
+    try:
+        yield
+    finally:
+        if prior is None:
+            os.environ.pop("MEILI_TPU_DEVICE", None)
+        else:
+            os.environ["MEILI_TPU_DEVICE"] = prior
+
+
+def chain_dp_timing(device, card: str, n: int) -> dict:
+    """K6 in each mode at T = 4 and N = n (seeded inputs): equal to its
+    plain version, then plain, kernel (traced per launch, cold and warm,
+    REPEATS repeats), plain; each mode's bound; the stable 3-key sort of
+    the keys (CUDA events). Returns the cost mode's numbers (the
+    executor's)."""
+    import torch
+
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    keys, exact_cost = dp_inputs(4, n, 700, device)
+    modes = {
+        "cost": (lambda: ds.chain_cost_matrix(*keys[:4], exact_cost),
+                 lambda: ds.chain_cost_matrix_torch(*keys[:4], exact_cost), False),
+        "keys": (lambda: ds.chain_query_keys(*keys),
+                 lambda: ds.chain_query_keys_torch(*keys), True),
+    }
+    lines = {}
+    for mode, (call, plain_call, is_keys) in modes.items():
+        got = call()
+        torch.cuda.synchronize()
+        want = plain_call()
+        got, want = (list(x) if isinstance(x, tuple) else [x] for x in (got, want))
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        if err:
+            raise AssertionError(f"K6 {mode} differs from its plain version at N={n}")
+        plain = [_median_ms(plain_call, reps=5)]
+        k6 = repeated_launch_ms(K6_KERNEL, call, device)
+        plain.append(_median_ms(plain_call, reps=5))
+        bound, by = k6_bound_ms(4, n, is_keys)
+        say(f"timing K6 {mode} T=4 N={n} on {card}: per launch (trace, median of"
+            f" {REPEATS} repeats of 10) cold {k6['cold_ms']:.4f} ms (repeats"
+            f" {_spread(k6['cold'])}), warm {k6['warm_ms']:.4f} ms (repeats"
+            f" {_spread(k6['warm'])}); plain version {statistics.median(plain):.4f} ms"
+            f" (runs {plain}); bound {bound:.4f} ms ({by}); cold {bound / k6['cold_ms']:.2f},"
+            f" warm {bound / k6['warm_ms']:.2f} of the bound; equal")
+        lines[mode] = {"ms": k6["cold_ms"], "plain_ms": statistics.median(plain),
+                       "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    hi, lo, lo2 = ds.chain_query_keys(*keys)
+    docids = keys[5]
+    sort_ms = _median_ms(lambda: ds.sort3(hi, lo, lo2, docids, 10), reps=20)
+    say(f"timing the stable 3-key sort (two torch.sort passes) of N={n} keys, k=10,"
+        f" on {card}: {sort_ms:.4f} ms (CUDA events, median of 20)")
+    return lines["cost"]
+
+
+def run_device_timing(store, card: str, query: dict, n: int) -> None:
+    """The whole FusedScorer.run_device call (chain tensors on the host,
+    upload, K6, readback) against the host pass's run_raw, each on the
+    host clock inside `perform_search` of `query` (its scorer call over
+    n candidates), median of 5."""
+    from meilisearch_tpu_torch.search import scorer as scorer_mod
+    from meilisearch_tpu_torch.search.perform import perform_search
+
+    times = {}
+    for method, flag in (("run_device", "1"), ("run_raw", "0")):
+        orig = getattr(scorer_mod.FusedScorer, method)
+        seen = []
+        setattr(scorer_mod.FusedScorer, method, _timed(orig, seen))
+        try:
+            with _device_dp(flag):
+                for _ in range(5):
+                    perform_search(store, dict(query))
+        finally:
+            setattr(scorer_mod.FusedScorer, method, orig)
+        times[method] = statistics.median(c[2] for c in seen if c[0] == n)
+    say(f"timing {query} (N={n} candidates) on {card}, host clock, medians of 5:"
+        f" run_device (chain tensors, upload, K6, readback) {times['run_device']:.3f} ms;"
+        f" the host pass's run_raw {times['run_raw']:.3f} ms")
+
+
+def _timed(method, seen: list):
+    """`method` wrapped to append (scorer.n, returned a result, ms)."""
+
+    def wrapped(self, *args):
+        t = time.perf_counter()
+        out = method(self, *args)
+        seen.append((self.n, out is not None, (time.perf_counter() - t) * 1e3))
+        return out
+
+    return wrapped
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the keyword path's depth: 500,000 documents (D = 2^19) keep the whole
@@ -1499,7 +1791,12 @@ def main() -> int:
     k1_err = kernel_phase(device)
     k3_err = osa_kernel_phase(device)
     k4_err = hamming_kernel_phase(device)
+    k6_err = chain_dp_kernel_phase(device)
     keyword = main_path_phase(device, opts.docs)
+    # phase 8 runs on the keyword phase's store, which goes before phase 4
+    chain = chain_scorer_phase(device, card, keyword)
+    k6_err = max(k6_err, chain.pop("max_abs_err"))
+    del keyword["store"]
     typo = typo_path_phase(device, TYPO_VOCAB_WORDS)
     vector = vector_path_phase(device)
     timing = timing_phase(device, card, typo, vector)
@@ -1525,6 +1822,8 @@ def main() -> int:
         {"name": "hamming", "route": "cuda", "source": K4H_SOURCE,
          "replaces": K4H_REPLACES, "launches": launches["hamming"],
          "max_abs_err": k4_err, **timing["hamming"], "library_ms": None},
+        {"name": "chain_dp", "route": "cuda", "source": K6_SOURCE,
+         "replaces": K6_REPLACES, "max_abs_err": k6_err, **chain, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

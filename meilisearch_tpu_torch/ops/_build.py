@@ -61,6 +61,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.mst_hamming  # K4h, csrc/hamming.cu
     fn.argtypes = [ptr] * 2 + [cint] * 5 + [ptr] * 4
     fn.restype = cint
+    fn = lib.mst_chain_dp  # K6, csrc/chain_dp.cu
+    fn.argtypes = [ptr] * 10 + [cint] * 3 + [ptr]
+    fn.restype = cint
     return lib
 
 

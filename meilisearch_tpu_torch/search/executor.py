@@ -348,13 +348,15 @@ class Search:
             scorer = FusedScorer(
                 store, mask_resolver, graph, self.terms_matching_strategy, graph_dims
             )
-            # the device DP of this scorer (FusedScorer.run_device, K6) is
-            # a later slice of the port: the host pass serves
-            kind, data = scorer.run_raw()
-            if kind == "packed":
-                packed_key = data
-            else:
-                cost = data
+            cost = None
+            if _device_scorer_enabled():
+                cost = scorer.run_device()
+            if cost is None:
+                kind, data = scorer.run_raw()
+                if kind == "packed":
+                    packed_key = data
+                else:
+                    cost = data
         else:
             scorer = None
             cost = np.zeros((0, len(candidates)), dtype=np.int64)
@@ -1160,6 +1162,18 @@ class Search:
             scores_by_docid=scores_by_docid,
             query_terms=getattr(self, "_located_terms", None),
         )
+
+
+def _device_scorer_enabled() -> bool:
+    """MEILI_TPU_DEVICE=1 sends chain queries through the device DP (K6,
+    FusedScorer.run_device) on the store's device; a query it cannot take
+    (phrases, live n-grams, more than 16 terms) goes to the host pass.
+
+    Off by default, as in the JAX package: the masks are built on the
+    host, and shipping them to the device costs more than the DP saves."""
+    import os
+
+    return os.environ.get("MEILI_TPU_DEVICE", "0") == "1"
 
 
 def _lexsort_rows(keys: list[np.ndarray], docids: np.ndarray) -> np.ndarray:

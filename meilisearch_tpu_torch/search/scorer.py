@@ -1102,8 +1102,145 @@ class FusedScorer:
         self._exact_mask_cache[key] = best_end
         return best_end
 
-    # the chain tensors of the device DP (run_device, build_chain_inputs:
-    # K6 and the sharded top-k, K7) are later slices of the port
+    DEFAULT_DIMS = ["words", "typo", "proximity", "fid", "position", "exactness"]
+
+    def device_compatible(self) -> bool:
+        """Whether this query maps to the fused device chain kernel
+        (ops/device_scorer.py): `last` strategy, default rule order, 1-gram
+        chain with no live ngram/phrase alternatives."""
+        if self.strategy != "last" or self.exact_flagged:
+            return False
+        if self.dims != self.DEFAULT_DIMS:
+            return False
+        for node in self.graph.term_nodes():
+            term = node.located.term
+            if node.located.term_ids_len > 1:
+                ns = self.node_states[node.node_id]
+                if term.use_prefix_db is not None or any(
+                    m.any() for m in ns.class_masks
+                ):
+                    return False
+            elif term.phrase is not None:
+                return False
+        return True
+
+    def _chain_tensors(self):
+        """The dense chain tensors over the candidate axis (unpadded), or
+        None when the query is not chain-compatible. Shared by run_device
+        (single-chip cost matrix) and build_chain_inputs (sharded top-k)."""
+        if self.n == 0 or not self.device_compatible():
+            return None
+        chain = sorted(
+            (
+                n
+                for n in self.graph.term_nodes()
+                if n.located.term_ids_len == 1
+            ),
+            key=lambda nd: nd.located.start_term_id,
+        )
+        T = len(chain)
+        if T == 0 or T > 16:
+            return None
+        C = 3
+        N = self.n
+        class_mask = np.zeros((T, C, N), dtype=bool)
+        fid_cost = np.full((T, C, N), int(INF), dtype=np.int32)
+        pos_cost = np.full((T, C, N), int(INF), dtype=np.int32)
+        exact_cost = np.zeros((T, N), dtype=np.int32)
+        pair_cost = np.zeros((max(T - 1, 1), C, C, N), dtype=np.int8)
+        for t, node in enumerate(chain):
+            ns = self.node_states[node.node_id]
+            for cls in ns.classes:
+                class_mask[t, cls] = ns.class_masks[ns.classes.index(cls)]
+                fid_cost[t, cls] = np.minimum(
+                    self._fid_addend(node, self._sel("fid", cls, 0)), int(INF)
+                )
+                pos_cost[t, cls] = np.minimum(
+                    self._position_addend(node, self._sel("position", cls, 0)),
+                    int(INF),
+                )
+            exact_cost[t] = self._exactness_addend(node)
+            if t > 0:
+                left = chain[t - 1]
+                adjacent = (
+                    left.located.end_position + 1 == node.located.start_position
+                )
+                if adjacent:
+                    for c1 in range(C):
+                        if c1 not in self.node_states[left.node_id].classes:
+                            continue
+                        for c2 in ns.classes:
+                            pair_cost[t - 1, c1, c2] = self._pair_cost(
+                                left,
+                                self._sel("proximity", c1, 0),
+                                node,
+                                self._sel("proximity", c2, 0),
+                            ).astype(np.int8)
+                # non-adjacent pairs stay 0 (the free term edge)
+        return class_mask, pair_cost, fid_cost, pos_cost, exact_cost
+
+    def build_chain_inputs(self, pad_multiple: int = 1):
+        """Inputs for ops.device_scorer.chain_query_topk over REAL store
+        candidates: (class_mask, pair_cost, fid_cost, pos_cost, exact_mask,
+        docids, valid), the candidate axis padded to a multiple of
+        `pad_multiple` so a mesh can shard it evenly. Returns None when the
+        query is not chain-compatible."""
+        tensors = self._chain_tensors()
+        if tensors is None:
+            return None
+        class_mask, pair_cost, fid_cost, pos_cost, exact_cost = tensors
+        N = self.n
+        # chain nodes all have term_ids_len == 1, so the exactness addend is
+        # 0 (doc has the exact original word) or 1 — exactly the kernel's
+        # exact_pen encoding
+        exact_mask = exact_cost == 0
+        docids = np.asarray(self.r.candidates, dtype=np.int32)
+        n_pad = -(-max(N, 1) // pad_multiple) * pad_multiple
+        if n_pad != N:
+            pad = n_pad - N
+            class_mask = np.pad(class_mask, ((0, 0), (0, 0), (0, pad)))
+            fid_cost = np.pad(
+                fid_cost, ((0, 0), (0, 0), (0, pad)), constant_values=int(INF)
+            )
+            pos_cost = np.pad(
+                pos_cost, ((0, 0), (0, 0), (0, pad)), constant_values=int(INF)
+            )
+            exact_mask = np.pad(exact_mask, ((0, 0), (0, pad)))
+            pair_cost = np.pad(pair_cost, ((0, 0), (0, 0), (0, 0), (0, pad)))
+            docids = np.pad(docids, (0, pad))
+        valid = np.zeros(n_pad, dtype=bool)
+        valid[:N] = True
+        return (
+            class_mask,
+            pair_cost,
+            fid_cost,
+            pos_cost,
+            exact_mask,
+            docids,
+            valid,
+        )
+
+    def run_device(self):
+        """Build the chain tensors and run the DP (K6, cost mode) on the
+        store's device: the card's kernel, or its plain torch version
+        when the store has no device (`store.device` None: the CPU, as
+        the caller asked). Returns the (D, N) cost matrix or None when
+        the query is not chain-compatible."""
+        tensors = self._chain_tensors()
+        if tensors is None:
+            return None
+        import torch
+
+        from ..ops.device_scorer import chain_cost_matrix
+
+        # no padding of the candidate axis: the JAX package padded it to a
+        # power of two so XLA would compile fewer programs, and the kernel's
+        # columns are independent of each other
+        device = self.store.device or torch.device("cpu")
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tensors]
+        out = chain_cost_matrix(*args).cpu().numpy().astype(np.int64)
+        return np.where(out >= int(INF), int(INF), out)
+
 
     def run(self) -> np.ndarray:
         """Returns the (D, N) cost matrix (INF where no interpretation)."""

@@ -6,8 +6,10 @@ jax is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py tests/test_torch_device_osa.py -m cuda -q
 
 (`--noconftest`: tests/conftest.py sets up jax for the JAX package's
-tests.) K1 and K4h (both modes) are held against their plain torch
-versions bit for bit, a refused launch must raise, the port's search
+tests.) K1, K4h and K6 (both modes of each) are held against their
+plain torch versions bit for bit, a refused launch must raise, a one-rank
+NCCL group's scatter-gather must equal the single-device scorer, the
+port's search
 path on the card, typo pass included, must answer exactly as its host
 scorer, the vector legs on the card as its numpy host pass, and the text
 encoder (K8) on the card as the same checkpoint on the CPU."""
@@ -384,3 +386,108 @@ def test_encoder_refused_launch_raises(cuda_device, tmp_path):
     assert "allow_tf32" in str(err.value)
     assert serving_stats()["device_errors"] == before + 1
     assert hf_encoder.FORWARDS.value == forwards + 1  # one attempt, on the card
+
+
+def _dp_inputs(T, N, seed, device):
+    """K6's inputs: `example_inputs` with INF addends where a class is
+    absent, every 13th column matched by no term, every 11th invalid and
+    docids above 2^23 from column N // 2 on (clipped in key_lo2); plus an
+    int32 exactness addend for the cost mode. On `device`."""
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    cm, pc, fc, pos, em, docids, valid = (x.clone() for x in ds.example_inputs(T=T, N=N, seed=seed))
+    gen = torch.Generator().manual_seed(seed)
+    absent = ~cm & (torch.rand(cm.shape, generator=gen) < 0.5)
+    fc[absent] = ds.INF
+    pos[absent] = ds.INF
+    cm[:, :, ::13] = False
+    valid[::11] = False
+    docids[N // 2 :] = (1 << 23) + torch.arange(N - N // 2, dtype=torch.int32)
+    exact_cost = torch.randint(0, 3, (T, N), generator=gen, dtype=torch.int32)
+    keys = tuple(x.to(device) for x in (cm, pc, fc, pos, em, docids, valid))
+    return keys, exact_cost.to(device)
+
+
+@pytest.mark.parametrize("N", [257, (1 << 14) + 3])
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 8, 16])
+def test_chain_dp_kernel_matches_plain(cuda_device, T, N):
+    """K6 in both modes against its plain versions, bit for bit: the cost
+    matrix, the three keys, and the sorted docids of every candidate."""
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    keys, exact_cost = _dp_inputs(T, N, 500 + T, cuda_device)
+    before = ds.LAUNCHES.value
+    cost = ds.chain_cost_matrix(*keys[:4], exact_cost)
+    got = ds.chain_query_keys(*keys)
+    ranked = ds.chain_query_topk(*keys, k=N)
+    torch.cuda.synchronize()
+    assert ds.LAUNCHES.value == before + 3
+    assert torch.equal(cost, ds.chain_cost_matrix_torch(*keys[:4], exact_cost))
+    for g, w in zip(got, ds.chain_query_keys_torch(*keys)):
+        assert torch.equal(g, w)
+    for g, w in zip(ranked, ds.chain_query_topk_torch(*keys, k=N)):
+        assert torch.equal(g, w)
+
+
+def test_chain_dp_refused_launch_raises(cuda_device):
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    keys, exact_cost = _dp_inputs(2, 1024, 9, cuda_device)
+    out = torch.empty((6, 1024), dtype=torch.int32, device=cuda_device)
+    rc = _build.load_library().mst_chain_dp(
+        *[x.data_ptr() for x in keys[:4]], exact_cost.data_ptr(), None, None,
+        out.data_ptr(), None, None, ds.MAX_TERMS + 1, 1024, ds.MODE_COST,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    assert rc != 0  # more terms than the kernel takes
+    with pytest.raises(RuntimeError):
+        ds.check_launch(rc)
+
+
+def test_sharded_query_topk_one_nccl_rank(cuda_device, tmp_path):
+    """A one-rank NCCL group: the scatter-gather equals the single-device
+    keys mode (it measures no collective across cards)."""
+    import torch.distributed as dist
+
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+    from meilisearch_tpu_torch.parallel import sharded
+
+    assert dist.is_nccl_available()
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "rdv"), 1),
+                            rank=0, world_size=1)
+    try:
+        shards = sharded.make_group()
+        assert shards.device.type == "cuda" and shards.size == 1
+        inputs = tuple(x.numpy() for x in ds.example_inputs(T=3, N=4096, k=10, seed=2))
+        docs, hi = sharded.sharded_query_topk(shards, inputs, k=10)
+        want = ds.chain_query_topk(*(torch.from_numpy(x).to(cuda_device) for x in inputs), k=10)
+        assert torch.equal(docs, want[0]) and torch.equal(hi, want[1])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_device_scorer_path_on_the_card_matches_host(cuda_device, monkeypatch):
+    """MEILI_TPU_DEVICE=1 on a store bound to the card: the executor's
+    chain queries go through K6, and every page equals the host pass."""
+    from meilisearch_tpu_torch.index.store import IndexStore
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+    from meilisearch_tpu_torch.search.executor import Search
+
+    vocab = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "theta", "sigma"]
+    rng = np.random.default_rng(7)
+    store = IndexStore("k6", primary_key="id")
+    store.settings.apply_json({"searchableAttributes": ["text"]})
+    store.add_documents([
+        {"id": i, "text": " ".join(rng.choice(vocab, size=rng.integers(2, 9)).tolist())}
+        for i in range(2000)
+    ])
+    for query in ["alpha beta", "gamma delta epsilon", "alpha omge", "alph", '"alpha beta"']:
+        monkeypatch.setenv("MEILI_TPU_DEVICE", "0")
+        host = Search(store, query=query, limit=50).execute().documents_ids
+        store.device = cuda_device
+        monkeypatch.setenv("MEILI_TPU_DEVICE", "1")
+        before = ds.LAUNCHES.value
+        page = Search(store, query=query, limit=50).execute().documents_ids
+        store.device = None
+        assert page == host, query
+        assert (ds.LAUNCHES.value > before) == (not query.startswith('"')), query
