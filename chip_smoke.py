@@ -6,8 +6,9 @@
 Run from the root of the repository, on a machine with a CUDA device.
 Phases, each fatal on failure:
   1. build K1 (csrc/chain_keys.cu), K3 (csrc/osa.cu), K4h
-     (csrc/hamming.cu) and K6 (csrc/chain_dp.cu) with nvcc, one process
-     per source, into one library; print ptxas registers/spills;
+     (csrc/hamming.cu) and K6 (csrc/chain_dp.cu: the DP and the merge
+     of its top-k survivors) with nvcc, one process per source, into one
+     library; print ptxas registers/spills;
   2. kernels: K1 against its plain torch version on the card, bit for
      bit, for every T of the ladder at D = 2^14 and 2^20, B = 32; K3
      against its plain version byte for byte over a 2^20-word seeded
@@ -19,11 +20,14 @@ Phases, each fatal on failure:
      in both modes against its plain versions element for element (the
      keyed mode's cosines and keys bit for bit, at n_live = 1, n - 5 and
      n) at n = 2^18 + 3 rows for W = 1, 3, 4, 12, 24 and 48 sign words,
-     aligned and not; K6 in both modes against its plain versions bit for
-     bit (costs, keys, and the docids of every candidate after the
-     stable 3-key sort) for T = 1, 2, 3, 4, 8 and 16 at N = 2^14 + 3 and
-     2^19, with INF addends, unmatched and invalid columns and docids
-     above 2^23;
+     aligned and not; K6 in its three modes against its plain versions
+     bit for bit (costs, keys, and chain_query_topk's docids and keys at
+     k = 1, 10, 32, 33, tile - 1 and tile, the top-k mode and the merge of
+     its survivors, and at tile + 1 and N, the keys mode and the sort of
+     all N) for T = 1, 2, 3, 4, 8 and 16 at N = 2^14 + 3, 2^19 and
+     355,439, each in the unpadded layout (the direct path at an odd N) and the
+     callers' padded one (the bulk path), with INF addends, unmatched and
+     invalid columns and docids above 2^23;
   3. keyword path: the port's App ingests N synthetic hackernews documents
      (default 500,000, so D = 2^19) over POST /indexes/hn/documents,
      then 32 client threads send a fixed query set to
@@ -87,13 +91,18 @@ Phases, each fatal on failure:
      store): `entry.entry()` once against the plain version;
      `entry.dryrun_multichip(1)` in a one-rank NCCL group over 500,000
      documents (keyword, typo, tie-block and filter top-10, facet
-     histogram and vector top-10, each against the host); the executor
+     histogram and vector top-10, each against the host), then each
+     collective it made timed alone in a one-rank NCCL group; the executor
      path with MEILI_TPU_DEVICE=1 over the dry run's queries and QUERIES
      on phase 3's store (bound to the card), every response equal to
      MEILI_TPU_DEVICE=0 and K6 launched; K6 per launch in each mode,
-     cold and warm, at T = 4 and the broadest query's candidate count,
-     its bound and plain version, the 3-key sort, and the whole
-     run_device call against the host pass's run_raw; its wall time.
+     cold and warm, at T = 4 and the broadest query's candidate count
+     (the cost mode on both paths), its bound and plain version, the
+     whole chain_query_topk at k = 10 beside the keys mode and the sort
+     of all N, and the whole run_device call against the host pass's
+     run_raw; the survivors' merge (K6's select_kernel) per pass at the
+     same shapes, its launches counted over entry() and the dry run; its
+     wall time.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -121,6 +130,8 @@ K4H_SOURCE = "meilisearch_tpu_torch/csrc/hamming.cu"
 K4H_REPLACES = "meilisearch_tpu/vector/store.py:388"
 K6_SOURCE = "meilisearch_tpu_torch/csrc/chain_dp.cu"
 K6_REPLACES = "meilisearch_tpu/ops/device_scorer.py:56"
+# the survivors' merge replaces chain_query_topk's lax.sort of all N
+K6_SELECT_REPLACES = "meilisearch_tpu/ops/device_scorer.py:206"
 # the card's peaks for the bounds: HBM3 bytes/s (data sheet), int32 lanes
 # (Hopper white paper: 64 INT32 units per SM, 132 SMs, 1.98 GHz), 32-bit
 # population counts (16 per clock per SM, the CUDA C++ programming guide's
@@ -151,8 +162,12 @@ HAM_WIDTHS = (1, 3, 4, 12, 24, 48)
 SENTINELS = 32
 TRACE_SETTLE_S = 0.25
 # the chain scorer's checks: K6 at every T of this ladder, at these widths
+# and at K6_BROAD_N, the candidates of the executor's broadest query
+# ('show tell' on the keyword phase's 500,000 documents)
 K6_TERMS = (1, 2, 3, 4, 8, 16)
 K6_WIDTHS = ((1 << 14) + 3, 1 << 19)
+K6_BROAD_N = 355_439
+K6_TOPK = 10  # the k at which the top-k mode and chain_query_topk are timed
 # K6's int32 operations per column, counted in csrc/chain_dp.cu with each
 # compare folded into its predicate (ISETP with a predicate operand): the
 # first term's 3 visits of 6 adds; each later term's 9 visits of 6 adds,
@@ -1321,13 +1336,14 @@ def warp_lengths(lens) -> str:
             f" warp {longest.mean():.3f}")
 
 
-def launch_ms(kernel: str, runs: list, device) -> list:
-    """A kernel's device time per launch, from torch.profiler's CUDA trace:
+def launch_ms(kernel: str, runs: list, device, per_call: int = 1) -> list:
+    """A kernel's device time per call, from torch.profiler's CUDA trace:
     for each (call, reps, cold) of `runs`, in order, `reps` calls of
     `call`, each of which must launch the kernel whose traced name holds
-    `kernel` once, and each after a write of L2_FLUSH_BYTES when `cold` (so
-    the kernel finds the L2 cache as a call between searches finds it);
-    returns, per run, the ms of each launch. The trace may miss a
+    `kernel` `per_call` times, and each after a write of L2_FLUSH_BYTES
+    when `cold` (so the kernel finds the L2 cache as a call between
+    searches finds it); returns, per run, the ms of each call's launches
+    summed. The trace may miss a
     session's first launches (a 10 us kernel lost 2 of 100 on the card;
     in the whole script's later sessions K1 lost 11-15, K3 10-12 and K4h
     21-26, whether or not the session first waited 0.25 s), so SENTINELS
@@ -1358,25 +1374,28 @@ def launch_ms(kernel: str, runs: list, device) -> list:
         for e in prof.events()
         if e.device_type == DeviceType.CUDA and kernel in e.name
     )
-    want = sum(reps for _call, reps, _cold in runs)
-    if not want <= len(launches) <= want + SENTINELS:
+    want = sum(reps for _call, reps, _cold in runs) * per_call
+    sentinels = SENTINELS * per_call
+    if not want <= len(launches) <= want + sentinels:
         raise AssertionError(f"the trace holds {len(launches)} {kernel} launches,"
-                             f" not {want} (+ up to {SENTINELS} sentinels)")
-    if len(launches) < want + SENTINELS:
-        say(f"  the trace of {kernel} kept {len(launches)} of {want + SENTINELS} launches"
-            f" ({SENTINELS} sentinels first)")
+                             f" not {want} (+ up to {sentinels} of the sentinels)")
+    if len(launches) < want + sentinels:
+        say(f"  the trace of {kernel} kept {len(launches)} of {want + sentinels} launches"
+            f" ({sentinels} of the sentinels first)")
     out, k = [], len(launches) - want
     for _call, reps, _cold in runs:
-        out.append([ms for _start, ms in launches[k : k + reps]])
-        k += reps
+        out.append([sum(ms for _start, ms in launches[k + r * per_call : k + (r + 1) * per_call])
+                    for r in range(reps)])
+        k += reps * per_call
     return out
 
 
-def repeated_launch_ms(kernel: str, call, device) -> dict:
-    """REPEATS repeats of 10 cold and 10 warm launches of `call`, traced:
-    the median of the repeats' medians, cold and warm, with each list."""
+def repeated_launch_ms(kernel: str, call, device, per_call: int = 1) -> dict:
+    """REPEATS repeats of 10 cold and 10 warm calls of `call`, traced (each
+    launching the kernel `per_call` times, summed a call): the median of
+    the repeats' medians, cold and warm, with each list."""
     traced = launch_ms(kernel, [(call, 10, cold) for _ in range(REPEATS)
-                                for cold in (True, False)], device)
+                                for cold in (True, False)], device, per_call)
     cold = [statistics.median(t) for t in traced[0::2]]
     warm = [statistics.median(t) for t in traced[1::2]]
     return {"cold": cold, "warm": warm, "cold_ms": statistics.median(cold),
@@ -1517,11 +1536,14 @@ def osa_timing(card: str, typo: dict) -> dict:
             "bound_by": by, "max_abs_err": max(r["err"] for r in rows)}
 
 
-def dp_inputs(T: int, N: int, seed: int, device):
+def dp_inputs(T: int, N: int, seed: int, device, width: int | None = None):
     """K6's inputs: `example_inputs` with INF addends where a class is
     absent, every 13th column matched by no term, every 11th invalid and
     docids above 2^23 from column N // 2 on (clipped in key_lo2: full-key
-    ties); and an int32 exactness addend for the cost mode. On `device`."""
+    ties); and an int32 exactness addend for the cost mode. Laid out
+    `width` columns wide (default N) as the port's callers lay out the
+    bulk path's stride: pad columns match no term, at INF costs, not
+    valid. On `device`."""
     import torch
 
     from meilisearch_tpu_torch.ops import device_scorer as ds
@@ -1535,50 +1557,79 @@ def dp_inputs(T: int, N: int, seed: int, device):
     valid[::11] = False
     docids[N // 2 :] = (1 << 23) + torch.arange(N - N // 2, dtype=torch.int32)
     exact_cost = torch.randint(0, 3, (T, N), generator=gen, dtype=torch.int32)
-    keys = tuple(x.to(device) for x in (cm, pc, fc, pos, em, docids, valid))
-    return keys, exact_cost.to(device)
+    tensors = (cm, pc, fc, pos, em, docids, valid, exact_cost)
+    if width is not None and width > N:
+        fills = (False, 0, ds.INF, ds.INF, False, 0, False, 0)
+        tensors = tuple(
+            torch.cat([x, torch.full(x.shape[:-1] + (width - N,), fill, dtype=x.dtype)], dim=-1)
+            for x, fill in zip(tensors, fills)
+        )
+    tensors = tuple(x.contiguous().to(device) for x in tensors)
+    return tensors[:7], tensors[7]
 
 
 def chain_dp_kernel_phase(device) -> int:
-    """K6 in both modes against its plain versions on the card, bit for
-    bit, for every T of K6_TERMS at each of K6_WIDTHS: the cost matrix,
-    the three keys, and the docids sorted by the stable 3-key sort (every
-    candidate). Returns the max abs error (0; anything else raises)."""
+    """K6 in its three modes against its plain versions on the card, bit
+    for bit, for every T of K6_TERMS at each of K6_WIDTHS and K6_BROAD_N,
+    in the unpadded layout (the direct path where N is not a multiple of
+    16) and in the callers' padded one (the bulk path): the cost matrix,
+    the three keys, and `chain_query_topk`'s docids and keys at k = 1,
+    10 and 32 (the top-k mode and the merge of its survivors), 33, tile
+    - 1, tile, tile + 1 and N (the keys mode and the sort of all N),
+    against `chain_query_topk_torch` (at k = N: its first k are its answer
+    at k). Returns the max abs error (0; anything else raises)."""
     import torch
 
     from meilisearch_tpu_torch.ops import device_scorer as ds
 
     worst = 0
-    for N in K6_WIDTHS:
+    for N in K6_WIDTHS + (K6_BROAD_N,):
         for T in K6_TERMS:
-            keys, exact_cost = dp_inputs(T, N, 600 + T, device)
-            got = [ds.chain_cost_matrix(*keys[:4], exact_cost), *ds.chain_query_keys(*keys)]
-            docs = ds.chain_query_topk(*keys, k=N)[0]
-            torch.cuda.synchronize()
+            seed = 600 + T
+            keys, exact_cost = dp_inputs(T, N, seed, device)
             want = [ds.chain_cost_matrix_torch(*keys[:4], exact_cost),
                     *ds.chain_query_keys_torch(*keys)]
-            want_docs = ds.chain_query_topk_torch(*keys, k=N)[0]
-            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
-            same_docs = torch.equal(docs, want_docs)
-            say(f"K6 N={N} T={T}: cost and keys bit-exact={same} max_abs_err={err},"
-                f" sorted docids equal={same_docs}, ranked"
-                f" {int((got[1] < ds.INVALID_HI).sum())} of {N}")
-            if not (same and same_docs):
-                raise AssertionError(f"K6 disagrees with its plain version at N={N} T={T}")
-            worst = max(worst, err)
+            # every candidate in order: the plain top-k at any k is its head
+            ranked = ds.chain_query_topk_torch(*keys, k=N)
+            tile = ds.tile_width(T)
+            ks = sorted({1, 10, 32, 33, tile - 1, tile, tile + 1, N})
+            for width in sorted({N, ds.aligned_width(N)}):
+                args, cost_in = ((keys, exact_cost) if width == N
+                                 else dp_inputs(T, N, seed, device, width))
+                got = [ds.chain_cost_matrix(*args[:4], cost_in, n=N)]
+                path = ds.LAST_PATH["path"]
+                got += ds.chain_query_keys(*args, n=N)
+                top = {k: ds.chain_query_topk(*args, k=k, n=N) for k in ks}
+                torch.cuda.synchronize()
+                err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                same_top = all(torch.equal(g, w[:k]) for k in ks for g, w in zip(top[k], ranked))
+                expected = "bulk" if width % ds.ALIGN_COLUMNS == 0 else "direct"
+                say(f"K6 N={N} T={T} width={width} ({path} path): cost and keys"
+                    f" bit-exact={same} max_abs_err={err}, top-k docids and keys equal at"
+                    f" k={ks}: {same_top}; ranked {int((got[1] < ds.INVALID_HI).sum())} of {N}")
+                if not (same and same_top) or path != expected:
+                    raise AssertionError(f"K6 disagrees with its plain version at N={N} T={T}"
+                                         f" width={width} ({path} path, {expected} expected)")
+                worst = max(worst, err)
     return worst
 
 
-def k6_bound_ms(T: int, N: int, keys: bool) -> tuple[float, str]:
+def k6_bound_ms(T: int, N: int, mode: str, k: int = K6_TOPK) -> tuple[float, str]:
     """The least time K6 could take on a (T, 3, N) query: the larger of
-    the bytes it must move (masks, pair costs, fid and position addends,
-    exactness, docids and valid in keys mode, each read once; the (6, N)
-    costs or the three keys written once) over the HBM rate, and its
-    int32 operations (K6_OPS_*) over the int32 rate."""
-    moved = N * (3 * T + 9 * (T - 1) + 24 * T + (T + 5 + 12 if keys else 4 * T + 24))
-    ops = N * (K6_OPS_FIRST + K6_OPS_TERM * (T - 1) + K6_OPS_FINAL + (K6_OPS_PACK if keys else 0))
-    t_bytes, t_ops = moved / HBM_BYTES_S, ops / INT32_OPS_S
+    the bytes it must move over the HBM rate and its int32 operations
+    (K6_OPS_*) over the int32 rate. Read once: masks, pair costs, fid and
+    position addends, exactness (int32 in the cost mode, bool else), and
+    docids and valid in the keys and top-k modes. Written once: the (6,
+    N) costs, the three (N,) keys, or the top-k mode's min(k, N) results
+    (docid and three keys). The top-k mode counts the keys mode's
+    operations: the survivors and their sort are the implementation's
+    work, not the function's."""
+    reads = N * (3 * T + 9 * (T - 1) + 24 * T + (4 * T if mode == "cost" else T + 5))
+    writes = {"cost": 24 * N, "keys": 12 * N, "topk": 16 * min(k, N)}[mode]
+    ops = N * (K6_OPS_FIRST + K6_OPS_TERM * (T - 1) + K6_OPS_FINAL
+               + (0 if mode == "cost" else K6_OPS_PACK))
+    t_bytes, t_ops = (reads + writes) / HBM_BYTES_S, ops / INT32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -1606,6 +1657,7 @@ def chain_scorer_phase(device, card: str, keyword: dict) -> dict:
     if not dist.is_nccl_available():
         raise AssertionError("torch.distributed has no NCCL on this machine")
     # (b) the flagship step
+    ds.SELECT_LAUNCHES.reset()
     fn, args = entry()
     got = fn(*args)
     want = ds.chain_query_topk_torch(*args, k=10)
@@ -1613,13 +1665,18 @@ def chain_scorer_phase(device, card: str, keyword: dict) -> dict:
         raise AssertionError("entry() differs from the plain version")
     say(f"entry(): chain_query_topk T=4 N=8192 k=10 on {got[0].device}: docs"
         f" {got[0].tolist()} equal to the plain version (docs and keys)")
-    # (c) the dry run in a one-rank NCCL group
+    # (c) the dry run in a one-rank NCCL group, its collectives recorded
     t0 = time.perf_counter()
     before = ds.LAUNCHES.value
-    dryrun_multichip(1, device="cuda", n_docs=DRYRUN_DOCS)
+    with _recorded_collectives() as moved:
+        dryrun_multichip(1, device="cuda", n_docs=DRYRUN_DOCS)
     say(f"dryrun_multichip(1, cuda, {DRYRUN_DOCS} docs): passed in"
         f" {time.perf_counter() - t0:.3f} s, K6 launches {ds.LAUNCHES.value - before}"
         " (one NCCL rank: no collective across cards is measured)")
+    select_launches = ds.SELECT_LAUNCHES.value
+    if select_launches <= 0:
+        raise AssertionError("the survivors' merge was not launched by entry() and the dry run")
+    collective_timing(device, card, moved)
 
     # (d) the executor path
     store, expected = keyword["store"], keyword["expected"]
@@ -1655,11 +1712,75 @@ def chain_scorer_phase(device, card: str, keyword: dict) -> dict:
 
     # (e) timing at the broadest query's candidates
     n_broad, broad = max(taken, key=lambda c: c[0])
-    out = chain_dp_timing(device, card, n_broad)
-    out["launches"] = launches
+    chain, select = chain_dp_timing(device, card, n_broad)
+    chain["launches"] = launches
+    select["launches"] = select_launches
     run_device_timing(store, card, broad, n_broad)
     say(f"phase 8 wall: {time.perf_counter() - t_phase:.3f} s")
-    return out
+    return {"chain_dp": chain, "select": select}
+
+
+@contextlib.contextmanager
+def _recorded_collectives():
+    """The (op, shape, dtype) of each collective K7 makes inside the
+    block: `sharded._all_gather` and `torch.distributed.all_reduce`."""
+    import torch.distributed as dist
+
+    from meilisearch_tpu_torch.parallel import sharded
+
+    moved = []
+    gather, reduce = sharded._all_gather, dist.all_reduce
+
+    def gathered(shards, x):
+        moved.append(("all_gather_into_tensor", tuple(x.shape), x.dtype))
+        return gather(shards, x)
+
+    def reduced(x, *args, **kwargs):
+        moved.append(("all_reduce", tuple(x.shape), x.dtype))
+        return reduce(x, *args, **kwargs)
+
+    sharded._all_gather, dist.all_reduce = gathered, reduced
+    try:
+        yield moved
+    finally:
+        sharded._all_gather, dist.all_reduce = gather, reduce
+
+
+def collective_timing(device, card: str, moved: list) -> None:
+    """K7's library calls alone: each distinct collective the dry run made
+    (`moved`), by CUDA events (median of 50 after 5 warm-ups) in a
+    one-rank NCCL group of its own, beside its bound on one rank: the
+    bytes it reads and writes (input once, output once) over the HBM
+    rate. One rank moves nothing between cards: NVLink is not measured."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "rdv"), 1),
+                                rank=0, world_size=1)
+        try:
+            for op, shape, dtype in sorted(set(moved), key=str):
+                x = torch.ones(shape, dtype=dtype, device=device)
+                if op == "all_reduce":
+                    def call(x=x):
+                        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+                else:
+                    out = torch.empty_like(x)
+
+                    def call(x=x, out=out):
+                        dist.all_gather_into_tensor(out, x)
+                ms = _median_ms(call, reps=50, warmup=5)
+                size = x.numel() * x.element_size()
+                bound = 2 * size / HBM_BYTES_S * 1e3
+                say(f"timing K7 {op} of {shape} {dtype} ({size} bytes), one NCCL rank, on"
+                    f" {card}: {ms:.4f} ms by CUDA events (median of 50), made"
+                    f" {moved.count((op, shape, dtype))} times in the dry run; bound"
+                    f" {bound:.7f} ms (bytes, {2 * size} at the HBM rate)")
+        finally:
+            dist.destroy_process_group()
 
 
 @contextlib.contextmanager
@@ -1679,49 +1800,119 @@ def _device_dp(flag: str):
 
 
 def chain_dp_timing(device, card: str, n: int) -> dict:
-    """K6 in each mode at T = 4 and N = n (seeded inputs): equal to its
-    plain version, then plain, kernel (traced per launch, cold and warm,
-    REPEATS repeats), plain; each mode's bound; the stable 3-key sort of
-    the keys (CUDA events). Returns the cost mode's numbers (the
-    executor's)."""
+    """K6 at T = 4 and N = n (seeded inputs), in each mode on the
+    callers' padded layout (the bulk path), and the cost mode also
+    unpadded (the direct path at an odd n): equal to its plain version,
+    then plain, kernel (traced per launch, cold and warm, REPEATS
+    repeats), plain; each mode's bound. Then the whole chain_query_topk
+    at k = K6_TOPK by CUDA events (the top-k mode and the merge of its
+    survivors, enqueued by one C call) beside the keys mode and the stable 3-key sort over all n
+    that it replaces. Returns the kernels line's numbers: the cost mode's
+    (the executor's) and the top-k mode's."""
     import torch
 
     from meilisearch_tpu_torch.ops import device_scorer as ds
 
-    keys, exact_cost = dp_inputs(4, n, 700, device)
+    flat, flat_cost = dp_inputs(4, n, 700, device)
+    keys, exact_cost = dp_inputs(4, n, 700, device, ds.aligned_width(n))
+    k = K6_TOPK
     modes = {
-        "cost": (lambda: ds.chain_cost_matrix(*keys[:4], exact_cost),
-                 lambda: ds.chain_cost_matrix_torch(*keys[:4], exact_cost), False),
-        "keys": (lambda: ds.chain_query_keys(*keys),
-                 lambda: ds.chain_query_keys_torch(*keys), True),
+        "cost": (lambda: ds.chain_cost_matrix(*keys[:4], exact_cost, n=n),
+                 lambda: ds.chain_cost_matrix_torch(*flat[:4], flat_cost)),
+        "keys": (lambda: ds.chain_query_keys(*keys, n=n),
+                 lambda: ds.chain_query_keys_torch(*flat)),
+        "topk": (lambda: ds.chain_query_topk(*keys, k=k, n=n),
+                 lambda: ds.chain_query_topk_torch(*flat, k=k)),
+        "cost, unpadded": (lambda: ds.chain_cost_matrix(*flat[:4], flat_cost),
+                           lambda: ds.chain_cost_matrix_torch(*flat[:4], flat_cost)),
     }
     lines = {}
-    for mode, (call, plain_call, is_keys) in modes.items():
+    for mode, (call, plain_call) in modes.items():
         got = call()
+        path = ds.LAST_PATH["path"]
         torch.cuda.synchronize()
         want = plain_call()
         got, want = (list(x) if isinstance(x, tuple) else [x] for x in (got, want))
         err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-        if err:
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"K6 {mode} differs from its plain version at N={n}")
         plain = [_median_ms(plain_call, reps=5)]
         k6 = repeated_launch_ms(K6_KERNEL, call, device)
         plain.append(_median_ms(plain_call, reps=5))
-        bound, by = k6_bound_ms(4, n, is_keys)
-        say(f"timing K6 {mode} T=4 N={n} on {card}: per launch (trace, median of"
-            f" {REPEATS} repeats of 10) cold {k6['cold_ms']:.4f} ms (repeats"
+        bound, by = k6_bound_ms(4, n, mode.split(",")[0], k)
+        say(f"timing K6 {mode} T=4 N={n} ({path} path) on {card}: per launch (trace, median"
+            f" of {REPEATS} repeats of 10) cold {k6['cold_ms']:.4f} ms (repeats"
             f" {_spread(k6['cold'])}), warm {k6['warm_ms']:.4f} ms (repeats"
             f" {_spread(k6['warm'])}); plain version {statistics.median(plain):.4f} ms"
             f" (runs {plain}); bound {bound:.4f} ms ({by}); cold {bound / k6['cold_ms']:.2f},"
             f" warm {bound / k6['warm_ms']:.2f} of the bound; equal")
-        lines[mode] = {"ms": k6["cold_ms"], "plain_ms": statistics.median(plain),
-                       "bound_ms": bound, "bound_by": by, "max_abs_err": err}
-    hi, lo, lo2 = ds.chain_query_keys(*keys)
+        lines[mode] = {"ms": k6["cold_ms"], "warm_ms": k6["warm_ms"],
+                       "plain_ms": statistics.median(plain), "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": err, "path": path}
+
+    def keys_then_sort():
+        return ds.sort3(*ds.chain_query_keys(*keys, n=n), keys[5], k)
+
+    calls = {"top-k mode + merge of the survivors": lambda: ds.chain_query_topk(*keys, k=k, n=n),
+             "keys mode + sort of all N": keys_then_sort}
+    whole = {label: _median_ms(call, reps=50) for label, call in calls.items()}
+    say(f"timing chain_query_topk T=4 N={n} k={k} on {card} (CUDA events, median of 50):"
+        + "; ".join(f" {label} {ms:.4f} ms" for label, ms in whole.items()))
+    cost, topk = lines["cost"], lines["topk"]
+    chain = {**cost, "topk_ms": topk["ms"], "topk_bound_ms": topk["bound_ms"],
+             "topk_call_ms": whole["top-k mode + merge of the survivors"]}
+    return chain, select_timing(device, card, keys, n)
+
+
+def select_timing(device, card: str, keys, n: int) -> dict:
+    """The survivors' merge (select_kernel) as chain_query_topk launches it
+    at T = 4, N = n, k = K6_TOPK: the top-k mode's survivors (`_launch`)
+    equal, slot for slot, to the plain per-tile select of the plain keys;
+    the call's answer equal to the merge walked in plain torch over those
+    survivors (`merge_survivors`); then the merge's launches, traced in
+    the trace of the whole call and summed a call, cold and warm (REPEATS
+    repeats), its plain walk, and its bound: per pass the entries read
+    once and the slots written once (16 bytes each) over the HBM rate, or
+    one 4-word compare an entry read over the int32 rate. Returns the
+    kernels line's numbers."""
+    import torch
+
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    k, tile = K6_TOPK, ds.tile_width(4)
     docids = keys[5]
-    sort_ms = _median_ms(lambda: ds.sort3(hi, lo, lo2, docids, 10), reps=20)
-    say(f"timing the stable 3-key sort (two torch.sort passes) of N={n} keys, k=10,"
-        f" on {card}: {sort_ms:.4f} ms (CUDA events, median of 20)")
-    return lines["cost"]
+    kept = torch.empty((4, -(-n // tile) * k), dtype=torch.int32, device=device)
+    ds._launch(ds.MODE_TOPK, keys, kept.unbind(0), 4, n, docids.shape[0], k)
+    plain_keys = ds.chain_query_keys_torch(*(x[..., :n] for x in keys))
+    cols = torch.arange(n, dtype=torch.int32, device=device)
+    want_kept = ds.select_torch(torch.stack([*plain_keys, cols]), k, width=tile)
+    merges = ds.SELECT_LAUNCHES.value
+    got = ds.chain_query_topk(*keys, k=k, n=n)
+    torch.cuda.synchronize()
+    passes = ds.SELECT_LAUNCHES.value - merges
+    walked = ds.merge_survivors(kept, k, docids)
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip((*kept, *got), (*want_kept, walked[3], *walked[:3])))
+    if err or not torch.equal(kept, want_kept):
+        raise AssertionError("the top-k mode's survivors differ from the plain per-tile select")
+    if not all(torch.equal(g, w) for g, w in zip(got, (walked[3], *walked[:3]))):
+        raise AssertionError("chain_query_topk differs from the plain merge of its survivors")
+    timed = repeated_launch_ms("select_kernel", lambda: ds.chain_query_topk(*keys, k=k, n=n),
+                               device, per_call=passes)
+    plain = _median_ms(lambda: ds.merge_survivors(kept, k, docids), reps=5)
+    bound, t_bytes, t_ops, m = 0.0, 0.0, 0.0, kept.shape[1]
+    for p in range(passes):
+        out = k if p == passes - 1 else -(-m // ds.SELECT_WIDTH) * k
+        b, o = 16 * (m + out) / HBM_BYTES_S, 4 * m / INT32_OPS_S
+        bound, t_bytes, t_ops, m = bound + max(b, o), t_bytes + b, t_ops + o, out
+    by = "bytes" if t_bytes > t_ops else "operations"
+    say(f"timing the survivors' merge in chain_query_topk T=4 N={n} k={k} on {card}:"
+        f" {passes} passes from {kept.shape[1]} survivors, per call (trace, summed over the"
+        f" passes, median of {REPEATS} repeats of 10) cold {timed['cold_ms']:.4f} ms (repeats"
+        f" {_spread(timed['cold'])}), warm {timed['warm_ms']:.4f} ms; plain walk {plain:.4f}"
+        f" ms; bound {bound * 1e3:.6f} ms ({by}); survivors and answer equal")
+    return {"ms": timed["cold_ms"], "warm_ms": timed["warm_ms"], "plain_ms": plain,
+            "bound_ms": bound * 1e3, "bound_by": by, "passes": passes, "max_abs_err": err}
 
 
 def run_device_timing(store, card: str, query: dict, n: int) -> None:
@@ -1795,6 +1986,8 @@ def main() -> int:
     keyword = main_path_phase(device, opts.docs)
     # phase 8 runs on the keyword phase's store, which goes before phase 4
     chain = chain_scorer_phase(device, card, keyword)
+    select = chain["select"]
+    chain = chain["chain_dp"]
     k6_err = max(k6_err, chain.pop("max_abs_err"))
     del keyword["store"]
     typo = typo_path_phase(device, TYPO_VOCAB_WORDS)
@@ -1824,6 +2017,8 @@ def main() -> int:
          "max_abs_err": k4_err, **timing["hamming"], "library_ms": None},
         {"name": "chain_dp", "route": "cuda", "source": K6_SOURCE,
          "replaces": K6_REPLACES, "max_abs_err": k6_err, **chain, "library_ms": None},
+        {"name": "chain_select", "route": "cuda", "source": K6_SOURCE,
+         "replaces": K6_SELECT_REPLACES, **select, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

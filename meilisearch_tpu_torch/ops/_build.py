@@ -62,7 +62,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [ptr] * 2 + [cint] * 5 + [ptr] * 4
     fn.restype = cint
     fn = lib.mst_chain_dp  # K6, csrc/chain_dp.cu
-    fn.argtypes = [ptr] * 10 + [cint] * 3 + [ptr]
+    fn.argtypes = [ptr] * 11 + [cint] * 2 + [ctypes.c_longlong] + [cint] * 4 + [ptr]
+    fn.restype = cint
+    fn = lib.mst_chain_topk  # K6's top-k mode and the merge, csrc/chain_dp.cu
+    fn.argtypes = ([ptr] * 8 + [ctypes.c_longlong, ptr] + [cint] * 2 + [ctypes.c_longlong]
+                   + [cint] * 4 + [ctypes.POINTER(cint), ptr])
     fn.restype = cint
     return lib
 

@@ -27,9 +27,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
         self.value = 0
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.value += 1
+            self.value += n
 
     def reset(self) -> None:
         with self._lock:

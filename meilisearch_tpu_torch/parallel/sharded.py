@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.device_scorer import chain_query_topk, sort3
+from ..ops.device_scorer import INF, aligned_width, chain_query_topk, sort3
 
 
 @dataclass(frozen=True)
@@ -59,14 +59,22 @@ def make_group(backend: Optional[str] = None, device=None) -> ShardGroup:
     return ShardGroup(device, dist.get_rank(), dist.get_world_size())
 
 
-def _block(x, shards: ShardGroup, axis: int) -> torch.Tensor:
-    """This rank's block of a global array along `axis`, on its device."""
+def _block(x, shards: ShardGroup, axis: int, width: int | None = None,
+           fill=0) -> torch.Tensor:
+    """This rank's block of a global array along `axis`, on its device;
+    `width` wide along `axis` when given, the pad filled with `fill`."""
     x = torch.as_tensor(x)
     n = x.shape[axis]
     if n % shards.size:
         raise ValueError(f"axis {axis} of length {n} is not divisible by {shards.size} ranks")
     size = n // shards.size
-    return x.narrow(axis, shards.rank * size, size).contiguous().to(shards.device)
+    block = x.narrow(axis, shards.rank * size, size)
+    if width is not None and width > size:
+        shape = list(block.shape)
+        shape[axis] = width - size
+        pad = torch.full(shape, fill, dtype=block.dtype, device=block.device)
+        block = torch.cat([block, pad], dim=axis)
+    return block.contiguous().to(shards.device)
 
 
 def _all_gather(shards: ShardGroup, x: torch.Tensor) -> torch.Tensor:
@@ -83,8 +91,8 @@ def _all_gather(shards: ShardGroup, x: torch.Tensor) -> torch.Tensor:
 def sharded_query_topk(shards: ShardGroup, inputs: tuple, k: int = 10):
     """Run the fused chain-query scorer (K6) over docid shards and merge
     the top-ks. inputs = (class_mask (T,3,N), pair_cost, fid_cost,
-    pos_cost, exact_mask, docids (N,), valid (N,)), numpy arrays or CPU
-    tensors, with N divisible by the group's size. Returns (docs, key_hi)
+    pos_cost, exact_mask, docids (N,), valid (N,)), numpy arrays or
+    tensors on any device, with N divisible by the group's size. Returns (docs, key_hi)
     on the group's device.
 
     The merge sorts all three packed key words (hi, lo, lo2), the same
@@ -92,8 +100,14 @@ def sharded_query_topk(shards: ShardGroup, inputs: tuple, k: int = 10):
     ties order as in a single-device run; full-key ties keep the gathered
     order, which is rank-major."""
     axes = (2, 3, 2, 2, 1, 0, 0)  # the candidate axis of each input
-    local = [_block(x, shards, axis) for x, axis in zip(inputs, axes)]
-    keyed = chain_query_topk(*local, k=k)
+    # each block laid out at K6's bulk-path stride, the pad columns inert
+    # (no term matches, INF costs, not valid) and not computed
+    fills = (False, 0, INF, INF, False, 0, False)
+    size = inputs[5].shape[0] // shards.size
+    width = aligned_width(size)
+    local = [_block(x, shards, axis, width, fill)
+             for x, axis, fill in zip(inputs, axes, fills)]
+    keyed = chain_query_topk(*local, k=k, n=size)
     docs, hi, lo, lo2 = (_all_gather(shards, x) for x in keyed)
     s_docs, s_hi, _lo, _lo2 = sort3(hi, lo, lo2, docs, k)
     return s_docs, s_hi

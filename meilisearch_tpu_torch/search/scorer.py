@@ -1124,9 +1124,10 @@ class FusedScorer:
                 return False
         return True
 
-    def _chain_tensors(self):
-        """The dense chain tensors over the candidate axis (unpadded), or
-        None when the query is not chain-compatible. Shared by run_device
+    def _chain_tensors(self, width: int | None = None):
+        """The dense chain tensors over the candidate axis, `width` columns
+        wide (default N; pad columns match no term, at INF costs), or None
+        when the query is not chain-compatible. Shared by run_device
         (single-chip cost matrix) and build_chain_inputs (sharded top-k)."""
         if self.n == 0 or not self.device_compatible():
             return None
@@ -1143,23 +1144,24 @@ class FusedScorer:
             return None
         C = 3
         N = self.n
-        class_mask = np.zeros((T, C, N), dtype=bool)
-        fid_cost = np.full((T, C, N), int(INF), dtype=np.int32)
-        pos_cost = np.full((T, C, N), int(INF), dtype=np.int32)
-        exact_cost = np.zeros((T, N), dtype=np.int32)
-        pair_cost = np.zeros((max(T - 1, 1), C, C, N), dtype=np.int8)
+        W = N if width is None else width
+        class_mask = np.zeros((T, C, W), dtype=bool)
+        fid_cost = np.full((T, C, W), int(INF), dtype=np.int32)
+        pos_cost = np.full((T, C, W), int(INF), dtype=np.int32)
+        exact_cost = np.zeros((T, W), dtype=np.int32)
+        pair_cost = np.zeros((max(T - 1, 1), C, C, W), dtype=np.int8)
         for t, node in enumerate(chain):
             ns = self.node_states[node.node_id]
             for cls in ns.classes:
-                class_mask[t, cls] = ns.class_masks[ns.classes.index(cls)]
-                fid_cost[t, cls] = np.minimum(
+                class_mask[t, cls, :N] = ns.class_masks[ns.classes.index(cls)]
+                fid_cost[t, cls, :N] = np.minimum(
                     self._fid_addend(node, self._sel("fid", cls, 0)), int(INF)
                 )
-                pos_cost[t, cls] = np.minimum(
+                pos_cost[t, cls, :N] = np.minimum(
                     self._position_addend(node, self._sel("position", cls, 0)),
                     int(INF),
                 )
-            exact_cost[t] = self._exactness_addend(node)
+            exact_cost[t, :N] = self._exactness_addend(node)
             if t > 0:
                 left = chain[t - 1]
                 adjacent = (
@@ -1170,7 +1172,7 @@ class FusedScorer:
                         if c1 not in self.node_states[left.node_id].classes:
                             continue
                         for c2 in ns.classes:
-                            pair_cost[t - 1, c1, c2] = self._pair_cost(
+                            pair_cost[t - 1, c1, c2, :N] = self._pair_cost(
                                 left,
                                 self._sel("proximity", c1, 0),
                                 node,
@@ -1226,19 +1228,19 @@ class FusedScorer:
         when the store has no device (`store.device` None: the CPU, as
         the caller asked). Returns the (D, N) cost matrix or None when
         the query is not chain-compatible."""
-        tensors = self._chain_tensors()
+        from ..ops.device_scorer import aligned_width, chain_cost_matrix
+
+        # the candidate axis padded to the kernel's bulk-path stride (the
+        # JAX package padded it to a power of two so XLA would compile
+        # fewer programs); the kernel computes the first N columns only
+        tensors = self._chain_tensors(aligned_width(self.n))
         if tensors is None:
             return None
         import torch
 
-        from ..ops.device_scorer import chain_cost_matrix
-
-        # no padding of the candidate axis: the JAX package padded it to a
-        # power of two so XLA would compile fewer programs, and the kernel's
-        # columns are independent of each other
         device = self.store.device or torch.device("cpu")
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tensors]
-        out = chain_cost_matrix(*args).cpu().numpy().astype(np.int64)
+        out = chain_cost_matrix(*args, n=self.n).cpu().numpy().astype(np.int64)
         return np.where(out >= int(INF), int(INF), out)
 
 

@@ -6,7 +6,7 @@ jax is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py tests/test_torch_device_osa.py -m cuda -q
 
 (`--noconftest`: tests/conftest.py sets up jax for the JAX package's
-tests.) K1, K4h and K6 (both modes of each) are held against their
+tests.) K1, K4h and K6 (every mode of each, both of K6's paths) are held against their
 plain torch versions bit for bit, a refused launch must raise, a one-rank
 NCCL group's scatter-gather must equal the single-device scorer, the
 port's search
@@ -388,11 +388,13 @@ def test_encoder_refused_launch_raises(cuda_device, tmp_path):
     assert hf_encoder.FORWARDS.value == forwards + 1  # one attempt, on the card
 
 
-def _dp_inputs(T, N, seed, device):
+def _dp_inputs(T, N, seed, device, width=None):
     """K6's inputs: `example_inputs` with INF addends where a class is
     absent, every 13th column matched by no term, every 11th invalid and
     docids above 2^23 from column N // 2 on (clipped in key_lo2); plus an
-    int32 exactness addend for the cost mode. On `device`."""
+    int32 exactness addend for the cost mode. Laid out `width` columns
+    wide (default N; pad columns inert, as the port's callers pad). On
+    `device`."""
     from meilisearch_tpu_torch.ops import device_scorer as ds
 
     cm, pc, fc, pos, em, docids, valid = (x.clone() for x in ds.example_inputs(T=T, N=N, seed=seed))
@@ -404,28 +406,122 @@ def _dp_inputs(T, N, seed, device):
     valid[::11] = False
     docids[N // 2 :] = (1 << 23) + torch.arange(N - N // 2, dtype=torch.int32)
     exact_cost = torch.randint(0, 3, (T, N), generator=gen, dtype=torch.int32)
-    keys = tuple(x.to(device) for x in (cm, pc, fc, pos, em, docids, valid))
-    return keys, exact_cost.to(device)
+    tensors = (cm, pc, fc, pos, em, docids, valid, exact_cost)
+    if width is not None and width > N:
+        fills = (False, 0, ds.INF, ds.INF, False, 0, False, 0)
+        tensors = tuple(
+            torch.cat([x, torch.full(x.shape[:-1] + (width - N,), fill, dtype=x.dtype)], dim=-1)
+            for x, fill in zip(tensors, fills)
+        )
+    tensors = tuple(x.contiguous().to(device) for x in tensors)
+    return tensors[:7], tensors[7]
+
+
+def _merge_passes(m: int, k: int) -> int:
+    """The merge's launches over m survivors (mst_chain_topk's loop)."""
+    passes = 1
+    while m > 1024:
+        m, passes = -(-m // 1024) * k, passes + 1
+    return passes
 
 
 @pytest.mark.parametrize("N", [257, (1 << 14) + 3])
 @pytest.mark.parametrize("T", [1, 2, 3, 4, 8, 16])
 def test_chain_dp_kernel_matches_plain(cuda_device, T, N):
-    """K6 in both modes against its plain versions, bit for bit: the cost
-    matrix, the three keys, and the sorted docids of every candidate."""
+    """K6 in its three modes against its plain versions, bit for bit, in
+    the unpadded layout (the direct path: N is odd) and the callers'
+    padded one (the bulk path): the cost matrix, the three keys, and
+    `chain_query_topk`'s docids and keys at k = 1, 10 and 32 (the top-k
+    mode and the merge of its survivors) and at k from 33 to N (the keys
+    mode and the sort of all N)."""
     from meilisearch_tpu_torch.ops import device_scorer as ds
 
     keys, exact_cost = _dp_inputs(T, N, 500 + T, cuda_device)
-    before = ds.LAUNCHES.value
-    cost = ds.chain_cost_matrix(*keys[:4], exact_cost)
-    got = ds.chain_query_keys(*keys)
-    ranked = ds.chain_query_topk(*keys, k=N)
+    want = [ds.chain_cost_matrix_torch(*keys[:4], exact_cost), *ds.chain_query_keys_torch(*keys)]
+    ranked = ds.sort3(*want[1:], keys[5], N)
+    tile = ds.tile_width(T)
+    ks = sorted({1, 10, 32, 33, tile - 1, tile, tile + 1, N})
+    for width in (N, ds.aligned_width(N)):
+        args, cost_in = _dp_inputs(T, N, 500 + T, cuda_device, width)
+        before, merges = ds.LAUNCHES.value, ds.SELECT_LAUNCHES.value
+        got = [ds.chain_cost_matrix(*args[:4], cost_in, n=N)]
+        path = ds.LAST_PATH["path"]
+        got += ds.chain_query_keys(*args, n=N)
+        top = {k: ds.chain_query_topk(*args, k=k, n=N) for k in ks}
+        torch.cuda.synchronize()
+        assert ds.LAUNCHES.value == before + 2 + len(ks)
+        # the merge runs for the top-k mode's k only
+        assert ds.SELECT_LAUNCHES.value == merges + sum(
+            _merge_passes(-(-N // tile) * k, k) for k in ks if k <= ds.TOPK_MAX_K)
+        assert path == ("bulk" if width % ds.ALIGN_COLUMNS == 0 else "direct")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        for k in ks:
+            for g, w in zip(top[k], ranked):
+                assert torch.equal(g, w[:k])
+
+
+@pytest.mark.parametrize("T", [1, 4, 9, 16])
+def test_chain_dp_topk_survivors_match_tile_select(cuda_device, T):
+    """The top-k mode's survivors, slot for slot: each tile's k best
+    entries in (hi, lo, lo2, column) order as `tile_select_torch` walks
+    them, a short last tile's spare slots the sentinel."""
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    tile = ds.tile_width(T)
+    N = 3 * tile + 5
+    inputs, _cost = _dp_inputs(T, N, 70 + T, cuda_device, ds.aligned_width(N))
+    plain = ds.chain_query_keys_torch(*(x[..., :N] for x in inputs))
+    for k in (1, 10, ds.TOPK_MAX_K):
+        kept = torch.empty((4, 4 * k), dtype=torch.int32, device=cuda_device)
+        ds._launch(ds.MODE_TOPK, inputs, kept.unbind(0), T, N, inputs[5].shape[0], k)
+        torch.cuda.synchronize()
+        real = kept[0] != ds.SENTINEL
+        assert int((~real).sum()) == k - min(k, N - 3 * tile)
+        for g, w in zip(kept, ds.tile_select_torch(*(x.cpu() for x in plain), tile, k)):
+            assert torch.equal(g[real].cpu(), w)
+
+
+@pytest.mark.parametrize("T,N,k", [(4, 355_439, 10), (4, 1000, 32), (16, 2 * 128 * 1024 + 3, 32),
+                                   (8, 70_000, 1), (1, 1, 1)])
+def test_chain_query_topk_merges_in_one_call(cuda_device, T, N, k):
+    """One call launches the top-k mode once and the merge's passes, and
+    returns what the plain merge (`merge_survivors`) returns over the top-k
+    mode's own survivors, and what the plain sort of all N returns."""
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    args, _cost = _dp_inputs(T, N, 90 + T, cuda_device, ds.aligned_width(N))
+    tile = ds.tile_width(T)
+    kept = torch.empty((4, -(-N // tile) * k), dtype=torch.int32, device=cuda_device)
+    ds._launch(ds.MODE_TOPK, args, kept.unbind(0), T, N, args[5].shape[0], k)
+    walked = ds.merge_survivors(kept, k, args[5], keep=min(k, N))
+    launches, merges = ds.LAUNCHES.value, ds.SELECT_LAUNCHES.value
+    got = ds.chain_query_topk(*args, k=k, n=N)
     torch.cuda.synchronize()
-    assert ds.LAUNCHES.value == before + 3
-    assert torch.equal(cost, ds.chain_cost_matrix_torch(*keys[:4], exact_cost))
-    for g, w in zip(got, ds.chain_query_keys_torch(*keys)):
+    assert ds.LAUNCHES.value == launches + 1
+    assert ds.SELECT_LAUNCHES.value == merges + _merge_passes(kept.shape[1], k)
+    for g, w in zip(got, (walked[3], *walked[:3])):
         assert torch.equal(g, w)
-    for g, w in zip(ranked, ds.chain_query_topk_torch(*keys, k=N)):
+    for g, w in zip(got, ds.chain_query_topk_torch(*(x[..., :N] for x in args), k=k)):
+        assert torch.equal(g, w)
+
+
+def test_chain_dp_misaligned_inputs_take_the_direct_path(cuda_device):
+    """A contiguous input that starts 4 bytes into its buffer cannot be
+    bulk-copied: the same padded layout then runs the direct path, equal."""
+    from meilisearch_tpu_torch.ops import device_scorer as ds
+
+    N = 1000
+    args, cost_in = _dp_inputs(4, N, 31, cuda_device, ds.aligned_width(N))
+    fid = args[2]
+    buf = torch.empty(fid.numel() + 1, dtype=fid.dtype, device=cuda_device)
+    shifted = buf[1:].view(fid.shape)
+    shifted.copy_(fid)
+    args = (*args[:2], shifted, *args[3:])
+    got = ds.chain_query_keys(*args, n=N)
+    assert ds.LAST_PATH["path"] == "direct"
+    torch.cuda.synchronize()
+    for g, w in zip(got, ds.chain_query_keys_torch(*(x[..., :N] for x in args))):
         assert torch.equal(g, w)
 
 
@@ -436,8 +532,8 @@ def test_chain_dp_refused_launch_raises(cuda_device):
     out = torch.empty((6, 1024), dtype=torch.int32, device=cuda_device)
     rc = _build.load_library().mst_chain_dp(
         *[x.data_ptr() for x in keys[:4]], exact_cost.data_ptr(), None, None,
-        out.data_ptr(), None, None, ds.MAX_TERMS + 1, 1024, ds.MODE_COST,
-        torch.cuda.current_stream().cuda_stream,
+        out.data_ptr(), None, None, None, ds.MAX_TERMS + 1, 1024, 1024, ds.MODE_COST, 0,
+        ds.tile_width(ds.MAX_TERMS), 1, torch.cuda.current_stream().cuda_stream,
     )
     assert rc != 0  # more terms than the kernel takes
     with pytest.raises(RuntimeError):
@@ -446,7 +542,8 @@ def test_chain_dp_refused_launch_raises(cuda_device):
 
 def test_sharded_query_topk_one_nccl_rank(cuda_device, tmp_path):
     """A one-rank NCCL group: the scatter-gather equals the single-device
-    keys mode (it measures no collective across cards)."""
+    top-k, whether it is given numpy arrays or tensors on the card (it
+    measures no collective across cards)."""
     import torch.distributed as dist
 
     from meilisearch_tpu_torch.ops import device_scorer as ds
@@ -459,9 +556,11 @@ def test_sharded_query_topk_one_nccl_rank(cuda_device, tmp_path):
         shards = sharded.make_group()
         assert shards.device.type == "cuda" and shards.size == 1
         inputs = tuple(x.numpy() for x in ds.example_inputs(T=3, N=4096, k=10, seed=2))
-        docs, hi = sharded.sharded_query_topk(shards, inputs, k=10)
         want = ds.chain_query_topk(*(torch.from_numpy(x).to(cuda_device) for x in inputs), k=10)
-        assert torch.equal(docs, want[0]) and torch.equal(hi, want[1])
+        # the global arrays as numpy, and already on the card
+        for given in (inputs, tuple(torch.from_numpy(x).to(cuda_device) for x in inputs)):
+            docs, hi = sharded.sharded_query_topk(shards, given, k=10)
+            assert torch.equal(docs, want[0]) and torch.equal(hi, want[1])
     finally:
         dist.destroy_process_group()
 
