@@ -74,8 +74,8 @@ Phases, each fatal on failure:
      768, 12 layers, 12 heads, intermediate 3,072; seeded random weights,
      nothing downloaded) is written to a temporary directory; the port's
      encoder on the card must agree with the same checkpoint on the CPU
-     within ENC_TOL on 80 texts; a fourth App ingests 150,000 synthetic
-     hackernews documents over HTTP with a huggingFace embedder on that
+     within ENC_TOL on 80 texts; a fourth App ingests ENC_DOCS synthetic
+     hackernews documents (100,000 of the configuration's 150,000) over HTTP with a huggingFace embedder on that
      checkpoint and Meilisearch's default documentTemplate, every document
      embedded at indexing on the card (wall time, tokens, tokens/s, peak
      device memory); the query texts are embedded on the card, then 8
@@ -102,7 +102,29 @@ Phases, each fatal on failure:
      of all N, and the whole run_device call against the host pass's
      run_raw; the survivors' merge (K6's select_kernel) per pass at the
      same shapes, its launches counted over entry() and the dry run; its
-     wall time.
+     wall time;
+  9. XLM-R encoder path (hn50k-me5base-hf): a checkpoint at
+     intfloat/multilingual-e5-base's published width (XLM-RoBERTa, vocab
+     250,002, hidden 768, 12 layers, 12 heads, intermediate 3,072, 514
+     positions, pad id 1; seeded random weights) with a seeded 250,002-piece
+     SentencePiece-Unigram tokenizer.json (NFKC and NMT's precompiled
+     character map, Strip, Replace, Metaspace, <s> $A </s>), both written
+     here; the port's encoder on the card must agree with the CPU within
+     ENC_TOL on 80 texts (accents, Cyrillic, CJK, Arabic, combining marks,
+     runs of spaces, unknown characters, the empty string); a fifth App
+     ingests 50,000 synthetic hackernews documents over HTTP with a
+     huggingFace embedder on that checkpoint, every document embedded at
+     indexing on the card (host tokenization apart from the forwards, wall
+     time, tokens, tokens/s, peak device memory); 8 hybrid searches with a
+     text q against the same store's host pass by the float round's rule,
+     one at a time and from 32 threads; one query's forward and one
+     indexing chunk on the device clock, the chunk against its float32
+     bound;
+  10. workloads: the 7 declarative workloads (workloads/tests/*.json)
+     through meilisearch_tpu_torch.xtask.run_workload with every App
+     bound to the card (its stores are under the device thresholds, so
+     the batcher may answer every search on the host); any failure is
+     fatal.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -199,17 +221,49 @@ VEC_TEXT = ["rust", "database", "machine learning", "cloud", "python web"]
 # the encoder path, hn150k-bgebase-hf: the vector path's corpus with a
 # huggingFace embedder at BAAI/bge-base-en-v1.5's published width (random
 # weights from a seed, nothing downloaded) and Meilisearch's default
-# documentTemplate; every document is embedded at indexing on the card
+# documentTemplate; every document is embedded at indexing on the card.
+# 100,000 of its 150,000 documents: the depth cut to keep the whole
+# script near half of its time limit
 BGE_CONFIG = {
     "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
     "num_attention_heads": 12, "intermediate_size": 3072,
     "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
 }
 BGE_INIT_STD = 0.02  # BERT's initializer_range
-ENC_DOCS, ENC_WRITE, ENC_SEED = 150_000, 1_000, 2025
+ENC_DOCS, ENC_WRITE, ENC_SEED = 100_000, 1_000, 2025
 ENC_TOL = 1e-4  # max abs error of normalized embeddings, card against the CPU
 ENC_TEXT = ["rust compiler", "machine learning database", "cloud security", "python web"]
 ENC_TIMED_TOKENS = 128  # tokens per text of the timed indexing chunk
+# the XLM-R path, hn50k-me5base-hf: intfloat/multilingual-e5-base's
+# published config.json (xlm-roberta-base's widths) with seeded random
+# weights, a seeded 250,002-piece SentencePiece-Unigram tokenizer.json
+# written as transformers' XLM-R converter writes it (NFKC and NMT's
+# character map, Strip, Replace, Metaspace, <s> $A </s>), and 50,000
+# hackernews documents embedded at indexing on the card
+E5_CONFIG = {
+    "model_type": "xlm-roberta", "vocab_size": 250_002, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+    "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5,
+    "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "hidden_act": "gelu",
+}
+E5_DOCS, E5_SEED = 50_000, 2026
+E5_TEXT = ["rust compiler", "machine learning database", "поиск cloud security",
+           "python web 検索"]
+# multilingual texts of the card-against-CPU check (accents, Cyrillic, CJK,
+# Arabic, combining marks, runs of spaces, characters no piece holds, and
+# the empty string)
+E5_CHECK_TEXT = [
+    "Café naïve résumé — déjà vu", "Ünïcödé façade coöperate",
+    "Привет, мир! Поиск в базе данных", "Москва — столица России", "中文字 搜索引擎 数据库",
+    "東京の検索エンジン 日本語", "한국어 검색 엔진", "مرحبا بالعالم بحث", "قاعدة البيانات",
+    "élève q́̈", "ﬁne ½ ① Ａｂｃ ™",
+    "runs    of     spaces\tand\ttabs\nnew\r\nlines", "   leading and trailing   ", "",
+    "emoji \U0001F468‍\U0001F469‍\U0001F467 \U0001F44D\U0001F3FD \U0001F1EB\U0001F1F7"
+    " ✈ \U0001D518\U0001D52B\U0001D526",
+    "zero​width﻿bom", "Ελληνικά κείμενα", "हिन्दी खोज", "ქართული ტექსტი",
+    "straße über " * 8, "<mask> and <s> inside </s>", "Ǆ ǅ ǆ İstanbul ΣΑΣ",
+    "tab\there\x07bell\x01", "rust \U0001F680 machine learning ✨ data",
+]
 # the float round: a run of hits whose host scores lie within SCORE_TIE of
 # each other is compared as a set (cuBLAS and numpy sum in other orders,
 # which moves a float32 cosine by a few ulps); scores within SCORE_ATOL
@@ -881,17 +935,16 @@ def bge_vocab() -> list:
     return vocab + [f"filler{i}" for i in range(n - len(vocab))]
 
 
-def write_bge_checkpoint(path: str) -> None:
-    """A checkpoint of bge-base's width: BERT's initialization (weights
+def random_state_dict(config: dict, seed: int) -> dict:
+    """BERT's (and XLM-R's) initialization of a model of `config`: weights
     normal(0, BGE_INIT_STD) from a seeded torch.Generator, biases 0,
-    LayerNorm scales 1), written as pytorch_model.bin with its vocab."""
+    LayerNorm scales 1."""
     import torch
 
     from meilisearch_tpu_torch.models.bert import BertModel
-    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
 
-    model = BertModel(BGE_CONFIG)
-    g = torch.Generator().manual_seed(ENC_SEED)
+    model = BertModel(config)
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if "LayerNorm" in name:
@@ -900,10 +953,94 @@ def write_bge_checkpoint(path: str) -> None:
                 p.zero_()
             else:
                 p.copy_(torch.randn(p.shape, generator=g) * BGE_INIT_STD)
-    write_checkpoint(path, BGE_CONFIG, model.state_dict(), bge_vocab(), do_lower_case=True)
+    return model.state_dict()
 
 
-def encoder_check(path: str, device, texts: list) -> float:
+def write_bge_checkpoint(path: str) -> None:
+    """A checkpoint of bge-base's width, written as pytorch_model.bin with
+    its vocab."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    write_checkpoint(path, BGE_CONFIG, random_state_dict(BGE_CONFIG, ENC_SEED), bge_vocab(),
+                     do_lower_case=True)
+
+
+def e5_charsmap() -> bytes:
+    """sentencepiece's nmt_nfkc map as far as the stdlib knows it: every
+    code point that NFKC changes, the NMT rules' control characters
+    (dropped) and odd spaces (a space), and two-character clusters that
+    compose."""
+    import unicodedata
+
+    from meilisearch_tpu_torch.models.fixtures import build_charsmap
+
+    mapping = {}
+    for cp in range(1, 0x110000):
+        if 0xD800 <= cp <= 0xDFFF:
+            continue
+        ch = chr(cp)
+        norm = unicodedata.normalize("NFKC", ch)
+        if norm != ch:
+            mapping[ch] = norm
+    for cp in [*range(0x01, 0x09), 0x0B, *range(0x0E, 0x20), 0x7F, 0x8F, 0x9F]:
+        mapping[chr(cp)] = ""
+    for cp in [0x09, 0x0A, 0x0C, 0x0D, 0x1680, *range(0x200B, 0x2010), 0x2028, 0x2029, 0xFEFF]:
+        mapping[chr(cp)] = " "
+    for base in "aeiouAEIOU":
+        for mark in "\u0300\u0301\u0308":
+            mapping[base + mark] = unicodedata.normalize("NFC", base + mark)
+    return build_charsmap(mapping)
+
+
+def e5_pieces() -> list:
+    """249,997 (piece, score) entries: every character of the scripts the
+    check texts use, alone and after U+2581, the corpus's words and their
+    halves, then seeded pieces of 2 to 6 characters of the same alphabet
+    to the vocabulary's size; scores seeded (words above characters above
+    the rest)."""
+    import numpy as np
+
+    from meilisearch_tpu_torch.utils.synthetic import WORDS
+
+    rng = np.random.default_rng(E5_SEED)
+    alphabet = [chr(c) for c in [*range(33, 127), *range(0xC0, 0x180), *range(0x391, 0x3CA),
+                                 *range(0x410, 0x450), *range(0x621, 0x64B), *range(0x905, 0x940),
+                                 *range(0x10D0, 0x10F1), *range(0x3041, 0x3097),
+                                 *range(0x30A1, 0x30FB), *range(0x4E00, 0x5A00),
+                                 *range(0xAC00, 0xB000)]]
+    words = WORDS + "title url author https example com user".split()
+    scores = {}
+    for w in words:
+        for piece in ("▁" + w, w[: len(w) // 2], w[len(w) // 2:]):
+            scores.setdefault(piece, float(rng.uniform(-8.0, -4.0)))
+    for ch in alphabet:
+        scores.setdefault("▁" + ch, float(rng.uniform(-12.0, -9.0)))
+        scores.setdefault(ch, float(rng.uniform(-12.0, -9.0)))
+    scores.setdefault("▁", -3.0)
+    n = E5_CONFIG["vocab_size"] - 5  # <s> <pad> </s> <unk> ... <mask>
+    chars = alphabet[:94 + 192]  # ASCII and Latin letters
+    while len(scores) < n:
+        idx = rng.integers(0, len(chars), (1 << 16, 6)).tolist()
+        lens = rng.integers(2, 7, 1 << 16).tolist()
+        spaced = (rng.random(1 << 16) < 0.5).tolist()
+        draws = rng.uniform(-16.0, -10.0, 1 << 16).tolist()
+        for row, k, sp, score in zip(idx, lens, spaced, draws):
+            piece = ("▁" if sp else "") + "".join([chars[i] for i in row[:k]])
+            scores.setdefault(piece, score)
+    return list(scores.items())[:n]
+
+
+def write_e5_checkpoint(path: str) -> None:
+    """A checkpoint of multilingual-e5-base's width (XLM-R), written as
+    pytorch_model.bin with its 250,002-piece Unigram tokenizer.json."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import xlmr_tokenizer_json
+
+    write_checkpoint(path, E5_CONFIG, random_state_dict(E5_CONFIG, E5_SEED),
+                     tokenizer_json=xlmr_tokenizer_json(e5_pieces(), e5_charsmap()))
+
+
+def encoder_check(path: str, device, texts: list, width: str = "bge-base") -> float:
     """The checkpoint's normalized embeddings of `texts` on the card against
     the CPU; returns the max abs error (fails above ENC_TOL)."""
     import numpy as np
@@ -917,7 +1054,7 @@ def encoder_check(path: str, device, texts: list) -> float:
     want = TextEncoder(path, "useModel", device=None).encode(texts)
     t_cpu = time.perf_counter() - t0
     err = float(np.abs(got - want).max())
-    say(f"encoder check: {len(texts)} texts at bge-base width, card against CPU: max abs"
+    say(f"encoder check: {len(texts)} texts at {width} width, card against CPU: max abs"
         f" error {err:.3e} (bound {ENC_TOL:g}); card {t_card:.3f} s (load included),"
         f" CPU {t_cpu:.3f} s (load included)")
     if not err <= ENC_TOL:
@@ -925,18 +1062,18 @@ def encoder_check(path: str, device, texts: list) -> float:
     return err
 
 
-def encoder_requests() -> list:
-    """The encoder path's 8 hybrid requests: 4 text queries at semanticRatio
+def encoder_requests(index: str = "enc", queries: tuple = tuple(ENC_TEXT)) -> list:
+    """An encoder path's 8 hybrid requests: 4 text queries at semanticRatio
     1.0 and 0.5, the last two filtered; limit 20, offset 10 for every other
     one, showRankingScore."""
     out = []
-    for r, q in enumerate(ENC_TEXT):
+    for r, q in enumerate(queries):
         for ratio in (1.0, 0.5):
             body = {"q": q, "hybrid": {"semanticRatio": ratio, "embedder": "default"},
                     "limit": 20, "offset": 10 * (r % 2), "showRankingScore": True}
             if r >= 2:
                 body["filter"] = "points > 1000"
-            out.append(("/indexes/enc/search", body))
+            out.append((f"/indexes/{index}/search", body))
     return out
 
 
@@ -1066,7 +1203,128 @@ def encoder_path_phase(device, card: str, n_docs: int) -> dict:
     return {"err": err, "forwards": forwards, **timing}
 
 
-def encoder_timing(enc, device, card: str) -> dict:
+def xlmr_path_phase(device, card: str, n_docs: int) -> dict:
+    """hn50k-me5base-hf through a fifth App: (a) a checkpoint of
+    multilingual-e5-base's width and its Unigram tokenizer.json; (b) the
+    encoder on the card against the CPU on 80 texts; (c) n_docs documents
+    embedded at indexing on the card; (d) hybrid searches with a text q
+    against the same store's host pass; (e) the forward's timing."""
+    import tempfile
+
+    import torch
+
+    from meilisearch_tpu_torch.api.app import App, TestClient
+    from meilisearch_tpu_torch.models import hf_encoder
+    from meilisearch_tpu_torch.models.unigram import Unigram
+    from meilisearch_tpu_torch.search.device_batch import serving_stats
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector import embedders
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as path:
+        t0 = time.perf_counter()
+        write_e5_checkpoint(path)
+        say(f"multilingual-e5-base-width checkpoint (XLM-R, seeded random weights, a"
+            f" {E5_CONFIG['vocab_size']}-piece Unigram tokenizer.json) written in"
+            f" {time.perf_counter() - t0:.3f} s")
+        docs = generate_hackernews_like(n_docs, seed=E5_SEED)
+        searchable = set(VEC_SETTINGS["searchableAttributes"])
+        texts = [render_document_template(None, d, searchable) for d in docs[:48]]
+        texts += E5_TEXT * 2 + E5_CHECK_TEXT
+        err = encoder_check(path, device, texts, "multilingual-e5-base")
+
+        serving_stats(reset=True)
+        app = App(device=device)
+        try:
+            client = TestClient(app)
+            settings = {**VEC_SETTINGS, "embedders": {"default": {
+                "source": "huggingFace", "model": path}}}
+            client.update_settings("e5", settings)
+            enc = hf_encoder.encoder(path, "useModel", device)
+            if not isinstance(enc._tokenizer, Unigram):
+                raise AssertionError("the checkpoint's Unigram tokenizer was not chosen")
+            before = (enc.texts, enc.tokens, enc.seconds, enc.tokenize_seconds)
+            hf_encoder.FORWARDS.reset()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            res = client.post("/indexes/e5/documents", body=docs)
+            if res.status != 202:
+                raise AssertionError(f"ingest refused: {res.status} {res.json}")
+            task = app.scheduler.wait_for_task(res.json["taskUid"], timeout=900.0)
+            if task.to_json()["status"] != "succeeded":
+                raise AssertionError(f"ingest failed: {task.to_json()}")
+            ingest_s = time.perf_counter() - t0
+            forwards = hf_encoder.FORWARDS.value
+            n_texts, tokens = enc.texts - before[0], enc.tokens - before[1]
+            embed_s, tok_s = enc.seconds - before[2], enc.tokenize_seconds - before[3]
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            store = app.scheduler.index("e5")
+            say(f"XLM-R ingest on {card}: {n_docs} docs over HTTP in {ingest_s:.3f} s; embedded on"
+                f" the card at indexing: {n_texts} texts, {tokens} tokens ({tokens / max(n_texts, 1):.1f}"
+                f" a text) in {embed_s:.3f} s ({tokens / embed_s:.1f} tokens/s), of which host"
+                f" tokenization (Unigram) {tok_s:.3f} s and the rest {embed_s - tok_s:.3f} s;"
+                f" {forwards} forwards of up to {enc.chunk_texts()} texts; peak device memory"
+                f" {peak:.3f} GiB")
+            if n_texts != n_docs or forwards <= 0 or len(store.vectors["default"]) != n_docs:
+                raise AssertionError("the documents were not all embedded on the card")
+            if next(enc._model.parameters()).device != device:
+                raise AssertionError("the encoder is not on the card")
+            if not app.scheduler.wait_device_warm(timeout=600.0):
+                raise AssertionError("the device warm after the ingest did not end")
+
+            requests = encoder_requests("e5", tuple(E5_TEXT))
+            hf_encoder.FORWARDS.reset()
+            embedder = embedders.get_embedder(store, "default")
+            for q in E5_TEXT:
+                embedder.embed_search(q)
+            if hf_encoder.FORWARDS.value != len(E5_TEXT):
+                raise AssertionError("the queries were not embedded on the card")
+            serving = vector_round(app, client, store, requests, exact=False)
+            if serving["float_legs"] <= 0:
+                raise AssertionError("the float leg did not run on the XLM-R path")
+            stats = serving_stats()
+            if stats["device_errors"] != 0:
+                raise AssertionError(f"device errors on the XLM-R path: {stats}")
+            timing = encoder_timing(enc, device, card, "multilingual-e5-base")
+        finally:
+            app.search_batcher.stop()
+            app.scheduler.stop()
+    say(f"phase 9 wall: {time.perf_counter() - t_phase:.3f} s")
+    return {"err": err, "forwards": forwards, "tokens_s": tokens / embed_s,
+            "tokenize_s": tok_s, **timing}
+
+
+def workloads_phase(device) -> None:
+    """Phase 10: the declarative workloads (workloads/tests/*.json) through
+    the port's xtask runner, every instance's App bound to the card."""
+    import glob
+    import os
+
+    from meilisearch_tpu_torch import xtask
+    from meilisearch_tpu_torch.search.device_batch import serving_stats
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(root, "workloads", "tests", "*.json")))
+    if len(paths) != 7:
+        raise AssertionError(f"expected 7 workloads, found {len(paths)}")
+    serving_stats(reset=True)
+    t0 = time.perf_counter()
+    for path in paths:
+        t = time.perf_counter()
+        xtask.run_workload(path, verbose=False, device=device)
+        say(f"workload {os.path.basename(path)} passed with the App bound to the card in"
+            f" {time.perf_counter() - t:.3f} s")
+    stats = serving_stats()
+    if stats["device_errors"] != 0:
+        raise AssertionError(f"device errors in the workloads: {stats}")
+    say(f"phase 10: {len(paths)} workloads passed with the App bound to the card in"
+        f" {time.perf_counter() - t0:.3f} s; serving stats (device_served: searches the"
+        f" device answered) {json.dumps(stats)}")
+
+
+def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     """(f) One query's forward (1 text, about 16 tokens) and one indexing
     chunk (chunk_texts() texts of ENC_TIMED_TOKENS tokens): device time by
     CUDA events, median of REPEATS; the query's kernels and launches; the
@@ -1088,7 +1346,8 @@ def encoder_timing(enc, device, card: str) -> dict:
                  if p.dim() == 2 and "embeddings" not in name)
     flops = 2 * linear * n * L + 4 * L * L * c["hidden_size"] * c["num_hidden_layers"] * n
     bound_ms = flops / FP32_FLOP_S * 1e3
-    say(f"timing the encoder on {card}: one query's forward ({ids.shape[1]} tokens) {q_ms:.4f} ms"
+    say(f"timing the {width}-width encoder on {card}: one query's forward ({ids.shape[1]}"
+        f" tokens) {q_ms:.4f} ms"
         f" (CUDA events, median of {REPEATS}), {launches:.0f} launches; one indexing chunk"
         f" ({n} texts x {L} tokens) {chunk_ms:.4f} ms, {flops / chunk_ms / 1e9:.2f} TFLOP/s,"
         f" bound {bound_ms:.4f} ms ({flops / 1e12:.3f} TFLOP over {FP32_FLOP_S / 1e12:.0f}"
@@ -1996,6 +2255,8 @@ def main() -> int:
     launches = {"osa": typo["launches"], "hamming": vector["launches"]}
     del typo, vector  # the earlier paths' stores go before the encoder path's
     encoder_path_phase(device, card, opts.enc_docs)
+    xlmr_path_phase(device, card, E5_DOCS)
+    workloads_phase(device)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

@@ -1,11 +1,18 @@
-"""BERT's encoder forward as a torch module (the port's K8).
+"""BERT's encoder forward as a torch module (the port's K8), for the
+BERT, RoBERTa and XLM-RoBERTa checkpoints (`model_type` `bert`, `roberta`,
+`xlm-roberta`), which share one architecture.
 
-It computes what transformers' `FlaxBertModel` computes when the JAX
-package's encoder (`models/hf_encoder.py` there) applies it under
-`jax.jit`, and returns the last hidden state (the encoder reads no pooler):
+For BERT it computes what transformers' `FlaxBertModel` computes when the
+JAX package's encoder (`models/hf_encoder.py` there) applies it under
+`jax.jit`; for the RoBERTa family, what transformers' torch
+`XLMRobertaModel` computes (the JAX package's branch for torch weights).
+It returns the last hidden state (the encoder reads no pooler):
 
-- embeddings: word + token type (all zeros) + position (0..L-1), then
-  LayerNorm (`layer_norm_eps`); dropout is off;
+- embeddings: word + token type (all zeros) + position, then LayerNorm
+  (`layer_norm_eps`); dropout is off. BERT's positions are 0..L-1. The
+  RoBERTa family's count from `pad_token_id` + 1 over the tokens that are
+  not the pad id, and a pad token takes position `pad_token_id`
+  (transformers' `create_position_ids_from_input_ids`);
 - each layer: Q/K/V projections, scores (Q / sqrt(d_head)) K^T plus an
   additive bias of finfo(float32).min on padded keys, softmax, times V,
   the output projection, residual and LayerNorm; then the intermediate
@@ -43,16 +50,21 @@ CONFIG_KEYS = (
     "type_vocab_size",
     "layer_norm_eps",
 )
+# model types whose positions count from the padding id
+ROBERTA_TYPES = ("roberta", "xlm-roberta")
+MODEL_TYPES = ("bert", *ROBERTA_TYPES)
 
 
 def check_config(config: dict) -> None:
-    """Raise ValueError unless `config` describes a BERT this module runs."""
+    """Raise ValueError unless `config` describes a model this module runs."""
     model_type = config.get("model_type", "bert")
-    if model_type != "bert":
+    if model_type not in MODEL_TYPES:
         raise ValueError(
-            f"model_type `{model_type}` is not supported: the port runs BERT"
-            " checkpoints only"
+            f"model_type `{model_type}` is not supported: the port runs BERT,"
+            " RoBERTa and XLM-RoBERTa checkpoints only"
         )
+    if model_type in ROBERTA_TYPES and config.get("pad_token_id") is None:
+        raise ValueError(f"a `{model_type}` config must give pad_token_id")
     act = config.get("hidden_act", "gelu")
     if act != "gelu":
         raise ValueError(
@@ -73,13 +85,18 @@ class _Embeddings(nn.Module):
         self.position_embeddings = nn.Embedding(c["max_position_embeddings"], h)
         self.token_type_embeddings = nn.Embedding(c["type_vocab_size"], h)
         self.LayerNorm = nn.LayerNorm(h, eps=c["layer_norm_eps"])
+        roberta = c.get("model_type", "bert") in ROBERTA_TYPES
+        self.padding_idx = c["pad_token_id"] if roberta else None
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         L = input_ids.shape[1]
         # Flax's order: (words + token types) + positions
         x = self.word_embeddings(input_ids) + self.token_type_embeddings.weight[0]
-        x = x + self.position_embeddings.weight[:L]
-        return self.LayerNorm(x)
+        if self.padding_idx is None:
+            return self.LayerNorm(x + self.position_embeddings.weight[:L])
+        real = (input_ids != self.padding_idx).long()
+        positions = torch.cumsum(real, dim=1) * real + self.padding_idx
+        return self.LayerNorm(x + self.position_embeddings(positions))
 
 
 class _SelfAttention(nn.Module):
@@ -154,7 +171,8 @@ class _Encoder(nn.Module):
 
 
 class BertModel(nn.Module):
-    """BERT's encoder stack, widths from a transformers-style config dict."""
+    """BERT's encoder stack, widths from a transformers-style config dict
+    (the RoBERTa family's positions when `model_type` names it)."""
 
     def __init__(self, config: dict):
         super().__init__()

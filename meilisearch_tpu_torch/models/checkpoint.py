@@ -1,22 +1,28 @@
-"""Read (and write) a local BERT checkpoint directory without transformers.
+"""Read (and write) a local BERT, RoBERTa or XLM-RoBERTa checkpoint
+directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
-- `config.json`: the model's widths (models/bert.py::CONFIG_KEYS);
+- `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
   through `torch.load(weights_only=True)`;
-- the tokenizer: `vocab.txt`, one WordPiece token per line, and
+- the tokenizer, chosen by what the directory holds: a `tokenizer.json`
+  whose model is Unigram (XLM-R's SentencePiece vocabulary, whatever the
+  model type) is read by models/unigram.py; otherwise `vocab.txt`, one
+  WordPiece token per line (models/wordpiece.py). A `tokenizer.json` of
+  any other model but WordPiece (BPE, WordLevel) is refused. Beside it,
   `tokenizer_config.json` (`do_lower_case`, default true; `strip_accents`;
   `tokenize_chinese_chars`; the special tokens).
 
-Checkpoint names map onto `BertModel`'s (`hf_to_state_dict`): a `bert.`
-prefix is dropped, so are the pooler, the pre-training heads and the
-`position_ids` buffer, and old `LayerNorm.gamma/beta` become
+Checkpoint names map onto `BertModel`'s (`hf_to_state_dict`): a `bert.` or
+`roberta.` prefix is dropped, so are the pooler, the pre-training and
+language-model heads (`cls.`, `lm_head.`) and the `position_ids` and
+`token_type_ids` buffers, and old `LayerNorm.gamma/beta` become
 `weight/bias`. `flax_to_state_dict` does the same for a Flax parameter
-tree given as numpy arrays (transformers' `FlaxBertModel.params`): a
-dense `kernel` (in, out) becomes `weight` (out, in), `scale` and
-`embedding` become `weight`.
+tree given as numpy arrays (transformers' `FlaxBertModel.params`, or
+`FlaxXLMRobertaModel.params`, the same tree): a dense `kernel` (in, out)
+becomes `weight` (out, in), `scale` and `embedding` become `weight`.
 """
 
 from __future__ import annotations
@@ -25,26 +31,32 @@ import json
 import os
 import struct
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .bert import BertModel, check_config
+from .unigram import Unigram
+from .wordpiece import WordPiece
 
 # safetensors dtype -> numpy little-endian dtype (BF16 is widened below)
 _ST_DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
     "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?",
 }
-_DROPPED = ("pooler.", "cls.", "embeddings.position_ids")
+_PREFIXES = ("bert.", "roberta.")
+_DROPPED = ("pooler.", "cls.", "lm_head.", "embeddings.position_ids",
+            "embeddings.token_type_ids")
 
 
 @dataclass
 class Checkpoint:
     config: dict
     state_dict: dict  # BertModel's names -> float32 CPU tensors
-    vocab: list
+    vocab: list  # vocab.txt's WordPiece tokens (empty for a Unigram tokenizer)
     tokenizer: dict = field(default_factory=dict)  # tokenizer_config.json
+    tokenizer_json: Optional[dict] = None  # a Unigram tokenizer.json, parsed
 
 
 def read_safetensors(path: str) -> dict:
@@ -77,8 +89,9 @@ def hf_to_state_dict(named: dict) -> dict:
     float32 CPU tensors."""
     out = {}
     for name, value in named.items():
-        if name.startswith("bert."):
-            name = name[len("bert."):]
+        for prefix in _PREFIXES:
+            if name.startswith(prefix):
+                name = name[len(prefix):]
         if name.startswith(_DROPPED):
             continue
         if name.endswith(".gamma"):
@@ -102,7 +115,8 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 
 def flax_to_state_dict(params: dict) -> dict:
-    """A Flax BERT parameter tree (numpy leaves) as BertModel's state_dict."""
+    """A Flax BERT or XLM-RoBERTa parameter tree (numpy leaves) as
+    BertModel's state_dict."""
     named = {}
     for name, value in _flatten(params).items():
         value = np.asarray(value, np.float32)
@@ -141,14 +155,38 @@ def load_checkpoint(path: str) -> Checkpoint:
         config = json.load(f)
     check_config(config)
     state = read_weights(path)
-    with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
-        vocab = [line.rstrip("\n") for line in f]
     tok_path = os.path.join(path, "tokenizer_config.json")
     tokenizer = {}
     if os.path.exists(tok_path):
         with open(tok_path) as f:
             tokenizer = json.load(f)
-    return Checkpoint(config, state, vocab, tokenizer)
+    spec = None
+    json_path = os.path.join(path, "tokenizer.json")
+    if os.path.exists(json_path):
+        with open(json_path, encoding="utf-8") as f:
+            spec = json.load(f)
+        kind = (spec.get("model") or {}).get("type")
+        if kind == "WordPiece":
+            spec = None  # BertTokenizerFast's file: its vocab.txt is read
+        elif kind != "Unigram":
+            raise ValueError(
+                f"`{json_path}` holds a {kind} tokenizer: the port reads Unigram"
+                " tokenizer.json files and WordPiece vocab.txt only"
+            )
+    vocab = []
+    if spec is None:
+        with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
+            vocab = [line.rstrip("\n") for line in f]
+    return Checkpoint(config, state, vocab, tokenizer, spec)
+
+
+def build_tokenizer(ckpt: Checkpoint):
+    """The checkpoint's tokenizer: Unigram for a Unigram tokenizer.json,
+    else WordPiece over vocab.txt. Both take (texts, max_len) and give
+    (input_ids, attention_mask)."""
+    if ckpt.tokenizer_json is not None:
+        return Unigram(ckpt.tokenizer_json, ckpt.tokenizer)
+    return WordPiece.from_config(ckpt.vocab, ckpt.tokenizer)
 
 
 def build_model(ckpt: Checkpoint) -> BertModel:
@@ -159,16 +197,25 @@ def build_model(ckpt: Checkpoint) -> BertModel:
     return model.eval()
 
 
-def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: list,
-                     do_lower_case: bool = True) -> None:
-    """Write a directory `load_checkpoint` reads: config.json,
-    pytorch_model.bin (BertModel's names), vocab.txt and
-    tokenizer_config.json."""
+def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[list] = None,
+                     do_lower_case: bool = True, tokenizer_json: Optional[dict] = None) -> None:
+    """Write a directory `load_checkpoint` reads: config.json (`model_type`
+    bert unless `config` names one), pytorch_model.bin (BertModel's names)
+    and tokenizer_config.json, with either `vocab` as vocab.txt or
+    `tokenizer_json` (a Unigram tokenizer.json, XLM-R's special tokens)."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump({"model_type": "bert", "hidden_act": "gelu", **config}, f)
     torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
-    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
-        f.write("".join(f"{token}\n" for token in vocab))
+    if tokenizer_json is not None:
+        with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+            json.dump(tokenizer_json, f, ensure_ascii=False)
+        tok_config = {"tokenizer_class": "XLMRobertaTokenizer", "bos_token": "<s>",
+                      "eos_token": "</s>", "sep_token": "</s>", "cls_token": "<s>",
+                      "unk_token": "<unk>", "pad_token": "<pad>", "mask_token": "<mask>"}
+    else:
+        with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+            f.write("".join(f"{token}\n" for token in vocab))
+        tok_config = {"do_lower_case": do_lower_case, "tokenizer_class": "BertTokenizer"}
     with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
-        json.dump({"do_lower_case": do_lower_case, "tokenizer_class": "BertTokenizer"}, f)
+        json.dump(tok_config, f)

@@ -6,11 +6,14 @@ used for both indexing-time document embeddings and search-time query
 embeddings (LRU-cached upstream). Zero-egress deployments point `model`
 at a local path.
 
-The JAX package runs transformers' Flax BERT under `jax.jit` (its
-`FlaxTextEncoder`). The port computes the same function with its own
-pieces and no transformers: the checkpoint directory is read by
+The JAX package runs transformers' Flax model under `jax.jit` (its
+`FlaxTextEncoder`), or transformers' torch model on the CPU when the
+checkpoint has no Flax weights. The port computes the same function with
+its own pieces and no transformers: the checkpoint directory is read by
 models/checkpoint.py, texts are tokenized on the host by
-models/wordpiece.py, and models/bert.py's `BertModel` runs on the device
+models/wordpiece.py or, for a Unigram tokenizer.json (XLM-R's vocabulary),
+models/unigram.py, and models/bert.py's `BertModel` (BERT, RoBERTa and
+XLM-RoBERTa) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state; otherwise the mean over the attention mask), and
 the result is L2-normalized in numpy exactly as there. Only a local
@@ -31,8 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.chain_keys import LaunchCounter
-from .checkpoint import build_model, load_checkpoint
-from .wordpiece import WordPiece
+from .checkpoint import build_model, build_tokenizer, load_checkpoint
 
 # Texts per forward pass. 256 texts of 128 tokens give each linear layer
 # 32,768 rows, enough to fill the card; at the 512-token limit, the largest
@@ -55,9 +57,10 @@ class TextEncoder:
         self.pooling = pooling
         self.device = torch.device("cpu") if device is None else torch.device(device)
         self.max_len = max_len
-        # texts, their real (unpadded) tokens and the wall seconds encoded
+        # texts, their real (unpadded) tokens, the wall seconds encoded and
+        # the host seconds of it spent tokenizing
         self.texts = self.tokens = 0
-        self.seconds = 0.0
+        self.seconds = self.tokenize_seconds = 0.0
         self._model = None
         self._tokenizer = None
         self._lock = threading.Lock()
@@ -67,7 +70,7 @@ class TextEncoder:
             if self._model is not None:
                 return
             ckpt = load_checkpoint(self.model_name)
-            self._tokenizer = WordPiece.from_config(ckpt.vocab, ckpt.tokenizer)
+            self._tokenizer = build_tokenizer(ckpt)
             self._model = build_model(ckpt).to(self.device)
 
     def chunk_texts(self) -> int:
@@ -105,14 +108,18 @@ class TextEncoder:
         emb = np.empty((len(texts), hidden), np.float32)
         step = self.chunk_texts()
         tokens = 0
+        tokenize_s = 0.0
         for s in range(0, len(texts), step):
+            t = time.perf_counter()
             ids, mask = self._tokenizer(texts[s : s + step], self.max_len)
+            tokenize_s += time.perf_counter() - t
             tokens += int(mask.sum())
             emb[s : s + len(ids)] = self.forward(ids, mask).float().cpu().numpy()
         with self._lock:
             self.texts += len(texts)
             self.tokens += tokens
             self.seconds += time.perf_counter() - t0
+            self.tokenize_seconds += tokenize_s
         if normalize:
             norms = np.linalg.norm(emb, axis=1, keepdims=True)
             norms[norms == 0] = 1.0

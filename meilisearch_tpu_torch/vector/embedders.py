@@ -4,8 +4,9 @@ Reference: milli/src/vector/embedder/ — Embedder enum: HuggingFace (in-process
 inference), OpenAI, Ollama, REST, UserProvided, Composite
 (embedder/mod.rs:23-35); search-time embeddings are LRU-cached.
 
-Local inference (`huggingFace`) runs the port's BERT (models/hf_encoder.py)
-on the device the index is bound to (`store.device`; None = the CPU), for
+Local inference (`huggingFace`) runs the port's BERT or XLM-RoBERTa
+(models/hf_encoder.py; any other model type is refused with its name, as a
+VECTOR_EMBEDDING_ERROR) on the device the index is bound to (`store.device`; None = the CPU), for
 documents at indexing and for queries at search; the remote embedders are
 host HTTP calls. A failure of the local model is a VECTOR_EMBEDDING_ERROR
 and counts in `serving_stats()["device_errors"]` when a device is bound.
@@ -105,8 +106,12 @@ class Embedder:
         self.device = device  # the local model's torch device (None: the CPU)
 
     def embed_search(self, text: str) -> np.ndarray:
+        # keyed by the embedder's whole configuration, not its name alone:
+        # indexes (or one index before and after a settings change) may
+        # give one embedder name to different models
+        conf = json.dumps(self.conf, sort_keys=True, default=str)
         key = hashlib.sha256(
-            (self.name + "\0" + text).encode("utf-8")
+            (conf + "\0" + self.name + "\0" + text).encode("utf-8")
         ).hexdigest()
         return _cached_embed(self, key, text)
 

@@ -12,7 +12,7 @@ NCCL group's scatter-gather must equal the single-device scorer, the
 port's search
 path on the card, typo pass included, must answer exactly as its host
 scorer, the vector legs on the card as its numpy host pass, and the text
-encoder (K8) on the card as the same checkpoint on the CPU."""
+encoder (K8), BERT and XLM-R, on the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -339,6 +339,45 @@ def test_encoder_on_the_card_matches_the_cpu(cuda_device, tmp_path, pooling):
     card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
     got = card.encode(texts)
     assert next(card._model.parameters()).is_cuda
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
+def _xlmr_checkpoint(path, seed=0):
+    """An XLM-R checkpoint at xlm-roberta-base's width (hidden 768, 12
+    heads, intermediate 3,072, 514 positions, pad id 1) cut to 2 layers,
+    with a seeded Unigram tokenizer.json, written by the port itself."""
+    from meilisearch_tpu_torch.models.bert import BertModel
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import build_charsmap, xlmr_tokenizer_json
+
+    rng = np.random.default_rng(seed)
+    chars = "abcdefghijklmnopqrstuvwxyz0123456789.,:/-!?éüпривет中文検索مرحبا"
+    pieces = ["▁", *chars, *("▁" + c for c in chars), *("▁" + w for w in ENC_WORDS)]
+    vocab = [(p, float(-rng.uniform(1.0, 12.0))) for p in dict.fromkeys(pieces)]
+    spec = xlmr_tokenizer_json(vocab, build_charsmap({"é": "é", "Ａ": "A"}))
+    config = {"model_type": "xlm-roberta", "vocab_size": len(spec["model"]["vocab"]),
+              "hidden_size": 768, "num_hidden_layers": 2, "num_attention_heads": 12,
+              "intermediate_size": 3072, "max_position_embeddings": 514, "type_vocab_size": 1,
+              "layer_norm_eps": 1e-5, "pad_token_id": 1}
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, BertModel(config).state_dict(), tokenizer_json=spec)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+def test_xlmr_encoder_on_the_card_matches_the_cpu(cuda_device, tmp_path, pooling):
+    """XLM-R's positions and the Unigram tokenizer on the card: padded
+    multilingual batches against the CPU."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _xlmr_checkpoint(tmp_path, seed=5)
+    texts = _enc_texts(17, seed=6) + ["привет мир", "中文 検索 ✈", "مرحبا", "", "a  b   é"]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert card._model.embeddings.padding_idx == 1
     want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
     assert float(np.abs(got - want).max()) <= 1e-5
 

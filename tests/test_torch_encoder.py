@@ -196,7 +196,7 @@ def test_safetensors_reader_dtypes(tmp_path):
 
 @pytest.mark.parametrize(
     "change, match",
-    [({"model_type": "roberta"}, "model_type"), ({"hidden_act": "gelu_new"}, "hidden_act")],
+    [({"model_type": "distilbert"}, "model_type"), ({"hidden_act": "gelu_new"}, "hidden_act")],
 )
 def test_other_model_families_are_refused(ckpt, change, match):
     config = {**checkpoint.load_checkpoint(ckpt["dir"]).config, **change}
