@@ -124,7 +124,22 @@ Phases, each fatal on failure:
      through meilisearch_tpu_torch.xtask.run_workload with every App
      bound to the card (its stores are under the device thresholds, so
      the batcher may answer every search on the host); any failure is
-     fatal.
+     fatal;
+  11. BPE and DistilBERT path: two checkpoints at published widths and
+     depth (seeded random weights), each through its own App as phase 9:
+     hn25k-distilroberta-hf (sentence-transformers/all-distilroberta-v1:
+     RoBERTa, vocab 50,265, hidden 768, 6 layers, 12 heads, 3,072, 514
+     positions, pad id 1) with a seeded 50,265-token byte-level BPE
+     tokenizer.json (models/fixtures.py), and hn25k-mqadistilbert-hf
+     (sentence-transformers/multi-qa-distilbert-cos-v1: DistilBERT, vocab
+     30,522, dim 768, 6 layers, 12 heads, hidden_dim 3,072, 512 positions)
+     with bge_vocab()'s WordPiece file; for each, the encoder on the card
+     against the CPU within ENC_TOL on 80 texts (fault 3.11's characters,
+     contractions, runs of whitespace, <mask>), 25,000 documents embedded
+     at indexing on the card through the BPE tokenizer or the DistilBERT
+     module (tokens/s, host tokenization, peak device memory), 8 hybrid
+     searches with a text q against the same store's host pass, one at a
+     time and from 32 threads, no device error, and the forward's timing.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -263,6 +278,42 @@ E5_CHECK_TEXT = [
     "zero​width﻿bom", "Ελληνικά κείμενα", "हिन्दी खोज", "ქართული ტექსტი",
     "straße über " * 8, "<mask> and <s> inside </s>", "Ǆ ǅ ǆ İstanbul ΣΑΣ",
     "tab\there\x07bell\x01", "rust \U0001F680 machine learning ✨ data",
+]
+# phase 11, the BPE and DistilBERT path: two checkpoints at their published
+# config.json widths and depth (6 layers) with seeded random weights, each
+# embedding 25,000 of its configuration's 150,000 hackernews documents at
+# indexing on the card. hn25k-distilroberta-hf: sentence-transformers/
+# all-distilroberta-v1 (RoBERTa) with a 50,265-token byte-level BPE
+# tokenizer.json (models/fixtures.py: merges trained on BPE_TRAIN_DOCS of
+# the phase's documents, then seeded merges); hn25k-mqadistilbert-hf:
+# sentence-transformers/multi-qa-distilbert-cos-v1 (DistilBERT) with
+# bge_vocab()'s WordPiece vocabulary
+DISTILROBERTA_CONFIG = {
+    "model_type": "roberta", "vocab_size": 50_265, "hidden_size": 768,
+    "num_hidden_layers": 6, "num_attention_heads": 12, "intermediate_size": 3072,
+    "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5,
+    "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "hidden_act": "gelu",
+}
+DISTILBERT_CONFIG = {
+    "model_type": "distilbert", "vocab_size": 30_522, "dim": 768, "n_layers": 6,
+    "n_heads": 12, "hidden_dim": 3072, "max_position_embeddings": 512, "activation": "gelu",
+    "sinusoidal_pos_embds": False, "pad_token_id": 0,
+}
+P11_DOCS, P11_SEED, BPE_TRAIN_DOCS = 25_000, 2027, 5_000
+P11_TEXT = ["rust compiler", "it's machine learning", "we'll secure the cloud", "python web"]
+# the card-against-CPU texts: fault 3.11's characters, contractions, runs of
+# whitespace, <mask> and the other specials, and multilingual text
+P11_CHECK_TEXT = [
+    "a\u2e43b and \u32ff \u1c89 \ua7f2 \U00010781", "it's we'll don't I'm they've you'd",
+    "runs    of     spaces\tand\ttabs\nnew\r\nlines", "   leading and trailing   ", "",
+    "<mask> and <s> inside </s> <pad> <unk>", "hello <mask> world", "x<mask>y  <mask>  z",
+    "Café naïve résumé — déjà vu", "Привет, мир! Поиск", "中文字 搜索引擎", "東京の検索エンジン",
+    "한국어 검색 엔진", "مرحبا بالعالم", "élève q\u0301\u0308 Ǆ ǅ ǆ İstanbul ΣΑΣ",
+    "emoji \U0001F468\u200d\U0001F469\u200d\U0001F467 \U0001F44D\U0001F3FD \u2708",
+    "ﬁne ½ ① Ａｂｃ ™ 2024 3.14 $5", "tab\there\x07bell\x01 zero\u200bwidth\ufeffbom",
+    "straße über " * 8, "rust \U0001F680 machine learning \u2728 data",
+    "Ελληνικά κείμενα", "हिन्दी खोज", "don't stop-me now (ok) <tag> a_b ~x",
+    "HELLO World's 'quoted' \"double\"",
 ]
 # the float round: a run of hits whose host scores lie within SCORE_TIE of
 # each other is compared as a set (cuBLAS and numpy sum in other orders,
@@ -1203,37 +1254,36 @@ def encoder_path_phase(device, card: str, n_docs: int) -> dict:
     return {"err": err, "forwards": forwards, **timing}
 
 
-def xlmr_path_phase(device, card: str, n_docs: int) -> dict:
-    """hn50k-me5base-hf through a fifth App: (a) a checkpoint of
-    multilingual-e5-base's width and its Unigram tokenizer.json; (b) the
-    encoder on the card against the CPU on 80 texts; (c) n_docs documents
-    embedded at indexing on the card; (d) hybrid searches with a text q
-    against the same store's host pass; (e) the forward's timing."""
+def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, seed: int,
+            queries: list, check_texts: list, tokenizer: str, model_type: str) -> dict:
+    """One checkpoint through its own App: (a) `write(path)` writes it; (b)
+    the encoder on the card against the CPU on 80 texts; (c) n_docs
+    documents embedded at indexing on the card, through the tokenizer
+    class and model type named; (d) hybrid searches with a text q (the
+    `queries`) against the same store's host pass; (e) the forward's
+    timing. Returns the check's error, the forwards and the timings."""
     import tempfile
 
     import torch
 
     from meilisearch_tpu_torch.api.app import App, TestClient
     from meilisearch_tpu_torch.models import hf_encoder
-    from meilisearch_tpu_torch.models.unigram import Unigram
     from meilisearch_tpu_torch.search.device_batch import serving_stats
     from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
     from meilisearch_tpu_torch.vector import embedders
     from meilisearch_tpu_torch.vector.templates import render_document_template
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as path:
         t0 = time.perf_counter()
-        write_e5_checkpoint(path)
-        say(f"multilingual-e5-base-width checkpoint (XLM-R, seeded random weights, a"
-            f" {E5_CONFIG['vocab_size']}-piece Unigram tokenizer.json) written in"
+        write(path)
+        say(f"{label} checkpoint (seeded random weights) written in"
             f" {time.perf_counter() - t0:.3f} s")
-        docs = generate_hackernews_like(n_docs, seed=E5_SEED)
+        docs = generate_hackernews_like(n_docs, seed=seed)
         searchable = set(VEC_SETTINGS["searchableAttributes"])
         texts = [render_document_template(None, d, searchable) for d in docs[:48]]
-        texts += E5_TEXT * 2 + E5_CHECK_TEXT
-        err = encoder_check(path, device, texts, "multilingual-e5-base")
+        texts += list(queries) * 2 + check_texts
+        err = encoder_check(path, device, texts, label)
 
         serving_stats(reset=True)
         app = App(device=device)
@@ -1241,15 +1291,17 @@ def xlmr_path_phase(device, card: str, n_docs: int) -> dict:
             client = TestClient(app)
             settings = {**VEC_SETTINGS, "embedders": {"default": {
                 "source": "huggingFace", "model": path}}}
-            client.update_settings("e5", settings)
+            client.update_settings(index, settings)
             enc = hf_encoder.encoder(path, "useModel", device)
-            if not isinstance(enc._tokenizer, Unigram):
-                raise AssertionError("the checkpoint's Unigram tokenizer was not chosen")
+            chosen = (type(enc._tokenizer).__name__, enc._model.config["model_type"])
+            if chosen != (tokenizer, model_type):
+                raise AssertionError(f"{label}: the encoder chose {chosen}, not"
+                                     f" {(tokenizer, model_type)}")
             before = (enc.texts, enc.tokens, enc.seconds, enc.tokenize_seconds)
             hf_encoder.FORWARDS.reset()
             torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
-            res = client.post("/indexes/e5/documents", body=docs)
+            res = client.post(f"/indexes/{index}/documents", body=docs)
             if res.status != 202:
                 raise AssertionError(f"ingest refused: {res.status} {res.json}")
             task = app.scheduler.wait_for_task(res.json["taskUid"], timeout=900.0)
@@ -1260,13 +1312,13 @@ def xlmr_path_phase(device, card: str, n_docs: int) -> dict:
             n_texts, tokens = enc.texts - before[0], enc.tokens - before[1]
             embed_s, tok_s = enc.seconds - before[2], enc.tokenize_seconds - before[3]
             peak = torch.cuda.max_memory_allocated(device) / 2**30
-            store = app.scheduler.index("e5")
-            say(f"XLM-R ingest on {card}: {n_docs} docs over HTTP in {ingest_s:.3f} s; embedded on"
-                f" the card at indexing: {n_texts} texts, {tokens} tokens ({tokens / max(n_texts, 1):.1f}"
-                f" a text) in {embed_s:.3f} s ({tokens / embed_s:.1f} tokens/s), of which host"
-                f" tokenization (Unigram) {tok_s:.3f} s and the rest {embed_s - tok_s:.3f} s;"
-                f" {forwards} forwards of up to {enc.chunk_texts()} texts; peak device memory"
-                f" {peak:.3f} GiB")
+            store = app.scheduler.index(index)
+            say(f"{label} ingest on {card} ({tokenizer}, {model_type}): {n_docs} docs over HTTP"
+                f" in {ingest_s:.3f} s; embedded on the card at indexing: {n_texts} texts,"
+                f" {tokens} tokens ({tokens / max(n_texts, 1):.1f} a text) in {embed_s:.3f} s"
+                f" ({tokens / embed_s:.1f} tokens/s), of which host tokenization ({tokenizer})"
+                f" {tok_s:.3f} s and the rest {embed_s - tok_s:.3f} s; {forwards} forwards of up"
+                f" to {enc.chunk_texts()} texts; peak device memory {peak:.3f} GiB")
             if n_texts != n_docs or forwards <= 0 or len(store.vectors["default"]) != n_docs:
                 raise AssertionError("the documents were not all embedded on the card")
             if next(enc._model.parameters()).device != device:
@@ -1274,26 +1326,83 @@ def xlmr_path_phase(device, card: str, n_docs: int) -> dict:
             if not app.scheduler.wait_device_warm(timeout=600.0):
                 raise AssertionError("the device warm after the ingest did not end")
 
-            requests = encoder_requests("e5", tuple(E5_TEXT))
+            requests = encoder_requests(index, tuple(queries))
             hf_encoder.FORWARDS.reset()
             embedder = embedders.get_embedder(store, "default")
-            for q in E5_TEXT:
+            for q in queries:
                 embedder.embed_search(q)
-            if hf_encoder.FORWARDS.value != len(E5_TEXT):
+            if hf_encoder.FORWARDS.value != len(queries):
                 raise AssertionError("the queries were not embedded on the card")
             serving = vector_round(app, client, store, requests, exact=False)
             if serving["float_legs"] <= 0:
-                raise AssertionError("the float leg did not run on the XLM-R path")
+                raise AssertionError(f"the float leg did not run on the {label} path")
             stats = serving_stats()
             if stats["device_errors"] != 0:
-                raise AssertionError(f"device errors on the XLM-R path: {stats}")
-            timing = encoder_timing(enc, device, card, "multilingual-e5-base")
+                raise AssertionError(f"device errors on the {label} path: {stats}")
+            timing = encoder_timing(enc, device, card, label)
         finally:
             app.search_batcher.stop()
             app.scheduler.stop()
-    say(f"phase 9 wall: {time.perf_counter() - t_phase:.3f} s")
     return {"err": err, "forwards": forwards, "tokens_s": tokens / embed_s,
             "tokenize_s": tok_s, **timing}
+
+
+def xlmr_path_phase(device, card: str, n_docs: int) -> dict:
+    """hn50k-me5base-hf through a fifth App: a checkpoint of
+    multilingual-e5-base's width and its Unigram tokenizer.json, the
+    encoder on the card against the CPU on 80 texts, n_docs documents
+    embedded at indexing on the card, hybrid searches against the same
+    store's host pass, the forward's timing (`hf_path`)."""
+    t_phase = time.perf_counter()
+    out = hf_path(device, card, n_docs, label="multilingual-e5-base", index="e5",
+                  write=write_e5_checkpoint, seed=E5_SEED, queries=E5_TEXT,
+                  check_texts=E5_CHECK_TEXT, tokenizer="Unigram", model_type="xlm-roberta")
+    say(f"phase 9 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def write_distilroberta_checkpoint(path: str) -> None:
+    """A checkpoint of all-distilroberta-v1's width (RoBERTa, 6 layers),
+    written as pytorch_model.bin with a 50,265-token byte-level BPE
+    tokenizer.json trained on the phase's own texts."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import roberta_tokenizer_json
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(BPE_TRAIN_DOCS, seed=P11_SEED)]
+    spec = roberta_tokenizer_json(texts + P11_TEXT + P11_CHECK_TEXT,
+                                  DISTILROBERTA_CONFIG["vocab_size"], seed=P11_SEED)
+    write_checkpoint(path, DISTILROBERTA_CONFIG, random_state_dict(DISTILROBERTA_CONFIG, P11_SEED),
+                     tokenizer_json=spec)
+
+
+def write_distilbert_checkpoint(path: str) -> None:
+    """A checkpoint of multi-qa-distilbert-cos-v1's width (DistilBERT, 6
+    layers, DistilBERT's weight names), written as pytorch_model.bin with
+    bge_vocab()'s WordPiece vocab.txt (uncased)."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    write_checkpoint(path, DISTILBERT_CONFIG, random_state_dict(DISTILBERT_CONFIG, P11_SEED),
+                     bge_vocab(), do_lower_case=True)
+
+
+def bpe_distilbert_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 11, the BPE and DistilBERT path: hn25k-distilroberta-hf and
+    hn25k-mqadistilbert-hf, each through its own App (`hf_path`)."""
+    t_phase = time.perf_counter()
+    out = {}
+    for label, index, write, tokenizer, model_type in (
+            ("all-distilroberta-v1", "rb", write_distilroberta_checkpoint, "BPE", "roberta"),
+            ("multi-qa-distilbert-cos-v1", "db", write_distilbert_checkpoint, "WordPiece",
+             "distilbert")):
+        out[label] = hf_path(device, card, n_docs, label=label, index=index, write=write,
+                             seed=P11_SEED, queries=P11_TEXT, check_texts=P11_CHECK_TEXT,
+                             tokenizer=tokenizer, model_type=model_type)
+    say(f"phase 11 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
 
 
 def workloads_phase(device) -> None:
@@ -2257,6 +2366,7 @@ def main() -> int:
     encoder_path_phase(device, card, opts.enc_docs)
     xlmr_path_phase(device, card, E5_DOCS)
     workloads_phase(device)
+    bpe_distilbert_phase(device, card, P11_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

@@ -1,18 +1,24 @@
 """BERT's encoder forward as a torch module (the port's K8), for the
-BERT, RoBERTa and XLM-RoBERTa checkpoints (`model_type` `bert`, `roberta`,
-`xlm-roberta`), which share one architecture.
+BERT, RoBERTa, XLM-RoBERTa and DistilBERT checkpoints (`model_type`
+`bert`, `roberta`, `xlm-roberta`, `distilbert`), which share one
+architecture.
 
 For BERT it computes what transformers' `FlaxBertModel` computes when the
 JAX package's encoder (`models/hf_encoder.py` there) applies it under
 `jax.jit`; for the RoBERTa family, what transformers' torch
-`XLMRobertaModel` computes (the JAX package's branch for torch weights).
+`XLMRobertaModel` computes (the JAX package's branch for torch weights);
+for DistilBERT, what `FlaxDistilBertModel` and the torch
+`DistilBertModel` compute (a DistilBERT config's `dim`, `n_layers`,
+`n_heads` and `hidden_dim` are read as BERT's widths, and its weights
+load under BERT's names, models/checkpoint.py).
 It returns the last hidden state (the encoder reads no pooler):
 
 - embeddings: word + token type (all zeros) + position, then LayerNorm
   (`layer_norm_eps`); dropout is off. BERT's positions are 0..L-1. The
   RoBERTa family's count from `pad_token_id` + 1 over the tokens that are
   not the pad id, and a pad token takes position `pad_token_id`
-  (transformers' `create_position_ids_from_input_ids`);
+  (transformers' `create_position_ids_from_input_ids`). DistilBERT has no
+  token-type embedding: word + position (0..L-1), LayerNorm eps 1e-12;
 - each layer: Q/K/V projections, scores (Q / sqrt(d_head)) K^T plus an
   additive bias of finfo(float32).min on padded keys, softmax, times V,
   the output projection, residual and LayerNorm; then the intermediate
@@ -52,17 +58,42 @@ CONFIG_KEYS = (
 )
 # model types whose positions count from the padding id
 ROBERTA_TYPES = ("roberta", "xlm-roberta")
-MODEL_TYPES = ("bert", *ROBERTA_TYPES)
+MODEL_TYPES = ("bert", *ROBERTA_TYPES, "distilbert")
+# a DistilBERT config's widths (transformers' DistilBertConfig names)
+DISTILBERT_KEYS = ("vocab_size", "dim", "n_layers", "n_heads", "hidden_dim", "activation",
+                   "max_position_embeddings")
 
 
-def check_config(config: dict) -> None:
-    """Raise ValueError unless `config` describes a model this module runs."""
+def _distilbert_config(config: dict) -> dict:
+    missing = [k for k in DISTILBERT_KEYS if k not in config]
+    if missing:
+        raise ValueError(f"the distilbert config lacks {missing}")
+    if config["activation"] != "gelu":
+        raise ValueError(
+            f"activation `{config['activation']}` is not supported: the port runs exact GELU only"
+        )
+    if config.get("sinusoidal_pos_embds"):
+        raise ValueError("sinusoidal_pos_embds: true is not supported: the port reads learned"
+                         " position embeddings only")
+    if config["dim"] % config["n_heads"]:
+        raise ValueError("dim is not a multiple of n_heads")
+    return {**config, "hidden_size": config["dim"], "num_hidden_layers": config["n_layers"],
+            "num_attention_heads": config["n_heads"], "intermediate_size": config["hidden_dim"],
+            "type_vocab_size": 0, "layer_norm_eps": 1e-12}
+
+
+def check_config(config: dict) -> dict:
+    """Raise ValueError unless `config` describes a model this module runs;
+    return it with BERT's width names (CONFIG_KEYS; a DistilBERT config's
+    widths renamed, `type_vocab_size` 0: no token-type embedding)."""
     model_type = config.get("model_type", "bert")
     if model_type not in MODEL_TYPES:
         raise ValueError(
             f"model_type `{model_type}` is not supported: the port runs BERT,"
-            " RoBERTa and XLM-RoBERTa checkpoints only"
+            " RoBERTa, XLM-RoBERTa and DistilBERT checkpoints only"
         )
+    if model_type == "distilbert":
+        return _distilbert_config(config)
     if model_type in ROBERTA_TYPES and config.get("pad_token_id") is None:
         raise ValueError(f"a `{model_type}` config must give pad_token_id")
     act = config.get("hidden_act", "gelu")
@@ -75,6 +106,7 @@ def check_config(config: dict) -> None:
         raise ValueError(f"the model config lacks {missing}")
     if config["hidden_size"] % config["num_attention_heads"]:
         raise ValueError("hidden_size is not a multiple of num_attention_heads")
+    return dict(config)
 
 
 class _Embeddings(nn.Module):
@@ -83,7 +115,10 @@ class _Embeddings(nn.Module):
         h = c["hidden_size"]
         self.word_embeddings = nn.Embedding(c["vocab_size"], h)
         self.position_embeddings = nn.Embedding(c["max_position_embeddings"], h)
-        self.token_type_embeddings = nn.Embedding(c["type_vocab_size"], h)
+        if c["type_vocab_size"]:
+            self.token_type_embeddings = nn.Embedding(c["type_vocab_size"], h)
+        else:  # DistilBERT
+            self.token_type_embeddings = None
         self.LayerNorm = nn.LayerNorm(h, eps=c["layer_norm_eps"])
         roberta = c.get("model_type", "bert") in ROBERTA_TYPES
         self.padding_idx = c["pad_token_id"] if roberta else None
@@ -91,7 +126,9 @@ class _Embeddings(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         L = input_ids.shape[1]
         # Flax's order: (words + token types) + positions
-        x = self.word_embeddings(input_ids) + self.token_type_embeddings.weight[0]
+        x = self.word_embeddings(input_ids)
+        if self.token_type_embeddings is not None:
+            x = x + self.token_type_embeddings.weight[0]
         if self.padding_idx is None:
             return self.LayerNorm(x + self.position_embeddings.weight[:L])
         real = (input_ids != self.padding_idx).long()
@@ -172,12 +209,13 @@ class _Encoder(nn.Module):
 
 class BertModel(nn.Module):
     """BERT's encoder stack, widths from a transformers-style config dict
-    (the RoBERTa family's positions when `model_type` names it)."""
+    (the RoBERTa family's positions, or DistilBERT's layout, when
+    `model_type` names it); `config` holds BERT's width names."""
 
     def __init__(self, config: dict):
         super().__init__()
-        check_config(config)
-        self.config = dict(config)
+        config = check_config(config)
+        self.config = config
         self.embeddings = _Embeddings(config)
         self.encoder = _Encoder(config)
 

@@ -1,28 +1,40 @@
-"""Read (and write) a local BERT, RoBERTa or XLM-RoBERTa checkpoint
-directory without transformers.
+"""Read (and write) a local BERT, RoBERTa, XLM-RoBERTa or DistilBERT
+checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
-- `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS);
+- `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
+  or DISTILBERT_KEYS);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
   through `torch.load(weights_only=True)`;
-- the tokenizer, chosen by what the directory holds: a `tokenizer.json`
-  whose model is Unigram (XLM-R's SentencePiece vocabulary, whatever the
-  model type) is read by models/unigram.py; otherwise `vocab.txt`, one
-  WordPiece token per line (models/wordpiece.py). A `tokenizer.json` of
-  any other model but WordPiece (BPE, WordLevel) is refused. Beside it,
-  `tokenizer_config.json` (`do_lower_case`, default true; `strip_accents`;
-  `tokenize_chinese_chars`; the special tokens).
+- the tokenizer, chosen by what the directory holds, whatever the model
+  type: a `tokenizer.json` whose model is Unigram (XLM-R's SentencePiece
+  vocabulary) is read by models/unigram.py, one whose model is BPE
+  (RoBERTa's byte-level BPE) by models/bpe.py; without a tokenizer.json,
+  `vocab.json` and `merges.txt` are RoBERTa's older layout (models/bpe.py
+  lays them out as a tokenizer.json); otherwise `vocab.txt`, one
+  WordPiece token per line (models/wordpiece.py; a WordPiece
+  tokenizer.json means vocab.txt too). A `tokenizer.json` of any other
+  model (WordLevel, ...) is refused. Beside it, `tokenizer_config.json`
+  (`do_lower_case`, default true; `strip_accents`;
+  `tokenize_chinese_chars`; `add_prefix_space`; the special tokens).
 
-Checkpoint names map onto `BertModel`'s (`hf_to_state_dict`): a `bert.` or
-`roberta.` prefix is dropped, so are the pooler, the pre-training and
-language-model heads (`cls.`, `lm_head.`) and the `position_ids` and
-`token_type_ids` buffers, and old `LayerNorm.gamma/beta` become
-`weight/bias`. `flax_to_state_dict` does the same for a Flax parameter
-tree given as numpy arrays (transformers' `FlaxBertModel.params`, or
-`FlaxXLMRobertaModel.params`, the same tree): a dense `kernel` (in, out)
-becomes `weight` (out, in), `scale` and `embedding` become `weight`.
+Checkpoint names map onto `BertModel`'s (`hf_to_state_dict`): a `bert.`,
+`roberta.` or `distilbert.` prefix is dropped, so are the pooler, the
+pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`)
+and the `position_ids` and `token_type_ids` buffers, and old
+`LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
+(`transformer.layer.N`: `attention.{q,k,v,out}_lin`, `sa_layer_norm`,
+`ffn.lin1`, `ffn.lin2`, `output_layer_norm`) take BERT's names
+(`encoder.layer.N`: `attention.self.{query,key,value}`,
+`attention.output.dense`, `attention.output.LayerNorm`,
+`intermediate.dense`, `output.dense`, `output.LayerNorm`).
+`flax_to_state_dict` does the same for a Flax parameter tree given as
+numpy arrays (transformers' `FlaxBertModel.params`, or
+`FlaxXLMRobertaModel.params`, the same tree, or
+`FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
+`weight` (out, in), `scale` and `embedding` become `weight`.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import numpy as np
 import torch
 
 from .bert import BertModel, check_config
+from .bpe import BPE, legacy_spec
 from .unigram import Unigram
 from .wordpiece import WordPiece
 
@@ -45,18 +58,51 @@ _ST_DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
     "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?",
 }
-_PREFIXES = ("bert.", "roberta.")
-_DROPPED = ("pooler.", "cls.", "lm_head.", "embeddings.position_ids",
+_PREFIXES = ("bert.", "roberta.", "distilbert.")
+_DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "embeddings.position_ids",
             "embeddings.token_type_ids")
+# DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
+_DISTILBERT_NAMES = (
+    ("attention.q_lin.", "attention.self.query."),
+    ("attention.k_lin.", "attention.self.key."),
+    ("attention.v_lin.", "attention.self.value."),
+    ("attention.out_lin.", "attention.output.dense."),
+    ("sa_layer_norm.", "attention.output.LayerNorm."),
+    ("ffn.lin1.", "intermediate.dense."),
+    ("ffn.lin2.", "output.dense."),
+    ("output_layer_norm.", "output.LayerNorm."),
+)
+
+
+def _from_distilbert(name: str) -> str:
+    """A DistilBERT layer's parameter name under BertModel's."""
+    _, _, rest = name.partition(".layer.")
+    i, _, leaf = rest.partition(".")
+    for theirs, ours in _DISTILBERT_NAMES:
+        if leaf.startswith(theirs):
+            return f"encoder.layer.{i}.{ours}{leaf[len(theirs):]}"
+    return f"encoder.layer.{i}.{leaf}"
+
+
+def _to_distilbert(name: str) -> str:
+    """BertModel's parameter name under DistilBERT's."""
+    if not name.startswith("encoder.layer."):
+        return name
+    i, _, leaf = name[len("encoder.layer."):].partition(".")
+    for theirs, ours in _DISTILBERT_NAMES:
+        if leaf.startswith(ours):
+            return f"transformer.layer.{i}.{theirs}{leaf[len(ours):]}"
+    return name
 
 
 @dataclass
 class Checkpoint:
     config: dict
     state_dict: dict  # BertModel's names -> float32 CPU tensors
-    vocab: list  # vocab.txt's WordPiece tokens (empty for a Unigram tokenizer)
+    vocab: list  # vocab.txt's WordPiece tokens (empty for a tokenizer.json)
     tokenizer: dict = field(default_factory=dict)  # tokenizer_config.json
-    tokenizer_json: Optional[dict] = None  # a Unigram tokenizer.json, parsed
+    # a Unigram or BPE tokenizer.json, parsed (vocab.json + merges.txt laid out as one)
+    tokenizer_json: Optional[dict] = None
 
 
 def read_safetensors(path: str) -> dict:
@@ -94,6 +140,8 @@ def hf_to_state_dict(named: dict) -> dict:
                 name = name[len(prefix):]
         if name.startswith(_DROPPED):
             continue
+        if name.startswith("transformer.layer."):
+            name = _from_distilbert(name)
         if name.endswith(".gamma"):
             name = name[: -len("gamma")] + "weight"
         elif name.endswith(".beta"):
@@ -115,8 +163,8 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 
 def flax_to_state_dict(params: dict) -> dict:
-    """A Flax BERT or XLM-RoBERTa parameter tree (numpy leaves) as
-    BertModel's state_dict."""
+    """A Flax BERT, XLM-RoBERTa or DistilBERT parameter tree (numpy
+    leaves) as BertModel's state_dict."""
     named = {}
     for name, value in _flatten(params).items():
         value = np.asarray(value, np.float32)
@@ -168,11 +216,13 @@ def load_checkpoint(path: str) -> Checkpoint:
         kind = (spec.get("model") or {}).get("type")
         if kind == "WordPiece":
             spec = None  # BertTokenizerFast's file: its vocab.txt is read
-        elif kind != "Unigram":
+        elif kind not in ("Unigram", "BPE"):
             raise ValueError(
-                f"`{json_path}` holds a {kind} tokenizer: the port reads Unigram"
-                " tokenizer.json files and WordPiece vocab.txt only"
+                f"`{json_path}` holds a {kind} tokenizer: the port reads Unigram and BPE"
+                " tokenizer.json files, vocab.json + merges.txt and WordPiece vocab.txt only"
             )
+    elif os.path.exists(os.path.join(path, "merges.txt")):
+        spec = legacy_spec(path, tokenizer)
     vocab = []
     if spec is None:
         with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
@@ -181,12 +231,15 @@ def load_checkpoint(path: str) -> Checkpoint:
 
 
 def build_tokenizer(ckpt: Checkpoint):
-    """The checkpoint's tokenizer: Unigram for a Unigram tokenizer.json,
-    else WordPiece over vocab.txt. Both take (texts, max_len) and give
-    (input_ids, attention_mask)."""
-    if ckpt.tokenizer_json is not None:
-        return Unigram(ckpt.tokenizer_json, ckpt.tokenizer)
-    return WordPiece.from_config(ckpt.vocab, ckpt.tokenizer)
+    """The checkpoint's tokenizer: Unigram or BPE for a tokenizer.json of
+    that model (BPE for vocab.json + merges.txt), else WordPiece over
+    vocab.txt. Each takes (texts, max_len) and gives (input_ids,
+    attention_mask)."""
+    if ckpt.tokenizer_json is None:
+        return WordPiece.from_config(ckpt.vocab, ckpt.tokenizer)
+    if ckpt.tokenizer_json["model"]["type"] == "BPE":
+        return BPE(ckpt.tokenizer_json, ckpt.tokenizer)
+    return Unigram(ckpt.tokenizer_json, ckpt.tokenizer)
 
 
 def build_model(ckpt: Checkpoint) -> BertModel:
@@ -200,19 +253,30 @@ def build_model(ckpt: Checkpoint) -> BertModel:
 def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[list] = None,
                      do_lower_case: bool = True, tokenizer_json: Optional[dict] = None) -> None:
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
-    bert unless `config` names one), pytorch_model.bin (BertModel's names)
-    and tokenizer_config.json, with either `vocab` as vocab.txt or
-    `tokenizer_json` (a Unigram tokenizer.json, XLM-R's special tokens)."""
+    bert unless `config` names one), pytorch_model.bin (BertModel's names,
+    DistilBERT's for a `distilbert` config) and tokenizer_config.json,
+    with either `vocab` as vocab.txt or `tokenizer_json` (a Unigram
+    tokenizer.json with XLM-R's special tokens, or a BPE one with
+    RoBERTa's, add_prefix_space false)."""
     os.makedirs(path, exist_ok=True)
+    config = {"model_type": "bert", **config}
+    if config["model_type"] == "distilbert":
+        state_dict = {_to_distilbert(k): v for k, v in state_dict.items()}
+    else:
+        config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({"model_type": "bert", "hidden_act": "gelu", **config}, f)
+        json.dump(config, f)
     torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
     if tokenizer_json is not None:
         with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
             json.dump(tokenizer_json, f, ensure_ascii=False)
-        tok_config = {"tokenizer_class": "XLMRobertaTokenizer", "bos_token": "<s>",
-                      "eos_token": "</s>", "sep_token": "</s>", "cls_token": "<s>",
-                      "unk_token": "<unk>", "pad_token": "<pad>", "mask_token": "<mask>"}
+        bpe = tokenizer_json["model"]["type"] == "BPE"
+        tok_config = {"tokenizer_class": "RobertaTokenizer" if bpe else "XLMRobertaTokenizer",
+                      "bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>",
+                      "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>",
+                      "mask_token": "<mask>"}
+        if bpe:
+            tok_config["add_prefix_space"] = False
     else:
         with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
             f.write("".join(f"{token}\n" for token in vocab))

@@ -1,16 +1,22 @@
-"""Writers of the files the port's Unigram tokenizer reads, for tests and
-smoke runs that build their own checkpoints (nothing is downloaded):
-`build_charsmap` compiles a `Precompiled` character map, and
+"""Writers of the files the port's Unigram and BPE tokenizers read, for
+tests and smoke runs that build their own checkpoints (nothing is
+downloaded): `build_charsmap` compiles a `Precompiled` character map,
 `xlmr_tokenizer_json` lays out a `tokenizer.json` as transformers'
-XLM-RoBERTa converter writes it. No serving path calls them.
+XLM-RoBERTa converter writes it, and `roberta_tokenizer_json` a seeded
+byte-level BPE one as its RoBERTa converter writes it. No serving path
+calls them.
 """
 
 from __future__ import annotations
 
 import base64
 import struct
+from collections import Counter
 from typing import Optional
 
+import numpy as np
+
+from .bpe import byte_level_words, bytes_to_unicode
 from .unigram import SPIECE
 
 
@@ -104,4 +110,90 @@ def xlmr_tokenizer_json(vocab: list, charsmap: Optional[bytes] = None) -> dict:
         "decoder": {"type": "Metaspace", "replacement": SPIECE,
                     "prepend_scheme": "always", "split": True},
         "model": {"type": "Unigram", "unk_id": 3, "vocab": pieces, "byte_fallback": False},
+    }
+
+
+def train_merges(texts: list, n_merges: int) -> list:
+    """A small BPE trainer: up to `n_merges` merges over the ByteLevel words
+    of `texts`, each time the adjacent pair most frequent over the words
+    (on a tie, the smallest pair), until no pair occurs twice."""
+    words = Counter()
+    for text in texts:
+        words.update(byte_level_words(text))
+    split = {w: list(w) for w in words}
+    pairs: Counter = Counter()
+    where: dict = {}  # pair -> the words holding it
+    for w, count in words.items():
+        for pair in zip(split[w], split[w][1:]):
+            pairs[pair] += count
+            where.setdefault(pair, set()).add(w)
+    merges = []
+    while len(merges) < n_merges and pairs:
+        top = max(pairs.values())
+        if top < 2:
+            break
+        a, b = min(p for p, c in pairs.items() if c == top)
+        merges.append((a, b))
+        for w in where.pop((a, b)):
+            syms, count = split[w], words[w]
+            for pair in zip(syms, syms[1:]):
+                pairs[pair] -= count
+                if pairs[pair] <= 0:
+                    del pairs[pair]
+            i, out = 0, []
+            while i < len(syms):
+                if i + 1 < len(syms) and syms[i] == a and syms[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(syms[i])
+                    i += 1
+            split[w] = out
+            for pair in zip(out, out[1:]):
+                pairs[pair] += count
+                where.setdefault(pair, set()).add(w)
+    return merges
+
+
+def roberta_tokenizer_json(texts: list, vocab_size: int, seed: int,
+                           n_trained: int = 4096) -> dict:
+    """A byte-level BPE tokenizer.json as transformers' RoBERTa converter
+    writes it: `<s> <pad> </s> <unk>` at ids 0-3, the 256 byte symbols,
+    the merges of `train_merges` over `texts`, then seeded merges of two
+    existing tokens into a new one up to `vocab_size` - 1 tokens, and
+    `<mask>` (lstrip) last; ByteLevel (no prefix space), `<s> $A </s>`."""
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for sym in bytes_to_unicode().values():
+        vocab[sym] = len(vocab)
+    merges = []
+    for a, b in train_merges(texts, n_trained):
+        if a + b not in vocab and len(vocab) < vocab_size - 1:
+            vocab[a + b] = len(vocab)
+            merges.append([a, b])
+    rng = np.random.default_rng(seed)
+    tokens = list(vocab)[4:]
+    while len(vocab) < vocab_size - 1:
+        for i, j in rng.integers(0, len(tokens), (4096, 2)).tolist():
+            a, b = tokens[i], tokens[j]
+            if a + b in vocab or len(vocab) >= vocab_size - 1:
+                continue
+            vocab[a + b] = len(vocab)
+            merges.append([a, b])
+            tokens.append(a + b)
+    vocab["<mask>"] = len(vocab)
+    added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": t == "<mask>",
+              "rstrip": False, "normalized": t != "<mask>", "special": True}
+             for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>")]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                  "use_regex": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None, "pre_tokenizer": byte_level,
+        "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0],
+                           "trim_offsets": True, "add_prefix_space": False},
+        "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "", "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
+                  "merges": merges},
     }

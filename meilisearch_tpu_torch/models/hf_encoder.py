@@ -11,9 +11,11 @@ The JAX package runs transformers' Flax model under `jax.jit` (its
 checkpoint has no Flax weights. The port computes the same function with
 its own pieces and no transformers: the checkpoint directory is read by
 models/checkpoint.py, texts are tokenized on the host by
-models/wordpiece.py or, for a Unigram tokenizer.json (XLM-R's vocabulary),
-models/unigram.py, and models/bert.py's `BertModel` (BERT, RoBERTa and
-XLM-RoBERTa) runs on the device
+models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's
+vocabulary), models/unigram.py, or, for RoBERTa's byte-level BPE,
+models/bpe.py (all three with `tokenizers`' own Unicode tables,
+models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
+XLM-RoBERTa and DistilBERT) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state; otherwise the mean over the attention mask), and
 the result is L2-normalized in numpy exactly as there. Only a local

@@ -11,7 +11,8 @@ and gives the same input ids and attention masks, on the host:
    cut out and kept whole; the rest is split around them;
 2. the normalizer, on each piece between added tokens: `Sequence`,
    `Precompiled` (sentencepiece's compiled character map, below), `Strip`,
-   `Replace` (a string or a `Regex`), `NFKC`, `Nmt` and `Lowercase`;
+   `Replace` (a string or a `Regex`), `NFKC`, `Nmt` and `Lowercase` (NFKC
+   and Lowercase from `tokenizers`' own tables, models/unicode.py);
 3. the `Metaspace` pre-tokenizer: spaces become U+2581, which is put in
    front of the piece (`prepend_scheme` `always`, `first`: only for the
    piece at the start of the text, or `never`; the legacy
@@ -35,7 +36,10 @@ Hangul rules): a cluster under 6 bytes is replaced whole by the string of
 the SHORTEST key that is a prefix of it (so the rest of the cluster is
 dropped), otherwise each character is looked up alone. A text of ASCII
 without CR, whose every character is a cluster of its own, goes through
-one `str.translate` table instead.
+one `str.translate` table instead. The cluster rules read the host's
+`unicodedata` categories; they match `tokenizers` on every code point
+under the Unicode version `_unicode_tables.CHECKED_UNIDATA` names, and
+tests/test_torch_unicode_tables.py fails on a host with another.
 
 Anything else raises `ValueError` naming it: a BPE, WordPiece or WordLevel
 model, `byte_fallback: true`, another normalizer or pre-tokenizer, an
@@ -53,6 +57,8 @@ import unicodedata
 from typing import Optional
 
 import torch
+
+from . import unicode
 
 SPIECE = "▁"
 UNK_PENALTY = 10.0
@@ -335,11 +341,11 @@ def _normalizer(spec: Optional[dict]):
         literal = pattern["String"]
         return lambda s: s.replace(literal, content) if literal else s
     if kind == "NFKC":
-        return lambda s: unicodedata.normalize("NFKC", s)
+        return unicode.nfkc
     if kind == "Nmt":
         return lambda s: s.translate(_NMT_TABLE)
     if kind == "Lowercase":
-        return lambda s: "".join(c.lower() for c in s)
+        return unicode.lowercase
     raise ValueError(f"normalizer `{kind}` is not supported by the port's Unigram tokenizer")
 
 
@@ -387,6 +393,38 @@ def _token_content(token) -> Optional[str]:
     return token if isinstance(token, str) else None
 
 
+class AddedTokens:
+    """Added tokens cut out of a text, leftmost and longest first;
+    `lstrip`/`rstrip` take the whitespace (char::is_whitespace) beside
+    them. `tokens`: content -> (id, lstrip, rstrip)."""
+
+    def __init__(self, tokens: dict):
+        self.tokens = tokens
+        self.rx = re.compile("|".join(
+            re.escape(t) for t in sorted(tokens, key=len, reverse=True)
+        )) if tokens else None
+
+    def split(self, text: str) -> list:
+        """`text` as pieces (str, the first at the text's start, maybe
+        empty) and the ids (int) of the tokens between them."""
+        if self.rx is None:
+            return [text]
+        out, pos = [], 0
+        for m in self.rx.finditer(text):
+            tid, lstrip, rstrip = self.tokens[m.group()]
+            start, stop = m.start(), m.end()
+            if start < pos:
+                continue  # inside the whitespace the token before took
+            while lstrip and start > pos and text[start - 1] in _WHITESPACE:
+                start -= 1
+            while rstrip and stop < len(text) and text[stop] in _WHITESPACE:
+                stop += 1
+            out += [text[pos:start], tid]
+            pos = stop
+        out.append(text[pos:])
+        return out
+
+
 class Unigram:
     """Tokenize texts into input ids and attention masks from a parsed
     `tokenizer.json` whose model is Unigram (`config`: the checkpoint's
@@ -412,7 +450,7 @@ class Unigram:
         self.replacement, self.scheme, self.split = _metaspace(spec.get("pre_tokenizer"))
         self.before, self.after = _template(spec.get("post_processor"))
 
-        self.added = {}
+        added = {}
         for tok in spec.get("added_tokens") or []:
             if tok.get("normalized"):
                 raise ValueError(f"added token `{tok['content']}` is matched on normalized"
@@ -420,11 +458,9 @@ class Unigram:
             if tok.get("single_word"):
                 raise ValueError(f"added token `{tok['content']}` is single_word, which the"
                                  " port does not support")
-            self.added[tok["content"]] = (tok["id"], tok.get("lstrip", False),
-                                          tok.get("rstrip", False))
-        self._added_rx = re.compile("|".join(
-            re.escape(t) for t in sorted(self.added, key=len, reverse=True)
-        )) if self.added else None
+            added[tok["content"]] = (tok["id"], tok.get("lstrip", False),
+                                     tok.get("rstrip", False))
+        self.added = AddedTokens(added)
 
         pad = _token_content((config or {}).get("pad_token")) or "<pad>"
         self.pad = self.token_to_id(pad)
@@ -434,8 +470,8 @@ class Unigram:
         self._lock = threading.Lock()
 
     def token_to_id(self, token: str) -> Optional[int]:
-        if token in self.added:
-            return self.added[token][0]
+        if token in self.added.tokens:
+            return self.added.tokens[token][0]
         return self.pieces.get(token)
 
     # -- one word ------------------------------------------------------------
@@ -519,23 +555,11 @@ class Unigram:
     def ids(self, text: str) -> list:
         """The ids of one text, without the template's special tokens."""
         out = []
-        pos = 0
-        if self._added_rx is not None:
-            for m in self._added_rx.finditer(text):
-                tid, lstrip, rstrip = self.added[m.group()]
-                start, stop = m.start(), m.end()
-                if lstrip:
-                    while start > pos and text[start - 1] in _WHITESPACE:
-                        start -= 1
-                if rstrip:
-                    while stop < len(text) and text[stop] in _WHITESPACE:
-                        stop += 1
-                if start < pos:
-                    continue
-                out += self._segment_ids(text[pos:start], pos == 0)
-                out.append(tid)
-                pos = stop
-        out += self._segment_ids(text[pos:], pos == 0)
+        for i, part in enumerate(self.added.split(text)):
+            if isinstance(part, int):
+                out.append(part)
+            else:
+                out += self._segment_ids(part, i == 0)
         return out
 
     # -- a batch -------------------------------------------------------------

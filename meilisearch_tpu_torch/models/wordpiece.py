@@ -7,60 +7,74 @@ pipeline). This is the same pipeline, on the host:
 1. special tokens (`[CLS]`, `[SEP]`, `[PAD]`, `[MASK]`, `[UNK]`) written in
    the text are cut out first and kept whole;
 2. the normalizer, in this order: drop U+0000, U+FFFD and control
-   characters (categories Cc, Cf, Co and Cs, but tab, newline and
-   carriage return; unassigned code points stay) and map
-   whitespace to a space; put spaces around CJK ideographs; with
-   `strip_accents` (by default: when lowercasing) decompose (NFD) and drop
-   non-spacing marks (Mn); lowercase character by character;
+   characters and map whitespace to a space; put spaces around CJK
+   ideographs; with `strip_accents` (by default: when lowercasing)
+   decompose (NFD) and drop non-spacing marks; lowercase character by
+   character;
 3. the pre-tokenizer: split on whitespace and cut out each punctuation
-   character (ASCII 33-47, 58-64, 91-96, 123-126 and Unicode P*);
+   character;
 4. WordPiece: the greedy longest match from the left, later pieces with a
    `##` prefix; a word with no full match, or over 100 characters, is
    `[UNK]`;
 5. `[CLS]` ids `[SEP]`, truncated to `max_len` with both kept, padded with
    `[PAD]` to the longest text of the call.
 
-Words are cached, so a corpus with a bounded vocabulary tokenizes at dict
-speed; ASCII text takes a regular-expression path.
+Every class and normalization form is `tokenizers`' own, from the frozen
+tables of models/unicode.py (BertNormalizer's control, whitespace and CJK
+sets, BertPreTokenizer's punctuation and whitespace, NFD and the
+non-spacing marks, Lowercase), so no answer depends on the host's
+`unicodedata`. Words are cached, so a corpus with a bounded vocabulary
+tokenizes at dict speed; ASCII text takes a translate table and one
+regular expression.
 """
 
 from __future__ import annotations
 
 import re
 import threading
-import unicodedata
+from functools import lru_cache
 
 import torch
+
+from . import unicode
 
 MAX_CHARS_PER_WORD = 100
 _WORD_CACHE_MAX = 1 << 20  # cached words before the cache is emptied
 
-# ASCII: control characters go, tab/newline/return become a space
-_ASCII_CLEAN = {c: None for c in [*range(0, 9), 11, 12, *range(14, 32), 127]}
-_ASCII_CLEAN.update({9: " ", 10: " ", 13: " "})
-_CONTROL = ("Cc", "Cf", "Co", "Cs")  # unassigned (Cn) characters stay
-_ASCII_PUNCT = "!-/:-@\\[-`{-~"
-_ASCII_WORDS = re.compile(f"[^\\s{_ASCII_PUNCT}]+|[{_ASCII_PUNCT}]")
+
+class _Clean(dict):
+    """BertNormalizer's per-character step as a `str.translate` table,
+    filled on first sight of each character: controls (and U+0000,
+    U+FFFD) dropped, whitespace to a space, CJK ideographs padded with
+    spaces when `chinese`."""
+
+    def __init__(self, chinese: bool):
+        super().__init__()
+        self.chinese = chinese
+        self.control = unicode.ranges("BERT_CONTROL")
+        self.space = unicode.ranges("BERT_WHITESPACE")
+        self.cjk = unicode.ranges("BERT_CJK")
+
+    def __missing__(self, cp: int):
+        if cp in self.control:
+            out = None
+        elif cp in self.space:
+            out = " "
+        elif self.chinese and cp in self.cjk:
+            out = f" {chr(cp)} "
+        else:
+            out = cp
+        self[cp] = out
+        return out
 
 
-def _is_cjk(cp: int) -> bool:
-    return (
-        0x4E00 <= cp <= 0x9FFF
-        or 0x3400 <= cp <= 0x4DBF
-        or 0x20000 <= cp <= 0x2A6DF
-        or 0x2A700 <= cp <= 0x2B73F
-        or 0x2B740 <= cp <= 0x2B81F
-        or 0x2B920 <= cp <= 0x2CEAF
-        or 0xF900 <= cp <= 0xFAFF
-        or 0x2F800 <= cp <= 0x2FA1F
-    )
-
-
-def _is_punct(ch: str) -> bool:
-    cp = ord(ch)
-    if 33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96 or 123 <= cp <= 126:
-        return True
-    return unicodedata.category(ch).startswith("P")
+@lru_cache(maxsize=None)
+def _words_pattern() -> re.Pattern:
+    """BertPreTokenizer: runs of neither whitespace nor punctuation, and
+    each punctuation character alone."""
+    space = unicode.ranges("BERT_SPLIT_SPACE").char_class()
+    punct = unicode.ranges("BERT_PUNCT").char_class()
+    return re.compile(f"[^{space}{punct}]+|[{punct}]")
 
 
 class WordPiece:
@@ -95,6 +109,8 @@ class WordPiece:
         self._specials = re.compile(
             "|".join(re.escape(t) for t in sorted(specials, key=len, reverse=True))
         )
+        self._clean = _Clean(self.chinese)
+        self._words_rx = _words_pattern()
         self._words: dict = {}
         self._lock = threading.Lock()
 
@@ -114,50 +130,17 @@ class WordPiece:
     # -- one text ------------------------------------------------------------
 
     def _normalize(self, text: str) -> str:
-        out = []
-        for ch in text:
-            cp = ord(ch)
-            if cp == 0 or cp == 0xFFFD:
-                continue
-            if ch in "\t\n\r":
-                out.append(" ")
-                continue
-            if unicodedata.category(ch) in _CONTROL:
-                continue
-            if ch.isspace():
-                out.append(" ")
-            elif self.chinese and _is_cjk(cp):
-                out.append(f" {ch} ")
-            else:
-                out.append(ch)
-        text = "".join(out)
+        text = text.translate(self._clean)
+        if text.isascii():
+            return text.lower() if self.lower else text
         if self.strip_accents:
-            text = "".join(
-                c for c in unicodedata.normalize("NFD", text)
-                if unicodedata.category(c) != "Mn"
-            )
-        if self.lower:
-            text = "".join(c.lower() for c in text)
-        return text
+            text = unicode.strip_marks(unicode.nfd(text))
+        return unicode.lowercase(text) if self.lower else text
 
     def _split(self, text: str) -> list:
         """Normalized, whitespace- and punctuation-split words of a text
         with no special token in it."""
-        if text.isascii():
-            text = text.translate(_ASCII_CLEAN)
-            return _ASCII_WORDS.findall(text.lower() if self.lower else text)
-        words = []
-        for chunk in self._normalize(text).split():
-            start = 0
-            for i, ch in enumerate(chunk):
-                if _is_punct(ch):
-                    if start < i:
-                        words.append(chunk[start:i])
-                    words.append(ch)
-                    start = i + 1
-            if start < len(chunk):
-                words.append(chunk[start:])
-        return words
+        return self._words_rx.findall(self._normalize(text))
 
     def _word_ids(self, word: str) -> list:
         ids = self._words.get(word)

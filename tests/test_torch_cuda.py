@@ -12,7 +12,8 @@ NCCL group's scatter-gather must equal the single-device scorer, the
 port's search
 path on the card, typo pass included, must answer exactly as its host
 scorer, the vector legs on the card as its numpy host pass, and the text
-encoder (K8), BERT and XLM-R, on the card as the same checkpoint on the CPU."""
+encoder (K8), BERT, XLM-R, RoBERTa with its byte-level BPE and
+DistilBERT, on the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -378,6 +379,65 @@ def test_xlmr_encoder_on_the_card_matches_the_cpu(cuda_device, tmp_path, pooling
     got = card.encode(texts)
     assert next(card._model.parameters()).is_cuda
     assert card._model.embeddings.padding_idx == 1
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
+def _roberta_checkpoint(path, seed=0):
+    """A RoBERTa checkpoint at all-distilroberta-v1's width (hidden 768, 12
+    heads, intermediate 3,072, 514 positions, pad id 1) cut to 2 layers,
+    with a seeded byte-level BPE tokenizer.json, written by the port."""
+    from meilisearch_tpu_torch.models.bert import BertModel
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import roberta_tokenizer_json
+
+    spec = roberta_tokenizer_json(_enc_texts(200, seed), vocab_size=3000, seed=seed)
+    config = {"model_type": "roberta", "vocab_size": 3000, "hidden_size": 768,
+              "num_hidden_layers": 2, "num_attention_heads": 12, "intermediate_size": 3072,
+              "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5,
+              "pad_token_id": 1}
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, BertModel(config).state_dict(), tokenizer_json=spec)
+    return str(path)
+
+
+def _distilbert_checkpoint(path, seed=0):
+    """A DistilBERT checkpoint at multi-qa-distilbert-cos-v1's width (dim
+    768, 12 heads, hidden_dim 3,072, 512 positions) cut to 2 layers, with
+    a small WordPiece vocabulary, written by the port (DistilBERT's names)."""
+    from meilisearch_tpu_torch.models.bert import BertModel
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    letters = "abcdefghijklmnopqrstuvwxyz0123456789"
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *ENC_WORDS, *letters,
+             *("##" + c for c in letters), *".,:/-!?#"]
+    config = {"model_type": "distilbert", "vocab_size": len(vocab), "dim": 768, "n_layers": 2,
+              "n_heads": 12, "hidden_dim": 3072, "max_position_embeddings": 512,
+              "activation": "gelu", "sinusoidal_pos_embds": False}
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, BertModel(config).state_dict(), vocab)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("family", ["roberta", "distilbert"])
+def test_bpe_and_distilbert_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, family,
+                                                                pooling):
+    """RoBERTa with its byte-level BPE tokenizer, and DistilBERT, on the
+    card: padded batches (contractions, runs of spaces, <mask>, fault
+    3.11's characters) against the CPU."""
+    from meilisearch_tpu_torch.models import hf_encoder
+    from meilisearch_tpu_torch.models.bpe import BPE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    make = _roberta_checkpoint if family == "roberta" else _distilbert_checkpoint
+    path = make(tmp_path, seed=7)
+    texts = _enc_texts(17, seed=8) + ["it's we'll", "a   b\n\nc", "x <mask> y", "a\u2e43b",
+                                      "\u32ff \u1c89", ""]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert isinstance(card._tokenizer, BPE) == (family == "roberta")
     want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
     assert float(np.abs(got - want).max()) <= 1e-5
 

@@ -180,14 +180,26 @@ def test_prefixed_names_load(ckpt):
     assert set(checkpoint.hf_to_state_dict(named)) == set(checkpoint.read_weights(ckpt["xlmr"]))
 
 
-def test_a_bpe_tokenizer_is_refused(ckpt, tmp_path):
+@pytest.mark.parametrize("change, match", [
+    ({"byte_fallback": True}, "byte_fallback"),
+    ({"pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+                        "split": True}}, "Metaspace"),
+])
+def test_a_bpe_tokenizer_is_refused(ckpt, tmp_path, change, match):
+    """A byte-level BPE reads (models/bpe.py); a BPE it does not read, with
+    byte_fallback or a Metaspace pre-tokenizer, is refused by name."""
     path = str(tmp_path / "bpe")
     shutil.copytree(ckpt["xlmr"], path)
-    spec = dict(SPEC, model={"type": "BPE", "vocab": {"a": 0}, "merges": []})
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "use_regex": True}
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, "a": 4, "<mask>": 5}
+    model = {"type": "BPE", "vocab": vocab, "merges": [], "byte_fallback": False}
+    spec = dict(SPEC, normalizer=None, pre_tokenizer=byte_level, model=model)
+    for key, value in change.items():
+        (model if key in model else spec)[key] = value
     with open(os.path.join(path, "tokenizer.json"), "w") as f:
         json.dump(spec, f)
-    with pytest.raises(ValueError, match="BPE"):
-        checkpoint.load_checkpoint(path)
+    with pytest.raises(ValueError, match=match):
+        checkpoint.build_tokenizer(checkpoint.load_checkpoint(path))
 
 
 def test_a_roberta_config_needs_its_pad_id(ckpt):
