@@ -44,9 +44,11 @@ Phases, each fatal on failure:
      hackernews documents with a 768-dimension userProvided embedder
      (every 7th document two vectors: 171,429 rows, padded to 2^18 on the
      card) over POST /indexes/vec/documents, uploads the matrix
-     (App.warm_devices), and 32 client threads send 20 hybrid searches
-     (semanticRatio 1.0 and 0.5, with and without a filter) and 4
-     /similar requests. Against the same store's numpy host pass: the
+     (App.warm_devices), then the 24 requests (20 hybrid searches,
+     semanticRatio 1.0 and 0.5, with and without a filter, and 4
+     /similar requests) one at a time, and 32 client threads each send
+     12 of them in a rotated order (384, each request 12 to 20 times).
+     Against the same store's numpy host pass: the
      float round must give the same hits (a group whose host scores lie
      within 1e-6 compared as a set), scores within 1e-5 and the same
      semanticHitCount, through the float leg; after PATCH settings
@@ -122,9 +124,13 @@ Phases, each fatal on failure:
      bound;
   10. workloads: the 7 declarative workloads (workloads/tests/*.json)
      through meilisearch_tpu_torch.xtask.run_workload with every App
-     bound to the card (its stores are under the device thresholds, so
-     the batcher may answer every search on the host); any failure is
-     fatal;
+     bound to the card and device routing forced
+     (xtask.device_routing_forced: their stores sit under the device
+     thresholds): per workload, the searches the device answered, K1 and
+     K3 launches and float-leg calls; api-keys, movies,
+     task-queue-compaction and upgrade must be answered on the device,
+     embeddings through the float leg, and the phase with no device
+     error; any failure is fatal;
   11. BPE and DistilBERT path: two checkpoints at published widths and
      depth (seeded random weights), each through its own App as phase 9:
      hn25k-distilroberta-hf (sentence-transformers/all-distilroberta-v1:
@@ -139,7 +145,17 @@ Phases, each fatal on failure:
      at indexing on the card through the BPE tokenizer or the DistilBERT
      module (tokens/s, host tokenization, peak device memory), 8 hybrid
      searches with a text q against the same store's host pass, one at a
-     time and from 32 threads, no device error, and the forward's timing.
+     time and from 32 threads, no device error, and the forward's timing;
+  12. MPNet path (hn25k-mpnet-hf): a checkpoint at
+     sentence-transformers/all-mpnet-base-v2's published config.json
+     (MPNet, vocab 30,527, hidden 768, 12 layers, 12 heads, 3,072, 514
+     positions, 32 relative buckets, pad id 1; seeded random weights) with
+     MPNet's vocabulary layout around bge_vocab() and MPNetTokenizerFast's
+     special tokens (models/fixtures.py), through its own App as phase 11:
+     the encoder on the card against the CPU within ENC_TOL (phase 11's
+     texts and MPNet's specials written in other cases), 25,000 documents
+     embedded at indexing on the card, 8 hybrid searches against the same
+     store's host pass, and the forward's timing.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -233,6 +249,10 @@ VEC_SETTINGS = {
     "embedders": {"default": {"source": "userProvided", "dimensions": VEC_DIM}},
 }
 VEC_TEXT = ["rust", "database", "machine learning", "cloud", "python web"]
+# requests a client sends in each of the vector path's two served rounds:
+# half of its 24 in its rotation, 384 a round, every request 12 to 20
+# times (the cut that keeps the whole script under 700 s)
+VEC_SERVED_PER_CLIENT = 12
 # the encoder path, hn150k-bgebase-hf: the vector path's corpus with a
 # huggingFace embedder at BAAI/bge-base-en-v1.5's published width (random
 # weights from a seed, nothing downloaded) and Meilisearch's default
@@ -300,6 +320,29 @@ DISTILBERT_CONFIG = {
     "sinusoidal_pos_embds": False, "pad_token_id": 0,
 }
 P11_DOCS, P11_SEED, BPE_TRAIN_DOCS = 25_000, 2027, 5_000
+# phase 12, hn25k-mpnet-hf: sentence-transformers/all-mpnet-base-v2's
+# published config.json with seeded random weights and MPNet's vocabulary
+# around bge_vocab()'s WordPiece entries. 25,000 of the configuration's
+# 150,000 hackernews documents: the depth cut to keep the whole script
+# under 700 s; widths, depth and vocabulary size are the published ones
+MPNET_CONFIG = {
+    "model_type": "mpnet", "vocab_size": 30_527, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+    "max_position_embeddings": 514, "relative_attention_num_buckets": 32,
+    "layer_norm_eps": 1e-5, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+    "hidden_act": "gelu", "initializer_range": 0.02,
+}
+P12_DOCS, P12_SEED = 25_000, 2028
+# MPNet's specials matched on the normalized text, BERT's left as words
+MPNET_CHECK_TEXT = ["HELLO <MASK>world", "a<s>b", "x </S> y", "hello[UNK]world",
+                    "hello [MASK] a"]
+# phase 10: the workloads whose keyword searches the device half serves
+# under forced routing (dsr.json's index holds a dynamic search rule, which
+# it leaves to the host; network.json sends no search), and the one whose
+# hybrid searches take the float leg
+WORKLOADS_DEVICE_SERVED = ("api-keys.json", "movies.json", "task-queue-compaction.json",
+                           "upgrade.json")
+WORKLOADS_FLOAT_LEG = ("embeddings.json",)
 P11_TEXT = ["rust compiler", "it's machine learning", "we'll secure the cloud", "python web"]
 # the card-against-CPU texts: fault 3.11's characters, contractions, runs of
 # whitespace, <mask> and the other specials, and multilingual text
@@ -713,10 +756,13 @@ def typo_path_phase(device, n_words: int) -> dict:
         app.scheduler.stop()
 
 
-def serve(client, requests: list, rounds: int = 2) -> tuple[list, list]:
+def serve(client, requests: list, rounds: int = 2,
+          per_client: int | None = None) -> tuple[list, list]:
     """THREADS clients each send every (path, body) POST request `rounds`
-    times, in rotated orders; returns ([(request index, status, body)],
-    [errors])."""
+    times, in rotated orders (with `per_client`, only the first that many
+    of each client's rotation a round); returns ([(request index, status,
+    body)], [errors])."""
+    per_client = len(requests) if per_client is None else per_client
     answers: list = []
     latencies: list = []
     errors: list = []
@@ -725,7 +771,7 @@ def serve(client, requests: list, rounds: int = 2) -> tuple[list, list]:
     def client_loop(k: int) -> None:
         try:
             for r in range(rounds):
-                for j in range(len(requests)):
+                for j in range(per_client):
                     qi = (j + k + r) % len(requests)
                     path, body = requests[qi]
                     t = time.perf_counter()
@@ -851,12 +897,14 @@ def one_by_one(client, requests: list, label: str) -> list:
     return answers
 
 
-def vector_round(app, client, store, requests: list, exact: bool) -> dict:
+def vector_round(app, client, store, requests: list, exact: bool,
+                 per_client: int | None = None) -> dict:
     """The expected answers from the same store with its device unbound
     (the numpy host pass), then the requests one at a time on the card
-    (timed), then THREADS clients on the card; every answer must agree
-    (exactly, or by the float round's rule). Returns the K4h launches and
-    float-leg calls of the served run."""
+    (timed), then THREADS clients on the card (`per_client` requests each,
+    by default all); every answer must agree (exactly, or by the float
+    round's rule). Returns the K4h launches and float-leg calls of the
+    served run."""
     from meilisearch_tpu_torch.ops import hamming
     from meilisearch_tpu_torch.search.device_batch import serving_stats
     from meilisearch_tpu_torch.vector import store as vstore
@@ -870,8 +918,8 @@ def vector_round(app, client, store, requests: list, exact: bool) -> dict:
     serving_stats(reset=True)
     hamming.LAUNCHES.reset()
     vstore.FLOAT_LEGS.reset()
-    # one round a client: 768 requests (two took 160-250 s of the run)
-    answers, errors = serve(client, requests, rounds=1)
+    # one round a client (two took 160-250 s of the run)
+    answers, errors = serve(client, requests, rounds=1, per_client=per_client)
     launches, float_legs = hamming.LAUNCHES.value, vstore.FLOAT_LEGS.value
     stats = serving_stats()
     if errors:
@@ -945,7 +993,8 @@ def vector_path_phase(device) -> dict:
         if n != VEC_DOCS + (VEC_DOCS + 6) // 7:
             raise AssertionError(f"unexpected rows: {n}")
         requests = vector_requests(store)
-        float_round = vector_round(app, client, store, requests, exact=False)
+        float_round = vector_round(app, client, store, requests, exact=False,
+                                   per_client=VEC_SERVED_PER_CLIENT)
         if float_round["float_legs"] <= 0:
             raise AssertionError("the float leg did not run on the vector path")
 
@@ -960,7 +1009,8 @@ def vector_path_phase(device) -> dict:
         if not binary_searcher.quantized:
             raise AssertionError("the embedder is not binary-quantized")
         say(f"warm_devices (sign words pack + upload): {time.perf_counter() - t0:.3f} s")
-        binary_round = vector_round(app, client, store, requests, exact=True)
+        binary_round = vector_round(app, client, store, requests, exact=True,
+                                    per_client=VEC_SERVED_PER_CLIENT)
         if binary_round["launches"] <= 0:
             raise AssertionError("K4h was not launched on the vector path")
         query = np.asarray(requests[0][1]["vector"], np.float32)
@@ -987,9 +1037,10 @@ def bge_vocab() -> list:
 
 
 def random_state_dict(config: dict, seed: int) -> dict:
-    """BERT's (and XLM-R's) initialization of a model of `config`: weights
-    normal(0, BGE_INIT_STD) from a seeded torch.Generator, biases 0,
-    LayerNorm scales 1."""
+    """BERT's initialization of a model of `config` (XLM-R's, DistilBERT's
+    and MPNet's too): weights, MPNet's relative attention bias table
+    among them, normal(0, BGE_INIT_STD) from a seeded torch.Generator,
+    biases 0, LayerNorm scales 1."""
     import torch
 
     from meilisearch_tpu_torch.models.bert import BertModel
@@ -1407,12 +1458,15 @@ def bpe_distilbert_phase(device, card: str, n_docs: int) -> dict:
 
 def workloads_phase(device) -> None:
     """Phase 10: the declarative workloads (workloads/tests/*.json) through
-    the port's xtask runner, every instance's App bound to the card."""
+    the port's xtask runner, every instance's App bound to the card and
+    device routing forced; the named workloads must reach the device."""
     import glob
     import os
 
     from meilisearch_tpu_torch import xtask
+    from meilisearch_tpu_torch.ops import chain_keys, device_osa
     from meilisearch_tpu_torch.search.device_batch import serving_stats
+    from meilisearch_tpu_torch.vector import store as vstore
 
     root = os.path.dirname(os.path.abspath(__file__))
     paths = sorted(glob.glob(os.path.join(root, "workloads", "tests", "*.json")))
@@ -1420,17 +1474,59 @@ def workloads_phase(device) -> None:
         raise AssertionError(f"expected 7 workloads, found {len(paths)}")
     serving_stats(reset=True)
     t0 = time.perf_counter()
-    for path in paths:
-        t = time.perf_counter()
-        xtask.run_workload(path, verbose=False, device=device)
-        say(f"workload {os.path.basename(path)} passed with the App bound to the card in"
-            f" {time.perf_counter() - t:.3f} s")
+    with xtask.device_routing_forced():
+        for path in paths:
+            name = os.path.basename(path)
+            before = serving_stats()
+            counts = (chain_keys.LAUNCHES.value, device_osa.LAUNCHES.value,
+                      vstore.FLOAT_LEGS.value)
+            t = time.perf_counter()
+            xtask.run_workload(path, verbose=False, device=device)
+            after = serving_stats()
+            served = after["device_served"] - before["device_served"]
+            k1, k3, legs = (c.value - v for c, v in zip(
+                (chain_keys.LAUNCHES, device_osa.LAUNCHES, vstore.FLOAT_LEGS), counts))
+            say(f"workload {name} passed on the card with device routing forced in"
+                f" {time.perf_counter() - t:.3f} s: {served} searches answered by the device;"
+                f" {k1} K1 launches, {k3} K3 launches, {legs} float-leg calls")
+            if name in WORKLOADS_DEVICE_SERVED and served <= 0:
+                raise AssertionError(f"{name}: no search was answered by the device")
+            if name in WORKLOADS_FLOAT_LEG and legs <= 0:
+                raise AssertionError(f"{name}: the float leg did not run")
     stats = serving_stats()
-    if stats["device_errors"] != 0:
-        raise AssertionError(f"device errors in the workloads: {stats}")
-    say(f"phase 10: {len(paths)} workloads passed with the App bound to the card in"
-        f" {time.perf_counter() - t0:.3f} s; serving stats (device_served: searches the"
-        f" device answered) {json.dumps(stats)}")
+    if stats["device_errors"] != 0 or stats["device_served"] <= 0:
+        raise AssertionError(f"the workloads did not reach the device cleanly: {stats}")
+    say(f"phase 10: {len(paths)} workloads passed with the App bound to the card and device"
+        f" routing forced in {time.perf_counter() - t0:.3f} s; device_served"
+        f" {stats['device_served']}, device_errors {stats['device_errors']}; serving stats"
+        f" {json.dumps(stats)}")
+
+
+def write_mpnet_checkpoint(path: str) -> None:
+    """A checkpoint of all-mpnet-base-v2's width (MPNet, 12 layers, MPNet's
+    weight names), written as pytorch_model.bin with MPNet's vocab.txt
+    (bge_vocab() between `<s> <pad> </s> <unk>` and `<mask>`) and
+    MPNetTokenizerFast's tokenizer_config.json."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import mpnet_vocab
+
+    vocab = mpnet_vocab(bge_vocab())
+    if len(vocab) != MPNET_CONFIG["vocab_size"]:
+        raise AssertionError(f"MPNet's vocabulary has {len(vocab)} tokens")
+    write_checkpoint(path, MPNET_CONFIG, random_state_dict(MPNET_CONFIG, P12_SEED), vocab,
+                     do_lower_case=True)
+
+
+def mpnet_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 12, the MPNet path: hn25k-mpnet-hf through its own App
+    (`hf_path`)."""
+    t_phase = time.perf_counter()
+    out = hf_path(device, card, n_docs, label="all-mpnet-base-v2", index="mp",
+                  write=write_mpnet_checkpoint, seed=P12_SEED, queries=P11_TEXT,
+                  check_texts=P11_CHECK_TEXT + MPNET_CHECK_TEXT, tokenizer="WordPiece",
+                  model_type="mpnet")
+    say(f"phase 12 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
 
 
 def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
@@ -1451,8 +1547,10 @@ def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     cids = torch.randint(1000, c["vocab_size"], (n, L), generator=g)
     cmask = torch.ones((n, L), dtype=torch.int64)
     chunk_ms = _median_ms(lambda: enc.forward(cids, cmask), reps=REPEATS)
+    # the embeddings and MPNet's bias table are gathers, not products
     linear = sum(p.numel() for name, p in enc._model.named_parameters()
-                 if p.dim() == 2 and "embeddings" not in name)
+                 if p.dim() == 2 and "embeddings" not in name
+                 and "relative_attention_bias" not in name)
     flops = 2 * linear * n * L + 4 * L * L * c["hidden_size"] * c["num_hidden_layers"] * n
     bound_ms = flops / FP32_FLOP_S * 1e3
     say(f"timing the {width}-width encoder on {card}: one query's forward ({ids.shape[1]}"
@@ -2367,6 +2465,7 @@ def main() -> int:
     xlmr_path_phase(device, card, E5_DOCS)
     workloads_phase(device)
     bpe_distilbert_phase(device, card, P11_DOCS)
+    mpnet_phase(device, card, P12_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

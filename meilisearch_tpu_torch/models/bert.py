@@ -1,7 +1,7 @@
 """BERT's encoder forward as a torch module (the port's K8), for the
-BERT, RoBERTa, XLM-RoBERTa and DistilBERT checkpoints (`model_type`
-`bert`, `roberta`, `xlm-roberta`, `distilbert`), which share one
-architecture.
+BERT, RoBERTa, XLM-RoBERTa, DistilBERT and MPNet checkpoints
+(`model_type` `bert`, `roberta`, `xlm-roberta`, `distilbert`, `mpnet`),
+which share one architecture (MPNet adds a relative position bias).
 
 For BERT it computes what transformers' `FlaxBertModel` computes when the
 JAX package's encoder (`models/hf_encoder.py` there) applies it under
@@ -10,27 +10,45 @@ JAX package's encoder (`models/hf_encoder.py` there) applies it under
 for DistilBERT, what `FlaxDistilBertModel` and the torch
 `DistilBertModel` compute (a DistilBERT config's `dim`, `n_layers`,
 `n_heads` and `hidden_dim` are read as BERT's widths, and its weights
-load under BERT's names, models/checkpoint.py).
-It returns the last hidden state (the encoder reads no pooler):
+load under BERT's names, models/checkpoint.py); for MPNet, what the
+torch `MPNetModel` computes (the JAX package's torch branch: transformers
+has no Flax MPNet). It returns the last hidden state (the encoder reads
+no pooler):
 
 - embeddings: word + token type (all zeros) + position, then LayerNorm
   (`layer_norm_eps`); dropout is off. BERT's positions are 0..L-1. The
   RoBERTa family's count from `pad_token_id` + 1 over the tokens that are
   not the pad id, and a pad token takes position `pad_token_id`
   (transformers' `create_position_ids_from_input_ids`). DistilBERT has no
-  token-type embedding: word + position (0..L-1), LayerNorm eps 1e-12;
+  token-type embedding: word + position (0..L-1), LayerNorm eps 1e-12.
+  MPNet has none either: word + position, its positions RoBERTa's from
+  the padding id 1 (`MPNetEmbeddings` hard-codes it, whatever
+  `pad_token_id` says; another pad id is refused);
+- MPNet only: one relative position bias per forward, added in every
+  layer. Bucket (i, j) of the raw indices' distance j - i follows
+  `MPNetEncoder.relative_position_bucket` with its defaults (32 buckets,
+  max distance 128, whatever the config's bucket count): 16 a sign, the
+  first 8 distances exact, the rest logarithmic, a float32 `log`
+  truncated to an integer. The (L, L) table is built on the host with
+  the same torch float32 ops at the same shape, cached by L, and gathered
+  from `encoder.relative_attention_bias` into a (1, heads, L, L) bias on
+  the device;
 - each layer: Q/K/V projections, scores (Q / sqrt(d_head)) K^T plus an
-  additive bias of finfo(float32).min on padded keys, softmax, times V,
+  additive bias of finfo(float32).min on padded keys (MPNet: (Q K^T) /
+  sqrt(d_head), plus the position bias, then the padding bias: each
+  family keeps its own order), softmax, times V,
   the output projection, residual and LayerNorm; then the intermediate
   projection, exact (erf) GELU, the output projection, residual and
   LayerNorm.
 
 Attention is written as explicit products and a softmax, the same math
 as `FlaxBertSelfAttention`, not `scaled_dot_product_attention`, which
-picks its own kernels and rounding. The module's parameter names are
-those of transformers' torch `BertModel` (`embeddings.word_embeddings.
-weight`, `encoder.layer.{i}.attention.self.query.weight`, ...), so a
-checkpoint's tensors load by name (models/checkpoint.py).
+picks its own kernels and rounding (and would move MPNet's bias). The
+module's parameter names are those of transformers' torch `BertModel`
+(`embeddings.word_embeddings.weight`,
+`encoder.layer.{i}.attention.self.query.weight`, ...; MPNet's
+`encoder.relative_attention_bias.weight`), so a checkpoint's tensors load
+by name (models/checkpoint.py).
 
 Everything runs in float32. On a CUDA device the forward raises when
 `torch.backends.cuda.matmul.allow_tf32` is set (TF32 keeps about three
@@ -40,6 +58,8 @@ digits), as the vector float leg does (vector/store.py::_cos_column).
 from __future__ import annotations
 
 import math
+from functools import lru_cache
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,7 +78,11 @@ CONFIG_KEYS = (
 )
 # model types whose positions count from the padding id
 ROBERTA_TYPES = ("roberta", "xlm-roberta")
-MODEL_TYPES = ("bert", *ROBERTA_TYPES, "distilbert")
+MODEL_TYPES = ("bert", *ROBERTA_TYPES, "distilbert", "mpnet")
+# MPNet's fixed padding id, and the bucketing transformers always applies
+# (MPNetEncoder.compute_position_bias passes num_buckets=32 and the
+# default max_distance=128 whatever the config says)
+MPNET_PAD_ID, MPNET_BUCKETS, MPNET_MAX_DISTANCE = 1, 32, 128
 # a DistilBERT config's widths (transformers' DistilBertConfig names)
 DISTILBERT_KEYS = ("vocab_size", "dim", "n_layers", "n_heads", "hidden_dim", "activation",
                    "max_position_embeddings")
@@ -82,18 +106,34 @@ def _distilbert_config(config: dict) -> dict:
             "type_vocab_size": 0, "layer_norm_eps": 1e-12}
 
 
+def _mpnet_config(config: dict) -> dict:
+    pad = config.get("pad_token_id", MPNET_PAD_ID)
+    if pad != MPNET_PAD_ID:
+        raise ValueError(f"an mpnet config with pad_token_id {pad} is not supported:"
+                         f" MPNetEmbeddings counts positions from {MPNET_PAD_ID}")
+    buckets = config.get("relative_attention_num_buckets", MPNET_BUCKETS)
+    if buckets < MPNET_BUCKETS:
+        raise ValueError(f"relative_attention_num_buckets {buckets} is under the"
+                         f" {MPNET_BUCKETS} buckets MPNet's position bias reads")
+    return {**config, "type_vocab_size": 0, "pad_token_id": MPNET_PAD_ID,
+            "relative_attention_num_buckets": buckets}
+
+
 def check_config(config: dict) -> dict:
     """Raise ValueError unless `config` describes a model this module runs;
     return it with BERT's width names (CONFIG_KEYS; a DistilBERT config's
-    widths renamed, `type_vocab_size` 0: no token-type embedding)."""
+    widths renamed, `type_vocab_size` 0: no token-type embedding, as for
+    MPNet)."""
     model_type = config.get("model_type", "bert")
     if model_type not in MODEL_TYPES:
         raise ValueError(
             f"model_type `{model_type}` is not supported: the port runs BERT,"
-            " RoBERTa, XLM-RoBERTa and DistilBERT checkpoints only"
+            " RoBERTa, XLM-RoBERTa, DistilBERT and MPNet checkpoints only"
         )
     if model_type == "distilbert":
         return _distilbert_config(config)
+    if model_type == "mpnet":
+        config = _mpnet_config(config)
     if model_type in ROBERTA_TYPES and config.get("pad_token_id") is None:
         raise ValueError(f"a `{model_type}` config must give pad_token_id")
     act = config.get("hidden_act", "gelu")
@@ -109,6 +149,31 @@ def check_config(config: dict) -> dict:
     return dict(config)
 
 
+@lru_cache(maxsize=32)
+def relative_position_buckets(n: int) -> torch.Tensor:
+    """MPNet's (n, n) bucket table of the raw indices' distance, as
+    `MPNetEncoder.compute_position_bias` and `relative_position_bucket`
+    compute it: the same torch ops on the CPU, at the same shape, so that
+    the float32 `log` rounds (and truncates) as there. int32, on the CPU."""
+    pos = torch.arange(n, dtype=torch.long)
+    relative = pos[None, :] - pos[:, None]  # memory - context
+    num_buckets, max_distance = MPNET_BUCKETS, MPNET_MAX_DISTANCE
+    ret = 0
+    m = -relative
+    num_buckets //= 2
+    ret += (m < 0).to(torch.long) * num_buckets
+    m = torch.abs(m)
+    max_exact = num_buckets // 2
+    is_small = m < max_exact
+    val_if_large = max_exact + (
+        torch.log(m.float() / max_exact) / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(torch.long)
+    val_if_large = torch.min(val_if_large, torch.full_like(val_if_large, num_buckets - 1))
+    ret += torch.where(is_small, m, val_if_large)
+    return ret.to(torch.int32)
+
+
 class _Embeddings(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
@@ -120,8 +185,8 @@ class _Embeddings(nn.Module):
         else:  # DistilBERT
             self.token_type_embeddings = None
         self.LayerNorm = nn.LayerNorm(h, eps=c["layer_norm_eps"])
-        roberta = c.get("model_type", "bert") in ROBERTA_TYPES
-        self.padding_idx = c["pad_token_id"] if roberta else None
+        from_pad = c.get("model_type", "bert") in (*ROBERTA_TYPES, "mpnet")
+        self.padding_idx = c["pad_token_id"] if from_pad else None
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         L = input_ids.shape[1]
@@ -145,16 +210,21 @@ class _SelfAttention(nn.Module):
         self.key = nn.Linear(h, h)
         self.value = nn.Linear(h, h)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, L, h = x.shape
         d = h // self.heads
 
         def split(t):  # (B, L, h) -> (B, heads, L, d)
             return t.view(B, L, self.heads, d).transpose(1, 2)
 
-        q = split(self.query(x)) / math.sqrt(d)
         k, v = split(self.key(x)), split(self.value(x))
-        probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) + bias, dim=-1)
+        if position_bias is None:  # Flax BERT's order: (Q / sqrt(d)) K^T
+            scores = torch.matmul(split(self.query(x)) / math.sqrt(d), k.transpose(-1, -2))
+        else:  # MPNet's: (Q K^T) / sqrt(d) + the position bias
+            scores = torch.matmul(split(self.query(x)), k.transpose(-1, -2)) / math.sqrt(d)
+            scores = scores + position_bias
+        probs = torch.softmax(scores + bias, dim=-1)
         return torch.matmul(probs, v).transpose(1, 2).reshape(B, L, h)
 
 
@@ -176,8 +246,9 @@ class _Attention(nn.Module):
         self.self = _SelfAttention(c)
         self.output = _Output(c["hidden_size"], c)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        return self.output(self.self(x, bias), x)
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                position_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.output(self.self(x, bias, position_bias), x)
 
 
 class _Intermediate(nn.Module):
@@ -196,8 +267,9 @@ class _Layer(nn.Module):
         self.intermediate = _Intermediate(c)
         self.output = _Output(c["intermediate_size"], c)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        a = self.attention(x, bias)
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                position_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        a = self.attention(x, bias, position_bias)
         return self.output(self.intermediate(a), a)
 
 
@@ -205,12 +277,25 @@ class _Encoder(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
         self.layer = nn.ModuleList(_Layer(c) for _ in range(c["num_hidden_layers"]))
+        if c.get("model_type") == "mpnet":  # (buckets, heads)
+            self.relative_attention_bias = nn.Embedding(
+                c["relative_attention_num_buckets"], c["num_attention_heads"])
+        else:
+            self.relative_attention_bias = None
+
+    def position_bias(self, L: int, device: torch.device) -> Optional[torch.Tensor]:
+        """MPNet's (1, heads, L, L) bias; None for the other families."""
+        if self.relative_attention_bias is None:
+            return None
+        buckets = relative_position_buckets(L).to(device)
+        return self.relative_attention_bias(buckets).permute(2, 0, 1).unsqueeze(0)
 
 
 class BertModel(nn.Module):
     """BERT's encoder stack, widths from a transformers-style config dict
-    (the RoBERTa family's positions, or DistilBERT's layout, when
-    `model_type` names it); `config` holds BERT's width names."""
+    (the RoBERTa family's positions, DistilBERT's layout, or MPNet's
+    positions and relative position bias, when `model_type` names it);
+    `config` holds BERT's width names."""
 
     def __init__(self, config: dict):
         super().__init__()
@@ -234,6 +319,7 @@ class BertModel(nn.Module):
             torch.zeros((), dtype=x.dtype, device=x.device),
             torch.full((), torch.finfo(x.dtype).min, dtype=x.dtype, device=x.device),
         )
+        position_bias = self.encoder.position_bias(input_ids.shape[1], x.device)
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            x = layer(x, bias, position_bias)
         return x

@@ -1,5 +1,5 @@
-"""Read (and write) a local BERT, RoBERTa, XLM-RoBERTa or DistilBERT
-checkpoint directory without transformers.
+"""Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, DistilBERT or
+MPNet checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -15,13 +15,14 @@ A directory as transformers' `save_pretrained` leaves it:
   `vocab.json` and `merges.txt` are RoBERTa's older layout (models/bpe.py
   lays them out as a tokenizer.json); otherwise `vocab.txt`, one
   WordPiece token per line (models/wordpiece.py; a WordPiece
-  tokenizer.json means vocab.txt too). A `tokenizer.json` of any other
-  model (WordLevel, ...) is refused. Beside it, `tokenizer_config.json`
-  (`do_lower_case`, default true; `strip_accents`;
-  `tokenize_chinese_chars`; `add_prefix_space`; the special tokens).
+  tokenizer.json means vocab.txt too, and gives its added tokens and
+  template). A `tokenizer.json` of any other model (WordLevel, ...) is
+  refused. Beside it, `tokenizer_config.json` (`do_lower_case`, default
+  true; `strip_accents`; `tokenize_chinese_chars`; `add_prefix_space`;
+  the special tokens and `added_tokens_decoder`).
 
 Checkpoint names map onto `BertModel`'s (`hf_to_state_dict`): a `bert.`,
-`roberta.` or `distilbert.` prefix is dropped, so are the pooler, the
+`roberta.`, `distilbert.` or `mpnet.` prefix is dropped, so are the pooler, the
 pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`)
 and the `position_ids` and `token_type_ids` buffers, and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
@@ -29,12 +30,17 @@ and the `position_ids` and `token_type_ids` buffers, and old
 `ffn.lin1`, `ffn.lin2`, `output_layer_norm`) take BERT's names
 (`encoder.layer.N`: `attention.self.{query,key,value}`,
 `attention.output.dense`, `attention.output.LayerNorm`,
-`intermediate.dense`, `output.dense`, `output.LayerNorm`).
-`flax_to_state_dict` does the same for a Flax parameter tree given as
+`intermediate.dense`, `output.dense`, `output.LayerNorm`). MPNet's
+layers keep `encoder.layer.N` and BERT's names but for the attention
+(`attention.attn.{q,k,v}` to `attention.self.{query,key,value}`,
+`attention.attn.o` to `attention.output.dense`, `attention.LayerNorm` to
+`attention.output.LayerNorm`); `encoder.relative_attention_bias` is
+kept. `flax_to_state_dict` does the same for a Flax parameter tree given as
 numpy arrays (transformers' `FlaxBertModel.params`, or
 `FlaxXLMRobertaModel.params`, the same tree, or
 `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
-`weight` (out, in), `scale` and `embedding` become `weight`.
+`weight` (out, in), `scale` and `embedding` become `weight`. No Flax
+MPNet exists.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch
 
 from .bert import BertModel, check_config
 from .bpe import BPE, legacy_spec
+from .fixtures import mpnet_tokenizer_config
 from .unigram import Unigram
 from .wordpiece import WordPiece
 
@@ -58,7 +65,7 @@ _ST_DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
     "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?",
 }
-_PREFIXES = ("bert.", "roberta.", "distilbert.")
+_PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.")
 _DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "embeddings.position_ids",
             "embeddings.token_type_ids")
 # DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
@@ -72,36 +79,49 @@ _DISTILBERT_NAMES = (
     ("ffn.lin2.", "output.dense."),
     ("output_layer_norm.", "output.LayerNorm."),
 )
+# MPNet's attention names -> BertModel's, inside `encoder.layer.N.`
+_MPNET_NAMES = (
+    ("attention.attn.q.", "attention.self.query."),
+    ("attention.attn.k.", "attention.self.key."),
+    ("attention.attn.v.", "attention.self.value."),
+    ("attention.attn.o.", "attention.output.dense."),
+    ("attention.LayerNorm.", "attention.output.LayerNorm."),
+)
+_LAYER = "encoder.layer."
 
 
-def _from_distilbert(name: str) -> str:
-    """A DistilBERT layer's parameter name under BertModel's."""
-    _, _, rest = name.partition(".layer.")
-    i, _, leaf = rest.partition(".")
-    for theirs, ours in _DISTILBERT_NAMES:
-        if leaf.startswith(theirs):
-            return f"encoder.layer.{i}.{ours}{leaf[len(theirs):]}"
-    return f"encoder.layer.{i}.{leaf}"
+def _rename_layer(name: str, src: str, dst: str, table) -> str:
+    """`{src}N.leaf` as `{dst}N.leaf`, the leaf's first prefix `old` of
+    `table`'s (old, new) pairs replaced by `new`."""
+    i, _, leaf = name[len(src):].partition(".")
+    for old, new in table:
+        if leaf.startswith(old):
+            return f"{dst}{i}.{new}{leaf[len(old):]}"
+    return f"{dst}{i}.{leaf}"
 
 
 def _to_distilbert(name: str) -> str:
     """BertModel's parameter name under DistilBERT's."""
-    if not name.startswith("encoder.layer."):
+    if not name.startswith(_LAYER):
         return name
-    i, _, leaf = name[len("encoder.layer."):].partition(".")
-    for theirs, ours in _DISTILBERT_NAMES:
-        if leaf.startswith(ours):
-            return f"transformer.layer.{i}.{theirs}{leaf[len(ours):]}"
-    return name
+    return _rename_layer(name, _LAYER, "transformer.layer.",
+                         [(ours, theirs) for theirs, ours in _DISTILBERT_NAMES])
+
+
+def _to_mpnet(name: str) -> str:
+    """BertModel's parameter name under MPNet's."""
+    if not name.startswith(_LAYER):
+        return name
+    return _rename_layer(name, _LAYER, _LAYER, [(ours, theirs) for theirs, ours in _MPNET_NAMES])
 
 
 @dataclass
 class Checkpoint:
     config: dict
     state_dict: dict  # BertModel's names -> float32 CPU tensors
-    vocab: list  # vocab.txt's WordPiece tokens (empty for a tokenizer.json)
+    vocab: list  # vocab.txt's WordPiece tokens (empty for a Unigram or BPE tokenizer)
     tokenizer: dict = field(default_factory=dict)  # tokenizer_config.json
-    # a Unigram or BPE tokenizer.json, parsed (vocab.json + merges.txt laid out as one)
+    # the tokenizer.json, parsed (vocab.json + merges.txt laid out as a BPE one)
     tokenizer_json: Optional[dict] = None
 
 
@@ -141,7 +161,9 @@ def hf_to_state_dict(named: dict) -> dict:
         if name.startswith(_DROPPED):
             continue
         if name.startswith("transformer.layer."):
-            name = _from_distilbert(name)
+            name = _rename_layer(name, "transformer.layer.", _LAYER, _DISTILBERT_NAMES)
+        elif name.startswith(_LAYER):
+            name = _rename_layer(name, _LAYER, _LAYER, _MPNET_NAMES)
         if name.endswith(".gamma"):
             name = name[: -len("gamma")] + "weight"
         elif name.endswith(".beta"):
@@ -214,17 +236,16 @@ def load_checkpoint(path: str) -> Checkpoint:
         with open(json_path, encoding="utf-8") as f:
             spec = json.load(f)
         kind = (spec.get("model") or {}).get("type")
-        if kind == "WordPiece":
-            spec = None  # BertTokenizerFast's file: its vocab.txt is read
-        elif kind not in ("Unigram", "BPE"):
+        if kind not in ("Unigram", "BPE", "WordPiece"):
             raise ValueError(
-                f"`{json_path}` holds a {kind} tokenizer: the port reads Unigram and BPE"
-                " tokenizer.json files, vocab.json + merges.txt and WordPiece vocab.txt only"
+                f"`{json_path}` holds a {kind} tokenizer: the port reads Unigram, BPE and"
+                " WordPiece tokenizer.json files, vocab.json + merges.txt and WordPiece"
+                " vocab.txt only"
             )
     elif os.path.exists(os.path.join(path, "merges.txt")):
         spec = legacy_spec(path, tokenizer)
     vocab = []
-    if spec is None:
+    if spec is None or spec["model"]["type"] == "WordPiece":
         with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
             vocab = [line.rstrip("\n") for line in f]
     return Checkpoint(config, state, vocab, tokenizer, spec)
@@ -233,11 +254,14 @@ def load_checkpoint(path: str) -> Checkpoint:
 def build_tokenizer(ckpt: Checkpoint):
     """The checkpoint's tokenizer: Unigram or BPE for a tokenizer.json of
     that model (BPE for vocab.json + merges.txt), else WordPiece over
-    vocab.txt. Each takes (texts, max_len) and gives (input_ids,
+    vocab.txt (with a WordPiece tokenizer.json's added tokens and
+    template). Each takes (texts, max_len) and gives (input_ids,
     attention_mask)."""
-    if ckpt.tokenizer_json is None:
-        return WordPiece.from_config(ckpt.vocab, ckpt.tokenizer)
-    if ckpt.tokenizer_json["model"]["type"] == "BPE":
+    kind = None if ckpt.tokenizer_json is None else ckpt.tokenizer_json["model"]["type"]
+    if kind in (None, "WordPiece"):
+        return WordPiece.from_config(ckpt.vocab, ckpt.tokenizer, ckpt.tokenizer_json,
+                                     ckpt.config.get("model_type"))
+    if kind == "BPE":
         return BPE(ckpt.tokenizer_json, ckpt.tokenizer)
     return Unigram(ckpt.tokenizer_json, ckpt.tokenizer)
 
@@ -254,15 +278,18 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                      do_lower_case: bool = True, tokenizer_json: Optional[dict] = None) -> None:
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
     bert unless `config` names one), pytorch_model.bin (BertModel's names,
-    DistilBERT's for a `distilbert` config) and tokenizer_config.json,
-    with either `vocab` as vocab.txt or `tokenizer_json` (a Unigram
-    tokenizer.json with XLM-R's special tokens, or a BPE one with
-    RoBERTa's, add_prefix_space false)."""
+    DistilBERT's or MPNet's for such a config) and tokenizer_config.json,
+    with either `vocab` as vocab.txt (MPNetTokenizerFast's special tokens
+    for an `mpnet` config) or `tokenizer_json` (a Unigram tokenizer.json
+    with XLM-R's special tokens, or a BPE one with RoBERTa's,
+    add_prefix_space false)."""
     os.makedirs(path, exist_ok=True)
     config = {"model_type": "bert", **config}
-    if config["model_type"] == "distilbert":
-        state_dict = {_to_distilbert(k): v for k, v in state_dict.items()}
-    else:
+    model_type = config["model_type"]
+    rename = {"distilbert": _to_distilbert, "mpnet": _to_mpnet}.get(model_type)
+    if rename is not None:
+        state_dict = {rename(k): v for k, v in state_dict.items()}
+    if model_type != "distilbert":
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
@@ -280,6 +307,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     else:
         with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
             f.write("".join(f"{token}\n" for token in vocab))
-        tok_config = {"do_lower_case": do_lower_case, "tokenizer_class": "BertTokenizer"}
+        if model_type == "mpnet":
+            tok_config = mpnet_tokenizer_config(vocab, do_lower_case)
+        else:
+            tok_config = {"do_lower_case": do_lower_case, "tokenizer_class": "BertTokenizer"}
     with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
         json.dump(tok_config, f)

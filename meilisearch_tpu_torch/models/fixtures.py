@@ -1,10 +1,12 @@
-"""Writers of the files the port's Unigram and BPE tokenizers read, for
-tests and smoke runs that build their own checkpoints (nothing is
-downloaded): `build_charsmap` compiles a `Precompiled` character map,
+"""Writers of the files the port's tokenizers read, for tests and smoke
+runs that build their own checkpoints (nothing is downloaded):
+`build_charsmap` compiles a `Precompiled` character map,
 `xlmr_tokenizer_json` lays out a `tokenizer.json` as transformers'
-XLM-RoBERTa converter writes it, and `roberta_tokenizer_json` a seeded
-byte-level BPE one as its RoBERTa converter writes it. No serving path
-calls them.
+XLM-RoBERTa converter writes it, `roberta_tokenizer_json` a seeded
+byte-level BPE one as its RoBERTa converter writes it, and `mpnet_vocab`
+and `mpnet_tokenizer_config` an MPNet WordPiece vocabulary and the
+tokenizer_config.json `MPNetTokenizerFast.save_pretrained` writes beside
+it. No serving path calls them.
 """
 
 from __future__ import annotations
@@ -197,3 +199,35 @@ def roberta_tokenizer_json(texts: list, vocab_size: int, seed: int,
                   "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
                   "merges": merges},
     }
+
+
+# all-mpnet-base-v2's first ids (bos, pad, eos, and an unused <unk>: its
+# unk_token is BERT's [UNK])
+MPNET_HEAD = ("<s>", "<pad>", "</s>", "<unk>")
+
+
+def mpnet_vocab(wordpiece: list) -> list:
+    """MPNet's vocabulary as all-mpnet-base-v2's vocab.txt lays it out:
+    `<s> <pad> </s> <unk>` (ids 0-3), an uncased BERT WordPiece
+    vocabulary, then `<mask>` last."""
+    return [*MPNET_HEAD, *wordpiece, "<mask>"]
+
+
+def mpnet_tokenizer_config(vocab: list, do_lower_case: bool = True) -> dict:
+    """The tokenizer_config.json `MPNetTokenizerFast.save_pretrained`
+    writes for `vocab`: its special tokens, and `added_tokens_decoder`
+    with their flags (every one matched on the normalized text, `<mask>`
+    lstrip)."""
+    specials = {"bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>",
+                "cls_token": "<s>", "unk_token": "[UNK]", "pad_token": "<pad>",
+                "mask_token": "<mask>"}
+    index = {token: i for i, token in enumerate(vocab)}
+    decoder = {
+        str(index[t]): {"content": t, "lstrip": t == "<mask>", "normalized": True,
+                        "rstrip": False, "single_word": False, "special": True}
+        for t in dict.fromkeys(specials.values())
+    }
+    return {"added_tokens_decoder": dict(sorted(decoder.items(), key=lambda kv: int(kv[0]))),
+            **specials, "do_lower_case": do_lower_case, "strip_accents": None,
+            "tokenize_chinese_chars": True, "model_max_length": 512,
+            "tokenizer_class": "MPNetTokenizer"}

@@ -15,7 +15,7 @@ models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's
 vocabulary), models/unigram.py, or, for RoBERTa's byte-level BPE,
 models/bpe.py (all three with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
-XLM-RoBERTa and DistilBERT) runs on the device
+XLM-RoBERTa, DistilBERT and MPNet) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state; otherwise the mean over the attention mask), and
 the result is L2-normalized in numpy exactly as there. Only a local

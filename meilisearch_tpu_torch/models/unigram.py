@@ -368,7 +368,7 @@ def _metaspace(spec: Optional[dict]) -> tuple:
 def _template(spec: Optional[dict]) -> tuple:
     """(ids before, ids after) the sequence for a single text."""
     kind = None if spec is None else spec.get("type")
-    if kind == "RobertaProcessing":
+    if kind in ("RobertaProcessing", "BertProcessing"):
         return [spec["cls"][1]], [spec["sep"][1]]
     if kind == "TemplateProcessing":
         before, after, seen = [], [], False

@@ -4,9 +4,9 @@ Reference: milli/src/vector/embedder/ — Embedder enum: HuggingFace (in-process
 inference), OpenAI, Ollama, REST, UserProvided, Composite
 (embedder/mod.rs:23-35); search-time embeddings are LRU-cached.
 
-Local inference (`huggingFace`) runs the port's BERT or XLM-RoBERTa
-(models/hf_encoder.py; any other model type is refused with its name, as a
-VECTOR_EMBEDDING_ERROR) on the device the index is bound to (`store.device`; None = the CPU), for
+Local inference (`huggingFace`) runs the port's BERT, RoBERTa,
+XLM-RoBERTa, DistilBERT or MPNet (models/hf_encoder.py; any other model
+type is refused with its name, as a VECTOR_EMBEDDING_ERROR) on the device the index is bound to (`store.device`; None = the CPU), for
 documents at indexing and for queries at search; the remote embedders are
 host HTTP calls. A failure of the local model is a VECTOR_EMBEDDING_ERROR
 and counts in `serving_stats()["device_errors"]` when a device is bound.

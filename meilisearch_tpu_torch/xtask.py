@@ -36,12 +36,17 @@ total durations — the reference's span-duration benchmark model
 
 Every instance is the port's App on one torch device: `device=None` (the
 CLI's default) is the card and raises without one, as the App does;
-`"cpu"` serves with every kernel's plain version.
+`"cpu"` serves with every kernel's plain version. After each
+`WaitForTask` step and each restart the runner also waits for the
+scheduler's device warm-up, so a search meets the device as it would
+after a pause. Under `device_routing_forced()` the workloads' small
+stores take the device legs too.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -54,6 +59,40 @@ import time
 
 class WorkloadError(AssertionError):
     pass
+
+
+# the batch size under which the batcher sends a search to the host
+# (search/device_batch.py::_device_worthwhile)
+MIN_BATCH_ENV = "MEILI_TPU_DEVICE_MIN_BATCH"
+WARM_TIMEOUT_S = 600.0
+
+
+@contextlib.contextmanager
+def device_routing_forced():
+    """Route every search the port can put on its device there, however
+    small the index, and restore the thresholds on exit: a lone keyword
+    search takes a warm K1 bucket (MIN_BATCH_ENV 1), every vector matrix
+    the device legs (vector/store.py's DEVICE_MIN_ROWS 1) and, on a CUDA
+    device, every typo pass K3 (ops/device_osa.py's MIN_DEVICE_VOCAB 1).
+    For runs over small stores, such as the declarative workloads', whose
+    data and expectations stay as they are. The thresholds are the
+    process's: not for use beside other serving threads."""
+    from .ops import device_osa
+    from .vector import store as vstore
+
+    saved = (os.environ.get(MIN_BATCH_ENV), vstore.DEVICE_MIN_ROWS,
+             device_osa.MIN_DEVICE_VOCAB)
+    os.environ[MIN_BATCH_ENV] = "1"
+    vstore.DEVICE_MIN_ROWS = 1
+    device_osa.MIN_DEVICE_VOCAB = 1
+    try:
+        yield
+    finally:
+        if saved[0] is None:
+            os.environ.pop(MIN_BATCH_ENV, None)
+        else:
+            os.environ[MIN_BATCH_ENV] = saved[0]
+        vstore.DEVICE_MIN_ROWS, device_osa.MIN_DEVICE_VOCAB = saved[1:]
 
 
 def _subst(obj, variables):
@@ -154,6 +193,11 @@ class _Instance:
         self.app.scheduler.stop()
 
 
+def _wait_warm(inst: _Instance, name: str) -> None:
+    if not inst.app.scheduler.wait_device_warm(timeout=WARM_TIMEOUT_S):
+        raise WorkloadError(f"{name}: the device warm-up did not end in {WARM_TIMEOUT_S} s")
+
+
 def run_workload(path: str, verbose: bool = True, device=None) -> None:
     with open(path) as fh:
         workload = json.load(fh)
@@ -167,6 +211,7 @@ def run_workload(path: str, verbose: bool = True, device=None) -> None:
             if "restart" in step:
                 spec = step["restart"] or {}
                 inst = _restart(inst, spec)
+                _wait_warm(inst, name)
                 variables["__restarts"] = variables.get("__restarts", 0) + 1
                 continue
             step = _subst(step, variables)
@@ -196,6 +241,7 @@ def run_workload(path: str, verbose: bool = True, device=None) -> None:
             sync = step.get("synchronous", "WaitForResponse")
             if sync == "WaitForTask":
                 inst.app.scheduler.wait_for_all_tasks()
+                _wait_warm(inst, name)
                 uid = (res.json or {}).get("taskUid")
                 if uid is not None:
                     task = inst.client.get(f"/tasks/{uid}").json

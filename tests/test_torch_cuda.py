@@ -442,6 +442,47 @@ def test_bpe_and_distilbert_encoders_on_the_card_match_the_cpu(cuda_device, tmp_
     assert float(np.abs(got - want).max()) <= 1e-5
 
 
+def _mpnet_checkpoint(path, seed=0):
+    """An MPNet checkpoint at all-mpnet-base-v2's width (hidden 768, 12
+    heads, intermediate 3,072, 514 positions, 32 relative buckets) cut to
+    2 layers, with MPNet's vocabulary layout around a small WordPiece one,
+    written by the port (MPNet's names)."""
+    from meilisearch_tpu_torch.models.bert import BertModel
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import mpnet_vocab
+
+    letters = "abcdefghijklmnopqrstuvwxyz0123456789"
+    vocab = mpnet_vocab(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *ENC_WORDS, *letters,
+                         *("##" + c for c in letters), *".,:/-!?#<>"])
+    config = {"model_type": "mpnet", "vocab_size": len(vocab), "hidden_size": 768,
+              "num_hidden_layers": 2, "num_attention_heads": 12, "intermediate_size": 3072,
+              "max_position_embeddings": 514, "relative_attention_num_buckets": 32,
+              "layer_norm_eps": 1e-5, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2}
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, BertModel(config).state_dict(), vocab)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceMean", "forceCls"])
+def test_mpnet_encoder_on_the_card_matches_the_cpu(cuda_device, tmp_path, pooling):
+    """MPNet's relative position bias and positions on the card: padded
+    batches reaching the exact and the logarithmic buckets (over 128
+    tokens), <mask> and specials matched on the normalized text, against
+    the CPU."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _mpnet_checkpoint(tmp_path, seed=9)
+    texts = _enc_texts(17, seed=10) + [" ".join(ENC_WORDS * 25), "HELLO <MASK>world",
+                                       "x </S> y", "a<s>b", ""]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert card._model.encoder.relative_attention_bias is not None
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
 def test_encoder_chunks_on_the_card(cuda_device, tmp_path, monkeypatch):
     """Chunks of 3 texts on the card, each padded to its own longest,
     against one CPU pass; the chunk size read from the card's memory."""

@@ -33,6 +33,7 @@ pytest.importorskip("flax")
 from meilisearch_tpu.api.app import App as JaxApp  # noqa: E402
 from meilisearch_tpu.api.app import TestClient as JaxClient  # noqa: E402
 from meilisearch_tpu.models.hf_encoder import FlaxTextEncoder  # noqa: E402
+from meilisearch_tpu.vector import embedders as jax_embedders  # noqa: E402
 from meilisearch_tpu_torch.api.app import App, TestClient  # noqa: E402
 from meilisearch_tpu_torch.models import bert, checkpoint, hf_encoder  # noqa: E402
 from meilisearch_tpu_torch.models.wordpiece import WordPiece  # noqa: E402
@@ -196,7 +197,7 @@ def test_safetensors_reader_dtypes(tmp_path):
 
 @pytest.mark.parametrize(
     "change, match",
-    [({"model_type": "mpnet"}, "model_type"), ({"hidden_act": "gelu_new"}, "hidden_act")],
+    [({"model_type": "modernbert"}, "model_type"), ({"hidden_act": "gelu_new"}, "hidden_act")],
 )
 def test_other_model_families_are_refused(ckpt, change, match):
     config = {**checkpoint.load_checkpoint(ckpt["dir"]).config, **change}
@@ -295,6 +296,9 @@ def test_http_hybrid_with_a_huggingface_embedder_matches_jax(ckpt):
     """Documents embedded at ingest by each package's encoder (the port's
     on the store's device, the CPU here), then hybrid searches with a
     text q at semanticRatio 1.0 and 0.5, with and without a filter."""
+    # fault 3.10: the JAX package caches query vectors by embedder name and
+    # text across models, so another test's model would answer these queries
+    jax_embedders._search_cache.clear()
     settings = {
         "filterableAttributes": ["points"],
         "embedders": {"default": {"source": "huggingFace", "model": ckpt["dir"]}},
