@@ -155,7 +155,23 @@ Phases, each fatal on failure:
      the encoder on the card against the CPU within ENC_TOL (phase 11's
      texts and MPNet's specials written in other cases), 25,000 documents
      embedded at indexing on the card, 8 hybrid searches against the same
-     store's host pass, and the forward's timing.
+     store's host pass, and the forward's timing;
+  13. ModernBERT path (hn25k-modernbert-hf): a checkpoint at
+     answerdotai/ModernBERT-base's published config.json (ModernBERT,
+     vocab 50,368, hidden 768, 22 layers, 12 heads, GeGLU intermediate
+     1,152, every third layer global and the rest a 128-token sliding
+     window, rotary thetas 160,000 and 10,000, no biases; seeded random
+     weights, written as model.safetensors) with a seeded byte-level BPE
+     tokenizer.json in ModernBERT's layout (NFC, ByteLevel, [CLS] $A [SEP],
+     non-special added tokens, [UNK] [CLS] [SEP] [PAD] [MASK] at ids
+     50280-50284) and PreTrainedTokenizerFast's tokenizer_config.json
+     (models/fixtures.py), through its own App as phase 11: the encoder on
+     the card against the CPU within ENC_TOL on phase 11's texts and, in
+     one batch, short texts beside texts of 150 to 512 tokens and one that
+     truncation cuts at 512 (so the window bites and padding runs fill
+     whole windows), 25,000 documents embedded at indexing on the card, 8
+     hybrid searches against the same store's host pass, and the forward's
+     timing.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -333,6 +349,25 @@ MPNET_CONFIG = {
     "hidden_act": "gelu", "initializer_range": 0.02,
 }
 P12_DOCS, P12_SEED = 25_000, 2028
+# phase 13, hn25k-modernbert-hf: answerdotai/ModernBERT-base's published
+# config.json (transformers' ModernBertConfig defaults) with seeded random
+# weights and a seeded 50,368-entry tokenizer in ModernBERT's layout. 25,000
+# of the configuration's 150,000 hackernews documents: phases 11 and 12's
+# depth cut; widths, depth and vocabulary size are the published ones
+MODERNBERT_CONFIG = {
+    "model_type": "modernbert", "vocab_size": 50_368, "hidden_size": 768,
+    "intermediate_size": 1152, "num_hidden_layers": 22, "num_attention_heads": 12,
+    "hidden_activation": "gelu", "max_position_embeddings": 8192, "initializer_range": 0.02,
+    "norm_eps": 1e-5, "norm_bias": False, "attention_bias": False, "mlp_bias": False,
+    "global_attn_every_n_layers": 3, "local_attention": 128, "global_rope_theta": 160000.0,
+    "local_rope_theta": 10000.0, "pad_token_id": 50283, "bos_token_id": 50281,
+    "eos_token_id": 50282, "cls_token_id": 50281, "sep_token_id": 50282,
+}
+P13_DOCS, P13_SEED = 25_000, 2029
+# the synthetic documents average about 31 tokens, under the 129-token
+# window: the long check texts (seeded runs of the corpus's words) make it
+# bite; each must tokenize to LONG_TOKENS or more, the last past 512
+LONG_WORDS, LONG_TOKENS = (160, 240, 330, 900), 150
 # MPNet's specials matched on the normalized text, BERT's left as words
 MPNET_CHECK_TEXT = ["HELLO <MASK>world", "a<s>b", "x </S> y", "hello[UNK]world",
                     "hello [MASK] a"]
@@ -1037,19 +1072,21 @@ def bge_vocab() -> list:
 
 
 def random_state_dict(config: dict, seed: int) -> dict:
-    """BERT's initialization of a model of `config` (XLM-R's, DistilBERT's
-    and MPNet's too): weights, MPNet's relative attention bias table
-    among them, normal(0, BGE_INIT_STD) from a seeded torch.Generator,
-    biases 0, LayerNorm scales 1."""
+    """BERT's initialization of a model of `config` (XLM-R's, DistilBERT's,
+    MPNet's and ModernBERT's too): weights, MPNet's relative attention
+    bias table among them, normal(0, BGE_INIT_STD) from a seeded
+    torch.Generator, biases 0, LayerNorm scales 1."""
     import torch
 
-    from meilisearch_tpu_torch.models.bert import BertModel
+    from meilisearch_tpu_torch.models.checkpoint import new_model
 
-    model = BertModel(config)
+    model = new_model(config)
+    norms = {f"{m}.{p}" for m, mod in model.named_modules() if isinstance(mod, torch.nn.LayerNorm)
+             for p, _ in mod.named_parameters()}
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if "LayerNorm" in name:
+            if name in norms:
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
             elif name.endswith("bias"):
                 p.zero_()
@@ -1306,9 +1343,11 @@ def encoder_path_phase(device, card: str, n_docs: int) -> dict:
 
 
 def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, seed: int,
-            queries: list, check_texts: list, tokenizer: str, model_type: str) -> dict:
+            queries: list, check_texts: list, tokenizer: str, model_type: str,
+            long_texts: tuple = ()) -> dict:
     """One checkpoint through its own App: (a) `write(path)` writes it; (b)
-    the encoder on the card against the CPU on 80 texts; (c) n_docs
+    the encoder on the card against the CPU on 80 texts (and, given
+    `long_texts`, on those in one batch, `long_check`); (c) n_docs
     documents embedded at indexing on the card, through the tokenizer
     class and model type named; (d) hybrid searches with a text q (the
     `queries`) against the same store's host pass; (e) the forward's
@@ -1335,6 +1374,8 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
         texts = [render_document_template(None, d, searchable) for d in docs[:48]]
         texts += list(queries) * 2 + check_texts
         err = encoder_check(path, device, texts, label)
+        if long_texts:
+            err = max(err, long_check(path, device, long_texts, label))
 
         serving_stats(reset=True)
         app = App(device=device)
@@ -1368,7 +1409,8 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
                 f" in {ingest_s:.3f} s; embedded on the card at indexing: {n_texts} texts,"
                 f" {tokens} tokens ({tokens / max(n_texts, 1):.1f} a text) in {embed_s:.3f} s"
                 f" ({tokens / embed_s:.1f} tokens/s), of which host tokenization ({tokenizer})"
-                f" {tok_s:.3f} s and the rest {embed_s - tok_s:.3f} s; {forwards} forwards of up"
+                f" {tok_s:.3f} s ({100 * tok_s / embed_s:.1f}%) and the rest"
+                f" {embed_s - tok_s:.3f} s; {forwards} forwards of up"
                 f" to {enc.chunk_texts()} texts; peak device memory {peak:.3f} GiB")
             if n_texts != n_docs or forwards <= 0 or len(store.vectors["default"]) != n_docs:
                 raise AssertionError("the documents were not all embedded on the card")
@@ -1526,6 +1568,72 @@ def mpnet_phase(device, card: str, n_docs: int) -> dict:
                   check_texts=P11_CHECK_TEXT + MPNET_CHECK_TEXT, tokenizer="WordPiece",
                   model_type="mpnet")
     say(f"phase 12 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def long_check(path: str, device, texts: tuple, label: str) -> float:
+    """`texts` in one batch, card against CPU (`encoder_check`), after
+    checking their lengths: all but the short ones at LONG_TOKENS or more,
+    the longest cut at the encoder's max_len."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    counts = [len(enc._tokenizer.ids(t)) + len(enc._tokenizer.before) + len(enc._tokenizer.after)
+              for t in texts]
+    long = [n for n in counts if n >= LONG_TOKENS]
+    say(f"{label} long check texts: {counts} tokens before truncation at {enc.max_len}")
+    if len(long) < 3 or max(long) <= enc.max_len or min(counts) > 16:
+        raise AssertionError(f"the long check texts are not long enough: {counts}")
+    return encoder_check(path, device, list(texts), f"{label} (long texts, one batch)")
+
+
+def long_check_texts(seed: int) -> tuple:
+    """Two short texts and seeded runs of LONG_WORDS of the corpus's words."""
+    import numpy as np
+
+    from meilisearch_tpu_torch.utils.synthetic import WORDS
+
+    rng = np.random.default_rng(seed)
+    runs = [" ".join(rng.choice(WORDS, size=n)) for n in LONG_WORDS]
+    return ("rust", runs[0], "", *runs[1:])
+
+
+def write_modernbert_checkpoint(path: str) -> None:
+    """A checkpoint of ModernBERT-base's width (22 layers, ModernBertModel's
+    names), written as model.safetensors with a 50,368-entry byte-level BPE
+    tokenizer.json in ModernBERT's layout, its merges trained on the
+    phase's own texts, and PreTrainedTokenizerFast's
+    tokenizer_config.json."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import modernbert_tokenizer_json
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(BPE_TRAIN_DOCS, seed=P13_SEED)]
+    spec = modernbert_tokenizer_json(texts + P11_TEXT + P11_CHECK_TEXT,
+                                     MODERNBERT_CONFIG["vocab_size"], seed=P13_SEED)
+    vocab = spec["model"]["vocab"]
+    if [vocab[t] for t in ("[CLS]", "[SEP]", "[PAD]")] != [
+            MODERNBERT_CONFIG[k] for k in ("cls_token_id", "sep_token_id", "pad_token_id")]:
+        raise AssertionError("the tokenizer's specials are not at ModernBERT-base's ids")
+    write_checkpoint(path, MODERNBERT_CONFIG, random_state_dict(MODERNBERT_CONFIG, P13_SEED),
+                     tokenizer_json=spec)
+
+
+def modernbert_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 13, the ModernBERT path: hn25k-modernbert-hf through its own
+    App (`hf_path`), with the long check texts."""
+    t_phase = time.perf_counter()
+    out = hf_path(device, card, n_docs, label="ModernBERT-base", index="mb",
+                  write=write_modernbert_checkpoint, seed=P13_SEED, queries=P11_TEXT,
+                  check_texts=P11_CHECK_TEXT + ["hello [MASK] world", "x[MASK]y  [MASK]",
+                                                "cafe\u0301 A\u030a", "a   b    c"],
+                  tokenizer="BPE", model_type="modernbert",
+                  long_texts=long_check_texts(P13_SEED))
+    say(f"phase 13 wall: {time.perf_counter() - t_phase:.3f} s")
     return out
 
 
@@ -2466,6 +2574,7 @@ def main() -> int:
     workloads_phase(device)
     bpe_distilbert_phase(device, card, P11_DOCS)
     mpnet_phase(device, card, P12_DOCS)
+    modernbert_phase(device, card, P13_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

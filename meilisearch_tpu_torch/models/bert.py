@@ -128,7 +128,8 @@ def check_config(config: dict) -> dict:
     if model_type not in MODEL_TYPES:
         raise ValueError(
             f"model_type `{model_type}` is not supported: the port runs BERT,"
-            " RoBERTa, XLM-RoBERTa, DistilBERT and MPNet checkpoints only"
+            " RoBERTa, XLM-RoBERTa, DistilBERT and MPNet checkpoints here and"
+            " ModernBERT ones in models/modernbert.py, no other"
         )
     if model_type == "distilbert":
         return _distilbert_config(config)

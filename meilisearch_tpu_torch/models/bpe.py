@@ -1,18 +1,25 @@
-"""RoBERTa's byte-level BPE tokenization, as the `tokenizers` library runs
-it (what `AutoTokenizer` gives a RoBERTa checkpoint: `RobertaTokenizerFast`).
+"""Byte-level BPE tokenization, as the `tokenizers` library runs it (what
+`AutoTokenizer` gives a RoBERTa checkpoint, `RobertaTokenizerFast`, and a
+ModernBERT one, `PreTrainedTokenizerFast`).
 
 The JAX package tokenizes through `AutoTokenizer(texts, padding=True,
 truncation=True, max_length=max_len)`. This module reads the same files
 and gives the same input ids and attention masks, on the host:
 
 1. added tokens are cut out and kept whole, leftmost and longest first:
-   those matched on the raw text, then, inside the pieces left, those
-   marked `normalized` (the normalizer is the identity: a BPE file with a
-   normalizer is refused); `lstrip`/`rstrip` take the whitespace beside
-   them. Besides the file's `added_tokens`, the special tokens of
-   tokenizer_config.json count, as `RobertaTokenizerFast` adds them: a
-   token given as a dict keeps its flags, `<mask>` given as a string is
-   `lstrip`, and `added_tokens_decoder` overrides the file's flags;
+   those matched on the raw text, then the normalizer (none, or `NFC` as
+   in ModernBERT's file; any other is refused) on each piece left, and,
+   inside it, those marked `normalized`; `lstrip`/`rstrip` take the
+   whitespace beside them. Besides the file's `added_tokens`, the special
+   tokens of tokenizer_config.json count, as the class it names adds
+   them: a token given as a dict keeps its flags, and
+   `added_tokens_decoder` overrides the file's flags. A RoBERTa class
+   (`RobertaTokenizer`, the default of every family but `modernbert`)
+   also gives `RobertaTokenizerFast`'s defaults (`<s>`, `</s>`, `<unk>`,
+   `<pad>`, `<mask>`) to the keys the config leaves out, and makes
+   `<mask>` given as a string `lstrip`; `PreTrainedTokenizerFast` (the
+   class of ModernBERT's file, and `modernbert`'s default) adds only what
+   the config names, with the file's flags. Any other class is refused;
 2. the ByteLevel pre-tokenizer on each piece between added tokens: a
    space in front when `add_prefix_space` and the piece does not start
    with one (transformers sets the flag from tokenizer_config.json,
@@ -38,8 +45,9 @@ skipped, as `RobertaTokenizer` reads it).
 Anything else raises `ValueError` naming it: another model, `dropout`,
 `byte_fallback`, a `continuing_subword_prefix` or `end_of_word_suffix`,
 `ignore_merges`, `fuse_unk`, a vocabulary without the 256 byte symbols,
-a normalizer, a pre-tokenizer that is not ByteLevel (Metaspace, ...), a
-`single_word` added token, or a special token the vocabulary lacks.
+a normalizer other than NFC, a pre-tokenizer that is not ByteLevel
+(Metaspace, ...), a `single_word` added token, another tokenizer class,
+or a special token the vocabulary lacks.
 """
 
 from __future__ import annotations
@@ -57,6 +65,11 @@ from . import unicode
 from .unigram import AddedTokens, _template, _token_content
 
 _WORD_CACHE_MAX = 1 << 20  # cached words before the cache is emptied
+# the tokenizer classes read (when tokenizer_config.json names none, the
+# model type decides: `modernbert` PreTrainedTokenizerFast, any other
+# RobertaTokenizer)
+ROBERTA_CLASSES = ("RobertaTokenizer", "RobertaTokenizerFast")
+PLAIN_CLASSES = ("PreTrainedTokenizerFast",)
 # RobertaTokenizerFast's special tokens and their defaults
 _SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "sep_token": "</s>",
              "pad_token": "<pad>", "cls_token": "<s>", "mask_token": "<mask>"}
@@ -137,12 +150,27 @@ def legacy_spec(path: str, config: Optional[dict] = None) -> dict:
     }
 
 
+def _roberta_class(config: dict, model_type: Optional[str]) -> bool:
+    """Whether the tokenizer class (tokenizer_config.json's, else the model
+    type's) is a RoBERTa one, with its default specials; refuses a class
+    that is neither that nor PreTrainedTokenizerFast."""
+    name = config.get("tokenizer_class") or (
+        PLAIN_CLASSES[0] if model_type == "modernbert" else ROBERTA_CLASSES[0])
+    if name not in ROBERTA_CLASSES + PLAIN_CLASSES:
+        raise ValueError(f"tokenizer class `{name}` is not supported by the port's BPE tokenizer"
+                         f" (it reads {', '.join(ROBERTA_CLASSES + PLAIN_CLASSES)})")
+    return name in ROBERTA_CLASSES
+
+
 class BPE:
     """Tokenize texts into input ids and attention masks from a parsed
     `tokenizer.json` whose model is BPE over ByteLevel words (`config`:
-    the checkpoint's tokenizer_config.json)."""
+    the checkpoint's tokenizer_config.json; `model_type`: its
+    config.json's, which names the tokenizer class when `config` does
+    not)."""
 
-    def __init__(self, spec: dict, config: Optional[dict] = None):
+    def __init__(self, spec: dict, config: Optional[dict] = None,
+                 model_type: Optional[str] = None):
         config = config or {}
         model = spec.get("model") or {}
         kind = model.get("type")
@@ -153,9 +181,11 @@ class BPE:
                     "ignore_merges", "fuse_unk"):
             if model.get(key):
                 raise ValueError(f"BPE with {key} {model[key]!r} is not supported")
-        if spec.get("normalizer") is not None:
-            raise ValueError(f"normalizer `{spec['normalizer'].get('type')}` is not supported by"
-                             " the port's BPE tokenizer")
+        normalizer = (spec.get("normalizer") or {}).get("type")
+        if normalizer not in (None, "NFC"):
+            raise ValueError(f"normalizer `{normalizer}` is not supported by the port's BPE"
+                             " tokenizer (it reads none or NFC)")
+        self.normalize = unicode.nfc if normalizer == "NFC" else None
         self.use_regex = _byte_level(spec.get("pre_tokenizer"))
         self.vocab = dict(model["vocab"])
         missing = [c for c in bytes_to_unicode().values() if c not in self.vocab]
@@ -171,13 +201,14 @@ class BPE:
         self.add_prefix_space = bool(config.get("add_prefix_space", False))
         self.before, self.after = _template(spec.get("post_processor"))
 
+        roberta = _roberta_class(config, model_type)
         tokens = {tok["content"]: dict(tok) for tok in spec.get("added_tokens") or []}
         flagged = list((config.get("added_tokens_decoder") or {}).values())
         for key, default in _SPECIALS.items():
-            value = config.get(key, default)
+            value = config.get(key, default if roberta else None)
             if isinstance(value, dict):
                 flagged.append(value)
-            elif key == "mask_token" and isinstance(value, str):
+            elif roberta and key == "mask_token" and isinstance(value, str):
                 flagged.append({"content": value, "lstrip": True})
             elif isinstance(value, str) and value not in tokens:
                 flagged.append({"content": value})
@@ -200,7 +231,10 @@ class BPE:
 
         self._raw, self._normalized = matched(False), matched(True)
 
-        pad = _token_content(config.get("pad_token")) or "<pad>"
+        pad = _token_content(config.get("pad_token"))
+        if pad is None and not roberta:
+            raise ValueError("tokenizer_config.json names no pad token")
+        pad = pad or _SPECIALS["pad_token"]
         self.pad = self.token_to_id(pad)
         if self.pad is None:
             raise ValueError(f"the pad token `{pad}` is not in the tokenizer")
@@ -243,6 +277,8 @@ class BPE:
 
     def _piece_ids(self, piece: str) -> list:
         out = []
+        if self.normalize is not None:
+            piece = self.normalize(piece)
         for part in self._normalized.split(piece):
             if isinstance(part, int):
                 out.append(part)

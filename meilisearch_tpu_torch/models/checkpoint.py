@@ -1,9 +1,10 @@
-"""Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, DistilBERT or
-MPNet checkpoint directory without transformers.
+"""Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, DistilBERT, MPNet
+or ModernBERT checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
-  or DISTILBERT_KEYS);
+  or DISTILBERT_KEYS; models/modernbert.py::CONFIG_KEYS for `modernbert`,
+  the one type `build_model` gives to `ModernBertModel`);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
@@ -11,7 +12,7 @@ A directory as transformers' `save_pretrained` leaves it:
 - the tokenizer, chosen by what the directory holds, whatever the model
   type: a `tokenizer.json` whose model is Unigram (XLM-R's SentencePiece
   vocabulary) is read by models/unigram.py, one whose model is BPE
-  (RoBERTa's byte-level BPE) by models/bpe.py; without a tokenizer.json,
+  (RoBERTa's and ModernBERT's byte-level BPE) by models/bpe.py; without a tokenizer.json,
   `vocab.json` and `merges.txt` are RoBERTa's older layout (models/bpe.py
   lays them out as a tokenizer.json); otherwise `vocab.txt`, one
   WordPiece token per line (models/wordpiece.py; a WordPiece
@@ -21,10 +22,12 @@ A directory as transformers' `save_pretrained` leaves it:
   true; `strip_accents`; `tokenize_chinese_chars`; `add_prefix_space`;
   the special tokens and `added_tokens_decoder`).
 
-Checkpoint names map onto `BertModel`'s (`hf_to_state_dict`): a `bert.`,
-`roberta.`, `distilbert.` or `mpnet.` prefix is dropped, so are the pooler, the
-pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`)
-and the `position_ids` and `token_type_ids` buffers, and old
+Checkpoint names map onto `BertModel`'s and `ModernBertModel`'s
+(`hf_to_state_dict`): a `bert.`, `roberta.`, `distilbert.`, `mpnet.` or
+`model.` (ModernBERT's) prefix is dropped, so are the pooler, the
+pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
+`ModernBertForMaskedLM`'s `head.` and `decoder.`) and the
+`position_ids` and `token_type_ids` buffers, and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
 (`transformer.layer.N`: `attention.{q,k,v,out}_lin`, `sa_layer_norm`,
 `ffn.lin1`, `ffn.lin2`, `output_layer_norm`) take BERT's names
@@ -54,9 +57,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .bert import BertModel, check_config
+from . import bert, modernbert
+from .bert import BertModel
 from .bpe import BPE, legacy_spec
-from .fixtures import mpnet_tokenizer_config
+from .fixtures import modernbert_tokenizer_config, mpnet_tokenizer_config
+from .modernbert import ModernBertModel
 from .unigram import Unigram
 from .wordpiece import WordPiece
 
@@ -65,9 +70,12 @@ _ST_DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
     "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?",
 }
-_PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.")
-_DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "embeddings.position_ids",
-            "embeddings.token_type_ids")
+# torch dtype -> safetensors dtype, for writing
+_ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.int64: "I64",
+             torch.int32: "I32"}
+_PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "model.")
+_DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "head.", "decoder.",
+            "embeddings.position_ids", "embeddings.token_type_ids")
 # DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
 _DISTILBERT_NAMES = (
     ("attention.q_lin.", "attention.self.query."),
@@ -115,10 +123,27 @@ def _to_mpnet(name: str) -> str:
     return _rename_layer(name, _LAYER, _LAYER, [(ours, theirs) for theirs, ours in _MPNET_NAMES])
 
 
+def check_config(config: dict) -> dict:
+    """Raise ValueError unless the port runs `config`'s model: a
+    `modernbert` config checked by models/modernbert.py, any other by
+    models/bert.py."""
+    if config.get("model_type") == "modernbert":
+        return modernbert.check_config(config)
+    return bert.check_config(config)
+
+
+def new_model(config: dict):
+    """The module that runs `config`'s model: `ModernBertModel` for
+    `modernbert`, `BertModel` for the other families."""
+    if config.get("model_type") == "modernbert":
+        return ModernBertModel(config)
+    return BertModel(config)
+
+
 @dataclass
 class Checkpoint:
     config: dict
-    state_dict: dict  # BertModel's names -> float32 CPU tensors
+    state_dict: dict  # the module's names (new_model) -> float32 CPU tensors
     vocab: list  # vocab.txt's WordPiece tokens (empty for a Unigram or BPE tokenizer)
     tokenizer: dict = field(default_factory=dict)  # tokenizer_config.json
     # the tokenizer.json, parsed (vocab.json + merges.txt laid out as a BPE one)
@@ -151,8 +176,8 @@ def read_safetensors(path: str) -> dict:
 
 
 def hf_to_state_dict(named: dict) -> dict:
-    """A checkpoint's tensors (torch or numpy) under BertModel's names, as
-    float32 CPU tensors."""
+    """A checkpoint's tensors (torch or numpy) under BertModel's (or
+    ModernBertModel's) names, as float32 CPU tensors."""
     out = {}
     for name, value in named.items():
         for prefix in _PREFIXES:
@@ -201,7 +226,7 @@ def flax_to_state_dict(params: dict) -> dict:
 
 
 def read_weights(path: str) -> dict:
-    """BertModel's state_dict from a checkpoint directory's weights."""
+    """The module's state_dict from a checkpoint directory's weights."""
     st = os.path.join(path, "model.safetensors")
     if os.path.exists(st):
         return hf_to_state_dict(read_safetensors(st))
@@ -262,38 +287,66 @@ def build_tokenizer(ckpt: Checkpoint):
         return WordPiece.from_config(ckpt.vocab, ckpt.tokenizer, ckpt.tokenizer_json,
                                      ckpt.config.get("model_type"))
     if kind == "BPE":
-        return BPE(ckpt.tokenizer_json, ckpt.tokenizer)
+        return BPE(ckpt.tokenizer_json, ckpt.tokenizer, ckpt.config.get("model_type"))
     return Unigram(ckpt.tokenizer_json, ckpt.tokenizer)
 
 
-def build_model(ckpt: Checkpoint) -> BertModel:
-    """A BertModel holding the checkpoint's weights (every parameter must
-    be present), on the CPU, in eval mode."""
-    model = BertModel(ckpt.config)
+def build_model(ckpt: Checkpoint):
+    """The checkpoint's module (`new_model`) holding its weights (every
+    parameter must be present), on the CPU, in eval mode."""
+    model = new_model(ckpt.config)
     model.load_state_dict(ckpt.state_dict, strict=True)
     return model.eval()
+
+
+def write_safetensors(path: str, state_dict: dict) -> None:
+    """`state_dict` as a `.safetensors` file (the layout `read_safetensors`
+    parses; metadata `format: pt`, as transformers' loader asks)."""
+    header, offset, blobs = {"__metadata__": {"format": "pt"}}, 0, []
+    for name, t in state_dict.items():
+        t = t.detach().to("cpu").contiguous()
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"tensor `{name}` has dtype {t.dtype}")
+        blob = t.numpy().view(np.uint8).reshape(-1) if t.numel() else np.zeros(0, np.uint8)
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + blob.size]}
+        offset += blob.size
+        blobs.append(blob)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for blob in blobs:
+            f.write(memoryview(blob))
 
 
 def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[list] = None,
                      do_lower_case: bool = True, tokenizer_json: Optional[dict] = None) -> None:
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
-    bert unless `config` names one), pytorch_model.bin (BertModel's names,
-    DistilBERT's or MPNet's for such a config) and tokenizer_config.json,
-    with either `vocab` as vocab.txt (MPNetTokenizerFast's special tokens
-    for an `mpnet` config) or `tokenizer_json` (a Unigram tokenizer.json
-    with XLM-R's special tokens, or a BPE one with RoBERTa's,
-    add_prefix_space false)."""
+    bert unless `config` names one), the weights as pytorch_model.bin
+    (BertModel's names, DistilBERT's or MPNet's for such a config), or for
+    `modernbert` as model.safetensors, the file its checkpoints are
+    published in (ModernBertModel's names), and
+    tokenizer_config.json, with either `vocab` as vocab.txt
+    (MPNetTokenizerFast's special tokens for an `mpnet` config) or
+    `tokenizer_json` (a Unigram tokenizer.json with XLM-R's special tokens,
+    a BPE one with RoBERTa's, add_prefix_space false, or, for a
+    `modernbert` config, a BPE one with its own specials and
+    `PreTrainedTokenizerFast`'s config, fixtures.modernbert_tokenizer_config)."""
     os.makedirs(path, exist_ok=True)
     config = {"model_type": "bert", **config}
     model_type = config["model_type"]
     rename = {"distilbert": _to_distilbert, "mpnet": _to_mpnet}.get(model_type)
     if rename is not None:
         state_dict = {rename(k): v for k, v in state_dict.items()}
-    if model_type != "distilbert":
+    if model_type not in ("distilbert", "modernbert"):
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
-    torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
+    if model_type == "modernbert":
+        write_safetensors(os.path.join(path, "model.safetensors"), state_dict)
+    else:
+        torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
     if tokenizer_json is not None:
         with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
             json.dump(tokenizer_json, f, ensure_ascii=False)
@@ -302,7 +355,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                       "bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>",
                       "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>",
                       "mask_token": "<mask>"}
-        if bpe:
+        if model_type == "modernbert":
+            tok_config = modernbert_tokenizer_config(tokenizer_json)
+        elif bpe:
             tok_config["add_prefix_space"] = False
     else:
         with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:

@@ -3,7 +3,9 @@ runs that build their own checkpoints (nothing is downloaded):
 `build_charsmap` compiles a `Precompiled` character map,
 `xlmr_tokenizer_json` lays out a `tokenizer.json` as transformers'
 XLM-RoBERTa converter writes it, `roberta_tokenizer_json` a seeded
-byte-level BPE one as its RoBERTa converter writes it, and `mpnet_vocab`
+byte-level BPE one as its RoBERTa converter writes it,
+`modernbert_tokenizer_json` and `modernbert_tokenizer_config` a seeded one
+in ModernBERT's layout and the config published beside it, and `mpnet_vocab`
 and `mpnet_tokenizer_config` an MPNet WordPiece vocabulary and the
 tokenizer_config.json `MPNetTokenizerFast.save_pretrained` writes beside
 it. No serving path calls them.
@@ -157,6 +159,40 @@ def train_merges(texts: list, n_merges: int) -> list:
     return merges
 
 
+def _grow_vocab(vocab: dict, head: int, texts: list, size: int, seed: int,
+                n_trained: int) -> list:
+    """Add to `vocab` (`head` specials, then the 256 byte symbols) the
+    merges of `train_merges` over `texts`, then seeded merges of two
+    existing tokens (not specials) into a new one, until it holds `size`
+    tokens; returns the merges."""
+    merges = []
+    for a, b in train_merges(texts, n_trained):
+        if a + b not in vocab and len(vocab) < size:
+            vocab[a + b] = len(vocab)
+            merges.append([a, b])
+    rng = np.random.default_rng(seed)
+    tokens = list(vocab)[head:]
+    while len(vocab) < size:
+        for i, j in rng.integers(0, len(tokens), (4096, 2)).tolist():
+            a, b = tokens[i], tokens[j]
+            if a + b in vocab or len(vocab) >= size:
+                continue
+            vocab[a + b] = len(vocab)
+            merges.append([a, b])
+            tokens.append(a + b)
+    return merges
+
+
+def _bpe_model(vocab: dict, merges: list) -> dict:
+    return {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+            "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False,
+            "ignore_merges": False, "vocab": vocab, "merges": merges}
+
+
+BYTE_LEVEL = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+              "use_regex": True}
+
+
 def roberta_tokenizer_json(texts: list, vocab_size: int, seed: int,
                            n_trained: int = 4096) -> dict:
     """A byte-level BPE tokenizer.json as transformers' RoBERTa converter
@@ -167,38 +203,94 @@ def roberta_tokenizer_json(texts: list, vocab_size: int, seed: int,
     vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
     for sym in bytes_to_unicode().values():
         vocab[sym] = len(vocab)
-    merges = []
-    for a, b in train_merges(texts, n_trained):
-        if a + b not in vocab and len(vocab) < vocab_size - 1:
-            vocab[a + b] = len(vocab)
-            merges.append([a, b])
-    rng = np.random.default_rng(seed)
-    tokens = list(vocab)[4:]
-    while len(vocab) < vocab_size - 1:
-        for i, j in rng.integers(0, len(tokens), (4096, 2)).tolist():
-            a, b = tokens[i], tokens[j]
-            if a + b in vocab or len(vocab) >= vocab_size - 1:
-                continue
-            vocab[a + b] = len(vocab)
-            merges.append([a, b])
-            tokens.append(a + b)
+    merges = _grow_vocab(vocab, 4, texts, vocab_size - 1, seed, n_trained)
     vocab["<mask>"] = len(vocab)
     added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": t == "<mask>",
               "rstrip": False, "normalized": t != "<mask>", "special": True}
              for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>")]
-    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
-                  "use_regex": True}
     return {
         "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
-        "normalizer": None, "pre_tokenizer": byte_level,
+        "normalizer": None, "pre_tokenizer": BYTE_LEVEL,
         "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0],
                            "trim_offsets": True, "add_prefix_space": False},
-        "decoder": byte_level,
-        "model": {"type": "BPE", "dropout": None, "unk_token": None,
-                  "continuing_subword_prefix": "", "end_of_word_suffix": "", "fuse_unk": False,
-                  "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
-                  "merges": merges},
+        "decoder": BYTE_LEVEL,
+        "model": _bpe_model(vocab, merges),
     }
+
+
+# ModernBERT's vocabulary extends GPT-NeoX's: two specials first, its
+# byte-level BPE, then (from id 50254) non-special added tokens: runs of
+# 24 down to 2 spaces and the placeholders of scrubbed personal data; then
+# ModernBERT's specials from id 50280 ([MASK] lstrip) and [unused] slots
+# up to its 50,368 entries
+MODERNBERT_HEAD = ("<|endoftext|>", "<|padding|>")
+MODERNBERT_ADDED = (*(" " * n for n in range(24, 1, -1)), "|||IP_ADDRESS|||",
+                    "|||EMAIL_ADDRESS|||", "|||PHONE_NUMBER|||")
+MODERNBERT_SPECIALS = ("[UNK]", "[CLS]", "[SEP]", "[PAD]", "[MASK]")
+
+
+def modernbert_tokenizer_json(texts: list, vocab_size: int, seed: int, n_trained: int = 4096,
+                              added: tuple = MODERNBERT_ADDED, added_normalized: bool = True,
+                              unused: int = 83) -> dict:
+    """A byte-level BPE tokenizer.json in ModernBERT's layout:
+    MODERNBERT_HEAD, the 256 byte symbols and merges built as
+    `roberta_tokenizer_json` builds them up to the first added token's id,
+    the non-special `added` tokens (matched on the normalized text when
+    `added_normalized`), MODERNBERT_SPECIALS, then `unused` special
+    `[unusedN]` slots, `vocab_size` entries in all (50,368 with the
+    defaults: [CLS] 50281, [SEP] 50282, [PAD] 50283); the NFC normalizer,
+    ByteLevel without prefix space, `[CLS] $A [SEP]`."""
+    vocab = {t: i for i, t in enumerate(MODERNBERT_HEAD)}
+    for sym in bytes_to_unicode().values():
+        vocab[sym] = len(vocab)
+    tail = [*added, *MODERNBERT_SPECIALS, *(f"[unused{i}]" for i in range(unused))]
+    merges = _grow_vocab(vocab, len(MODERNBERT_HEAD), texts, vocab_size - len(tail), seed,
+                         n_trained)
+    for t in tail:
+        if t in vocab:
+            raise ValueError(f"the added token {t!r} is already a BPE token")
+        vocab[t] = len(vocab)
+    plain = set(added)
+    added_tokens = [
+        {"id": vocab[t], "content": t, "single_word": False, "lstrip": t == "[MASK]",
+         "rstrip": False, "normalized": added_normalized if t in plain else False,
+         "special": t not in plain}
+        for t in (*MODERNBERT_HEAD, *tail)
+    ]
+    special = {t: {"id": t, "ids": [vocab[t]], "tokens": [t]} for t in ("[CLS]", "[SEP]")}
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added_tokens,
+        "normalizer": {"type": "NFC"}, "pre_tokenizer": BYTE_LEVEL,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+            "special_tokens": special,
+        },
+        "decoder": BYTE_LEVEL,
+        "model": _bpe_model(vocab, merges),
+    }
+
+
+def modernbert_tokenizer_config(spec: dict) -> dict:
+    """The tokenizer_config.json ModernBERT publishes beside such a
+    tokenizer.json: class `PreTrainedTokenizerFast`, its specials by
+    name, `model_input_names` without token types, and
+    `added_tokens_decoder` with every added token's flags."""
+    decoder = {str(tok["id"]): {k: tok[k] for k in ("content", "lstrip", "normalized", "rstrip",
+                                                     "single_word", "special")}
+               for tok in spec["added_tokens"]}
+    return {"added_tokens_decoder": decoder, "clean_up_tokenization_spaces": True,
+            "cls_token": "[CLS]", "mask_token": "[MASK]", "pad_token": "[PAD]",
+            "sep_token": "[SEP]", "unk_token": "[UNK]",
+            "model_input_names": ["input_ids", "attention_mask"], "model_max_length": 8192,
+            "tokenizer_class": "PreTrainedTokenizerFast"}
 
 
 # all-mpnet-base-v2's first ids (bos, pad, eos, and an unused <unk>: its

@@ -15,7 +15,8 @@ models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's
 vocabulary), models/unigram.py, or, for RoBERTa's byte-level BPE,
 models/bpe.py (all three with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
-XLM-RoBERTa, DistilBERT and MPNet) runs on the device
+XLM-RoBERTa, DistilBERT and MPNet) or models/modernbert.py's
+`ModernBertModel` runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state; otherwise the mean over the attention mask), and
 the result is L2-normalized in numpy exactly as there. Only a local
@@ -81,9 +82,12 @@ class TextEncoder:
             return CHUNK_TEXTS
         c = self._model.config
         L, heads = self.max_len, c["num_attention_heads"]
+        # the feed-forward's widest activation: ModernBERT's GeGLU projects
+        # to both halves, 2 x intermediate_size
+        ffn = c["intermediate_size"] * (2 if c.get("model_type") == "modernbert" else 1)
         # per text at max_len: scores, their bias sum and softmax, and the
         # hidden, intermediate and projection activations, float32
-        per_text = 4 * (3 * heads * L * L + L * (6 * c["hidden_size"] + 2 * c["intermediate_size"]))
+        per_text = 4 * (3 * heads * L * L + L * (6 * c["hidden_size"] + 2 * ffn))
         free, _total = torch.cuda.mem_get_info(self.device)
         return max(1, min(CHUNK_TEXTS, free // 4 // per_text))
 

@@ -12,7 +12,7 @@ point, and nothing here asks the host's Python:
 - `BertNormalizer` and `BertPreTokenizer`'s classes (control, whitespace,
   CJK, punctuation, split whitespace) and the non-spacing marks that
   `strip_accents` drops after NFD (`strip_marks`);
-- `nfd` and `nfkc` (Unicode's normalization algorithm: full
+- `nfd`, `nfc` and `nfkc` (Unicode's normalization algorithm: full
   decomposition, canonical reordering by combining class, canonical
   composition of primary composites, Hangul by arithmetic) over the
   crate's decompositions, combining classes and composites;
@@ -160,6 +160,13 @@ def nfd(text: str) -> str:
         return text
     t = tables()
     return _reorder(text.translate(t.nfd), t.ccc)
+
+
+def nfc(text: str) -> str:
+    if text.isascii():
+        return text
+    t = tables()
+    return _compose(_reorder(text.translate(t.nfd), t.ccc), t)
 
 
 def nfkc(text: str) -> str:

@@ -196,7 +196,7 @@ def test_byte_symbols_are_gpt2s():
     ({"ignore_merges": True}, "ignore_merges"),
     ({"vocab": {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, "<mask>": 4}, "merges": []},
      "byte symbols"),
-    ({"normalizer": {"type": "NFC"}}, "normalizer `NFC`"),
+    ({"normalizer": {"type": "NFKC"}}, "normalizer `NFKC`"),
     ({"pre_tokenizer": {"type": "Whitespace"}}, "pre-tokenizer `Whitespace`"),
 ])
 def test_unread_bpe_files_are_refused_by_name(change, match):

@@ -12,8 +12,9 @@ NCCL group's scatter-gather must equal the single-device scorer, the
 port's search
 path on the card, typo pass included, must answer exactly as its host
 scorer, the vector legs on the card as its numpy host pass, and the text
-encoder (K8), BERT, XLM-R, RoBERTa with its byte-level BPE and
-DistilBERT, on the card as the same checkpoint on the CPU."""
+encoder (K8), BERT, XLM-R, RoBERTa with its byte-level BPE,
+DistilBERT, MPNet and ModernBERT, on the card as the same checkpoint on
+the CPU."""
 
 import sys
 
@@ -481,6 +482,68 @@ def test_mpnet_encoder_on_the_card_matches_the_cpu(cuda_device, tmp_path, poolin
     assert card._model.encoder.relative_attention_bias is not None
     want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
     assert float(np.abs(got - want).max()) <= 1e-5
+
+
+def _modernbert_checkpoint(path, seed=0):
+    """A ModernBERT checkpoint at ModernBERT-base's width (hidden 768, 12
+    heads, intermediate 1,152, window 128, rotary thetas 160,000 and
+    10,000) cut to 4 layers (global, local, local, global), with a seeded
+    byte-level BPE tokenizer.json in ModernBERT's layout, written by the
+    port as model.safetensors."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import modernbert_tokenizer_json
+    from meilisearch_tpu_torch.models.modernbert import ModernBertModel
+
+    spec = modernbert_tokenizer_json(_enc_texts(200, seed), vocab_size=3000, seed=seed)
+    vocab = spec["model"]["vocab"]
+    config = {"model_type": "modernbert", "vocab_size": 3000, "hidden_size": 768,
+              "intermediate_size": 1152, "num_hidden_layers": 4, "num_attention_heads": 12,
+              "norm_eps": 1e-5, "global_attn_every_n_layers": 3, "local_attention": 128,
+              "global_rope_theta": 160000.0, "local_rope_theta": 10000.0,
+              "pad_token_id": vocab["[PAD]"], "cls_token_id": vocab["[CLS]"],
+              "sep_token_id": vocab["[SEP]"], "hidden_activation": "gelu"}
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, ModernBertModel(config).state_dict(),
+                     tokenizer_json=spec)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceMean", "forceCls"])
+def test_modernbert_encoder_on_the_card_matches_the_cpu(cuda_device, tmp_path, pooling):
+    """ModernBERT's rotary positions, sliding window and GeGLU on the card:
+    a padded batch mixing short texts with ones over 65 tokens (past the
+    window's half) and one truncated at 512, [MASK], runs of spaces and
+    text NFC composes, against the CPU."""
+    from meilisearch_tpu_torch.models import hf_encoder
+    from meilisearch_tpu_torch.models.modernbert import ModernBertModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _modernbert_checkpoint(tmp_path, seed=11)
+    texts = _enc_texts(17, seed=12) + [" ".join(ENC_WORDS * 12), " ".join(ENC_WORDS * 80),
+                                       "x [MASK] y", "a   b    c", "cafe\u0301", ""]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert isinstance(card._model, ModernBertModel)
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 64
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
+def test_modernbert_refuses_tf32(cuda_device, tmp_path):
+    """With TF32 on, ModernBERT's forward on the card refuses to launch."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    path = _modernbert_checkpoint(tmp_path, seed=13)
+    card = hf_encoder.TextEncoder(path, "useModel", device=cuda_device)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            card.encode(["rust search engine"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def test_encoder_chunks_on_the_card(cuda_device, tmp_path, monkeypatch):

@@ -3,10 +3,11 @@ tables, not Python's `unicodedata`.
 
 `meilisearch_tpu_torch/models/_unicode_tables.py` is generated by
 `tools/unicode_tables.py` from `tokenizers`; models/unicode.py reads it.
-Every table is held here against `tokenizers` on every code point from
-U+0000 to U+10FFFF (surrogates excepted), in two contexts, each batched
-into long strings: alone (code points joined by newlines, which neither
-compose nor reorder with anything) and between two letters ("a{c}b").
+Every table (and NFD, NFC, NFKC and Lowercase built on them) is held
+here against `tokenizers` on every code point from U+0000 to U+10FFFF
+(surrogates excepted), in two contexts, each batched into long strings:
+alone (code points joined by newlines, which neither compose nor reorder
+with anything) and between two letters ("a{c}b").
 Then seeded fuzz texts drawn from the code points where Python's tables
 and `tokenizers`' differ, combining-mark runs and Hangul go through the
 port's WordPiece against `BertTokenizerFast` and its Unigram with `NFKC`
@@ -85,10 +86,12 @@ def test_bert_pre_tokenizer_on_every_code_point():
         assert got == want, _first_difference(got, want)
 
 
-@pytest.mark.parametrize("form", ["NFD", "NFKC", "Lowercase"])
+@pytest.mark.parametrize("form", ["NFD", "NFC", "NFKC", "Lowercase"])
 def test_normalization_forms_on_every_code_point(form):
+    """NFC is ModernBERT's BPE normalizer (models/bpe.py)."""
     ref = getattr(normalizers, form)()
-    port = {"NFD": unicode.nfd, "NFKC": unicode.nfkc, "Lowercase": unicode.lowercase}[form]
+    port = {"NFD": unicode.nfd, "NFC": unicode.nfc, "NFKC": unicode.nfkc,
+            "Lowercase": unicode.lowercase}[form]
     for text in _contexts():
         got, want = port(text), ref.normalize_str(text)
         assert got == want, _first_difference(got, want)
