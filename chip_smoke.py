@@ -47,7 +47,7 @@ Phases, each fatal on failure:
      (App.warm_devices), then the 24 requests (20 hybrid searches,
      semanticRatio 1.0 and 0.5, with and without a filter, and 4
      /similar requests) one at a time, and 32 client threads each send
-     12 of them in a rotated order (384, each request 12 to 20 times).
+     8 of them in a rotated order (256, each request 8 to 16 times).
      Against the same store's numpy host pass: the
      float round must give the same hits (a group whose host scores lie
      within 1e-6 compared as a set), scores within 1e-5 and the same
@@ -77,7 +77,8 @@ Phases, each fatal on failure:
      nothing downloaded) is written to a temporary directory; the port's
      encoder on the card must agree with the same checkpoint on the CPU
      within ENC_TOL on 80 texts; a fourth App ingests ENC_DOCS synthetic
-     hackernews documents (100,000 of the configuration's 150,000) over HTTP with a huggingFace embedder on that
+     hackernews documents (50,000 of the configuration's 150,000) over HTTP
+     with a huggingFace embedder on that
      checkpoint and Meilisearch's default documentTemplate, every document
      embedded at indexing on the card (wall time, tokens, tokens/s, peak
      device memory); the query texts are embedded on the card, then 8
@@ -171,7 +172,22 @@ Phases, each fatal on failure:
      truncation cuts at 512 (so the window bites and padding runs fill
      whole windows), 25,000 documents embedded at indexing on the card, 8
      hybrid searches against the same store's host pass, and the forward's
-     timing.
+     timing;
+  14. the last refused families, each at its published config.json
+     widths and depth (seeded random weights) through its own App as
+     phase 11, over 10,000 documents: hn10k-camembert-hf (camembert-base:
+     XLM-R's layout, vocab 32,005, 12 layers, pad id 1) with a seeded
+     32,005-entry Unigram tokenizer.json in CamembertConverter's layout;
+     hn10k-electrasmall-hf (google/electra-small-discriminator: 128-wide
+     embeddings projected to 256, 12 layers, 4 heads) with bge_vocab()'s
+     WordPiece; hn10k-debertav3-hf (microsoft/deberta-v3-base: disentangled
+     attention, 256 buckets over 512 positions, p2c|c2p, shared keys) with
+     a seeded 128,000-piece Unigram tokenizer.json in DebertaV2Converter's
+     layout and, in one batch, phase 13's long texts (relative distances
+     past 128 reach its log buckets); for each the encoder on the card
+     against the CPU within ENC_TOL, tokens/s and the host share, peak
+     device memory, 256 hybrid responses against the host pass, a query's
+     forward and launches, and one chunk against its float32 bound.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -190,6 +206,7 @@ import subprocess
 import sys
 import threading
 import time
+from functools import lru_cache
 
 K1_SOURCE = "meilisearch_tpu_torch/csrc/chain_keys.cu"
 K1_REPLACES = "meilisearch_tpu/ops/pallas_scorer.py:256"
@@ -266,22 +283,22 @@ VEC_SETTINGS = {
 }
 VEC_TEXT = ["rust", "database", "machine learning", "cloud", "python web"]
 # requests a client sends in each of the vector path's two served rounds:
-# half of its 24 in its rotation, 384 a round, every request 12 to 20
+# a third of its 24 in its rotation, 256 a round, every request 8 to 16
 # times (the cut that keeps the whole script under 700 s)
-VEC_SERVED_PER_CLIENT = 12
+VEC_SERVED_PER_CLIENT = 8
 # the encoder path, hn150k-bgebase-hf: the vector path's corpus with a
 # huggingFace embedder at BAAI/bge-base-en-v1.5's published width (random
 # weights from a seed, nothing downloaded) and Meilisearch's default
 # documentTemplate; every document is embedded at indexing on the card.
-# 100,000 of its 150,000 documents: the depth cut to keep the whole
-# script near half of its time limit
+# 50,000 of its 150,000 documents: the depth cut that keeps the whole
+# script under 700 s with phase 14
 BGE_CONFIG = {
     "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
     "num_attention_heads": 12, "intermediate_size": 3072,
     "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
 }
 BGE_INIT_STD = 0.02  # BERT's initializer_range
-ENC_DOCS, ENC_WRITE, ENC_SEED = 100_000, 1_000, 2025
+ENC_DOCS, ENC_WRITE, ENC_SEED = 50_000, 1_000, 2025
 ENC_TOL = 1e-4  # max abs error of normalized embeddings, card against the CPU
 ENC_TEXT = ["rust compiler", "machine learning database", "cloud security", "python web"]
 ENC_TIMED_TOKENS = 128  # tokens per text of the timed indexing chunk
@@ -364,6 +381,43 @@ MODERNBERT_CONFIG = {
     "eos_token_id": 50282, "cls_token_id": 50281, "sep_token_id": 50282,
 }
 P13_DOCS, P13_SEED = 25_000, 2029
+# phase 14, the last refused families, each at its published config.json
+# widths and depth with seeded random weights, 10,000 of its
+# configuration's 150,000 hackernews documents (the depth cut that keeps
+# the whole script near 700 s): hn10k-camembert-hf, camembert-base with a
+# seeded 32,005-entry Unigram tokenizer.json in CamembertConverter's layout;
+# hn10k-electrasmall-hf, google/electra-small-discriminator (128-wide
+# embeddings projected to 256) with bge_vocab()'s WordPiece;
+# hn10k-debertav3-hf, microsoft/deberta-v3-base (disentangled attention,
+# 256 buckets) with a seeded 128,000-piece Unigram tokenizer.json in
+# DebertaV2Converter's layout, [MASK] at 128,000, and the long check texts
+CAMEMBERT_CONFIG = {
+    "model_type": "camembert", "vocab_size": 32_005, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+    "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5,
+    "pad_token_id": 1, "bos_token_id": 5, "eos_token_id": 6, "hidden_act": "gelu",
+}
+ELECTRA_SMALL_CONFIG = {
+    "model_type": "electra", "vocab_size": 30_522, "embedding_size": 128, "hidden_size": 256,
+    "num_hidden_layers": 12, "num_attention_heads": 4, "intermediate_size": 1024,
+    "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+    "pad_token_id": 0, "hidden_act": "gelu",
+}
+DEBERTA_V3_CONFIG = {
+    "model_type": "deberta-v2", "vocab_size": 128_100, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+    "max_position_embeddings": 512, "relative_attention": True, "position_buckets": 256,
+    "max_relative_positions": -1, "pos_att_type": "p2c|c2p", "norm_rel_ebd": "layer_norm",
+    "share_att_key": True, "position_biased_input": False, "type_vocab_size": 0,
+    "layer_norm_eps": 1e-7, "pad_token_id": 0, "hidden_act": "gelu",
+}
+P14_DOCS, P14_SEED = 10_000, 2030
+# each family's specials, written in and around words
+P14_CAMEMBERT_TEXT = ["<s>NOTUSED </s>NOTUSED <unk>NOTUSED", "x<mask>y  <mask>  z",
+                      "Bonjour, le monde ! Café naïve, élève"]
+P14_ELECTRA_TEXT = ["hello [MASK] world", "[CLS] x [SEP] y [PAD]", "HELLO World's"]
+P14_DEBERTA_TEXT = ["hello [MASK] world", "x[MASK]y  [MASK]  z", "[CLS] inside [SEP] [UNK]",
+                    "UPPER lower MiXeD, punct...!? (x) 'q'"]
 # the synthetic documents average about 31 tokens, under the 129-token
 # window: the long check texts (seeded runs of the corpus's words) make it
 # bite; each must tokenize to LONG_TOKENS or more, the last past 512
@@ -1104,6 +1158,7 @@ def write_bge_checkpoint(path: str) -> None:
                      do_lower_case=True)
 
 
+@lru_cache(maxsize=1)
 def e5_charsmap() -> bytes:
     """sentencepiece's nmt_nfkc map as far as the stdlib knows it: every
     code point that NFKC changes, the NMT rules' control characters
@@ -1131,17 +1186,17 @@ def e5_charsmap() -> bytes:
     return build_charsmap(mapping)
 
 
-def e5_pieces() -> list:
-    """249,997 (piece, score) entries: every character of the scripts the
-    check texts use, alone and after U+2581, the corpus's words and their
-    halves, then seeded pieces of 2 to 6 characters of the same alphabet
-    to the vocabulary's size; scores seeded (words above characters above
-    the rest)."""
+def e5_pieces(n: int = E5_CONFIG["vocab_size"] - 5, seed: int = E5_SEED) -> list:
+    """n (piece, score) entries (249,997: XLM-R's vocabulary less its five
+    specials): every character of the scripts the check texts use, alone
+    and after U+2581, the corpus's words and their halves, then seeded
+    pieces of 2 to 6 characters of the same alphabet to n; scores seeded
+    (words above characters above the rest)."""
     import numpy as np
 
     from meilisearch_tpu_torch.utils.synthetic import WORDS
 
-    rng = np.random.default_rng(E5_SEED)
+    rng = np.random.default_rng(seed)
     alphabet = [chr(c) for c in [*range(33, 127), *range(0xC0, 0x180), *range(0x391, 0x3CA),
                                  *range(0x410, 0x450), *range(0x621, 0x64B), *range(0x905, 0x940),
                                  *range(0x10D0, 0x10F1), *range(0x3041, 0x3097),
@@ -1156,7 +1211,6 @@ def e5_pieces() -> list:
         scores.setdefault("▁" + ch, float(rng.uniform(-12.0, -9.0)))
         scores.setdefault(ch, float(rng.uniform(-12.0, -9.0)))
     scores.setdefault("▁", -3.0)
-    n = E5_CONFIG["vocab_size"] - 5  # <s> <pad> </s> <unk> ... <mask>
     chars = alphabet[:94 + 192]  # ASCII and Latin letters
     while len(scores) < n:
         idx = rng.integers(0, len(chars), (1 << 16, 6)).tolist()
@@ -1637,6 +1691,92 @@ def modernbert_phase(device, card: str, n_docs: int) -> dict:
     return out
 
 
+def write_camembert_checkpoint(path: str) -> None:
+    """A checkpoint of camembert-base's width (12 layers, RoBERTa's names),
+    written as pytorch_model.bin with a 32,005-entry Unigram tokenizer.json
+    in CamembertConverter's layout (e5_pieces and e5_charsmap) and
+    CamembertTokenizerFast's tokenizer_config.json."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import camembert_tokenizer_json
+
+    spec = camembert_tokenizer_json(e5_pieces(31_997, P14_SEED), e5_charsmap())
+    if len(spec["model"]["vocab"]) != CAMEMBERT_CONFIG["vocab_size"]:
+        raise AssertionError(f"CamemBERT's vocabulary has {len(spec['model']['vocab'])} entries")
+    write_checkpoint(path, CAMEMBERT_CONFIG, random_state_dict(CAMEMBERT_CONFIG, P14_SEED),
+                     tokenizer_json=spec)
+
+
+def write_electra_checkpoint(path: str) -> None:
+    """A checkpoint of electra-small-discriminator's width (12 layers,
+    128-wide embeddings and their projection to 256), written as
+    pytorch_model.bin with bge_vocab()'s WordPiece vocab.txt (uncased)."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    write_checkpoint(path, ELECTRA_SMALL_CONFIG,
+                     random_state_dict(ELECTRA_SMALL_CONFIG, P14_SEED), bge_vocab(),
+                     do_lower_case=True)
+
+
+def write_deberta_checkpoint(path: str) -> None:
+    """A checkpoint of deberta-v3-base's width (12 layers, DebertaV2Model's
+    names), written as pytorch_model.bin with a 128,000-piece Unigram
+    tokenizer.json in DebertaV2Converter's layout (do_lower_case and
+    split_by_punct false, as published; e5_pieces and e5_charsmap), [MASK]
+    at 128,000, and DebertaV2TokenizerFast's tokenizer_config.json."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import deberta_v3_tokenizer_json
+
+    spec = deberta_v3_tokenizer_json(e5_pieces(127_996, P14_SEED + 1), e5_charsmap())
+    mask = [t["id"] for t in spec["added_tokens"] if t["content"] == "[MASK]"]
+    if len(spec["model"]["vocab"]) != 128_000 or mask != [128_000]:
+        raise AssertionError("the tokenizer is not laid out as deberta-v3-base's")
+    write_checkpoint(path, DEBERTA_V3_CONFIG, random_state_dict(DEBERTA_V3_CONFIG, P14_SEED),
+                     tokenizer_json=spec)
+
+
+def families_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 14, the last refused families: hn10k-camembert-hf,
+    hn10k-electrasmall-hf and hn10k-debertav3-hf, each through its own App
+    (`hf_path`); DeBERTa with the long check texts, whose relative
+    distances over 128 reach its log buckets."""
+    t_phase = time.perf_counter()
+    out = {}
+    for label, index, write, tokenizer, model_type, checks, long_texts in (
+            ("camembert-base", "cb", write_camembert_checkpoint, "Unigram", "camembert",
+             E5_CHECK_TEXT + P14_CAMEMBERT_TEXT, ()),
+            ("electra-small-discriminator", "el", write_electra_checkpoint, "WordPiece",
+             "electra", P11_CHECK_TEXT + P14_ELECTRA_TEXT, ()),
+            ("deberta-v3-base", "dv", write_deberta_checkpoint, "Unigram", "deberta-v2",
+             E5_CHECK_TEXT + P14_DEBERTA_TEXT, long_check_texts(P14_SEED))):
+        t = time.perf_counter()
+        out[label] = hf_path(device, card, n_docs, label=label, index=index, write=write,
+                             seed=P14_SEED, queries=P11_TEXT, check_texts=checks,
+                             tokenizer=tokenizer, model_type=model_type, long_texts=long_texts)
+        say(f"phase 14 {label} wall: {time.perf_counter() - t:.3f} s")
+    say(f"phase 14 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def encoder_flops(model, n: int, L: int) -> float:
+    """The float32 operations of one forward over n texts of L tokens: the
+    Linear layers, QK^T and PV, and for DeBERTa-v2 the c2p and p2c
+    products against the (2 span)-row relative embeddings and those
+    embeddings' projections (the embeddings, MPNet's bias table and the
+    bucket gathers are gathers, not products)."""
+    from torch import nn
+
+    from meilisearch_tpu_torch.models.deberta_v2 import DebertaV2Model, attention_span
+
+    c = model.config
+    h, layers = c["hidden_size"], c["num_hidden_layers"]
+    linear = sum(m.weight.numel() for m in model.modules() if isinstance(m, nn.Linear))
+    flops = 2 * linear * n * L + 4 * L * L * h * layers * n
+    if isinstance(model, DebertaV2Model) and c["relative_attention"]:
+        span, kinds = attention_span(c), len(set(c["pos_att_type"]))
+        flops += layers * kinds * (4 * L * span * h * n + 4 * span * h * h)
+    return flops
+
+
 def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     """(f) One query's forward (1 text, about 16 tokens) and one indexing
     chunk (chunk_texts() texts of ENC_TIMED_TOKENS tokens): device time by
@@ -1655,11 +1795,7 @@ def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     cids = torch.randint(1000, c["vocab_size"], (n, L), generator=g)
     cmask = torch.ones((n, L), dtype=torch.int64)
     chunk_ms = _median_ms(lambda: enc.forward(cids, cmask), reps=REPEATS)
-    # the embeddings and MPNet's bias table are gathers, not products
-    linear = sum(p.numel() for name, p in enc._model.named_parameters()
-                 if p.dim() == 2 and "embeddings" not in name
-                 and "relative_attention_bias" not in name)
-    flops = 2 * linear * n * L + 4 * L * L * c["hidden_size"] * c["num_hidden_layers"] * n
+    flops = encoder_flops(enc._model, n, L)
     bound_ms = flops / FP32_FLOP_S * 1e3
     say(f"timing the {width}-width encoder on {card}: one query's forward ({ids.shape[1]}"
         f" tokens) {q_ms:.4f} ms"
@@ -2575,6 +2711,7 @@ def main() -> int:
     bpe_distilbert_phase(device, card, P11_DOCS)
     mpnet_phase(device, card, P12_DOCS)
     modernbert_phase(device, card, P13_DOCS)
+    families_phase(device, card, P14_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

@@ -2,10 +2,11 @@
 
 Reference: milli's huggingFace embedder runs candle BERT inference
 in-process (vector/embedder/hf.rs); here a BERT, RoBERTa, XLM-RoBERTa,
-DistilBERT, MPNet or ModernBERT checkpoint directory is read, tokenized
-and run by the port's own modules (checkpoint.py; wordpiece.py,
-unigram.py or bpe.py over unicode.py's tables; bert.py or modernbert.py)
-on the store's device.
+CamemBERT, DistilBERT, MPNet, ELECTRA, ModernBERT or DeBERTa-v2
+checkpoint directory is read, tokenized and run by the port's own
+modules (checkpoint.py; wordpiece.py, unigram.py or bpe.py over
+unicode.py's tables; bert.py, modernbert.py or deberta_v2.py) on the
+store's device.
 """
 
 from .hf_encoder import TextEncoder, encode_text

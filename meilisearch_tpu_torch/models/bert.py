@@ -1,19 +1,22 @@
 """BERT's encoder forward as a torch module (the port's K8), for the
-BERT, RoBERTa, XLM-RoBERTa, DistilBERT and MPNet checkpoints
-(`model_type` `bert`, `roberta`, `xlm-roberta`, `distilbert`, `mpnet`),
-which share one architecture (MPNet adds a relative position bias).
+BERT, RoBERTa, XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA
+checkpoints (`model_type` `bert`, `roberta`, `xlm-roberta`, `camembert`,
+`distilbert`, `mpnet`, `electra`), which share one architecture (MPNet
+adds a relative position bias, ELECTRA an embedding projection).
 
 For BERT it computes what transformers' `FlaxBertModel` computes when the
 JAX package's encoder (`models/hf_encoder.py` there) applies it under
 `jax.jit`; for the RoBERTa family, what transformers' torch
-`XLMRobertaModel` computes (the JAX package's branch for torch weights);
+`XLMRobertaModel` computes (the JAX package's branch for torch weights;
+`CamembertModel` is the same model under another name);
 for DistilBERT, what `FlaxDistilBertModel` and the torch
 `DistilBertModel` compute (a DistilBERT config's `dim`, `n_layers`,
 `n_heads` and `hidden_dim` are read as BERT's widths, and its weights
 load under BERT's names, models/checkpoint.py); for MPNet, what the
 torch `MPNetModel` computes (the JAX package's torch branch: transformers
-has no Flax MPNet). It returns the last hidden state (the encoder reads
-no pooler):
+has no Flax MPNet); for ELECTRA, what the torch `ElectraModel` computes
+(the JAX package's torch branch; its Flax branch raises, fault 3.16). It
+returns the last hidden state (the encoder reads no pooler):
 
 - embeddings: word + token type (all zeros) + position, then LayerNorm
   (`layer_norm_eps`); dropout is off. BERT's positions are 0..L-1. The
@@ -23,7 +26,11 @@ no pooler):
   token-type embedding: word + position (0..L-1), LayerNorm eps 1e-12.
   MPNet has none either: word + position, its positions RoBERTa's from
   the padding id 1 (`MPNetEmbeddings` hard-codes it, whatever
-  `pad_token_id` says; another pad id is refused);
+  `pad_token_id` says; another pad id is refused). ELECTRA's embeddings
+  and their LayerNorm are `embedding_size` wide (default `hidden_size`),
+  positions 0..L-1; when that differs from `hidden_size`,
+  `embeddings_project` (a Linear with bias) takes them to the encoder's
+  width (google/electra-small-discriminator: 128 to 256);
 - MPNet only: one relative position bias per forward, added in every
   layer. Bucket (i, j) of the raw indices' distance j - i follows
   `MPNetEncoder.relative_position_bucket` with its defaults (32 buckets,
@@ -47,8 +54,9 @@ picks its own kernels and rounding (and would move MPNet's bias). The
 module's parameter names are those of transformers' torch `BertModel`
 (`embeddings.word_embeddings.weight`,
 `encoder.layer.{i}.attention.self.query.weight`, ...; MPNet's
-`encoder.relative_attention_bias.weight`), so a checkpoint's tensors load
-by name (models/checkpoint.py).
+`encoder.relative_attention_bias.weight`, ELECTRA's
+`embeddings_project.weight`), so a checkpoint's tensors load by name
+(models/checkpoint.py).
 
 Everything runs in float32. On a CUDA device the forward raises when
 `torch.backends.cuda.matmul.allow_tf32` is set (TF32 keeps about three
@@ -77,8 +85,8 @@ CONFIG_KEYS = (
     "layer_norm_eps",
 )
 # model types whose positions count from the padding id
-ROBERTA_TYPES = ("roberta", "xlm-roberta")
-MODEL_TYPES = ("bert", *ROBERTA_TYPES, "distilbert", "mpnet")
+ROBERTA_TYPES = ("roberta", "xlm-roberta", "camembert")
+MODEL_TYPES = ("bert", *ROBERTA_TYPES, "distilbert", "mpnet", "electra")
 # MPNet's fixed padding id, and the bucketing transformers always applies
 # (MPNetEncoder.compute_position_bias passes num_buckets=32 and the
 # default max_distance=128 whatever the config says)
@@ -103,7 +111,7 @@ def _distilbert_config(config: dict) -> dict:
         raise ValueError("dim is not a multiple of n_heads")
     return {**config, "hidden_size": config["dim"], "num_hidden_layers": config["n_layers"],
             "num_attention_heads": config["n_heads"], "intermediate_size": config["hidden_dim"],
-            "type_vocab_size": 0, "layer_norm_eps": 1e-12}
+            "type_vocab_size": 0, "layer_norm_eps": 1e-12, "embedding_size": config["dim"]}
 
 
 def _mpnet_config(config: dict) -> dict:
@@ -123,13 +131,15 @@ def check_config(config: dict) -> dict:
     """Raise ValueError unless `config` describes a model this module runs;
     return it with BERT's width names (CONFIG_KEYS; a DistilBERT config's
     widths renamed, `type_vocab_size` 0: no token-type embedding, as for
-    MPNet)."""
+    MPNet; `embedding_size`, the embeddings' width, `hidden_size` unless an
+    ELECTRA config gives another)."""
     model_type = config.get("model_type", "bert")
     if model_type not in MODEL_TYPES:
         raise ValueError(
             f"model_type `{model_type}` is not supported: the port runs BERT,"
-            " RoBERTa, XLM-RoBERTa, DistilBERT and MPNet checkpoints here and"
-            " ModernBERT ones in models/modernbert.py, no other"
+            " RoBERTa, XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA"
+            " checkpoints here, ModernBERT ones in models/modernbert.py and"
+            " DeBERTa-v2 ones in models/deberta_v2.py, no other"
         )
     if model_type == "distilbert":
         return _distilbert_config(config)
@@ -142,12 +152,17 @@ def check_config(config: dict) -> dict:
         raise ValueError(
             f"hidden_act `{act}` is not supported: the port runs exact GELU only"
         )
+    positions = config.get("position_embedding_type", "absolute")
+    if positions != "absolute":
+        raise ValueError(f"position_embedding_type `{positions}` is not supported: the port"
+                         " reads absolute position embeddings only")
     missing = [k for k in CONFIG_KEYS if k not in config]
     if missing:
         raise ValueError(f"the model config lacks {missing}")
     if config["hidden_size"] % config["num_attention_heads"]:
         raise ValueError("hidden_size is not a multiple of num_attention_heads")
-    return dict(config)
+    width = config.get("embedding_size") if model_type == "electra" else None
+    return {**config, "embedding_size": width or config["hidden_size"]}
 
 
 @lru_cache(maxsize=32)
@@ -178,7 +193,7 @@ def relative_position_buckets(n: int) -> torch.Tensor:
 class _Embeddings(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
-        h = c["hidden_size"]
+        h = c["embedding_size"]
         self.word_embeddings = nn.Embedding(c["vocab_size"], h)
         self.position_embeddings = nn.Embedding(c["max_position_embeddings"], h)
         if c["type_vocab_size"]:
@@ -294,15 +309,20 @@ class _Encoder(nn.Module):
 
 class BertModel(nn.Module):
     """BERT's encoder stack, widths from a transformers-style config dict
-    (the RoBERTa family's positions, DistilBERT's layout, or MPNet's
-    positions and relative position bias, when `model_type` names it);
-    `config` holds BERT's width names."""
+    (the RoBERTa family's positions, DistilBERT's layout, MPNet's
+    positions and relative position bias, or ELECTRA's embedding
+    projection, when `model_type` names it); `config` holds BERT's width
+    names."""
 
     def __init__(self, config: dict):
         super().__init__()
         config = check_config(config)
         self.config = config
         self.embeddings = _Embeddings(config)
+        if config["embedding_size"] != config["hidden_size"]:  # ELECTRA-small
+            self.embeddings_project = nn.Linear(config["embedding_size"], config["hidden_size"])
+        else:
+            self.embeddings_project = None
         self.encoder = _Encoder(config)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
@@ -314,6 +334,8 @@ class BertModel(nn.Module):
                 " torch.backends.cuda.matmul.allow_tf32 is True"
             )
         x = self.embeddings(input_ids)
+        if self.embeddings_project is not None:
+            x = self.embeddings_project(x)
         # (B, 1, 1, L): 0 on real keys, float32's lowest on padded ones
         bias = torch.where(
             attention_mask[:, None, None, :] > 0,

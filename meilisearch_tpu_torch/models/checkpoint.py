@@ -1,32 +1,42 @@
-"""Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, DistilBERT, MPNet
-or ModernBERT checkpoint directory without transformers.
+"""Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, CamemBERT,
+DistilBERT, MPNet, ELECTRA, ModernBERT or DeBERTa-v2 checkpoint directory
+without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
   or DISTILBERT_KEYS; models/modernbert.py::CONFIG_KEYS for `modernbert`,
-  the one type `build_model` gives to `ModernBertModel`);
+  which `build_model` gives to `ModernBertModel`, and
+  models/deberta_v2.py::CONFIG_KEYS for `deberta-v2`, which it gives to
+  `DebertaV2Model`);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
   through `torch.load(weights_only=True)`;
 - the tokenizer, chosen by what the directory holds, whatever the model
-  type: a `tokenizer.json` whose model is Unigram (XLM-R's SentencePiece
-  vocabulary) is read by models/unigram.py, one whose model is BPE
+  type: a `tokenizer.json` whose model is Unigram (XLM-R's, CamemBERT's
+  and DeBERTa-v3's SentencePiece vocabularies) is read by
+  models/unigram.py, one whose model is BPE
   (RoBERTa's and ModernBERT's byte-level BPE) by models/bpe.py; without a tokenizer.json,
   `vocab.json` and `merges.txt` are RoBERTa's older layout (models/bpe.py
   lays them out as a tokenizer.json); otherwise `vocab.txt`, one
   WordPiece token per line (models/wordpiece.py; a WordPiece
   tokenizer.json means vocab.txt too, and gives its added tokens and
   template). A `tokenizer.json` of any other model (WordLevel, ...) is
-  refused. Beside it, `tokenizer_config.json` (`do_lower_case`, default
-  true; `strip_accents`; `tokenize_chinese_chars`; `add_prefix_space`;
-  the special tokens and `added_tokens_decoder`).
+  refused; so is a directory whose only tokenizer is a sentencepiece
+  model file (`spm.model`, `sentencepiece.bpe.model`), which the port
+  does not parse. Beside it, `tokenizer_config.json` (`do_lower_case`,
+  default true; `strip_accents`; `tokenize_chinese_chars`;
+  `add_prefix_space`; the special tokens and `added_tokens_decoder`).
 
-Checkpoint names map onto `BertModel`'s and `ModernBertModel`'s
-(`hf_to_state_dict`): a `bert.`, `roberta.`, `distilbert.`, `mpnet.` or
+Checkpoint names map onto `BertModel`'s, `ModernBertModel`'s and
+`DebertaV2Model`'s (`hf_to_state_dict`): a `bert.`, `roberta.` (RoBERTa's
+and CamemBERT's), `distilbert.`, `mpnet.`, `electra.`, `deberta.` or
 `model.` (ModernBERT's) prefix is dropped, so are the pooler, the
 pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
-`ModernBertForMaskedLM`'s `head.` and `decoder.`) and the
+`ModernBertForMaskedLM`'s `head.` and `decoder.`; ELECTRA's
+`discriminator_predictions.`, `generator_predictions.` and
+`generator_lm_head.`; `DebertaV2ForMaskedLM`'s `lm_predictions.` and the
+`mask_predictions.` transformers ignores) and the
 `position_ids` and `token_type_ids` buffers, and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
 (`transformer.layer.N`: `attention.{q,k,v,out}_lin`, `sa_layer_norm`,
@@ -38,12 +48,14 @@ layers keep `encoder.layer.N` and BERT's names but for the attention
 (`attention.attn.{q,k,v}` to `attention.self.{query,key,value}`,
 `attention.attn.o` to `attention.output.dense`, `attention.LayerNorm` to
 `attention.output.LayerNorm`); `encoder.relative_attention_bias` is
-kept. `flax_to_state_dict` does the same for a Flax parameter tree given as
-numpy arrays (transformers' `FlaxBertModel.params`, or
-`FlaxXLMRobertaModel.params`, the same tree, or
-`FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
+kept, and so is ELECTRA's `embeddings_project`. `flax_to_state_dict` does
+the same for a Flax parameter tree given as numpy arrays (transformers'
+`FlaxBertModel.params`, or `FlaxXLMRobertaModel.params`, the same tree,
+or `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
 `weight` (out, in), `scale` and `embedding` become `weight`. No Flax
-MPNet exists.
+MPNet, CamemBERT or DeBERTa-v2 exists, and the JAX package reads ELECTRA
+through its torch branch (fault 3.16): for those it holds a torch
+`state_dict`, whose numpy arrays `hf_to_state_dict` carries as they are.
 """
 
 from __future__ import annotations
@@ -57,10 +69,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import bert, modernbert
+from . import bert, deberta_v2, modernbert
 from .bert import BertModel
 from .bpe import BPE, legacy_spec
-from .fixtures import modernbert_tokenizer_config, mpnet_tokenizer_config
+from .deberta_v2 import DebertaV2Model
+from .fixtures import (
+    camembert_tokenizer_config,
+    deberta_v2_tokenizer_config,
+    modernbert_tokenizer_config,
+    mpnet_tokenizer_config,
+)
 from .modernbert import ModernBertModel
 from .unigram import Unigram
 from .wordpiece import WordPiece
@@ -73,9 +91,13 @@ _ST_DTYPES = {
 # torch dtype -> safetensors dtype, for writing
 _ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.int64: "I64",
              torch.int32: "I32"}
-_PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "model.")
+_PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "electra.", "deberta.", "model.")
 _DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "head.", "decoder.",
+            "discriminator_predictions.", "generator_predictions.", "generator_lm_head.",
+            "lm_predictions.", "mask_predictions.",
             "embeddings.position_ids", "embeddings.token_type_ids")
+# sentencepiece model files, which the port does not parse
+_SPM_FILES = ("spm.model", "sentencepiece.bpe.model", "sentencepiece.model")
 # DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
 _DISTILBERT_NAMES = (
     ("attention.q_lin.", "attention.self.query."),
@@ -123,21 +145,23 @@ def _to_mpnet(name: str) -> str:
     return _rename_layer(name, _LAYER, _LAYER, [(ours, theirs) for theirs, ours in _MPNET_NAMES])
 
 
+# model types with a module of their own, and its checks
+_MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model}
+_CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config}
+
+
 def check_config(config: dict) -> dict:
     """Raise ValueError unless the port runs `config`'s model: a
-    `modernbert` config checked by models/modernbert.py, any other by
-    models/bert.py."""
-    if config.get("model_type") == "modernbert":
-        return modernbert.check_config(config)
-    return bert.check_config(config)
+    `modernbert` config checked by models/modernbert.py, a `deberta-v2`
+    one by models/deberta_v2.py, any other by models/bert.py."""
+    return _CHECKS.get(config.get("model_type"), bert.check_config)(config)
 
 
 def new_model(config: dict):
     """The module that runs `config`'s model: `ModernBertModel` for
-    `modernbert`, `BertModel` for the other families."""
-    if config.get("model_type") == "modernbert":
-        return ModernBertModel(config)
-    return BertModel(config)
+    `modernbert`, `DebertaV2Model` for `deberta-v2`, `BertModel` for the
+    other families."""
+    return _MODELS.get(config.get("model_type"), BertModel)(config)
 
 
 @dataclass
@@ -177,7 +201,8 @@ def read_safetensors(path: str) -> dict:
 
 def hf_to_state_dict(named: dict) -> dict:
     """A checkpoint's tensors (torch or numpy) under BertModel's (or
-    ModernBertModel's) names, as float32 CPU tensors."""
+    ModernBertModel's, or DebertaV2Model's) names, as float32 CPU
+    tensors."""
     out = {}
     for name, value in named.items():
         for prefix in _PREFIXES:
@@ -269,6 +294,14 @@ def load_checkpoint(path: str) -> Checkpoint:
             )
     elif os.path.exists(os.path.join(path, "merges.txt")):
         spec = legacy_spec(path, tokenizer)
+    elif not os.path.exists(os.path.join(path, "vocab.txt")):
+        spm = [f for f in _SPM_FILES if os.path.exists(os.path.join(path, f))]
+        if spm:
+            raise ValueError(
+                f"`{path}` holds its tokenizer only as `{spm[0]}`: the port does not parse"
+                " sentencepiece model files; save the tokenizer with transformers to write its"
+                " tokenizer.json"
+            )
     vocab = []
     if spec is None or spec["model"]["type"] == "WordPiece":
         with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
@@ -288,7 +321,7 @@ def build_tokenizer(ckpt: Checkpoint):
                                      ckpt.config.get("model_type"))
     if kind == "BPE":
         return BPE(ckpt.tokenizer_json, ckpt.tokenizer, ckpt.config.get("model_type"))
-    return Unigram(ckpt.tokenizer_json, ckpt.tokenizer)
+    return Unigram(ckpt.tokenizer_json, ckpt.tokenizer, ckpt.config.get("model_type"))
 
 
 def build_model(ckpt: Checkpoint):
@@ -324,15 +357,19 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                      do_lower_case: bool = True, tokenizer_json: Optional[dict] = None) -> None:
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
     bert unless `config` names one), the weights as pytorch_model.bin
-    (BertModel's names, DistilBERT's or MPNet's for such a config), or for
-    `modernbert` as model.safetensors, the file its checkpoints are
-    published in (ModernBertModel's names), and
-    tokenizer_config.json, with either `vocab` as vocab.txt
-    (MPNetTokenizerFast's special tokens for an `mpnet` config) or
+    (BertModel's names, DistilBERT's or MPNet's for such a config,
+    DebertaV2Model's for `deberta-v2`; ELECTRA's there too, the one file
+    the JAX package reads it from, fault 3.16), or for `modernbert` as
+    model.safetensors, the file its checkpoints are published in
+    (ModernBertModel's names), and tokenizer_config.json, with either
+    `vocab` as vocab.txt (MPNetTokenizerFast's special tokens for an
+    `mpnet` config, ElectraTokenizer's class for `electra`) or
     `tokenizer_json` (a Unigram tokenizer.json with XLM-R's special tokens,
-    a BPE one with RoBERTa's, add_prefix_space false, or, for a
-    `modernbert` config, a BPE one with its own specials and
-    `PreTrainedTokenizerFast`'s config, fixtures.modernbert_tokenizer_config)."""
+    CamemBERT's config for `camembert` and DeBERTa-v2's for `deberta-v2`,
+    fixtures.camembert_tokenizer_config and deberta_v2_tokenizer_config; a
+    BPE one with RoBERTa's, add_prefix_space false, or, for a `modernbert`
+    config, a BPE one with its own specials and `PreTrainedTokenizerFast`'s
+    config, fixtures.modernbert_tokenizer_config)."""
     os.makedirs(path, exist_ok=True)
     config = {"model_type": "bert", **config}
     model_type = config["model_type"]
@@ -355,8 +392,10 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                       "bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>",
                       "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>",
                       "mask_token": "<mask>"}
-        if model_type == "modernbert":
-            tok_config = modernbert_tokenizer_config(tokenizer_json)
+        own = {"modernbert": modernbert_tokenizer_config, "camembert": camembert_tokenizer_config,
+               "deberta-v2": deberta_v2_tokenizer_config}.get(model_type)
+        if own is not None:
+            tok_config = own(tokenizer_json)
         elif bpe:
             tok_config["add_prefix_space"] = False
     else:
@@ -365,6 +404,7 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
         if model_type == "mpnet":
             tok_config = mpnet_tokenizer_config(vocab, do_lower_case)
         else:
-            tok_config = {"do_lower_case": do_lower_case, "tokenizer_class": "BertTokenizer"}
+            tok_class = "ElectraTokenizer" if model_type == "electra" else "BertTokenizer"
+            tok_config = {"do_lower_case": do_lower_case, "tokenizer_class": tok_class}
     with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
         json.dump(tok_config, f)

@@ -2,7 +2,11 @@
 runs that build their own checkpoints (nothing is downloaded):
 `build_charsmap` compiles a `Precompiled` character map,
 `xlmr_tokenizer_json` lays out a `tokenizer.json` as transformers'
-XLM-RoBERTa converter writes it, `roberta_tokenizer_json` a seeded
+XLM-RoBERTa converter writes it, `camembert_tokenizer_json` and
+`deberta_v3_tokenizer_json` as its CamemBERT and DeBERTa-v2 converters
+do (with `camembert_tokenizer_config` and `deberta_v2_tokenizer_config`,
+what the fast tokenizers' `save_pretrained` writes beside them),
+`roberta_tokenizer_json` a seeded
 byte-level BPE one as its RoBERTa converter writes it,
 `modernbert_tokenizer_json` and `modernbert_tokenizer_config` a seeded one
 in ModernBERT's layout and the config published beside it, and `mpnet_vocab`
@@ -71,6 +75,58 @@ def build_charsmap(mapping: dict) -> bytes:
     return struct.pack("<I", 4 * n) + struct.pack(f"<{n}I", *array) + bytes(normalized)
 
 
+def _added(tokens, lstrip=()) -> list:
+    """tokenizer.json's added tokens for (id, content) pairs: special,
+    matched on the raw text, `lstrip` for the contents named."""
+    return [{"id": i, "content": t, "single_word": False, "lstrip": t in lstrip,
+             "rstrip": False, "normalized": False, "special": True} for i, t in tokens]
+
+
+def _spm_normalizers(charsmap: Optional[bytes]) -> list:
+    """SpmConverter's normalizer: [Precompiled (when `charsmap` is given),
+    Strip(right), Replace(" {2,}", U+2581)]."""
+    out = [{"type": "Strip", "strip_left": False, "strip_right": True},
+           {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": SPIECE}]
+    if charsmap is not None:
+        out.insert(0, _precompiled(charsmap))
+    return out
+
+
+def _precompiled(charsmap: bytes) -> dict:
+    return {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(charsmap).decode()}
+
+
+def _template(cls: tuple, sep: tuple, pair_sep: bool, pair_type: int) -> dict:
+    """TemplateProcessing of `cls $A sep` for one text, `cls $A sep
+    [sep] $B sep` for two (the second sep only when `pair_sep`, $B and
+    its sep of type `pair_type`); `cls` and `sep` are (token, id)."""
+    def tok(t, type_id=0):
+        return {"SpecialToken": {"id": t, "type_id": type_id}}
+
+    def seq(name, type_id=0):
+        return {"Sequence": {"id": name, "type_id": type_id}}
+
+    single = [tok(cls[0]), seq("A"), tok(sep[0])]
+    pair = single + [tok(sep[0])] * pair_sep + [seq("B", pair_type), tok(sep[0], pair_type)]
+    special = {t: {"id": t, "ids": [i], "tokens": [t]} for t, i in (cls, sep)}
+    return {"type": "TemplateProcessing", "single": single, "pair": pair,
+            "special_tokens": special}
+
+
+def _unigram_spec(pieces: list, unk_id: int, added: list, normalizer: dict,
+                  pre_tokenizer: dict, post_processor: dict) -> dict:
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": normalizer, "pre_tokenizer": pre_tokenizer,
+        "post_processor": post_processor, "decoder": METASPACE,
+        "model": {"type": "Unigram", "unk_id": unk_id, "vocab": pieces, "byte_fallback": False},
+    }
+
+
+METASPACE = {"type": "Metaspace", "replacement": SPIECE, "prepend_scheme": "always",
+             "split": True}
+
+
 def xlmr_tokenizer_json(vocab: list, charsmap: Optional[bytes] = None) -> dict:
     """A tokenizer.json as transformers' XLM-RoBERTa converter writes it:
     `vocab` [(piece, score)] after `<s> <pad> </s> <unk>` and before
@@ -79,42 +135,96 @@ def xlmr_tokenizer_json(vocab: list, charsmap: Optional[bytes] = None) -> dict:
     `charsmap` is None), Metaspace (always, split) and `<s> $A </s>`."""
     pieces = [["<s>", 0.0], ["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]]
     pieces += [[p, float(s)] for p, s in vocab] + [["<mask>", 0.0]]
-    added = [
-        {"id": i, "content": t, "single_word": False, "lstrip": t == "<mask>",
-         "rstrip": False, "normalized": False, "special": True}
-        for i, t in ((0, "<s>"), (1, "<pad>"), (2, "</s>"), (3, "<unk>"),
-                     (len(pieces) - 1, "<mask>"))
-    ]
-    normalizers = [
-        {"type": "Strip", "strip_left": False, "strip_right": True},
-        {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": SPIECE},
-    ]
+    added = _added([(0, "<s>"), (1, "<pad>"), (2, "</s>"), (3, "<unk>"),
+                    (len(pieces) - 1, "<mask>")], lstrip=("<mask>",))
+    return _unigram_spec(pieces, 3, added,
+                         {"type": "Sequence", "normalizers": _spm_normalizers(charsmap)},
+                         METASPACE, _template(("<s>", 0), ("</s>", 2), True, 0))
+
+
+# CamembertConverter's head: fairseq's four ids and a demoted <unk> piece
+CAMEMBERT_HEAD = (("<s>NOTUSED", 0.0), ("<pad>", 0.0), ("</s>NOTUSED", 0.0), ("<unk>", 0.0),
+                  ("<unk>NOTUSED", -100.0))
+
+
+def camembert_tokenizer_json(vocab: list, charsmap: Optional[bytes] = None) -> dict:
+    """A tokenizer.json as transformers' CamemBERT converter and
+    `CamembertTokenizerFast` write it for a sentencepiece model whose
+    pieces are `<unk> <s> </s>` then `vocab` [(piece, score)]:
+    CAMEMBERT_HEAD (ids 0-4), `<s>` and `</s>` (5 and 6), `vocab`, then
+    `<mask>` (lstrip); unk_id 3; the added tokens 0-6 and `<mask>`; XLM-R's
+    normalizer and Metaspace; `<s> $A </s>`. camembert-base's 32,005
+    entries take 31,997 pieces in `vocab`."""
+    pieces = [[p, float(s)] for p, s in CAMEMBERT_HEAD] + [["<s>", 0.0], ["</s>", 0.0]]
+    pieces += [[p, float(s)] for p, s in vocab] + [["<mask>", 0.0]]
+    added = _added([*enumerate(p for p, _s in pieces[:7]), (len(pieces) - 1, "<mask>")],
+                   lstrip=("<mask>",))
+    return _unigram_spec(pieces, 3, added,
+                         {"type": "Sequence", "normalizers": _spm_normalizers(charsmap)},
+                         METASPACE, _template(("<s>", 5), ("</s>", 6), True, 0))
+
+
+def camembert_tokenizer_config(spec: dict) -> dict:
+    """The tokenizer_config.json `CamembertTokenizerFast.save_pretrained`
+    writes beside such a tokenizer.json (model_max_length camembert-base's
+    512)."""
+    return {"added_tokens_decoder": _added_decoder(spec),
+            "additional_special_tokens": ["<s>NOTUSED", "</s>NOTUSED", "<unk>NOTUSED"],
+            "bos_token": "<s>", "clean_up_tokenization_spaces": False, "cls_token": "<s>",
+            "eos_token": "</s>", "extra_special_tokens": {}, "mask_token": "<mask>",
+            "model_max_length": 512, "pad_token": "<pad>", "sep_token": "</s>",
+            "tokenizer_class": "CamembertTokenizerFast", "unk_token": "<unk>"}
+
+
+# DeBERTa-v3's sentencepiece model opens with these four pieces
+DEBERTA_HEAD = ("[PAD]", "[CLS]", "[SEP]", "[UNK]")
+
+
+def deberta_v3_tokenizer_json(vocab: list, charsmap: Optional[bytes] = None,
+                              do_lower_case: bool = False, split_by_punct: bool = False) -> dict:
+    """A tokenizer.json as transformers' DeBERTa-v2 converter and
+    `DebertaV2TokenizerFast` write it for a sentencepiece model whose
+    pieces are DEBERTA_HEAD then `vocab` [(piece, score)]: unk_id 3;
+    `[MASK]` an added token after the model's last piece (128,000 in
+    deberta-v3-base); the normalizer Sequence[Lowercase (only with
+    `do_lower_case`), Strip, Precompiled (when `charsmap` is given),
+    Replace(" {2,}", " ")]; Sequence[Punctuation (Isolated, only with
+    `split_by_punct`), Metaspace]; `[CLS] $A [SEP]`."""
+    pieces = [[p, 0.0] for p in DEBERTA_HEAD] + [[p, float(s)] for p, s in vocab]
+    added = _added([*enumerate(DEBERTA_HEAD), (len(pieces), "[MASK]")])
+    normalizers = [{"type": "Strip", "strip_left": True, "strip_right": True}]
+    if do_lower_case:
+        normalizers.insert(0, {"type": "Lowercase"})
     if charsmap is not None:
-        normalizers.insert(0, {"type": "Precompiled",
-                               "precompiled_charsmap": base64.b64encode(charsmap).decode()})
-    special = {t: {"id": t, "ids": [i], "tokens": [t]} for i, t in ((0, "<s>"), (2, "</s>"))}
-    return {
-        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
-        "normalizer": {"type": "Sequence", "normalizers": normalizers},
-        "pre_tokenizer": {"type": "Metaspace", "replacement": SPIECE,
-                          "prepend_scheme": "always", "split": True},
-        "post_processor": {
-            "type": "TemplateProcessing",
-            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
-                       {"Sequence": {"id": "A", "type_id": 0}},
-                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
-            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
-                     {"Sequence": {"id": "A", "type_id": 0}},
-                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
-                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
-                     {"Sequence": {"id": "B", "type_id": 0}},
-                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
-            "special_tokens": special,
-        },
-        "decoder": {"type": "Metaspace", "replacement": SPIECE,
-                    "prepend_scheme": "always", "split": True},
-        "model": {"type": "Unigram", "unk_id": 3, "vocab": pieces, "byte_fallback": False},
-    }
+        normalizers.append(_precompiled(charsmap))
+    normalizers.append({"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "})
+    pre = [{"type": "Punctuation", "behavior": "Isolated"}] * split_by_punct + [METASPACE]
+    return _unigram_spec(pieces, 3, added, {"type": "Sequence", "normalizers": normalizers},
+                         {"type": "Sequence", "pretokenizers": pre},
+                         _template(("[CLS]", 1), ("[SEP]", 2), False, 1))
+
+
+def deberta_v2_tokenizer_config(spec: dict) -> dict:
+    """The tokenizer_config.json `DebertaV2TokenizerFast.save_pretrained`
+    writes beside such a tokenizer.json, `do_lower_case` and
+    `split_by_punct` read from it (model_max_length 512)."""
+    normalizers = spec["normalizer"]["normalizers"]
+    pre = spec["pre_tokenizer"]["pretokenizers"]
+    return {"added_tokens_decoder": _added_decoder(spec), "bos_token": "[CLS]",
+            "clean_up_tokenization_spaces": False, "cls_token": "[CLS]",
+            "do_lower_case": any(n["type"] == "Lowercase" for n in normalizers),
+            "eos_token": "[SEP]", "extra_special_tokens": {}, "mask_token": "[MASK]",
+            "model_max_length": 512, "pad_token": "[PAD]", "sep_token": "[SEP]",
+            "split_by_punct": any(p["type"] == "Punctuation" for p in pre),
+            "tokenizer_class": "DebertaV2TokenizerFast", "unk_token": "[UNK]"}
+
+
+def _added_decoder(spec: dict) -> dict:
+    """tokenizer_config.json's `added_tokens_decoder` of a tokenizer.json's
+    added tokens."""
+    return {str(tok["id"]): {k: tok[k] for k in ("content", "lstrip", "normalized", "rstrip",
+                                                  "single_word", "special")}
+            for tok in spec["added_tokens"]}
 
 
 def train_merges(texts: list, n_merges: int) -> list:
@@ -283,10 +393,7 @@ def modernbert_tokenizer_config(spec: dict) -> dict:
     tokenizer.json: class `PreTrainedTokenizerFast`, its specials by
     name, `model_input_names` without token types, and
     `added_tokens_decoder` with every added token's flags."""
-    decoder = {str(tok["id"]): {k: tok[k] for k in ("content", "lstrip", "normalized", "rstrip",
-                                                     "single_word", "special")}
-               for tok in spec["added_tokens"]}
-    return {"added_tokens_decoder": decoder, "clean_up_tokenization_spaces": True,
+    return {"added_tokens_decoder": _added_decoder(spec), "clean_up_tokenization_spaces": True,
             "cls_token": "[CLS]", "mask_token": "[MASK]", "pad_token": "[PAD]",
             "sep_token": "[SEP]", "unk_token": "[UNK]",
             "model_input_names": ["input_ids", "attention_mask"], "model_max_length": 8192,

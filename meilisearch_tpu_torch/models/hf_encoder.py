@@ -11,12 +11,13 @@ The JAX package runs transformers' Flax model under `jax.jit` (its
 checkpoint has no Flax weights. The port computes the same function with
 its own pieces and no transformers: the checkpoint directory is read by
 models/checkpoint.py, texts are tokenized on the host by
-models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's
-vocabulary), models/unigram.py, or, for RoBERTa's byte-level BPE,
-models/bpe.py (all three with `tokenizers`' own Unicode tables,
-models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
-XLM-RoBERTa, DistilBERT and MPNet) or models/modernbert.py's
-`ModernBertModel` runs on the device
+models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's,
+CamemBERT's and DeBERTa-v3's vocabularies), models/unigram.py, or, for
+RoBERTa's byte-level BPE, models/bpe.py (all three with `tokenizers`' own
+Unicode tables, models/unicode.py), and models/bert.py's `BertModel`
+(BERT, RoBERTa, XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA),
+models/modernbert.py's `ModernBertModel` or models/deberta_v2.py's
+`DebertaV2Model` runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state; otherwise the mean over the attention mask), and
 the result is L2-normalized in numpy exactly as there. Only a local
@@ -38,6 +39,7 @@ import torch
 
 from ..ops.chain_keys import LaunchCounter
 from .checkpoint import build_model, build_tokenizer, load_checkpoint
+from .deberta_v2 import attention_span
 
 # Texts per forward pass. 256 texts of 128 tokens give each linear layer
 # 32,768 rows, enough to fill the card; at the 512-token limit, the largest
@@ -88,6 +90,10 @@ class TextEncoder:
         # per text at max_len: scores, their bias sum and softmax, and the
         # hidden, intermediate and projection activations, float32
         per_text = 4 * (3 * heads * L * L + L * (6 * c["hidden_size"] + 2 * ffn))
+        if c.get("model_type") == "deberta-v2" and c["relative_attention"]:
+            # DeBERTa's c2p and p2c: two (heads, L, 2 span) products and
+            # their two (heads, L, L) gathers
+            per_text += 4 * heads * L * (4 * attention_span(c) + 2 * L)
         free, _total = torch.cuda.mem_get_info(self.device)
         return max(1, min(CHUNK_TEXTS, free // 4 // per_text))
 

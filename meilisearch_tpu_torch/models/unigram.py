@@ -1,6 +1,7 @@
 """SentencePiece-Unigram tokenization from a `tokenizer.json`, as the
-`tokenizers` library runs it (what `AutoTokenizer` gives an XLM-RoBERTa
-checkpoint, and BERT checkpoints that carry XLM-R's vocabulary).
+`tokenizers` library runs it (what `AutoTokenizer` gives an XLM-RoBERTa,
+CamemBERT or DeBERTa-v2 checkpoint, and BERT checkpoints that carry
+XLM-R's vocabulary).
 
 The JAX package tokenizes through `AutoTokenizer(texts, padding=True,
 truncation=True, max_length=max_len)`. This module reads the same file
@@ -13,19 +14,25 @@ and gives the same input ids and attention masks, on the host:
    `Precompiled` (sentencepiece's compiled character map, below), `Strip`,
    `Replace` (a string or a `Regex`), `NFKC`, `Nmt` and `Lowercase` (NFKC
    and Lowercase from `tokenizers`' own tables, models/unicode.py);
-3. the `Metaspace` pre-tokenizer: spaces become U+2581, which is put in
-   front of the piece (`prepend_scheme` `always`, `first`: only for the
-   piece at the start of the text, or `never`; the legacy
-   `add_prefix_space`), then the piece is split before every U+2581
-   (`split`);
+3. the pre-tokenizer: `Metaspace`, alone or as the last of a `Sequence`
+   whose first may be `Punctuation` with the `Isolated` behavior (what
+   DeBERTa-v2's converter writes when `split_by_punct`): each punctuation
+   character (`tokenizers`' class, `BertPreTokenizer`'s, from
+   models/unicode.py) becomes a piece of its own. Metaspace, on each
+   piece: spaces become U+2581, which is put in front of the piece
+   (`prepend_scheme` `always`, `first`: only for the piece at the start
+   of the text, or `never`; the legacy `add_prefix_space`), then the
+   piece is split before every U+2581 (`split`);
 4. the Unigram model: the Viterbi segmentation of each word over the
    pieces' scores (float64; on a tie the path found first stays); a
    character no piece starts with scores the lowest score minus 10, and a
    run of such characters is one `<unk>` (`unk_id`). Words are cached:
    the segmentation depends on the word alone;
 5. the post-processor, `TemplateProcessing` or `RobertaProcessing` (`<s>
-   $A </s>`), after truncation to `max_len` less the special tokens, and
-   padding with the pad token to the longest text of the call.
+   $A </s>`, DeBERTa's `[CLS] $A [SEP]`), after truncation to `max_len`
+   less the special tokens, and padding with the pad token (the config's
+   `pad_token`, else the class default: `[PAD]` for `deberta-v2`, `<pad>`
+   for the rest) to the longest text of the call.
 
 `Precompiled` follows the `spm_precompiled` crate that `tokenizers` wraps.
 The blob is a little-endian u32 (the trie's size in bytes), a darts-clone
@@ -63,6 +70,9 @@ from . import unicode
 SPIECE = "▁"
 UNK_PENALTY = 10.0
 _WORD_CACHE_MAX = 1 << 20  # cached words before the cache is emptied
+# the pad token of a model type's tokenizer class, when its
+# tokenizer_config.json names none (DebertaV2TokenizerFast's `[PAD]`)
+_DEFAULT_PAD = {"deberta-v2": "[PAD]"}
 
 # char::is_whitespace (Unicode White_Space), which Strip and lstrip/rstrip use
 _WHITESPACE = frozenset(map(chr, [*range(0x09, 0x0E), 0x20, 0x85, 0xA0, 0x1680,
@@ -349,12 +359,33 @@ def _normalizer(spec: Optional[dict]):
     raise ValueError(f"normalizer `{kind}` is not supported by the port's Unigram tokenizer")
 
 
+def _pre_tokenizer(spec: Optional[dict]) -> tuple:
+    """(punctuation splitter or None, replacement, prepend scheme, split) of
+    a Metaspace pre-tokenizer, alone or at the end of a Sequence that may
+    open with Punctuation (Isolated)."""
+    if spec is None or spec.get("type") != "Sequence":
+        return (None, *_metaspace(spec))
+    parts = spec.get("pretokenizers") or []
+    kinds = [p.get("type") for p in parts]
+    if kinds not in (["Metaspace"], ["Punctuation", "Metaspace"]):
+        raise ValueError(f"pre-tokenizer Sequence {kinds} is not supported: the port's Unigram"
+                         " tokenizer reads a Metaspace, alone or after Punctuation")
+    if len(parts) == 1:
+        return (None, *_metaspace(parts[0]))
+    behavior = parts[0].get("behavior", "Isolated")
+    if behavior != "Isolated":
+        raise ValueError(f"Punctuation behavior `{behavior}` is not supported: the port's Unigram"
+                         " tokenizer isolates punctuation only")
+    punct = re.compile(f"([{unicode.ranges('BERT_PUNCT').char_class()}])")
+    return (punct, *_metaspace(parts[1]))
+
+
 def _metaspace(spec: Optional[dict]) -> tuple:
     """(replacement, prepend scheme, split) of a Metaspace pre-tokenizer."""
     kind = None if spec is None else spec.get("type")
     if kind != "Metaspace":
         raise ValueError(f"pre-tokenizer `{kind}` is not supported: the port's Unigram"
-                         " tokenizer reads Metaspace only")
+                         " tokenizer reads Metaspace (alone or in a Sequence) only")
     scheme = spec.get("prepend_scheme", "always")
     if spec.get("add_prefix_space") is False and scheme != "never":
         # the legacy spelling: tokenizers refuses a false add_prefix_space
@@ -428,9 +459,11 @@ class AddedTokens:
 class Unigram:
     """Tokenize texts into input ids and attention masks from a parsed
     `tokenizer.json` whose model is Unigram (`config`: the checkpoint's
-    tokenizer_config.json, for the pad token)."""
+    tokenizer_config.json, for the pad token; `model_type`: config.json's,
+    for the class's pad token when the file names none)."""
 
-    def __init__(self, spec: dict, config: Optional[dict] = None):
+    def __init__(self, spec: dict, config: Optional[dict] = None,
+                 model_type: Optional[str] = None):
         model = spec.get("model") or {}
         kind = model.get("type")
         if kind != "Unigram":
@@ -447,7 +480,8 @@ class Unigram:
         self.unk_score = min(self.scores, default=0.0) - UNK_PENALTY
         self.max_piece = max((len(p) for p, _s in vocab), default=0)
         self.normalize = _normalizer(spec.get("normalizer"))
-        self.replacement, self.scheme, self.split = _metaspace(spec.get("pre_tokenizer"))
+        self.punct, self.replacement, self.scheme, self.split = _pre_tokenizer(
+            spec.get("pre_tokenizer"))
         self.before, self.after = _template(spec.get("post_processor"))
 
         added = {}
@@ -462,7 +496,8 @@ class Unigram:
                                      tok.get("rstrip", False))
         self.added = AddedTokens(added)
 
-        pad = _token_content((config or {}).get("pad_token")) or "<pad>"
+        pad = (_token_content((config or {}).get("pad_token"))
+               or _DEFAULT_PAD.get(model_type, "<pad>"))
         self.pad = self.token_to_id(pad)
         if self.pad is None:
             raise ValueError(f"the pad token `{pad}` is not in the tokenizer")
@@ -539,6 +574,15 @@ class Unigram:
         text = self.normalize(segment)
         if not text:
             return []
+        if self.punct is None:
+            return self._piece_ids(text, at_start)
+        out = []
+        for j, piece in enumerate(p for p in self.punct.split(text) if p):
+            out += self._piece_ids(piece, at_start and j == 0)
+        return out
+
+    def _piece_ids(self, text: str, at_start: bool) -> list:
+        """Metaspace and the model on one pre-tokenized piece."""
         text = text.replace(" ", self.replacement)
         if not text.startswith(self.replacement) and (
             self.scheme == "always" or (self.scheme == "first" and at_start)

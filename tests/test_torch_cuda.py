@@ -13,8 +13,8 @@ port's search
 path on the card, typo pass included, must answer exactly as its host
 scorer, the vector legs on the card as its numpy host pass, and the text
 encoder (K8), BERT, XLM-R, RoBERTa with its byte-level BPE,
-DistilBERT, MPNet and ModernBERT, on the card as the same checkpoint on
-the CPU."""
+DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA and DeBERTa-v2, on the
+card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -544,6 +544,87 @@ def test_modernbert_refuses_tf32(cuda_device, tmp_path):
             card.encode(["rust search engine"])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _spm_pieces(seed, words=ENC_WORDS):
+    rng = np.random.default_rng(seed)
+    chars = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.,:/-!?#'()éü"
+    pieces = ["▁", *chars, *("▁" + c for c in chars), *("▁" + w for w in words)]
+    return [(p, float(-rng.uniform(1.0, 12.0))) for p in dict.fromkeys(pieces)]
+
+
+def _family_checkpoint(path, family, seed=0):
+    """A checkpoint written by the port at the published width of its
+    family, cut to 2 layers: CamemBERT (camembert-base: hidden 768, 12
+    heads, 514 positions, pad id 1) with a seeded Unigram tokenizer.json in
+    CamembertConverter's layout; ELECTRA (electra-small-discriminator:
+    128-wide embeddings projected to 256, 4 heads) with a small WordPiece
+    vocabulary; DeBERTa-v2 (deberta-v3-base: hidden 768, 12 heads, 256
+    buckets over 512 positions, p2c|c2p, shared keys) with a seeded Unigram
+    tokenizer.json in DebertaV2Converter's layout."""
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import (
+        build_charsmap,
+        camembert_tokenizer_json,
+        deberta_v3_tokenizer_json,
+    )
+
+    charsmap = build_charsmap({"é": "é", "Ａ": "A"})
+    spec, vocab = None, None
+    if family == "camembert":
+        spec = camembert_tokenizer_json(_spm_pieces(seed), charsmap)
+        config = {"model_type": "camembert", "vocab_size": len(spec["model"]["vocab"]),
+                  "hidden_size": 768, "num_hidden_layers": 2, "num_attention_heads": 12,
+                  "intermediate_size": 3072, "max_position_embeddings": 514,
+                  "type_vocab_size": 1, "layer_norm_eps": 1e-5, "pad_token_id": 1}
+    elif family == "electra":
+        letters = "abcdefghijklmnopqrstuvwxyz0123456789"
+        vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *ENC_WORDS, *letters,
+                 *("##" + c for c in letters), *".,:/-!?#"]
+        config = {"model_type": "electra", "vocab_size": len(vocab), "embedding_size": 128,
+                  "hidden_size": 256, "num_hidden_layers": 2, "num_attention_heads": 4,
+                  "intermediate_size": 1024, "max_position_embeddings": 512,
+                  "type_vocab_size": 2, "layer_norm_eps": 1e-12, "pad_token_id": 0}
+    else:
+        spec = deberta_v3_tokenizer_json(_spm_pieces(seed), charsmap)
+        config = {"model_type": "deberta-v2", "vocab_size": len(spec["model"]["vocab"]) + 100,
+                  "hidden_size": 768, "num_hidden_layers": 2, "num_attention_heads": 12,
+                  "intermediate_size": 3072, "max_position_embeddings": 512,
+                  "relative_attention": True, "position_buckets": 256,
+                  "max_relative_positions": -1, "pos_att_type": "p2c|c2p",
+                  "norm_rel_ebd": "layer_norm", "share_att_key": True,
+                  "position_biased_input": False, "type_vocab_size": 0, "layer_norm_eps": 1e-7}
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, new_model(config).state_dict(), vocab,
+                     tokenizer_json=spec)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("family", ["camembert", "electra", "deberta-v2"])
+def test_family_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, family, pooling):
+    """CamemBERT's positions from the pad id, ELECTRA's embedding
+    projection and DeBERTa-v2's disentangled attention on the card: a
+    padded batch of short texts beside ones of 200 to 512 tokens (relative
+    distances past 128 reach DeBERTa's log buckets), the specials, against
+    the CPU."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _family_checkpoint(tmp_path, family, seed=14)
+    specials = {"camembert": ["x <mask> y", "<s>NOTUSED a"], "electra": ["x [MASK] y"],
+                "deberta-v2": ["x [MASK] y", "Hello, World!"]}[family]
+    texts = _enc_texts(15, seed=15) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80),
+                                       "", *specials]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert card._model.config["model_type"] == family
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-5
 
 
 def test_encoder_chunks_on_the_card(cuda_device, tmp_path, monkeypatch):

@@ -118,7 +118,21 @@ def _texts(n, seed):
 
 def test_bucket_table_matches_transformers_at_every_length():
     """Every L in 1..514, element for element, against transformers'
-    bucketing of compute_position_bias's raw-index distances."""
+    bucketing of compute_position_bias's raw-index distances (on one
+    intra-op thread, the port's cached tables built afresh: under the test
+    run's worker processes each small op's thread pool otherwise waits on
+    the others')."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    bert.relative_position_buckets.cache_clear()
+    try:
+        _bucket_tables_match()
+    finally:
+        torch.set_num_threads(threads)
+        bert.relative_position_buckets.cache_clear()
+
+
+def _bucket_tables_match():
     for n in range(1, 515):
         pos = torch.arange(n, dtype=torch.long)
         want = MPNetEncoder.relative_position_bucket(pos[None, :] - pos[:, None],
