@@ -187,7 +187,22 @@ Phases, each fatal on failure:
      past 128 reach its log buckets); for each the encoder on the card
      against the CPU within ENC_TOL, tokens/s and the host share, peak
      device memory, 256 hybrid responses against the host pass, a query's
-     forward and launches, and one chunk against its float32 bound.
+     forward and launches, and one chunk against its float32 bound;
+  15. decoder embedder path (hn10k-qwen3emb-hf): a checkpoint at
+     Qwen/Qwen3-Embedding-0.6B's published config.json widths and depth
+     (qwen3: vocab 151,669, hidden 1,024, 28 layers, 16 heads of 128 over
+     8 KV heads, intermediate 3,072, rope_theta 1,000,000; seeded random
+     weights at initializer_range 0.02, written as model.safetensors) with
+     a seeded 151,643-entry byte-level BPE in Qwen2's layout (NFC, the
+     Split pattern, its specials from <|endoftext|> at 151,643, $A
+     <|endoftext|>) and Qwen2Tokenizer's tokenizer_config.json with
+     padding_side left (models/fixtures.py), through its own App as phase
+     11 over 10,000 documents: the encoder on the card against the CPU
+     within ENC_TOL on 85 texts, a left-padded batch under forceCls and
+     under mean pooling, card against CPU, tokens/s and the host share,
+     peak device memory, 256 hybrid responses against the host pass, a
+     query's forward and launches against its weight-read bound, and one
+     chunk against its float32 bound.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -206,7 +221,7 @@ import subprocess
 import sys
 import threading
 import time
-from functools import lru_cache
+from functools import lru_cache, partial
 
 K1_SOURCE = "meilisearch_tpu_torch/csrc/chain_keys.cu"
 K1_REPLACES = "meilisearch_tpu/ops/pallas_scorer.py:256"
@@ -412,6 +427,33 @@ DEBERTA_V3_CONFIG = {
     "layer_norm_eps": 1e-7, "pad_token_id": 0, "hidden_act": "gelu",
 }
 P14_DOCS, P14_SEED = 10_000, 2030
+# phase 15, hn10k-qwen3emb-hf: Qwen/Qwen3-Embedding-0.6B's published
+# config.json with seeded random weights (transformers' initializer_range
+# 0.02, so 28 random layers stay finite), a seeded 151,643-entry byte-level
+# BPE in Qwen2's layout with its 26 specials (151,669 ids) and
+# Qwen3-Embedding's `$A <|endoftext|>` template, and its tokenizer_config's
+# padding_side left. 10,000 of the configuration's 150,000 hackernews
+# documents: phase 14's depth cut; widths, depth and vocabulary size are
+# the published ones
+QWEN3_EMBEDDING_CONFIG = {
+    "model_type": "qwen3", "vocab_size": 151_669, "hidden_size": 1024,
+    "num_hidden_layers": 28, "num_attention_heads": 16, "num_key_value_heads": 8,
+    "head_dim": 128, "intermediate_size": 3072, "rope_theta": 1_000_000,
+    "rms_norm_eps": 1e-6, "max_position_embeddings": 32_768, "tie_word_embeddings": True,
+    "hidden_act": "silu", "attention_bias": False, "attention_dropout": 0.0,
+    "use_sliding_window": False, "sliding_window": None, "max_window_layers": 28,
+    "rope_scaling": None, "initializer_range": 0.02, "bos_token_id": 151_643,
+    "eos_token_id": 151_643,
+}
+QWEN3_BPE_SIZE = 151_643
+P15_DOCS, P15_SEED = 10_000, 2031
+# Qwen2's specials, contractions under (?i:...), digit runs and newlines
+P15_TEXT = ["x'Sy it'S we'LL don'T x'\u017fy", "<|endoftext|> inside <|im_start|>user<|im_end|>",
+            "<think>reason</think> answer", "1 12 123 1234567 3.14159", "a\r\n\r\n  b  \n c"]
+# the left-padded batch: short texts (under forceCls their first row is a
+# pad query that sees no key) beside long ones
+LEFT_PAD_TEXT = ["rust", "", "machine learning database for the cloud", "x'Sy 1234567",
+                 "straße über " * 12, " ".join(["search engine"] * 60)]
 # each family's specials, written in and around words
 P14_CAMEMBERT_TEXT = ["<s>NOTUSED </s>NOTUSED <unk>NOTUSED", "x<mask>y  <mask>  z",
                       "Bonjour, le monde ! Café naïve, élève"]
@@ -1127,26 +1169,29 @@ def bge_vocab() -> list:
 
 def random_state_dict(config: dict, seed: int) -> dict:
     """BERT's initialization of a model of `config` (XLM-R's, DistilBERT's,
-    MPNet's and ModernBERT's too): weights, MPNet's relative attention
-    bias table among them, normal(0, BGE_INIT_STD) from a seeded
-    torch.Generator, biases 0, LayerNorm scales 1."""
+    MPNet's, ModernBERT's and the decoders' too): weights, MPNet's
+    relative attention bias table among them, normal(0, BGE_INIT_STD)
+    from a seeded torch.Generator, biases 0, LayerNorm and RMSNorm scales
+    1. The module is built on the meta device for its names and shapes."""
     import torch
 
     from meilisearch_tpu_torch.models.checkpoint import new_model
+    from meilisearch_tpu_torch.models.decoder import RMSNorm
 
-    model = new_model(config)
-    norms = {f"{m}.{p}" for m, mod in model.named_modules() if isinstance(mod, torch.nn.LayerNorm)
-             for p, _ in mod.named_parameters()}
+    with torch.device("meta"):
+        model = new_model(config)
+    norms = {f"{m}.{p}" for m, mod in model.named_modules()
+             if isinstance(mod, (torch.nn.LayerNorm, RMSNorm)) for p, _ in mod.named_parameters()}
     g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name in norms:
-                p.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith("bias"):
-                p.zero_()
-            else:
-                p.copy_(torch.randn(p.shape, generator=g) * BGE_INIT_STD)
-    return model.state_dict()
+    state = {}
+    for name, p in model.named_parameters():
+        if name in norms:
+            state[name] = torch.full(p.shape, 1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("bias"):
+            state[name] = torch.zeros(p.shape)
+        else:
+            state[name] = torch.randn(p.shape, generator=g) * BGE_INIT_STD
+    return state
 
 
 def write_bge_checkpoint(path: str) -> None:
@@ -1398,10 +1443,10 @@ def encoder_path_phase(device, card: str, n_docs: int) -> dict:
 
 def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, seed: int,
             queries: list, check_texts: list, tokenizer: str, model_type: str,
-            long_texts: tuple = ()) -> dict:
+            checks: tuple = ()) -> dict:
     """One checkpoint through its own App: (a) `write(path)` writes it; (b)
-    the encoder on the card against the CPU on 80 texts (and, given
-    `long_texts`, on those in one batch, `long_check`); (c) n_docs
+    the encoder on the card against the CPU on 80 texts (and each of
+    `checks(path, device, label)`, its error); (c) n_docs
     documents embedded at indexing on the card, through the tokenizer
     class and model type named; (d) hybrid searches with a text q (the
     `queries`) against the same store's host pass; (e) the forward's
@@ -1428,8 +1473,8 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
         texts = [render_document_template(None, d, searchable) for d in docs[:48]]
         texts += list(queries) * 2 + check_texts
         err = encoder_check(path, device, texts, label)
-        if long_texts:
-            err = max(err, long_check(path, device, long_texts, label))
+        for check in checks:
+            err = max(err, check(path, device, label))
 
         serving_stats(reset=True)
         app = App(device=device)
@@ -1625,7 +1670,7 @@ def mpnet_phase(device, card: str, n_docs: int) -> dict:
     return out
 
 
-def long_check(path: str, device, texts: tuple, label: str) -> float:
+def long_check(path: str, device, label: str, *, texts: tuple) -> float:
     """`texts` in one batch, card against CPU (`encoder_check`), after
     checking their lengths: all but the short ones at LONG_TOKENS or more,
     the longest cut at the encoder's max_len."""
@@ -1686,7 +1731,7 @@ def modernbert_phase(device, card: str, n_docs: int) -> dict:
                   check_texts=P11_CHECK_TEXT + ["hello [MASK] world", "x[MASK]y  [MASK]",
                                                 "cafe\u0301 A\u030a", "a   b    c"],
                   tokenizer="BPE", model_type="modernbert",
-                  long_texts=long_check_texts(P13_SEED))
+                  checks=(partial(long_check, texts=long_check_texts(P13_SEED)),))
     say(f"phase 13 wall: {time.perf_counter() - t_phase:.3f} s")
     return out
 
@@ -1741,36 +1786,107 @@ def families_phase(device, card: str, n_docs: int) -> dict:
     distances over 128 reach its log buckets."""
     t_phase = time.perf_counter()
     out = {}
-    for label, index, write, tokenizer, model_type, checks, long_texts in (
+    for label, index, write, tokenizer, model_type, check_texts, checks in (
             ("camembert-base", "cb", write_camembert_checkpoint, "Unigram", "camembert",
              E5_CHECK_TEXT + P14_CAMEMBERT_TEXT, ()),
             ("electra-small-discriminator", "el", write_electra_checkpoint, "WordPiece",
              "electra", P11_CHECK_TEXT + P14_ELECTRA_TEXT, ()),
             ("deberta-v3-base", "dv", write_deberta_checkpoint, "Unigram", "deberta-v2",
-             E5_CHECK_TEXT + P14_DEBERTA_TEXT, long_check_texts(P14_SEED))):
+             E5_CHECK_TEXT + P14_DEBERTA_TEXT,
+             (partial(long_check, texts=long_check_texts(P14_SEED)),))):
         t = time.perf_counter()
         out[label] = hf_path(device, card, n_docs, label=label, index=index, write=write,
-                             seed=P14_SEED, queries=P11_TEXT, check_texts=checks,
-                             tokenizer=tokenizer, model_type=model_type, long_texts=long_texts)
+                             seed=P14_SEED, queries=P11_TEXT, check_texts=check_texts,
+                             tokenizer=tokenizer, model_type=model_type, checks=checks)
         say(f"phase 14 {label} wall: {time.perf_counter() - t:.3f} s")
     say(f"phase 14 wall: {time.perf_counter() - t_phase:.3f} s")
     return out
 
 
+def write_qwen3_embedding_checkpoint(path: str) -> None:
+    """A checkpoint of Qwen3-Embedding-0.6B's width (28 layers,
+    DecoderModel's names), written as model.safetensors with a
+    151,643-entry byte-level BPE tokenizer.json in Qwen2's layout, its
+    merges trained through Qwen2's Split pattern on the phase's own texts,
+    Qwen3-Embedding's `$A <|endoftext|>`, and Qwen2Tokenizer's
+    tokenizer_config.json with padding_side left."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import qwen2_tokenizer_config, qwen2_tokenizer_json
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(BPE_TRAIN_DOCS, seed=P15_SEED)]
+    spec = qwen2_tokenizer_json(texts + P11_TEXT + P11_CHECK_TEXT, QWEN3_BPE_SIZE,
+                                seed=P15_SEED, eos_template=True)
+    vocab = spec["model"]["vocab"]
+    if len(vocab) != QWEN3_EMBEDDING_CONFIG["vocab_size"] or \
+            vocab["<|endoftext|>"] != QWEN3_EMBEDDING_CONFIG["eos_token_id"]:
+        raise AssertionError("the tokenizer is not laid out as Qwen3-Embedding-0.6B's")
+    write_checkpoint(path, QWEN3_EMBEDDING_CONFIG,
+                     random_state_dict(QWEN3_EMBEDDING_CONFIG, P15_SEED), tokenizer_json=spec,
+                     tokenizer_config=qwen2_tokenizer_config(spec, padding_side="left"))
+
+
+def left_pad_check(path: str, device, label: str) -> float:
+    """LEFT_PAD_TEXT in one batch, left-padded as the checkpoint's
+    tokenizer_config.json asks, under forceCls and under mean pooling:
+    card against CPU (`encoder_check`'s bound); returns the larger error."""
+    import numpy as np
+
+    from meilisearch_tpu_torch.models.hf_encoder import TextEncoder, encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    _ids, mask = enc._tokenizer(LEFT_PAD_TEXT, enc.max_len)
+    lengths = mask.sum(1).tolist()
+    if enc._tokenizer.padding_side != "left" or int(mask[:, -1].min()) != 1 \
+            or int(mask[:, 0].min()) != 0:
+        raise AssertionError(f"{label}: the check batch is not left-padded: {lengths}")
+    errs = {}
+    for pooling in ("forceCls", "useModel"):
+        got = encoder(path, pooling, device).encode(LEFT_PAD_TEXT)
+        want = TextEncoder(path, pooling, device=None).encode(LEFT_PAD_TEXT)
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite {pooling} vectors on the card")
+        errs[pooling] = float(np.abs(got - want).max())
+    say(f"{label} left-padded batch ({lengths} tokens in a row of {mask.shape[1]}), card against"
+        f" CPU: forceCls max abs error {errs['forceCls']:.3e}, mean pooling"
+        f" {errs['useModel']:.3e} (bound {ENC_TOL:g})")
+    if not max(errs.values()) <= ENC_TOL:
+        raise AssertionError(f"{label}: the left-padded batch is {errs} off the CPU")
+    return max(errs.values())
+
+
+def qwen3_embedding_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 15, the decoder embedder path: hn10k-qwen3emb-hf through its
+    own App (`hf_path`), with the left-padded check."""
+    t_phase = time.perf_counter()
+    out = hf_path(device, card, n_docs, label="Qwen3-Embedding-0.6B", index="q3",
+                  write=write_qwen3_embedding_checkpoint, seed=P15_SEED, queries=P11_TEXT,
+                  check_texts=P11_CHECK_TEXT + P15_TEXT, tokenizer="BPE", model_type="qwen3",
+                  checks=(left_pad_check,))
+    say(f"phase 15 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
-    Linear layers, QK^T and PV, and for DeBERTa-v2 the c2p and p2c
-    products against the (2 span)-row relative embeddings and those
-    embeddings' projections (the embeddings, MPNet's bias table and the
-    bucket gathers are gathers, not products)."""
+    Linear layers, QK^T and PV (over heads x head_dim, wider than the
+    model in Qwen3), and for DeBERTa-v2 the c2p and p2c products against
+    the (2 span)-row relative embeddings and those embeddings' projections
+    (the embeddings, MPNet's bias table and the bucket gathers are
+    gathers, not products)."""
     from torch import nn
 
     from meilisearch_tpu_torch.models.deberta_v2 import DebertaV2Model, attention_span
 
     c = model.config
     h, layers = c["hidden_size"], c["num_hidden_layers"]
+    width = c["num_attention_heads"] * c["head_dim"] if c.get("head_dim") else h
     linear = sum(m.weight.numel() for m in model.modules() if isinstance(m, nn.Linear))
-    flops = 2 * linear * n * L + 4 * L * L * h * layers * n
+    flops = 2 * linear * n * L + 4 * L * L * width * layers * n
     if isinstance(model, DebertaV2Model) and c["relative_attention"]:
         span, kinds = attention_span(c), len(set(c["pos_att_type"]))
         flops += layers * kinds * (4 * L * span * h * n + 4 * span * h * h)
@@ -1784,11 +1900,17 @@ def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     chunk's TFLOP/s against the float32 bound."""
     import torch
 
+    from torch import nn
+
     query = "rust compiler performance benchmark for machine learning on gpu"
     ids, mask = enc._tokenizer([query], enc.max_len)
     q_ms = _median_ms(lambda: enc.forward(ids, mask), reps=REPEATS)
     _kernel_ms, launches = leg_breakdown(f"one query's forward ({ids.shape[1]} tokens)",
                                          lambda: enc.forward(ids, mask), device)
+    # a query reads every Linear weight once (float32)
+    linear = sum(m.weight.numel() for m in enc._model.modules() if isinstance(m, nn.Linear))
+    q_bound_ms = max(4 * linear / HBM_BYTES_S,
+                     encoder_flops(enc._model, 1, ids.shape[1]) / FP32_FLOP_S) * 1e3
     c = enc._model.config
     n, L = enc.chunk_texts(), ENC_TIMED_TOKENS
     g = torch.Generator().manual_seed(ENC_SEED)
@@ -1799,12 +1921,14 @@ def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     bound_ms = flops / FP32_FLOP_S * 1e3
     say(f"timing the {width}-width encoder on {card}: one query's forward ({ids.shape[1]}"
         f" tokens) {q_ms:.4f} ms"
-        f" (CUDA events, median of {REPEATS}), {launches:.0f} launches; one indexing chunk"
+        f" (CUDA events, median of {REPEATS}), {launches:.0f} launches, bound"
+        f" {q_bound_ms:.4f} ms ({4 * linear / 1e9:.3f} GB of Linear weights over"
+        f" {HBM_BYTES_S / 1e12:.2f} TB/s); one indexing chunk"
         f" ({n} texts x {L} tokens) {chunk_ms:.4f} ms, {flops / chunk_ms / 1e9:.2f} TFLOP/s,"
         f" bound {bound_ms:.4f} ms ({flops / 1e12:.3f} TFLOP over {FP32_FLOP_S / 1e12:.0f}"
         f" TFLOP/s float32), {bound_ms / chunk_ms:.2f} of the bound")
-    return {"query_ms": q_ms, "query_launches": launches, "chunk_ms": chunk_ms,
-            "chunk_bound_ms": bound_ms}
+    return {"query_ms": q_ms, "query_launches": launches, "query_bound_ms": q_bound_ms,
+            "chunk_ms": chunk_ms, "chunk_bound_ms": bound_ms}
 
 
 def _median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -2712,6 +2836,7 @@ def main() -> int:
     mpnet_phase(device, card, P12_DOCS)
     modernbert_phase(device, card, P13_DOCS)
     families_phase(device, card, P14_DOCS)
+    qwen3_embedding_phase(device, card, P15_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

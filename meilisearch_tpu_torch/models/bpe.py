@@ -1,6 +1,7 @@
 """Byte-level BPE tokenization, as the `tokenizers` library runs it (what
-`AutoTokenizer` gives a RoBERTa checkpoint, `RobertaTokenizerFast`, and a
-ModernBERT one, `PreTrainedTokenizerFast`).
+`AutoTokenizer` gives a RoBERTa checkpoint, `RobertaTokenizerFast`, a
+ModernBERT or Llama-3 one, `PreTrainedTokenizerFast`, and a Qwen2 or
+Qwen3 one, `Qwen2TokenizerFast`).
 
 The JAX package tokenizes through `AutoTokenizer(texts, padding=True,
 truncation=True, max_length=max_len)`. This module reads the same files
@@ -17,9 +18,14 @@ and gives the same input ids and attention masks, on the host:
    (`RobertaTokenizer`, the default of every family but `modernbert`)
    also gives `RobertaTokenizerFast`'s defaults (`<s>`, `</s>`, `<unk>`,
    `<pad>`, `<mask>`) to the keys the config leaves out, and makes
-   `<mask>` given as a string `lstrip`; `PreTrainedTokenizerFast` (the
-   class of ModernBERT's file, and `modernbert`'s default) adds only what
-   the config names, with the file's flags. Any other class is refused;
+   `<mask>` given as a string `lstrip`; a Qwen2 class (`Qwen2Tokenizer`,
+   the default of `qwen2` and `qwen3`) gives `Qwen2TokenizerFast`'s
+   (`<|endoftext|>` as unk, eos and pad, no bos);
+   `PreTrainedTokenizerFast` (the class of ModernBERT's and Llama-3's
+   files, and `modernbert`'s default) adds only what the config names,
+   with the file's flags. `LlamaTokenizer`/`LlamaTokenizerFast` (the
+   default of `llama` and `mistral`: Llama-2's and Mistral's
+   sentencepiece BPE with byte fallback) and any other class are refused;
 2. the ByteLevel pre-tokenizer on each piece between added tokens: a
    space in front when `add_prefix_space` and the piece does not start
    with one (transformers sets the flag from tokenizer_config.json,
@@ -27,15 +33,25 @@ and gives the same input ids and attention masks, on the host:
    (`use_regex`): `'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+|
    ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+`, with `\\p{L}`, `\\p{N}` and `\\s`
    the classes of `tokenizers`' own regex engine (models/unicode.py's
-   frozen tables; Python's `re` knows no `\\p` class). Each word's UTF-8
-   bytes become GPT-2's printable byte symbols (`bytes_to_unicode`);
-3. BPE on each word: its byte symbols are merged pair by pair, always the
-   adjacent pair of lowest merge rank (on a tie, the leftmost), until no
-   adjacent pair has a merge; every symbol is then in the vocabulary (it
-   holds the 256 byte symbols and every merge's result). Words are cached;
-4. the post-processor (`RobertaProcessing`: `<s> $A </s>`, or a
-   `TemplateProcessing`) after truncation to `max_len` less the special
-   tokens, and padding with the pad token to the longest text of the call.
+   frozen tables; Python's `re` knows no `\\p` class); or, for Qwen2's
+   and Llama-3's files, `Sequence[Split(Regex, Isolated), ByteLevel
+   (use_regex false, no prefix space)]` with one of the two published
+   Split patterns (SPLIT_PATTERNS: Qwen2's, and Llama-3's, the same with
+   `\\p{N}{1,3}` for `\\p{N}`), built from the same tables. Each word's
+   UTF-8 bytes become GPT-2's printable byte symbols (`bytes_to_unicode`);
+3. BPE on each word: with `ignore_merges` (Llama-3's), a word that is
+   whole in the vocabulary is taken as it stands; otherwise its byte
+   symbols are merged pair by pair, always the adjacent pair of lowest
+   merge rank (on a tie, the leftmost), until no adjacent pair has a
+   merge; every symbol is then in the vocabulary (it holds the 256 byte
+   symbols and every merge's result). Words are cached;
+4. the post-processor (`RobertaProcessing`: `<s> $A </s>`, a
+   `TemplateProcessing`, `ByteLevel`, which adds nothing, or a `Sequence`
+   of ByteLevel and at most one of the others) after truncation to
+   `max_len` less the special tokens (from the end, or with
+   tokenizer_config.json's `truncation_side` `left` from the front), and
+   padding with the pad token to the longest text of the call, after the
+   text, or before it with `padding_side` `left` (Qwen3-Embedding's).
 
 `legacy_spec` reads the older layout, `vocab.json` and `merges.txt` with
 no tokenizer.json, as transformers' `RobertaConverter` converts it (the
@@ -44,10 +60,11 @@ skipped, as `RobertaTokenizer` reads it).
 
 Anything else raises `ValueError` naming it: another model, `dropout`,
 `byte_fallback`, a `continuing_subword_prefix` or `end_of_word_suffix`,
-`ignore_merges`, `fuse_unk`, a vocabulary without the 256 byte symbols,
-a normalizer other than NFC, a pre-tokenizer that is not ByteLevel
-(Metaspace, ...), a `single_word` added token, another tokenizer class,
-or a special token the vocabulary lacks.
+`fuse_unk`, a vocabulary without the 256 byte symbols, a normalizer
+other than NFC, a pre-tokenizer that is neither ByteLevel nor that
+Sequence (Metaspace, another Split pattern, ...), a `single_word` added
+token, another tokenizer class, a padding or truncation side other than
+`right` and `left`, or a special token the vocabulary lacks.
 """
 
 from __future__ import annotations
@@ -66,13 +83,28 @@ from .unigram import AddedTokens, _template, _token_content
 
 _WORD_CACHE_MAX = 1 << 20  # cached words before the cache is emptied
 # the tokenizer classes read (when tokenizer_config.json names none, the
-# model type decides: `modernbert` PreTrainedTokenizerFast, any other
+# model type decides, as AutoTokenizer does: _DEFAULT_CLASS, else
 # RobertaTokenizer)
 ROBERTA_CLASSES = ("RobertaTokenizer", "RobertaTokenizerFast")
+QWEN2_CLASSES = ("Qwen2Tokenizer", "Qwen2TokenizerFast")
 PLAIN_CLASSES = ("PreTrainedTokenizerFast",)
+# Llama-2's and Mistral's sentencepiece BPE with byte fallback: refused
+LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
+_DEFAULT_CLASS = {"modernbert": "PreTrainedTokenizerFast", "qwen2": "Qwen2TokenizerFast",
+                  "qwen3": "Qwen2TokenizerFast", "llama": "LlamaTokenizerFast",
+                  "mistral": "LlamaTokenizerFast"}
 # RobertaTokenizerFast's special tokens and their defaults
 _SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "sep_token": "</s>",
              "pad_token": "<pad>", "cls_token": "<s>", "mask_token": "<mask>"}
+# Qwen2TokenizerFast's defaults (no bos)
+_QWEN2_SPECIALS = {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                   "pad_token": "<|endoftext|>"}
+# the Split pre-tokenizer patterns read, as tokenizer.json writes them
+# (Qwen2's and Llama-3's), and the repeat of their number class
+QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
+               r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_SPLIT = QWEN2_SPLIT.replace(r"|\p{N}|", r"|\p{N}{1,3}|")
+SPLIT_PATTERNS = {QWEN2_SPLIT: "", LLAMA3_SPLIT: "{1,3}"}
 
 
 @lru_cache(maxsize=None)
@@ -93,33 +125,79 @@ def bytes_to_unicode() -> dict:
 
 
 @lru_cache(maxsize=None)
-def split_pattern() -> re.Pattern:
-    """GPT-2's split regex over `tokenizers`' letter, number and space classes."""
+def split_pattern(file_pattern: Optional[str] = None) -> re.Pattern:
+    """GPT-2's split regex (ByteLevel's own, `file_pattern` None) or one of
+    SPLIT_PATTERNS, over `tokenizers`' letter, number and space classes.
+    Each matches every character, so `findall` gives `tokenizers`'
+    Isolated split."""
     letter = unicode.ranges("BYTE_LEVEL_LETTER").char_class()
     number = unicode.ranges("BYTE_LEVEL_NUMBER").char_class()
     space = unicode.ranges("BYTE_LEVEL_SPACE").char_class()
+    if file_pattern is None:
+        return re.compile(
+            f"'s|'t|'re|'ve|'m|'ll|'d| ?[{letter}]+| ?[{number}]+| ?[^{space}{letter}{number}]+"
+            f"|[{space}]+(?![^{space}])|[{space}]+"
+        )
+    digits = SPLIT_PATTERNS[file_pattern]
     return re.compile(
-        f"'s|'t|'re|'ve|'m|'ll|'d| ?[{letter}]+| ?[{number}]+| ?[^{space}{letter}{number}]+"
-        f"|[{space}]+(?![^{space}])|[{space}]+"
+        f"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\\r\\n{letter}{number}]?[{letter}]+|[{number}]{digits}"
+        f"| ?[^{space}{letter}{number}]+[\\r\\n]*|[{space}]*[\\r\\n]+|[{space}]+(?![^{space}])"
+        f"|[{space}]+"
     )
 
 
-def byte_level_words(text: str, add_prefix_space: bool = False, use_regex: bool = True) -> list:
-    """The ByteLevel pre-tokenizer: the words of `text` in byte symbols."""
+def byte_level_words(text: str, add_prefix_space: bool = False, use_regex: bool = True,
+                     split: Optional[re.Pattern] = None) -> list:
+    """The ByteLevel pre-tokenizer: the words of `text` in byte symbols
+    (`split`: a Split pattern that cuts the text first, in place of
+    ByteLevel's own regex)."""
     if add_prefix_space and text and not text.startswith(" "):
         text = " " + text
-    pieces = split_pattern().findall(text) if use_regex else [text]
+    if split is None and use_regex:
+        split = split_pattern()
+    pieces = split.findall(text) if split is not None else [text]
     table = bytes_to_unicode()
     return [piece.encode("utf-8").decode("latin-1").translate(table) for piece in pieces if piece]
 
 
-def _byte_level(spec: Optional[dict]) -> bool:
-    """`use_regex` of a ByteLevel pre-tokenizer (refusing any other)."""
+def _pre_tokenizer(spec: Optional[dict]) -> tuple:
+    """(use_regex, Split pattern or None) of a ByteLevel pre-tokenizer or of
+    a Sequence[Split(Regex, Isolated), ByteLevel] with one of
+    SPLIT_PATTERNS (refusing any other)."""
     kind = None if spec is None else spec.get("type")
-    if kind != "ByteLevel":
-        raise ValueError(f"pre-tokenizer `{kind}` is not supported: the port's BPE tokenizer"
-                         " reads ByteLevel only")
-    return spec.get("use_regex", True)
+    if kind == "ByteLevel":
+        return spec.get("use_regex", True), None
+    steps = (spec or {}).get("pretokenizers") or []
+    if kind == "Sequence" and [step.get("type") for step in steps] == ["Split", "ByteLevel"]:
+        split, level = steps
+        regex = (split.get("pattern") or {}).get("Regex")
+        if regex not in SPLIT_PATTERNS:
+            raise ValueError(f"Split pattern {regex!r} is not supported: the port reads Qwen2's"
+                             " and Llama-3's")
+        if split.get("behavior") != "Isolated" or split.get("invert"):
+            raise ValueError(f"Split behavior `{split.get('behavior')}` (invert"
+                             f" {split.get('invert')}) is not supported: the port reads Isolated")
+        if level.get("use_regex", True) or level.get("add_prefix_space"):
+            raise ValueError("a ByteLevel after Split with use_regex or add_prefix_space is not"
+                             " supported")
+        return False, split_pattern(regex)
+    raise ValueError(f"pre-tokenizer `{kind}` is not supported: the port's BPE tokenizer"
+                     " reads ByteLevel and Sequence[Split, ByteLevel] only")
+
+
+def _post_processor(spec: Optional[dict]) -> tuple:
+    """(ids before, ids after) the text: nothing for ByteLevel, a Sequence's
+    one template, else unigram.py's `_template`."""
+    kind = None if spec is None else spec.get("type")
+    if kind == "ByteLevel":
+        return [], []
+    if kind == "Sequence":
+        templates = [p for p in spec.get("processors") or [] if p.get("type") != "ByteLevel"]
+        if len(templates) > 1:
+            raise ValueError("a Sequence post-processor with more than one template is not"
+                             " supported")
+        return _template(templates[0]) if templates else ([], [])
+    return _template(spec)
 
 
 def legacy_spec(path: str, config: Optional[dict] = None) -> dict:
@@ -150,16 +228,21 @@ def legacy_spec(path: str, config: Optional[dict] = None) -> dict:
     }
 
 
-def _roberta_class(config: dict, model_type: Optional[str]) -> bool:
-    """Whether the tokenizer class (tokenizer_config.json's, else the model
-    type's) is a RoBERTa one, with its default specials; refuses a class
-    that is neither that nor PreTrainedTokenizerFast."""
-    name = config.get("tokenizer_class") or (
-        PLAIN_CLASSES[0] if model_type == "modernbert" else ROBERTA_CLASSES[0])
-    if name not in ROBERTA_CLASSES + PLAIN_CLASSES:
+def _class_specials(config: dict, model_type: Optional[str]) -> tuple:
+    """(default special tokens, whether it is a RoBERTa class) of the
+    tokenizer class (tokenizer_config.json's, else the model type's);
+    refuses a class that is not a RoBERTa, Qwen2 or plain one."""
+    name = config.get("tokenizer_class") or _DEFAULT_CLASS.get(model_type, ROBERTA_CLASSES[0])
+    if name in LLAMA_CLASSES:
+        raise ValueError(f"tokenizer class `{name}` is not supported: the port does not read"
+                         " Llama-2's and Mistral's sentencepiece BPE with byte fallback")
+    read = ROBERTA_CLASSES + QWEN2_CLASSES + PLAIN_CLASSES
+    if name not in read:
         raise ValueError(f"tokenizer class `{name}` is not supported by the port's BPE tokenizer"
-                         f" (it reads {', '.join(ROBERTA_CLASSES + PLAIN_CLASSES)})")
-    return name in ROBERTA_CLASSES
+                         f" (it reads {', '.join(read)})")
+    if name in ROBERTA_CLASSES:
+        return _SPECIALS, True
+    return (_QWEN2_SPECIALS if name in QWEN2_CLASSES else {}), False
 
 
 class BPE:
@@ -178,7 +261,7 @@ class BPE:
             raise ValueError(f"tokenizer model `{kind}` is not supported by the port's BPE"
                              " tokenizer")
         for key in ("dropout", "byte_fallback", "continuing_subword_prefix", "end_of_word_suffix",
-                    "ignore_merges", "fuse_unk"):
+                    "fuse_unk"):
             if model.get(key):
                 raise ValueError(f"BPE with {key} {model[key]!r} is not supported")
         normalizer = (spec.get("normalizer") or {}).get("type")
@@ -186,7 +269,8 @@ class BPE:
             raise ValueError(f"normalizer `{normalizer}` is not supported by the port's BPE"
                              " tokenizer (it reads none or NFC)")
         self.normalize = unicode.nfc if normalizer == "NFC" else None
-        self.use_regex = _byte_level(spec.get("pre_tokenizer"))
+        self.use_regex, self.split = _pre_tokenizer(spec.get("pre_tokenizer"))
+        self.ignore_merges = bool(model.get("ignore_merges"))
         self.vocab = dict(model["vocab"])
         missing = [c for c in bytes_to_unicode().values() if c not in self.vocab]
         if missing:
@@ -198,14 +282,21 @@ class BPE:
             if a + b not in self.vocab:
                 raise ValueError(f"the merge `{a} {b}` makes a token the vocabulary lacks")
             self.ranks[a, b] = rank  # a repeated merge keeps its last rank
-        self.add_prefix_space = bool(config.get("add_prefix_space", False))
-        self.before, self.after = _template(spec.get("post_processor"))
+        # transformers sets a ByteLevel pre-tokenizer's flag from the config;
+        # a Sequence keeps its own (false)
+        self.add_prefix_space = self.split is None and bool(config.get("add_prefix_space", False))
+        self.before, self.after = _post_processor(spec.get("post_processor"))
+        self.padding_side = config.get("padding_side", "right")
+        self.truncation_side = config.get("truncation_side", "right")
+        for key in ("padding_side", "truncation_side"):
+            if getattr(self, key) not in ("right", "left"):
+                raise ValueError(f"{key} `{getattr(self, key)}` is not right or left")
 
-        roberta = _roberta_class(config, model_type)
+        defaults, roberta = _class_specials(config, model_type)
         tokens = {tok["content"]: dict(tok) for tok in spec.get("added_tokens") or []}
         flagged = list((config.get("added_tokens_decoder") or {}).values())
-        for key, default in _SPECIALS.items():
-            value = config.get(key, default if roberta else None)
+        for key in _SPECIALS:
+            value = config.get(key, defaults.get(key))
             if isinstance(value, dict):
                 flagged.append(value)
             elif roberta and key == "mask_token" and isinstance(value, str):
@@ -231,7 +322,7 @@ class BPE:
 
         self._raw, self._normalized = matched(False), matched(True)
 
-        pad = _token_content(config.get("pad_token"))
+        pad = _token_content(config.get("pad_token", None if roberta else defaults.get("pad_token")))
         if pad is None and not roberta:
             raise ValueError("tokenizer_config.json names no pad token")
         pad = pad or _SPECIALS["pad_token"]
@@ -266,7 +357,10 @@ class BPE:
     def _word_ids(self, word: str) -> list:
         ids = self._words.get(word)
         if ids is None:
-            ids = [self.vocab[symbol] for symbol in self._merge(word)]
+            if self.ignore_merges and word in self.vocab:
+                ids = [self.vocab[word]]
+            else:
+                ids = [self.vocab[symbol] for symbol in self._merge(word)]
             with self._lock:
                 if len(self._words) >= _WORD_CACHE_MAX:
                     self._words.clear()
@@ -283,7 +377,8 @@ class BPE:
             if isinstance(part, int):
                 out.append(part)
             elif part:
-                for word in byte_level_words(part, self.add_prefix_space, self.use_regex):
+                for word in byte_level_words(part, self.add_prefix_space, self.use_regex,
+                                             self.split):
                     out += self._word_ids(word)
         return out
 
@@ -302,13 +397,19 @@ class BPE:
     def __call__(self, texts: list, max_len: int = 512):
         """(input_ids, attention_mask), (len(texts), longest) int64 CPU
         tensors: the template around each text's ids, truncated to
-        max_len, padded with the pad token."""
+        max_len (on the truncation side), padded with the pad token (on
+        the padding side)."""
         room = max(max_len - len(self.before) - len(self.after), 0)
-        rows = [[*self.before, *self.ids(t)[:room], *self.after] for t in texts]
+        rows = []
+        for t in texts:
+            ids = self.ids(t)
+            ids = ids[:room] if self.truncation_side == "right" else ids[max(len(ids) - room, 0):]
+            rows.append([*self.before, *ids, *self.after])
         width = max((len(r) for r in rows), default=0)
         ids = torch.full((len(rows), width), self.pad, dtype=torch.int64)
         mask = torch.zeros((len(rows), width), dtype=torch.int64)
         for i, r in enumerate(rows):
-            ids[i, : len(r)] = torch.tensor(r, dtype=torch.int64)
-            mask[i, : len(r)] = 1
+            at = width - len(r) if self.padding_side == "left" else 0
+            ids[i, at:at + len(r)] = torch.tensor(r, dtype=torch.int64)
+            mask[i, at:at + len(r)] = 1
         return ids, mask

@@ -1,13 +1,14 @@
 """Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, CamemBERT,
-DistilBERT, MPNet, ELECTRA, ModernBERT or DeBERTa-v2 checkpoint directory
-without transformers.
+DistilBERT, MPNet, ELECTRA, ModernBERT, DeBERTa-v2, Qwen3, Qwen2, Llama or
+Mistral checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
   or DISTILBERT_KEYS; models/modernbert.py::CONFIG_KEYS for `modernbert`,
-  which `build_model` gives to `ModernBertModel`, and
+  which `build_model` gives to `ModernBertModel`,
   models/deberta_v2.py::CONFIG_KEYS for `deberta-v2`, which it gives to
-  `DebertaV2Model`);
+  `DebertaV2Model`, and models/decoder.py::CONFIG_KEYS for `qwen3`,
+  `qwen2`, `llama` and `mistral`, which it gives to `DecoderModel`);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
@@ -16,7 +17,8 @@ A directory as transformers' `save_pretrained` leaves it:
   type: a `tokenizer.json` whose model is Unigram (XLM-R's, CamemBERT's
   and DeBERTa-v3's SentencePiece vocabularies) is read by
   models/unigram.py, one whose model is BPE
-  (RoBERTa's and ModernBERT's byte-level BPE) by models/bpe.py; without a tokenizer.json,
+  (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level BPE) by
+  models/bpe.py; without a tokenizer.json,
   `vocab.json` and `merges.txt` are RoBERTa's older layout (models/bpe.py
   lays them out as a tokenizer.json); otherwise `vocab.txt`, one
   WordPiece token per line (models/wordpiece.py; a WordPiece
@@ -28,16 +30,17 @@ A directory as transformers' `save_pretrained` leaves it:
   default true; `strip_accents`; `tokenize_chinese_chars`;
   `add_prefix_space`; the special tokens and `added_tokens_decoder`).
 
-Checkpoint names map onto `BertModel`'s, `ModernBertModel`'s and
-`DebertaV2Model`'s (`hf_to_state_dict`): a `bert.`, `roberta.` (RoBERTa's
-and CamemBERT's), `distilbert.`, `mpnet.`, `electra.`, `deberta.` or
-`model.` (ModernBERT's) prefix is dropped, so are the pooler, the
+Checkpoint names map onto `BertModel`'s, `ModernBertModel`'s,
+`DebertaV2Model`'s and `DecoderModel`'s (`hf_to_state_dict`): a `bert.`,
+`roberta.` (RoBERTa's and CamemBERT's), `distilbert.`, `mpnet.`,
+`electra.`, `deberta.` or `model.` (ModernBERT's and the `*ForCausalLM`
+decoders') prefix is dropped, so are the pooler, the
 pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
 `ModernBertForMaskedLM`'s `head.` and `decoder.`; ELECTRA's
 `discriminator_predictions.`, `generator_predictions.` and
 `generator_lm_head.`; `DebertaV2ForMaskedLM`'s `lm_predictions.` and the
 `mask_predictions.` transformers ignores) and the
-`position_ids` and `token_type_ids` buffers, and old
+`position_ids`, `token_type_ids` and `rotary_emb.inv_freq` buffers, and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
 (`transformer.layer.N`: `attention.{q,k,v,out}_lin`, `sa_layer_norm`,
 `ffn.lin1`, `ffn.lin2`, `output_layer_norm`) take BERT's names
@@ -53,8 +56,9 @@ the same for a Flax parameter tree given as numpy arrays (transformers'
 `FlaxBertModel.params`, or `FlaxXLMRobertaModel.params`, the same tree,
 or `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
 `weight` (out, in), `scale` and `embedding` become `weight`. No Flax
-MPNet, CamemBERT or DeBERTa-v2 exists, and the JAX package reads ELECTRA
-through its torch branch (fault 3.16): for those it holds a torch
+MPNet, CamemBERT, DeBERTa-v2, Qwen2 or Qwen3 exists, and the JAX
+package reads ELECTRA (fault 3.16) and Llama and Mistral (fault 3.17)
+through its torch branch: for those it holds a torch
 `state_dict`, whose numpy arrays `hf_to_state_dict` carries as they are.
 """
 
@@ -69,15 +73,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import bert, deberta_v2, modernbert
+from . import bert, deberta_v2, decoder, modernbert
 from .bert import BertModel
 from .bpe import BPE, legacy_spec
 from .deberta_v2 import DebertaV2Model
+from .decoder import DecoderModel
 from .fixtures import (
     camembert_tokenizer_config,
     deberta_v2_tokenizer_config,
+    llama3_tokenizer_config,
     modernbert_tokenizer_config,
     mpnet_tokenizer_config,
+    qwen2_tokenizer_config,
 )
 from .modernbert import ModernBertModel
 from .unigram import Unigram
@@ -146,21 +153,26 @@ def _to_mpnet(name: str) -> str:
 
 
 # model types with a module of their own, and its checks
-_MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model}
-_CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config}
+_MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
+           **{kind: DecoderModel for kind in decoder.MODEL_TYPES}}
+_CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config,
+           **{kind: decoder.check_config for kind in decoder.MODEL_TYPES}}
+# model types whose checkpoints are published as model.safetensors
+_SAFETENSORS = ("modernbert", *decoder.MODEL_TYPES)
 
 
 def check_config(config: dict) -> dict:
     """Raise ValueError unless the port runs `config`'s model: a
     `modernbert` config checked by models/modernbert.py, a `deberta-v2`
-    one by models/deberta_v2.py, any other by models/bert.py."""
+    one by models/deberta_v2.py, a `qwen3`, `qwen2`, `llama` or `mistral`
+    one by models/decoder.py, any other by models/bert.py."""
     return _CHECKS.get(config.get("model_type"), bert.check_config)(config)
 
 
 def new_model(config: dict):
     """The module that runs `config`'s model: `ModernBertModel` for
-    `modernbert`, `DebertaV2Model` for `deberta-v2`, `BertModel` for the
-    other families."""
+    `modernbert`, `DebertaV2Model` for `deberta-v2`, `DecoderModel` for
+    the decoders, `BertModel` for the other families."""
     return _MODELS.get(config.get("model_type"), BertModel)(config)
 
 
@@ -208,7 +220,7 @@ def hf_to_state_dict(named: dict) -> dict:
         for prefix in _PREFIXES:
             if name.startswith(prefix):
                 name = name[len(prefix):]
-        if name.startswith(_DROPPED):
+        if name.startswith(_DROPPED) or name.endswith("rotary_emb.inv_freq"):
             continue
         if name.startswith("transformer.layer."):
             name = _rename_layer(name, "transformer.layer.", _LAYER, _DISTILBERT_NAMES)
@@ -218,8 +230,12 @@ def hf_to_state_dict(named: dict) -> dict:
             name = name[: -len("gamma")] + "weight"
         elif name.endswith(".beta"):
             name = name[: -len("beta")] + "bias"
-        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
-        out[name] = t.detach().to("cpu", torch.float32).contiguous()
+        if not isinstance(value, torch.Tensor):
+            # a writable array (read_safetensors' views of its one buffer) is
+            # shared, not copied: a 2.4 GB file stays one copy on the host
+            value = np.asarray(value)
+            value = torch.from_numpy(value if value.flags.writeable else value.copy())
+        out[name] = value.detach().to("cpu", torch.float32).contiguous()
     return out
 
 
@@ -326,9 +342,12 @@ def build_tokenizer(ckpt: Checkpoint):
 
 def build_model(ckpt: Checkpoint):
     """The checkpoint's module (`new_model`) holding its weights (every
-    parameter must be present), on the CPU, in eval mode."""
-    model = new_model(ckpt.config)
-    model.load_state_dict(ckpt.state_dict, strict=True)
+    parameter must be present), on the CPU, in eval mode. The module is
+    built on the meta device and takes the state_dict's tensors as its
+    parameters: no second copy of the weights is made."""
+    with torch.device("meta"):
+        model = new_model(ckpt.config)
+    model.load_state_dict(ckpt.state_dict, strict=True, assign=True)
     return model.eval()
 
 
@@ -354,14 +373,16 @@ def write_safetensors(path: str, state_dict: dict) -> None:
 
 
 def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[list] = None,
-                     do_lower_case: bool = True, tokenizer_json: Optional[dict] = None) -> None:
+                     do_lower_case: bool = True, tokenizer_json: Optional[dict] = None,
+                     tokenizer_config: Optional[dict] = None) -> None:
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
     bert unless `config` names one), the weights as pytorch_model.bin
     (BertModel's names, DistilBERT's or MPNet's for such a config,
     DebertaV2Model's for `deberta-v2`; ELECTRA's there too, the one file
-    the JAX package reads it from, fault 3.16), or for `modernbert` as
-    model.safetensors, the file its checkpoints are published in
-    (ModernBertModel's names), and tokenizer_config.json, with either
+    the JAX package reads it from, fault 3.16), or for `modernbert` and
+    the decoders as model.safetensors, the file their checkpoints are
+    published in (ModernBertModel's and DecoderModel's names), and
+    tokenizer_config.json (`tokenizer_config` as given, else:), with either
     `vocab` as vocab.txt (MPNetTokenizerFast's special tokens for an
     `mpnet` config, ElectraTokenizer's class for `electra`) or
     `tokenizer_json` (a Unigram tokenizer.json with XLM-R's special tokens,
@@ -369,18 +390,20 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     fixtures.camembert_tokenizer_config and deberta_v2_tokenizer_config; a
     BPE one with RoBERTa's, add_prefix_space false, or, for a `modernbert`
     config, a BPE one with its own specials and `PreTrainedTokenizerFast`'s
-    config, fixtures.modernbert_tokenizer_config)."""
+    config, fixtures.modernbert_tokenizer_config; for `qwen3` and `qwen2`
+    Qwen2Tokenizer's, fixtures.qwen2_tokenizer_config, and for `llama` and
+    `mistral` Llama-3's, fixtures.llama3_tokenizer_config)."""
     os.makedirs(path, exist_ok=True)
     config = {"model_type": "bert", **config}
     model_type = config["model_type"]
     rename = {"distilbert": _to_distilbert, "mpnet": _to_mpnet}.get(model_type)
     if rename is not None:
         state_dict = {rename(k): v for k, v in state_dict.items()}
-    if model_type not in ("distilbert", "modernbert"):
+    if model_type not in ("distilbert", "modernbert", *decoder.MODEL_TYPES):
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
-    if model_type == "modernbert":
+    if model_type in _SAFETENSORS:
         write_safetensors(os.path.join(path, "model.safetensors"), state_dict)
     else:
         torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
@@ -393,7 +416,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                       "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>",
                       "mask_token": "<mask>"}
         own = {"modernbert": modernbert_tokenizer_config, "camembert": camembert_tokenizer_config,
-               "deberta-v2": deberta_v2_tokenizer_config}.get(model_type)
+               "deberta-v2": deberta_v2_tokenizer_config, "qwen3": qwen2_tokenizer_config,
+               "qwen2": qwen2_tokenizer_config, "llama": llama3_tokenizer_config,
+               "mistral": llama3_tokenizer_config}.get(model_type)
         if own is not None:
             tok_config = own(tokenizer_json)
         elif bpe:
@@ -406,5 +431,7 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
         else:
             tok_class = "ElectraTokenizer" if model_type == "electra" else "BertTokenizer"
             tok_config = {"do_lower_case": do_lower_case, "tokenizer_class": tok_class}
+    if tokenizer_config is not None:
+        tok_config = tokenizer_config
     with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
         json.dump(tok_config, f)

@@ -1,0 +1,255 @@
+"""The decoder embedders' forward as one torch module (the port's K8 for
+`model_type` `qwen3`, `qwen2`, `llama` and `mistral`: Qwen3-Embedding,
+gte-Qwen2, Llama and e5-mistral).
+
+It computes what transformers' torch `Qwen3Model`, `Qwen2Model`,
+`LlamaModel` and `MistralModel` compute under their default attention
+(`sdpa`) on a padded batch with no cache, the models the JAX package's
+encoder (`models/hf_encoder.py` there) runs through its torch branch. It
+returns the last hidden state (pooling stays in models/hf_encoder.py):
+
+- `embed_tokens`; no position embedding;
+- each layer, pre-norm: `input_layernorm`, an RMSNorm (the mean square in
+  float32, `x * rsqrt(ms + eps)`, then the weight times that); `q_proj`,
+  `k_proj`, `v_proj` to `num_attention_heads` and `num_key_value_heads`
+  heads of `head_dim` (the config's, else hidden_size / heads: Qwen3-0.6B
+  has 16 heads of 128 on a 1024-wide model); biases on Q, K and V for
+  `qwen2` always, for `qwen3` and `llama` under `attention_bias` (on
+  `o_proj` too), for `mistral` never; for `qwen3` a per-head RMSNorm
+  (`q_norm`, `k_norm`) over head_dim before the rotary; rotary positions
+  on Q and K (models/modernbert.py's tables: transformers' default rotary
+  embedding at `rope_theta`, positions 0..L-1 in every row as
+  transformers gives them when no position ids are passed, left-padded
+  rows included; rotary scores depend only on the offset between
+  tokens); K and V repeated over `num_attention_heads //
+  num_key_value_heads` (each KV head serves its group of consecutive
+  query heads, transformers' `repeat_kv`); scores (Q K^T) times
+  `head_dim ** -0.5` as a float32 tensor on the device (fault 3.4),
+  softmax, times V; `o_proj`; the residual; `post_attention_layernorm`,
+  `down_proj(silu(gate_proj(x)) * up_proj(x))`, the residual;
+- the final `norm`.
+
+Key j is visible to query i iff j <= i and j is a real token. The mask
+replaces the scores of the keys a query does not see with float32's
+lowest, never adds to them; a query with no visible key (a left-padded
+row's pad tokens) gets an attention output of exactly 0, as torch's
+`scaled_dot_product_attention` gives transformers by default (hazard
+3.18): not the uniform average an additive mask gives (transformers'
+`eager`), and never NaN, which a zero pooling weight would not cancel.
+Attention is written as explicit products and a softmax, not
+`scaled_dot_product_attention`, which picks its own kernels and rounding.
+
+Parameter names are transformers' (`embed_tokens.weight`,
+`layers.{i}.input_layernorm.weight`,
+`layers.{i}.self_attn.{q,k,v,o}_proj.{weight,bias}`,
+`layers.{i}.self_attn.{q,k}_norm.weight`,
+`layers.{i}.post_attention_layernorm.weight`,
+`layers.{i}.mlp.{gate,up,down}_proj.weight`, `norm.weight`), so a
+checkpoint's tensors load by name (models/checkpoint.py).
+
+Everything runs in float32. On a CUDA device the forward raises when
+`torch.backends.cuda.matmul.allow_tf32` is set, as models/bert.py does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .modernbert import rotary, rotate_half
+
+MODEL_TYPES = ("qwen3", "qwen2", "llama", "mistral")
+# the longest batch the encoder gives the module (TextEncoder's max_len): a
+# sliding window at least this wide never bites
+MAX_LEN = 512
+# the widths a config must give (transformers' config names)
+CONFIG_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+               "num_attention_heads")
+# each family's transformers defaults for the keys its config may leave out
+_COMMON = {"hidden_act": "silu", "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+           "rope_scaling": None, "num_key_value_heads": None, "head_dim": None,
+           "attention_bias": False, "mlp_bias": False, "layer_types": None}
+DEFAULTS = {
+    "qwen3": {**_COMMON, "num_key_value_heads": 32, "head_dim": 128,
+              "use_sliding_window": False},
+    "qwen2": {**_COMMON, "num_key_value_heads": 32, "use_sliding_window": False},
+    "llama": _COMMON,
+    "mistral": {**_COMMON, "num_key_value_heads": 8, "sliding_window": 4096},
+}
+
+
+def check_config(config: dict) -> dict:
+    """Raise ValueError unless `config` describes a decoder this module
+    runs; return it with its family's defaults filled in, and
+    `num_key_value_heads` and `head_dim` resolved."""
+    kind = config.get("model_type")
+    if kind not in MODEL_TYPES:
+        raise ValueError(f"model_type `{kind}` is not one of {MODEL_TYPES}")
+    config = {**DEFAULTS[kind], **config}
+    missing = [k for k in CONFIG_KEYS if k not in config]
+    if missing:
+        raise ValueError(f"the {kind} config lacks {missing}")
+    if config["hidden_act"] != "silu":
+        raise ValueError(f"hidden_act `{config['hidden_act']}` is not supported: the port runs"
+                         " the SiLU-gated MLP only")
+    rope = config["rope_scaling"]
+    if rope is not None and (rope.get("rope_type", rope.get("type")) or "default") != "default":
+        raise ValueError(f"rope_scaling {rope} is not supported: the port runs the default"
+                         " rotary embedding only")
+    if config.get("partial_rotary_factor", 1.0) != 1.0:
+        raise ValueError("partial_rotary_factor is not supported: the port rotates the whole"
+                         " head")
+    if config.get("use_sliding_window"):
+        raise ValueError(f"use_sliding_window true is not supported for {kind}: the port runs"
+                         " full causal attention only")
+    window = config.get("sliding_window") if kind == "mistral" else None
+    if window is not None and window < MAX_LEN:
+        raise ValueError(f"sliding_window {window} is not supported: the port runs windows of"
+                         f" {MAX_LEN} tokens or more only, which never bite")
+    if config["mlp_bias"]:
+        raise ValueError("mlp_bias true is not supported: the port's MLP has no biases")
+    if "sliding_attention" in (config["layer_types"] or ()):
+        raise ValueError(f"layer_types {config['layer_types']} are not supported: the port runs"
+                         " full attention layers only")
+    heads = config["num_attention_heads"]
+    kv = config["num_key_value_heads"] or heads
+    if heads % kv:
+        raise ValueError(f"num_attention_heads {heads} is not a multiple of"
+                         f" num_key_value_heads {kv}")
+    if config["head_dim"] is None and config["hidden_size"] % heads:
+        raise ValueError("hidden_size is not a multiple of num_attention_heads")
+    head_dim = config["head_dim"] or config["hidden_size"] // heads
+    if head_dim % 2:
+        raise ValueError(f"head_dim {head_dim} is odd: the rotary embedding needs pairs")
+    return {**config, "num_key_value_heads": kv, "head_dim": head_dim}
+
+
+def attention_scale(head_dim: int, device: torch.device) -> torch.Tensor:
+    """head_dim ** -0.5 as a float32 tensor on `device` (fault 3.4: the
+    card multiplies by the same float32 the CPU does)."""
+    return torch.full((), head_dim ** -0.5, dtype=torch.float32, device=device)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, width: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(width))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        variance = x.pow(2).mean(-1, keepdim=True)
+        return self.weight * (x * torch.rsqrt(variance + self.eps))
+
+
+class _Attention(nn.Module):
+    def __init__(self, c: dict):
+        super().__init__()
+        h, d = c["hidden_size"], c["head_dim"]
+        self.heads, self.kv_heads, self.head_dim = (c["num_attention_heads"],
+                                                    c["num_key_value_heads"], d)
+        kind = c["model_type"]
+        qkv_bias = kind == "qwen2" or (kind in ("qwen3", "llama") and c["attention_bias"])
+        o_bias = kind in ("qwen3", "llama") and c["attention_bias"]
+        self.q_proj = nn.Linear(h, self.heads * d, bias=qkv_bias)
+        self.k_proj = nn.Linear(h, self.kv_heads * d, bias=qkv_bias)
+        self.v_proj = nn.Linear(h, self.kv_heads * d, bias=qkv_bias)
+        self.o_proj = nn.Linear(self.heads * d, h, bias=o_bias)
+        self.qk_norm = kind == "qwen3"
+        if self.qk_norm:
+            self.q_norm = RMSNorm(d, c["rms_norm_eps"])
+            self.k_norm = RMSNorm(d, c["rms_norm_eps"])
+
+    def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        B, L, _ = x.shape
+        q = self.q_proj(x).view(B, L, self.heads, self.head_dim)
+        k = self.k_proj(x).view(B, L, self.kv_heads, self.head_dim)
+        v = self.v_proj(x).view(B, L, self.kv_heads, self.head_dim).transpose(1, 2)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        q, k = q.transpose(1, 2), k.transpose(1, 2)  # (B, heads, L, d)
+        q = q * cos + rotate_half(q) * sin
+        k = k * cos + rotate_half(k) * sin
+        groups = self.heads // self.kv_heads
+        if groups > 1:
+            k = k.repeat_interleave(groups, dim=1)
+            v = v.repeat_interleave(groups, dim=1)
+        scores = torch.matmul(q, k.transpose(2, 3)) * scale
+        scores = scores.masked_fill(blocked, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores, dim=-1).masked_fill(blocked, 0.0)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, self.heads * self.head_dim)
+        return self.o_proj(out)
+
+
+class _MLP(nn.Module):
+    """down(silu(gate(x)) * up(x)), no biases."""
+
+    def __init__(self, c: dict):
+        super().__init__()
+        h, i = c["hidden_size"], c["intermediate_size"]
+        self.gate_proj = nn.Linear(h, i, bias=False)
+        self.up_proj = nn.Linear(h, i, bias=False)
+        self.down_proj = nn.Linear(i, h, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class _Layer(nn.Module):
+    def __init__(self, c: dict):
+        super().__init__()
+        h, eps = c["hidden_size"], c["rms_norm_eps"]
+        self.input_layernorm = RMSNorm(h, eps)
+        self.self_attn = _Attention(c)
+        self.post_attention_layernorm = RMSNorm(h, eps)
+        self.mlp = _MLP(c)
+
+    def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.input_layernorm(x), blocked, cos, sin, scale)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class DecoderModel(nn.Module):
+    """A Qwen3, Qwen2, Llama or Mistral decoder stack, widths from a
+    transformers-style config dict (`config` holds its config's names,
+    defaults filled in)."""
+
+    def __init__(self, config: dict):
+        super().__init__()
+        config = check_config(config)
+        self.config = config
+        self.embed_tokens = nn.Embedding(config["vocab_size"], config["hidden_size"])
+        self.layers = nn.ModuleList(_Layer(config) for _ in range(config["num_hidden_layers"]))
+        self.norm = RMSNorm(config["hidden_size"], config["rms_norm_eps"])
+
+    @staticmethod
+    def blocked(attention_mask: torch.Tensor) -> torch.Tensor:
+        """(B, 1, L, L) bool, True where key j is hidden from query i: j > i,
+        or j is padding."""
+        L = attention_mask.shape[1]
+        future = torch.ones((L, L), dtype=torch.bool, device=attention_mask.device).triu(1)
+        return future | (attention_mask[:, None, None, :] == 0)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """(B, L) int64 ids and 0/1 mask -> (B, L, hidden) float32, the
+        last hidden state."""
+        if input_ids.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "the text encoder needs full float32 matmuls:"
+                " torch.backends.cuda.matmul.allow_tf32 is True"
+            )
+        c = self.config
+        L = input_ids.shape[1]
+        if c.get("sliding_window") is not None and c["model_type"] == "mistral" \
+                and L > c["sliding_window"]:
+            raise ValueError(f"a batch of {L} tokens is longer than the sliding window"
+                             f" ({c['sliding_window']})")
+        x = self.embed_tokens(input_ids)
+        cos, sin = rotary(L, c["head_dim"], float(c["rope_theta"]), x.device)
+        blocked = self.blocked(attention_mask)
+        scale = attention_scale(c["head_dim"], x.device)
+        for layer in self.layers:
+            x = layer(x, blocked, cos, sin, scale)
+        return self.norm(x)

@@ -9,7 +9,10 @@ what the fast tokenizers' `save_pretrained` writes beside them),
 `roberta_tokenizer_json` a seeded
 byte-level BPE one as its RoBERTa converter writes it,
 `modernbert_tokenizer_json` and `modernbert_tokenizer_config` a seeded one
-in ModernBERT's layout and the config published beside it, and `mpnet_vocab`
+in ModernBERT's layout and the config published beside it,
+`qwen2_tokenizer_json` and `llama3_tokenizer_json` seeded ones in Qwen2's
+and Llama-3's layouts (their Split pre-tokenizers) with
+`qwen2_tokenizer_config` and `llama3_tokenizer_config`, and `mpnet_vocab`
 and `mpnet_tokenizer_config` an MPNet WordPiece vocabulary and the
 tokenizer_config.json `MPNetTokenizerFast.save_pretrained` writes beside
 it. No serving path calls them.
@@ -24,7 +27,7 @@ from typing import Optional
 
 import numpy as np
 
-from .bpe import byte_level_words, bytes_to_unicode
+from .bpe import LLAMA3_SPLIT, QWEN2_SPLIT, byte_level_words, bytes_to_unicode, split_pattern
 from .unigram import SPIECE
 
 
@@ -227,13 +230,15 @@ def _added_decoder(spec: dict) -> dict:
             for tok in spec["added_tokens"]}
 
 
-def train_merges(texts: list, n_merges: int) -> list:
+def train_merges(texts: list, n_merges: int, split: Optional[str] = None) -> list:
     """A small BPE trainer: up to `n_merges` merges over the ByteLevel words
-    of `texts`, each time the adjacent pair most frequent over the words
-    (on a tie, the smallest pair), until no pair occurs twice."""
+    of `texts` (cut by the Split pattern `split` where given), each time
+    the adjacent pair most frequent over the words (on a tie, the smallest
+    pair), until no pair occurs twice."""
+    pattern = None if split is None else split_pattern(split)
     words = Counter()
     for text in texts:
-        words.update(byte_level_words(text))
+        words.update(byte_level_words(text, split=pattern))
     split = {w: list(w) for w in words}
     pairs: Counter = Counter()
     where: dict = {}  # pair -> the words holding it
@@ -270,13 +275,13 @@ def train_merges(texts: list, n_merges: int) -> list:
 
 
 def _grow_vocab(vocab: dict, head: int, texts: list, size: int, seed: int,
-                n_trained: int) -> list:
+                n_trained: int, split: Optional[str] = None) -> list:
     """Add to `vocab` (`head` specials, then the 256 byte symbols) the
     merges of `train_merges` over `texts`, then seeded merges of two
     existing tokens (not specials) into a new one, until it holds `size`
     tokens; returns the merges."""
     merges = []
-    for a, b in train_merges(texts, n_trained):
+    for a, b in train_merges(texts, n_trained, split):
         if a + b not in vocab and len(vocab) < size:
             vocab[a + b] = len(vocab)
             merges.append([a, b])
@@ -398,6 +403,150 @@ def modernbert_tokenizer_config(spec: dict) -> dict:
             "sep_token": "[SEP]", "unk_token": "[UNK]",
             "model_input_names": ["input_ids", "attention_mask"], "model_max_length": 8192,
             "tokenizer_class": "PreTrainedTokenizerFast"}
+
+
+def _split_sequence(pattern: str, trim_offsets: bool) -> dict:
+    return {"type": "Sequence", "pretokenizers": [
+        {"type": "Split", "pattern": {"Regex": pattern}, "behavior": "Isolated", "invert": False},
+        {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": trim_offsets,
+         "use_regex": False}]}
+
+
+def _single_template(single: list, vocab: dict) -> dict:
+    """A TemplateProcessing of `single` (special tokens and "$A"), the pair
+    template the same with $B after $A."""
+
+    def items(seq: str, type_id: int) -> list:
+        return [{"Sequence": {"id": seq, "type_id": type_id}} if t == "$A" else
+                {"SpecialToken": {"id": t, "type_id": type_id}} for t in single]
+
+    return {"type": "TemplateProcessing", "single": items("A", 0),
+            "pair": items("A", 0) + items("B", 1),
+            "special_tokens": {t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
+                               for t in single if t != "$A"}}
+
+
+def _bpe_spec(vocab: dict, merges: list, added: list, normalizer: Optional[dict],
+              pre_tokenizer: dict, post_processor: dict, ignore_merges: bool = False) -> dict:
+    model = _bpe_model(vocab, merges)
+    model["ignore_merges"] = ignore_merges
+    return {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": normalizer, "pre_tokenizer": pre_tokenizer,
+            "post_processor": post_processor,
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True},
+            "model": model}
+
+
+# Qwen2's (and Qwen2.5's and Qwen3's) specials, from id 151,643 on at the
+# published size, right after the byte-level BPE; the tool-call and
+# thinking tags are not special
+QWEN2_SPECIALS = (
+    "<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>", "<|object_ref_end|>",
+    "<|box_start|>", "<|box_end|>", "<|quad_start|>", "<|quad_end|>", "<|vision_start|>",
+    "<|vision_end|>", "<|vision_pad|>", "<|image_pad|>", "<|video_pad|>", "<tool_call>",
+    "</tool_call>", "<|fim_prefix|>", "<|fim_middle|>", "<|fim_suffix|>", "<|fim_pad|>",
+    "<|repo_name|>", "<|file_sep|>", "<tool_response>", "</tool_response>", "<think>", "</think>",
+)
+QWEN2_PLAIN = ("<tool_call>", "</tool_call>", "<tool_response>", "</tool_response>", "<think>",
+               "</think>")
+
+
+def qwen2_tokenizer_json(texts: list, bpe_size: int, seed: int, n_trained: int = 4096,
+                         eos_template: bool = False) -> dict:
+    """A byte-level BPE tokenizer.json in Qwen2's layout: the 256 byte
+    symbols at ids 0-255, merges trained on `texts` through Qwen2's Split
+    pattern, then seeded merges, `bpe_size` BPE tokens in all (151,643
+    published), then QWEN2_SPECIALS (`<|endoftext|>` at `bpe_size`; none
+    normalized); NFC, Sequence[Split(QWEN2_SPLIT, Isolated), ByteLevel
+    (use_regex false)], and a ByteLevel post-processor, which adds
+    nothing, or with `eos_template` Qwen3-Embedding's `$A <|endoftext|>`."""
+    vocab: dict = {}
+    for sym in bytes_to_unicode().values():
+        vocab[sym] = len(vocab)
+    merges = _grow_vocab(vocab, 0, texts, bpe_size, seed, n_trained, QWEN2_SPLIT)
+    for t in QWEN2_SPECIALS:
+        if t in vocab:
+            raise ValueError(f"the special token {t!r} is already a BPE token")
+        vocab[t] = len(vocab)
+    added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": t not in QWEN2_PLAIN}
+             for t in QWEN2_SPECIALS]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                  "use_regex": False}
+    post = _single_template(["$A", "<|endoftext|>"], vocab) if eos_template else byte_level
+    return _bpe_spec(vocab, merges, added, {"type": "NFC"},
+                     _split_sequence(QWEN2_SPLIT, trim_offsets=False), post)
+
+
+def qwen2_tokenizer_config(spec: dict, padding_side: Optional[str] = None) -> dict:
+    """The tokenizer_config.json Qwen2's and Qwen3's checkpoints publish
+    beside such a tokenizer.json: class `Qwen2Tokenizer`, no bos, eos and
+    pad `<|endoftext|>`, no unk, every added token's flags; `padding_side`
+    where given (Qwen3-Embedding's is `left`)."""
+    config = {"add_prefix_space": False, "added_tokens_decoder": _added_decoder(spec),
+              "bos_token": None, "clean_up_tokenization_spaces": False,
+              "eos_token": "<|endoftext|>", "errors": "replace", "model_max_length": 32768,
+              "pad_token": "<|endoftext|>", "split_special_tokens": False,
+              "tokenizer_class": "Qwen2Tokenizer", "unk_token": None}
+    if padding_side is not None:
+        config["padding_side"] = padding_side
+    return config
+
+
+def llama3_specials(n_reserved: int) -> tuple:
+    """Llama-3.1's specials in their order, with `n_reserved` reserved ones
+    in all (248 published, 256 specials from id 128,000)."""
+    head = ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+            "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+            "<|reserved_special_token_2|>", "<|start_header_id|>", "<|end_header_id|>",
+            "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+    return (*head, *(f"<|reserved_special_token_{i}|>" for i in range(3, n_reserved)))
+
+
+def llama3_tokenizer_json(texts: list, bpe_size: int, seed: int, n_trained: int = 4096,
+                          n_reserved: int = 8) -> dict:
+    """A byte-level BPE tokenizer.json in Llama-3's layout: the 256 byte
+    symbols at ids 0-255, merges trained on `texts` through Llama-3's Split
+    pattern, then seeded merges, `bpe_size` BPE tokens in all (128,000
+    published), then `llama3_specials`; no normalizer,
+    Sequence[Split(LLAMA3_SPLIT, Isolated), ByteLevel (use_regex false)],
+    BPE with `ignore_merges`, and Sequence[ByteLevel, TemplateProcessing
+    `<|begin_of_text|> $A`]."""
+    vocab: dict = {}
+    for sym in bytes_to_unicode().values():
+        vocab[sym] = len(vocab)
+    merges = _grow_vocab(vocab, 0, texts, bpe_size, seed, n_trained, LLAMA3_SPLIT)
+    specials = llama3_specials(n_reserved)
+    for t in specials:
+        if t in vocab:
+            raise ValueError(f"the special token {t!r} is already a BPE token")
+        vocab[t] = len(vocab)
+    added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True} for t in specials]
+    post = {"type": "Sequence", "processors": [
+        {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False, "use_regex": True},
+        _single_template(["<|begin_of_text|>", "$A"], vocab)]}
+    return _bpe_spec(vocab, merges, added, None, _split_sequence(LLAMA3_SPLIT, trim_offsets=True),
+                     post, ignore_merges=True)
+
+
+def llama3_tokenizer_config(spec: dict, pad_token: str = "<|finetune_right_pad_id|>",
+                            padding_side: Optional[str] = None) -> dict:
+    """The tokenizer_config.json Llama-3's checkpoints publish beside such a
+    tokenizer.json (class `PreTrainedTokenizerFast`, bos
+    `<|begin_of_text|>`, eos `<|end_of_text|>`, `model_input_names`
+    without token types, every added token's flags), with `pad_token`,
+    which Llama-3 does not publish and batched embedding needs, and
+    `padding_side` where given."""
+    config = {"added_tokens_decoder": _added_decoder(spec), "bos_token": "<|begin_of_text|>",
+              "clean_up_tokenization_spaces": True, "eos_token": "<|end_of_text|>",
+              "model_input_names": ["input_ids", "attention_mask"],
+              "model_max_length": 131072, "pad_token": pad_token,
+              "tokenizer_class": "PreTrainedTokenizerFast"}
+    if padding_side is not None:
+        config["padding_side"] = padding_side
+    return config
 
 
 # all-mpnet-base-v2's first ids (bos, pad, eos, and an unused <unk>: its

@@ -1,7 +1,8 @@
 """In-process text embedding on the store's device (K8).
 
-Reference behavior: milli vector/embedder/hf.rs — a BERT-family checkpoint
-pulled from the hub, tokenized, mean/CLS-pooled, optionally L2-normalized;
+Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
+families, ModernBERT, DeBERTa-v2) or decoder (Qwen3, Qwen2, Llama,
+Mistral) checkpoint pulled from the hub, tokenized, mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
 embeddings (LRU-cached upstream). Zero-egress deployments point `model`
 at a local path.
@@ -13,11 +14,13 @@ its own pieces and no transformers: the checkpoint directory is read by
 models/checkpoint.py, texts are tokenized on the host by
 models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's,
 CamemBERT's and DeBERTa-v3's vocabularies), models/unigram.py, or, for
-RoBERTa's byte-level BPE, models/bpe.py (all three with `tokenizers`' own
-Unicode tables, models/unicode.py), and models/bert.py's `BertModel`
-(BERT, RoBERTa, XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA),
-models/modernbert.py's `ModernBertModel` or models/deberta_v2.py's
-`DebertaV2Model` runs on the device
+a byte-level BPE (RoBERTa's, ModernBERT's, Qwen2's, Llama-3's),
+models/bpe.py (all three with `tokenizers`' own Unicode tables,
+models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
+XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA),
+models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
+`DebertaV2Model` or models/decoder.py's `DecoderModel` (Qwen3, Qwen2,
+Llama and Mistral) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state; otherwise the mean over the attention mask), and
 the result is L2-normalized in numpy exactly as there. Only a local
@@ -40,6 +43,7 @@ import torch
 from ..ops.chain_keys import LaunchCounter
 from .checkpoint import build_model, build_tokenizer, load_checkpoint
 from .deberta_v2 import attention_span
+from .decoder import MODEL_TYPES as DECODER_TYPES
 
 # Texts per forward pass. 256 texts of 128 tokens give each linear layer
 # 32,768 rows, enough to fill the card; at the 512-token limit, the largest
@@ -84,12 +88,16 @@ class TextEncoder:
             return CHUNK_TEXTS
         c = self._model.config
         L, heads = self.max_len, c["num_attention_heads"]
-        # the feed-forward's widest activation: ModernBERT's GeGLU projects
-        # to both halves, 2 x intermediate_size
-        ffn = c["intermediate_size"] * (2 if c.get("model_type") == "modernbert" else 1)
+        gated = c.get("model_type") in ("modernbert", *DECODER_TYPES)
+        # the feed-forward's widest activation: ModernBERT's GeGLU and the
+        # decoders' gated MLP project to two halves, 2 x intermediate_size
+        ffn = c["intermediate_size"] * (2 if gated else 1)
+        # the widest of the hidden width and Q's heads x head_dim (a
+        # decoder's head_dim need not be hidden_size / heads)
+        width = max(c["hidden_size"], heads * (c.get("head_dim") or 0))
         # per text at max_len: scores, their bias sum and softmax, and the
         # hidden, intermediate and projection activations, float32
-        per_text = 4 * (3 * heads * L * L + L * (6 * c["hidden_size"] + 2 * ffn))
+        per_text = 4 * (3 * heads * L * L + L * (6 * width + 2 * ffn))
         if c.get("model_type") == "deberta-v2" and c["relative_attention"]:
             # DeBERTa's c2p and p2c: two (heads, L, 2 span) products and
             # their two (heads, L, L) gathers

@@ -193,7 +193,7 @@ def test_byte_symbols_are_gpt2s():
     ({"dropout": 0.1}, "dropout"),
     ({"continuing_subword_prefix": "##"}, "continuing_subword_prefix"),
     ({"end_of_word_suffix": "</w>"}, "end_of_word_suffix"),
-    ({"ignore_merges": True}, "ignore_merges"),
+    ({"fuse_unk": True}, "fuse_unk"),
     ({"vocab": {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, "<mask>": 4}, "merges": []},
      "byte symbols"),
     ({"normalizer": {"type": "NFKC"}}, "normalizer `NFKC`"),
@@ -205,6 +205,191 @@ def test_unread_bpe_files_are_refused_by_name(change, match):
         (spec["model"] if key in spec["model"] else spec)[key] = value
     with pytest.raises(ValueError, match=match):
         bpe.BPE(spec)
+
+
+# -- Qwen2's and Llama-3's Split pre-tokenizers, and their fixture files --------
+
+SPLITS = {"qwen2": bpe.QWEN2_SPLIT, "llama3": bpe.LLAMA3_SPLIT}
+CODE_POINTS = [c for c in range(0x110000) if not 0xD800 <= c <= 0xDFFF]
+CHUNK = 1 << 15
+
+
+def _split_ref(name):
+    return tokenizers.pre_tokenizers.Split(tokenizers.Regex(SPLITS[name]), behavior="isolated",
+                                           invert=False)
+
+
+def _code_point_texts():
+    """Every code point alone (joined by newlines) and between two letters
+    (the contexts of tests/test_torch_unicode_tables.py); every cased one
+    (a superset of those that fold to the contractions' letters) after an
+    apostrophe inside a word, where `(?i:'s|...)` decides."""
+    for i in range(0, len(CODE_POINTS), CHUNK):
+        chars = [chr(c) for c in CODE_POINTS[i:i + CHUNK]]
+        yield "\n".join(chars)
+        yield "".join(f"a{c}b" for c in chars)
+    cased = [chr(c) for c in CODE_POINTS
+             if chr(c).lower() != chr(c) or chr(c).upper() != chr(c)
+             or chr(c).casefold() != chr(c)]
+    yield "".join(f"x'{c}y " for c in cased)
+
+
+@pytest.mark.parametrize("name", SPLITS)
+def test_split_patterns_on_every_code_point(name):
+    """The port's Python regex for the published pattern cuts every code
+    point where `tokenizers`' Split (Oniguruma, its \\p{L}, \\p{N}, \\s and
+    case folding) cuts it."""
+    ref, port = _split_ref(name), bpe.split_pattern(SPLITS[name])
+    for text in _code_point_texts():
+        got, want = port.findall(text), [w for w, _ in ref.pre_tokenize_str(text)]
+        if got != want:
+            i = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            raise AssertionError(f"piece {i}: port {got[i:i + 3]!r}, tokenizers {want[i:i + 3]!r}")
+
+
+PINS = [
+    ("x'ſy x'Sy x'Ty x'RE x'vEz 'LL'D it's", None),
+    ("a\r\n\r\n  b  \n c\r\r\n \n\n", None),
+    ("1 12 123 1234 12345 123456 1234567 x1234567y ①②③ ٣٤٥٦", None),
+    ("hello!!\n\n world... ?\r\n", None),
+]
+
+
+@pytest.mark.parametrize("name", SPLITS)
+def test_split_pins(name):
+    """`'ſ` and `'S` under `(?i:...)`, runs of \\r\\n, and digit runs of 1 to 7
+    (Qwen2's one digit a piece, Llama-3's up to three)."""
+    ref, port = _split_ref(name), bpe.split_pattern(SPLITS[name])
+    for text, _ in PINS:
+        assert port.findall(text) == [w for w, _ in ref.pre_tokenize_str(text)], text
+    assert port.findall("x'ſy x'Sy") == ["x", "'ſ", "y", " x", "'S", "y"]
+    assert port.findall("a\r\n\r\n  b") == ["a", "\r\n\r\n", " ", " b"]
+    digits = port.findall("1234567")
+    assert digits == (list("1234567") if name == "qwen2" else ["123", "456", "7"])
+
+
+def _decoder_dir(path, spec, config):
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump(config, f)
+    return path
+
+
+DECODER_TEXTS = TEXTS + [
+    "x'ſy it'S we'LL", "a\r\n\r\n  b  \n c", "1 12 123 1234567 x1234567y",
+    "<|endoftext|>x<|im_start|> <think>y</think>", "<|begin_of_text|> <|eot_id|>z",
+    "café café", " ".join(WORDS * 30),
+]
+
+
+@pytest.fixture(scope="module")
+def decoder_dirs(tmp_path_factory):
+    """Qwen2's layout (right and left padding, and Qwen3-Embedding's
+    `$A <|endoftext|>` with left padding and left truncation) and
+    Llama-3's (right and left padding), as models/fixtures.py writes
+    them."""
+    from meilisearch_tpu_torch.models import fixtures
+
+    root = tmp_path_factory.mktemp("decoder_tokenizers")
+    qwen = fixtures.qwen2_tokenizer_json(CORPUS, 1500, seed=21)
+    qwen_eos = fixtures.qwen2_tokenizer_json(CORPUS, 1500, seed=21, eos_template=True)
+    llama = fixtures.llama3_tokenizer_json(CORPUS, 1500, seed=22)
+    return {
+        "qwen2-right": _decoder_dir(root / "q-r", qwen, fixtures.qwen2_tokenizer_config(qwen)),
+        "qwen2-left": _decoder_dir(root / "q-l", qwen,
+                                   fixtures.qwen2_tokenizer_config(qwen, "left")),
+        "qwen3emb-left": _decoder_dir(root / "q3-l", qwen_eos, {
+            **fixtures.qwen2_tokenizer_config(qwen_eos, "left"), "truncation_side": "left"}),
+        "llama3-right": _decoder_dir(root / "l-r", llama, fixtures.llama3_tokenizer_config(llama)),
+        "llama3-left": _decoder_dir(root / "l-l", llama,
+                                    fixtures.llama3_tokenizer_config(llama, padding_side="left")),
+    }
+
+
+@pytest.mark.parametrize("layout", ["qwen2-right", "qwen2-left", "qwen3emb-left", "llama3-right",
+                                    "llama3-left"])
+def test_decoder_fixture_files_match_autotokenizer(decoder_dirs, layout):
+    """Ids, masks and padding side, text by text and as padded batches cut
+    at 512 and at 8 tokens."""
+    path = decoder_dirs[layout]
+    ref = transformers.AutoTokenizer.from_pretrained(path)
+    assert type(ref).__name__ == ("PreTrainedTokenizerFast" if layout.startswith("llama3")
+                                  else "Qwen2TokenizerFast")
+    assert ref.padding_side == layout.rsplit("-", 1)[1]
+    port = _port(path)
+    assert port.padding_side == ref.padding_side and port.split is not None
+    for text in DECODER_TEXTS[-12:]:
+        assert port([text], 512)[0].tolist() == ref([text], truncation=True,
+                                                    max_length=512)["input_ids"], text
+    for max_len in (512, 8):
+        assert _agrees(port, ref, DECODER_TEXTS, max_len), max_len
+
+
+@pytest.mark.parametrize("ignore", [True, False])
+def test_ignore_merges_takes_a_whole_word(decoder_dirs, tmp_path, ignore):
+    """A word the vocabulary holds whole but no merge reaches: with
+    `ignore_merges` (Llama-3's) its own id, without it the merged pieces;
+    as `tokenizers` does either way."""
+    with open(os.path.join(decoder_dirs["llama3-right"], "tokenizer.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    with open(os.path.join(decoder_dirs["llama3-right"], "tokenizer_config.json")) as f:
+        config = json.load(f)
+    vocab = spec["model"]["vocab"]
+    word = "Ġzqxj"  # " zqxj" in byte symbols
+    assert word not in vocab
+    vocab[word] = max(vocab.values()) + 1
+    for tok in spec["added_tokens"]:  # the specials move up one
+        tok["id"] += 1
+        vocab[tok["content"]] = tok["id"]
+    spec["post_processor"]["processors"][1]["special_tokens"]["<|begin_of_text|>"]["ids"] = [
+        vocab["<|begin_of_text|>"]]
+    config["added_tokens_decoder"] = {str(t["id"]): {k: t[k] for k in (
+        "content", "lstrip", "normalized", "rstrip", "single_word", "special")}
+        for t in spec["added_tokens"]}
+    spec["model"]["ignore_merges"] = ignore
+    path = _decoder_dir(tmp_path / "ignore", spec, config)
+    ref = transformers.AutoTokenizer.from_pretrained(path)
+    port = _port(path)
+    ids = port.ids("a zqxj")
+    assert ids == ref("a zqxj", add_special_tokens=False)["input_ids"]
+    assert (vocab[word] in ids) == ignore
+    assert _agrees(port, ref, DECODER_TEXTS, 512)
+
+
+@pytest.mark.parametrize("layout, change, match", [
+    ("llama3-right", {"tokenizer_class": "LlamaTokenizerFast"}, "LlamaTokenizerFast"),
+    ("llama3-right", {"tokenizer_class": None}, "LlamaTokenizerFast"),
+    ("qwen2-right", {"padding_side": "middle"}, "padding_side"),
+    ("qwen2-right", {"pad_token": None}, "pad token"),
+])
+def test_unread_decoder_tokenizer_configs_are_refused(decoder_dirs, layout, change, match):
+    """Llama-2's and Mistral's sentencepiece class (named, or the `llama`
+    and `mistral` default), another padding side, no pad token."""
+    path = decoder_dirs[layout]
+    with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    with open(os.path.join(path, "tokenizer_config.json")) as f:
+        config = {**json.load(f), **change}
+    config = {k: v for k, v in config.items() if not (k == "tokenizer_class" and v is None)}
+    with pytest.raises(ValueError, match=match):
+        bpe.BPE(spec, config, "llama" if layout.startswith("llama3") else "qwen2")
+
+
+@pytest.mark.parametrize("change, match", [
+    (lambda pre: pre["pretokenizers"][0]["pattern"].update(
+        Regex=bpe.QWEN2_SPLIT.replace("\\p{N}", "\\p{N}+", 1)), "Split pattern"),
+    (lambda pre: pre["pretokenizers"][0].update(behavior="Removed"), "Split behavior"),
+    (lambda pre: pre["pretokenizers"][1].update(use_regex=True), "use_regex"),
+    (lambda pre: pre["pretokenizers"].reverse(), "pre-tokenizer `Sequence`"),
+], ids=["pattern", "behavior", "use_regex", "order"])
+def test_unread_split_pre_tokenizers_are_refused(decoder_dirs, change, match):
+    with open(os.path.join(decoder_dirs["qwen2-right"], "tokenizer.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    change(spec["pre_tokenizer"])
+    with pytest.raises(ValueError, match=match):
+        bpe.BPE(spec, {"tokenizer_class": "Qwen2Tokenizer"})
 
 
 # -- the checkpoint and the encoder --------------------------------------------

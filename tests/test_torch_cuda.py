@@ -627,6 +627,79 @@ def test_family_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, family
     assert float(np.abs(got - want).max()) <= 1e-5
 
 
+# each decoder family at a published checkpoint's widths, cut to 2 layers:
+# Qwen3-Embedding-0.6B, gte-Qwen2-1.5B-instruct, Llama-3.2-1B and
+# e5-mistral-7b-instruct
+DECODER_WIDTHS = {
+    "qwen3": {"hidden_size": 1024, "num_attention_heads": 16, "num_key_value_heads": 8,
+              "head_dim": 128, "intermediate_size": 3072, "rope_theta": 1e6},
+    "qwen2": {"hidden_size": 1536, "num_attention_heads": 12, "num_key_value_heads": 2,
+              "intermediate_size": 8960, "rope_theta": 1e6},
+    "llama": {"hidden_size": 2048, "num_attention_heads": 32, "num_key_value_heads": 8,
+              "head_dim": 64, "intermediate_size": 8192, "rope_theta": 5e5},
+    "mistral": {"hidden_size": 4096, "num_attention_heads": 32, "num_key_value_heads": 8,
+                "intermediate_size": 14336, "rope_theta": 1e4, "sliding_window": 4096},
+}
+
+
+def _decoder_checkpoint(path, kind, seed=0):
+    """A decoder checkpoint at DECODER_WIDTHS[kind] with 2 layers, written
+    by the port as model.safetensors with a seeded byte-level BPE in
+    Qwen2's layout (qwen3, qwen2) or Llama-3's (llama, mistral) and
+    tokenizer_config.json's padding_side `left`, as Qwen3-Embedding
+    publishes; RMSNorm weights and Qwen2's biases drawn off their
+    defaults."""
+    from meilisearch_tpu_torch.models import fixtures
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.decoder import DecoderModel
+
+    texts = _enc_texts(200, seed)
+    if kind.startswith("qwen"):
+        spec = fixtures.qwen2_tokenizer_json(texts, 1500, seed=seed, eos_template=True)
+        tok_config = fixtures.qwen2_tokenizer_config(spec, padding_side="left")
+    else:
+        spec = fixtures.llama3_tokenizer_json(texts, 1500, seed=seed)
+        tok_config = fixtures.llama3_tokenizer_config(spec, padding_side="left")
+    config = {"model_type": kind, "vocab_size": len(spec["model"]["vocab"]),
+              "num_hidden_layers": 2, "rms_norm_eps": 1e-6, "hidden_act": "silu",
+              **DECODER_WIDTHS[kind]}
+    torch.manual_seed(seed)
+    model = DecoderModel(config)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name or name.endswith("bias"):
+                p.add_(torch.randn(p.shape) * 0.1)
+    write_checkpoint(str(path), config, model.state_dict(), tokenizer_json=spec,
+                     tokenizer_config=tok_config)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("kind", ["qwen3", "qwen2", "llama", "mistral"])
+def test_decoder_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, kind, pooling):
+    """The decoders' causal GQA, rotary positions and gated MLP on the
+    card: a left-padded batch of short texts beside ones of 200 to 512
+    tokens (under forceCls the short ones pool a pad query that sees no
+    key), against the CPU within ENC_TOL (1e-4)."""
+    from meilisearch_tpu_torch.models import hf_encoder
+    from meilisearch_tpu_torch.models.decoder import DecoderModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _decoder_checkpoint(tmp_path, kind, seed=16)
+    texts = _enc_texts(15, seed=17) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80), "",
+                                       "x'Sy it's 1234567 a\r\n\r\n b"]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert isinstance(card._model, DecoderModel) and card._model.config["model_type"] == kind
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    assert int(mask[:, 0].min()) == 0 and int(mask[:, -1].min()) == 1  # left padding
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
 def test_encoder_chunks_on_the_card(cuda_device, tmp_path, monkeypatch):
     """Chunks of 3 texts on the card, each padded to its own longest,
     against one CPU pass; the chunk size read from the card's memory."""
