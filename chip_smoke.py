@@ -92,7 +92,7 @@ Phases, each fatal on failure:
      device clock, the chunk against its float32 bound;
   8. chain scorer and scatter-gather (run right after phase 3, on its
      store): `entry.entry()` once against the plain version;
-     `entry.dryrun_multichip(1)` in a one-rank NCCL group over 500,000
+     `entry.dryrun_multichip(1)` in a one-rank NCCL group over 250,000
      documents (keyword, typo, tie-block and filter top-10, facet
      histogram and vector top-10, each against the host), then each
      collective it made timed alone in a one-rank NCCL group; the executor
@@ -202,7 +202,25 @@ Phases, each fatal on failure:
      under mean pooling, card against CPU, tokens/s and the host share,
      peak device memory, 256 hybrid responses against the host pass, a
      query's forward and launches against its weight-read bound, and one
-     chunk against its float32 bound.
+     chunk against its float32 bound;
+  16. EmbeddingGemma path (hn10k-embeddinggemma-hf): a checkpoint at
+     google/embeddinggemma-300m's published config.json widths and depth
+     (gemma3_text: vocab 262,144, hidden 768, 24 layers, 3 heads of 256
+     over 1 KV head, intermediate 1,152, five sliding layers then one
+     full, bidirectional; seeded random weights at initializer_range 0.02,
+     written as model.safetensors) with a seeded 262,144-piece
+     sentencepiece BPE in GemmaConverter's layout (byte fallback to the
+     256 <0xNN> pieces, unk at 3) and GemmaTokenizer's
+     tokenizer_config.json with add_bos_token and add_eos_token
+     (models/fixtures.py), through its own App as phase 11 over 10,000
+     documents: the encoder on the card against the CPU within ENC_TOL on
+     texts that fall back to bytes (emoji, CJK, accents, runs of unknown
+     symbols), a left-padded batch under forceCls and under mean pooling,
+     and a 2-layer checkpoint of the same widths with a 16-token
+     sliding window on phase 13's long texts, each card against CPU;
+     tokens/s and the host share, peak device memory, 256 hybrid responses
+     against the host pass, a query's forward and launches against its
+     weight-read bound, and one chunk against its float32 bound.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -275,8 +293,9 @@ K6_TOPK = 10  # the k at which the top-k mode and chain_query_topk are timed
 # 9 lexicographic mins of 12 compares and 6 selects, 3 mask selects and
 # 4 skip adds; the final 3 mins and the clip; the keys mode's packing
 K6_OPS_FIRST, K6_OPS_TERM, K6_OPS_FINAL, K6_OPS_PACK = 18, 223, 60, 30
-# the dry run's depth: the keyword phase's
-DRYRUN_DOCS = 500_000
+# the dry run's depth: half the keyword phase's, the cut that keeps the
+# whole script under 750 s with phase 16
+DRYRUN_DOCS = 250_000
 # the dry run's queries (meilisearch_tpu_torch/entry.py), served through
 # the executor with MEILI_TPU_DEVICE=1 beside QUERIES
 CHAIN_QUERIES = [
@@ -447,6 +466,39 @@ QWEN3_EMBEDDING_CONFIG = {
 }
 QWEN3_BPE_SIZE = 151_643
 P15_DOCS, P15_SEED = 10_000, 2031
+# phase 16, hn10k-embeddinggemma-hf: google/embeddinggemma-300m's
+# published config.json (gemma3_text, bidirectional: its sliding_window 512
+# reaches 512 // 2 + 1 = 257 tokens each way once transformers' config is
+# built) with seeded random weights at its initializer_range 0.02, a seeded
+# 262,144-piece sentencepiece BPE in GemmaConverter's layout (pad 0, eos 1,
+# bos 2, unk 3, the 256 <0xNN> byte pieces) and GemmaTokenizer's
+# tokenizer_config.json with add_bos_token and add_eos_token both true.
+# 10,000 of the configuration's 150,000 hackernews documents: phase 15's
+# depth cut; widths, depth and vocabulary size are the published ones
+EMBEDDINGGEMMA_CONFIG = {
+    "model_type": "gemma3_text", "vocab_size": 262_144, "hidden_size": 768,
+    "intermediate_size": 1152, "num_hidden_layers": 24, "num_attention_heads": 3,
+    "num_key_value_heads": 1, "head_dim": 256, "query_pre_attn_scalar": 256,
+    "sliding_window": 512, "layer_types": (["sliding_attention"] * 5 + ["full_attention"]) * 4,
+    "rope_theta": 1_000_000.0, "rope_local_base_freq": 10_000.0, "rope_scaling": None,
+    "rms_norm_eps": 1e-6, "hidden_activation": "gelu_pytorch_tanh", "attention_bias": False,
+    "attention_dropout": 0.0, "attn_logit_softcapping": None, "final_logit_softcapping": None,
+    "use_bidirectional_attention": True, "max_position_embeddings": 2048,
+    "initializer_range": 0.02, "tie_word_embeddings": True, "pad_token_id": 0,
+    "eos_token_id": 1, "bos_token_id": 2,
+}
+# the window check's checkpoint: the same widths, 2 layers (one sliding,
+# one full), a 16-token sliding_window (a reach of 9), on the long texts
+GEMMA_WINDOW_CONFIG = {**EMBEDDINGGEMMA_CONFIG, "num_hidden_layers": 2, "sliding_window": 16,
+                       "layer_types": ["sliding_attention", "full_attention"]}
+P16_DOCS, P16_SEED = 10_000, 2032
+# characters the vocabulary lacks fall back to their UTF-8 bytes: emoji,
+# CJK, accents, runs of unknown symbols; Gemma's specials and its
+# non-special added tokens
+P16_TEXT = ["\U0001F680\U0001F680\U0001F680 ✈✈ \U0001F44D\U0001F3FD", "é è ê ë ñ ß",
+            "中文字搜索 東京", "⹃㋿Ᲊꟲ\U00010781",
+            "<start_of_turn>user hello<end_of_turn>", "x<table>y <h1>z</h1>", "<bos>a<eos>b",
+            "\u200b\ufeff\x00\x07 tab\there"]
 # Qwen2's specials, contractions under (?i:...), digit runs and newlines
 P15_TEXT = ["x'Sy it'S we'LL don'T x'\u017fy", "<|endoftext|> inside <|im_start|>user<|im_end|>",
             "<think>reason</think> answer", "1 12 123 1234567 3.14159", "a\r\n\r\n  b  \n c"]
@@ -1169,24 +1221,29 @@ def bge_vocab() -> list:
 
 def random_state_dict(config: dict, seed: int) -> dict:
     """BERT's initialization of a model of `config` (XLM-R's, DistilBERT's,
-    MPNet's, ModernBERT's and the decoders' too): weights, MPNet's
-    relative attention bias table among them, normal(0, BGE_INIT_STD)
-    from a seeded torch.Generator, biases 0, LayerNorm and RMSNorm scales
-    1. The module is built on the meta device for its names and shapes."""
+    MPNet's, ModernBERT's, the decoders' and Gemma 3's too): weights,
+    MPNet's relative attention bias table among them, normal(0,
+    BGE_INIT_STD) from a seeded torch.Generator, biases 0, LayerNorm and
+    RMSNorm scales 1 (Gemma's `1 + w` RMSNorm weights 0, as transformers
+    starts them). The module is built on the meta device for its names and
+    shapes."""
     import torch
 
+    from meilisearch_tpu_torch.models import gemma3
     from meilisearch_tpu_torch.models.checkpoint import new_model
     from meilisearch_tpu_torch.models.decoder import RMSNorm
 
     with torch.device("meta"):
         model = new_model(config)
-    norms = {f"{m}.{p}" for m, mod in model.named_modules()
-             if isinstance(mod, (torch.nn.LayerNorm, RMSNorm)) for p, _ in mod.named_parameters()}
+    norms = {f"{m}.{p}": 0.0 if isinstance(mod, gemma3.RMSNorm) or p != "weight" else 1.0
+             for m, mod in model.named_modules()
+             if isinstance(mod, (torch.nn.LayerNorm, RMSNorm, gemma3.RMSNorm))
+             for p, _ in mod.named_parameters()}
     g = torch.Generator().manual_seed(seed)
     state = {}
     for name, p in model.named_parameters():
         if name in norms:
-            state[name] = torch.full(p.shape, 1.0 if name.endswith("weight") else 0.0)
+            state[name] = torch.full(p.shape, norms[name])
         elif name.endswith("bias"):
             state[name] = torch.zeros(p.shape)
         else:
@@ -1868,6 +1925,78 @@ def qwen3_embedding_phase(device, card: str, n_docs: int) -> dict:
                   check_texts=P11_CHECK_TEXT + P15_TEXT, tokenizer="BPE", model_type="qwen3",
                   checks=(left_pad_check,))
     say(f"phase 15 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def embeddinggemma_spec() -> dict:
+    """The 262,144-piece tokenizer.json in GemmaConverter's layout, its
+    merges trained on the phase's own texts; checked against the config's
+    vocabulary size and special ids."""
+    from meilisearch_tpu_torch.models.fixtures import gemma_tokenizer_json
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(BPE_TRAIN_DOCS, seed=P16_SEED)]
+    spec = gemma_tokenizer_json(texts + P11_TEXT, EMBEDDINGGEMMA_CONFIG["vocab_size"],
+                                seed=P16_SEED)
+    vocab = spec["model"]["vocab"]
+    c = EMBEDDINGGEMMA_CONFIG
+    if len(vocab) != c["vocab_size"] or [vocab[t] for t in ("<pad>", "<eos>", "<bos>", "<unk>")] \
+            != [c["pad_token_id"], c["eos_token_id"], c["bos_token_id"], 3]:
+        raise AssertionError("the tokenizer is not laid out as EmbeddingGemma's")
+    return spec
+
+
+def write_gemma_checkpoint(path: str, config: dict, seed: int, spec: dict) -> None:
+    """A gemma3_text checkpoint of `config` (Gemma3Model's names, seeded
+    weights), written as model.safetensors beside `spec` and
+    GemmaTokenizer's tokenizer_config.json with add_bos_token and
+    add_eos_token both true."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import gemma_tokenizer_config
+
+    write_checkpoint(path, config, random_state_dict(config, seed), tokenizer_json=spec,
+                     tokenizer_config=gemma_tokenizer_config(spec, add_eos_token=True))
+
+
+def window_check(path: str, device, label: str) -> float:
+    """GEMMA_WINDOW_CONFIG's 2-layer checkpoint beside `path`'s tokenizer
+    files: phase 13's long texts in one batch (`long_check`), after
+    checking that its reach (9 tokens) is under their lengths."""
+    import json
+    import os
+    import tempfile
+
+    from meilisearch_tpu_torch.models.gemma3 import check_config
+
+    with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    reach = check_config(GEMMA_WINDOW_CONFIG)["window"]
+    with tempfile.TemporaryDirectory() as small:
+        write_gemma_checkpoint(small, GEMMA_WINDOW_CONFIG, P16_SEED + 1, spec)
+        if reach >= LONG_TOKENS:
+            raise AssertionError(f"the window ({reach} tokens) would not bite")
+        return long_check(small, device, f"{label} 2 layers, sliding_window 16 (reach {reach})",
+                          texts=long_check_texts(P16_SEED))
+
+
+def embeddinggemma_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 16, the EmbeddingGemma path: hn10k-embeddinggemma-hf through
+    its own App (`hf_path`), with the left-padded check and the window
+    check."""
+    t_phase = time.perf_counter()
+    spec = embeddinggemma_spec()
+    say(f"EmbeddingGemma tokenizer ({len(spec['model']['vocab'])} pieces,"
+        f" {len(spec['model']['merges'])} merges) built in {time.perf_counter() - t_phase:.3f} s")
+    out = hf_path(device, card, n_docs, label="embeddinggemma-300m", index="eg",
+                  write=lambda path: write_gemma_checkpoint(path, EMBEDDINGGEMMA_CONFIG, P16_SEED,
+                                                            spec),
+                  seed=P16_SEED, queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P16_TEXT,
+                  tokenizer="BPE", model_type="gemma3_text",
+                  checks=(left_pad_check, window_check))
+    say(f"phase 16 wall: {time.perf_counter() - t_phase:.3f} s")
     return out
 
 
@@ -2837,6 +2966,7 @@ def main() -> int:
     modernbert_phase(device, card, P13_DOCS)
     families_phase(device, card, P14_DOCS)
     qwen3_embedding_phase(device, card, P15_DOCS)
+    embeddinggemma_phase(device, card, P16_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

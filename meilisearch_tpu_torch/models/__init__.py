@@ -3,10 +3,10 @@
 Reference: milli's huggingFace embedder runs candle BERT inference
 in-process (vector/embedder/hf.rs); here a BERT, RoBERTa, XLM-RoBERTa,
 CamemBERT, DistilBERT, MPNet, ELECTRA, ModernBERT, DeBERTa-v2, Qwen3,
-Qwen2, Llama or Mistral checkpoint directory is read, tokenized and run
-by the port's own modules (checkpoint.py; wordpiece.py, unigram.py or
-bpe.py over unicode.py's tables; bert.py, modernbert.py, deberta_v2.py
-or decoder.py) on the store's device.
+Qwen2, Llama, Mistral or Gemma 3 checkpoint directory is read, tokenized
+and run by the port's own modules (checkpoint.py; wordpiece.py,
+unigram.py or bpe.py over unicode.py's tables; bert.py, modernbert.py,
+deberta_v2.py, decoder.py or gemma3.py) on the store's device.
 """
 
 from .hf_encoder import TextEncoder, encode_text

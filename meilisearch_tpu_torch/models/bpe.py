@@ -1,32 +1,39 @@
-"""Byte-level BPE tokenization, as the `tokenizers` library runs it (what
-`AutoTokenizer` gives a RoBERTa checkpoint, `RobertaTokenizerFast`, a
-ModernBERT or Llama-3 one, `PreTrainedTokenizerFast`, and a Qwen2 or
-Qwen3 one, `Qwen2TokenizerFast`).
+"""BPE tokenization, as the `tokenizers` library runs it: byte-level
+(what `AutoTokenizer` gives a RoBERTa checkpoint, `RobertaTokenizerFast`,
+a ModernBERT or Llama-3 one, `PreTrainedTokenizerFast`, and a Qwen2 or
+Qwen3 one, `Qwen2TokenizerFast`) and sentencepiece's with byte fallback
+(what transformers' `LlamaConverter` and `GemmaConverter` write: Llama-2's,
+Mistral's and e5-mistral's files, `LlamaTokenizerFast`, and Gemma's and
+EmbeddingGemma's, `GemmaTokenizerFast`).
 
 The JAX package tokenizes through `AutoTokenizer(texts, padding=True,
 truncation=True, max_length=max_len)`. This module reads the same files
 and gives the same input ids and attention masks, on the host:
 
 1. added tokens are cut out and kept whole, leftmost and longest first:
-   those matched on the raw text, then the normalizer (none, or `NFC` as
-   in ModernBERT's file; any other is refused) on each piece left, and,
-   inside it, those marked `normalized`; `lstrip`/`rstrip` take the
-   whitespace beside them. Besides the file's `added_tokens`, the special
-   tokens of tokenizer_config.json count, as the class it names adds
-   them: a token given as a dict keeps its flags, and
-   `added_tokens_decoder` overrides the file's flags. A RoBERTa class
-   (`RobertaTokenizer`, the default of every family but `modernbert`)
+   those matched on the raw text, then the normalizer on each piece left
+   (none; `NFC`, as in ModernBERT's file; `Prepend`, `Replace` of a
+   string, or a `Sequence` of them: Llama-2's legacy `Prepend("▁")`,
+   `Replace(" ", "▁")` and Gemma's `Replace(" ", "▁")`; a `Prepend` adds
+   to every non-empty piece) and, inside it, those marked `normalized`;
+   `lstrip`/`rstrip` take the whitespace beside them. Besides the file's
+   `added_tokens`, the special tokens of tokenizer_config.json count, as
+   the class it names adds them: a token given as a dict keeps its flags,
+   and `added_tokens_decoder` overrides the file's flags. A RoBERTa class
+   (`RobertaTokenizer`, the default of every family without one below)
    also gives `RobertaTokenizerFast`'s defaults (`<s>`, `</s>`, `<unk>`,
    `<pad>`, `<mask>`) to the keys the config leaves out, and makes
    `<mask>` given as a string `lstrip`; a Qwen2 class (`Qwen2Tokenizer`,
    the default of `qwen2` and `qwen3`) gives `Qwen2TokenizerFast`'s
-   (`<|endoftext|>` as unk, eos and pad, no bos);
+   (`<|endoftext|>` as unk, eos and pad, no bos); a Llama class
+   (`LlamaTokenizer`, the default of `llama` and `mistral`) gives
+   `LlamaTokenizerFast`'s (`<unk>`, `<s>`, `</s>`, no pad) and a Gemma
+   class (`GemmaTokenizer`, the default of `gemma3_text`)
+   `GemmaTokenizerFast`'s (`<unk>`, `<bos>`, `<eos>`, `<pad>`);
    `PreTrainedTokenizerFast` (the class of ModernBERT's and Llama-3's
    files, and `modernbert`'s default) adds only what the config names,
-   with the file's flags. `LlamaTokenizer`/`LlamaTokenizerFast` (the
-   default of `llama` and `mistral`: Llama-2's and Mistral's
-   sentencepiece BPE with byte fallback) and any other class are refused;
-2. the ByteLevel pre-tokenizer on each piece between added tokens: a
+   with the file's flags. Any other class is refused;
+2. the pre-tokenizer on each piece between added tokens. ByteLevel: a
    space in front when `add_prefix_space` and the piece does not start
    with one (transformers sets the flag from tokenizer_config.json,
    default false, whatever the file says), then GPT-2's split regex
@@ -38,37 +45,58 @@ and gives the same input ids and attention masks, on the host:
    (use_regex false, no prefix space)]` with one of the two published
    Split patterns (SPLIT_PATTERNS: Qwen2's, and Llama-3's, the same with
    `\\p{N}{1,3}` for `\\p{N}`), built from the same tables. Each word's
-   UTF-8 bytes become GPT-2's printable byte symbols (`bytes_to_unicode`);
+   UTF-8 bytes become GPT-2's printable byte symbols (`bytes_to_unicode`).
+   A sentencepiece-style file has none (Llama-2's legacy layout: each
+   piece is one word), `Metaspace` (Llama-2's non-legacy layout: spaces
+   become U+2581, which is put in front of the piece at the start of the
+   text, prepend scheme `first`, or of every piece, `always`; no split)
+   or `Split(" ", MergedWithPrevious)` (Gemma's: a word ends after each
+   space; its normalizer leaves none, so each piece is one word). Its
+   words stay characters;
 3. BPE on each word: with `ignore_merges` (Llama-3's), a word that is
-   whole in the vocabulary is taken as it stands; otherwise its byte
-   symbols are merged pair by pair, always the adjacent pair of lowest
-   merge rank (on a tie, the leftmost), until no adjacent pair has a
-   merge; every symbol is then in the vocabulary (it holds the 256 byte
-   symbols and every merge's result). Words are cached;
-4. the post-processor (`RobertaProcessing`: `<s> $A </s>`, a
-   `TemplateProcessing`, `ByteLevel`, which adds nothing, or a `Sequence`
-   of ByteLevel and at most one of the others) after truncation to
-   `max_len` less the special tokens (from the end, or with
-   tokenizer_config.json's `truncation_side` `left` from the front), and
-   padding with the pad token to the longest text of the call, after the
-   text, or before it with `padding_side` `left` (Qwen3-Embedding's).
+   whole in the vocabulary is taken as it stands. Otherwise the word
+   becomes symbols: a byte-level word's byte symbols (the vocabulary
+   holds all 256), a sentencepiece-style word's characters, each one the
+   vocabulary lacks as its UTF-8 bytes' `<0xNN>` pieces (`byte_fallback`,
+   when the vocabulary holds them all), else as the model's `unk_token`
+   (dropped when there is none); with `fuse_unk` a run of unknown
+   characters is one `<unk>`, and byte pieces met while that run is open
+   go before it, as `tokenizers` adds them. Then the adjacent pair of
+   lowest merge rank (on a tie, the leftmost) is merged, over and over,
+   until no adjacent pair has a merge. Words are cached;
+4. the post-processor after truncation to `max_len` less the special
+   tokens (from the end, or with tokenizer_config.json's
+   `truncation_side` `left` from the front), and padding with the pad
+   token to the longest text of the call, after the text, or before it
+   with `padding_side` `left` (Qwen3-Embedding's, and the default of the
+   Llama and Gemma classes). The file's `RobertaProcessing` (`<s> $A
+   </s>`), `TemplateProcessing`, `ByteLevel`, which adds nothing, or a
+   `Sequence` of ByteLevel and at most one of the others; the Llama and
+   Gemma classes replace it, whatever the file says, with
+   `update_post_processor`'s template: bos before the text when
+   `add_bos_token` (default true), eos after it when `add_eos_token`
+   (default false).
 
 `legacy_spec` reads the older layout, `vocab.json` and `merges.txt` with
 no tokenizer.json, as transformers' `RobertaConverter` converts it (the
 first line of merges.txt and the text after its last newline are
 skipped, as `RobertaTokenizer` reads it).
 
-Anything else raises `ValueError` naming it: another model, `dropout`,
-`byte_fallback`, a `continuing_subword_prefix` or `end_of_word_suffix`,
-`fuse_unk`, a vocabulary without the 256 byte symbols, a normalizer
-other than NFC, a pre-tokenizer that is neither ByteLevel nor that
-Sequence (Metaspace, another Split pattern, ...), a `single_word` added
-token, another tokenizer class, a padding or truncation side other than
-`right` and `left`, or a special token the vocabulary lacks.
+Anything else raises `ValueError` naming it: another model, `dropout`, a
+`continuing_subword_prefix` or `end_of_word_suffix`, `byte_fallback` or
+`fuse_unk` over ByteLevel words, a byte-level vocabulary without the 256
+byte symbols, an `unk_token` the vocabulary lacks, another normalizer
+(a `Replace` of a Regex too), a pre-tokenizer other than those above (a
+Metaspace with `split`, another Split pattern, ...), a `single_word`
+added token, another tokenizer class, a Llama class given
+`add_prefix_space` (transformers then rebuilds the tokenizer from the
+sentencepiece model), a padding or truncation side other than `right`
+and `left`, or a special token the vocabulary lacks.
 """
 
 from __future__ import annotations
 
+import heapq
 import json
 import os
 import re
@@ -79,7 +107,7 @@ from typing import Optional
 import torch
 
 from . import unicode
-from .unigram import AddedTokens, _template, _token_content
+from .unigram import SPIECE, AddedTokens, _template, _token_content
 
 _WORD_CACHE_MAX = 1 << 20  # cached words before the cache is emptied
 # the tokenizer classes read (when tokenizer_config.json names none, the
@@ -88,23 +116,34 @@ _WORD_CACHE_MAX = 1 << 20  # cached words before the cache is emptied
 ROBERTA_CLASSES = ("RobertaTokenizer", "RobertaTokenizerFast")
 QWEN2_CLASSES = ("Qwen2Tokenizer", "Qwen2TokenizerFast")
 PLAIN_CLASSES = ("PreTrainedTokenizerFast",)
-# Llama-2's and Mistral's sentencepiece BPE with byte fallback: refused
 LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
+GEMMA_CLASSES = ("GemmaTokenizer", "GemmaTokenizerFast")
 _DEFAULT_CLASS = {"modernbert": "PreTrainedTokenizerFast", "qwen2": "Qwen2TokenizerFast",
                   "qwen3": "Qwen2TokenizerFast", "llama": "LlamaTokenizerFast",
-                  "mistral": "LlamaTokenizerFast"}
+                  "mistral": "LlamaTokenizerFast", "gemma3_text": "GemmaTokenizerFast"}
 # RobertaTokenizerFast's special tokens and their defaults
 _SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "sep_token": "</s>",
              "pad_token": "<pad>", "cls_token": "<s>", "mask_token": "<mask>"}
 # Qwen2TokenizerFast's defaults (no bos)
 _QWEN2_SPECIALS = {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
                    "pad_token": "<|endoftext|>"}
+# LlamaTokenizerFast's defaults (no pad) and GemmaTokenizerFast's
+_LLAMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"}
+_GEMMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<bos>", "eos_token": "<eos>",
+                   "pad_token": "<pad>"}
 # the Split pre-tokenizer patterns read, as tokenizer.json writes them
 # (Qwen2's and Llama-3's), and the repeat of their number class
 QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
                r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
 LLAMA3_SPLIT = QWEN2_SPLIT.replace(r"|\p{N}|", r"|\p{N}{1,3}|")
 SPLIT_PATTERNS = {QWEN2_SPLIT: "", LLAMA3_SPLIT: "{1,3}"}
+# Gemma's pre-tokenizer: a word ends after each space
+_SPACE_WORDS = re.compile("[^ ]* |[^ ]+")
+
+
+def byte_piece(b: int) -> str:
+    """The vocabulary's piece for byte `b` under byte fallback (`<0x0A>`)."""
+    return f"<0x{b:02X}>"
 
 
 @lru_cache(maxsize=None)
@@ -185,6 +224,62 @@ def _pre_tokenizer(spec: Optional[dict]) -> tuple:
                      " reads ByteLevel and Sequence[Split, ByteLevel] only")
 
 
+def _spm_pre_tokenizer(spec: Optional[dict]) -> tuple:
+    """(Metaspace's (replacement, prepend scheme) or None, whether a word
+    ends after each space) of a sentencepiece-style file's pre-tokenizer:
+    none, Metaspace without split, or Split(" ", MergedWithPrevious)."""
+    kind = None if spec is None else spec.get("type")
+    if kind is None:
+        return None, False
+    if kind == "Metaspace":
+        scheme = spec.get("prepend_scheme", "always")
+        if spec.get("split", True):
+            raise ValueError("Metaspace with split true is not supported by the port's BPE"
+                             " tokenizer (it reads Llama's, split false)")
+        if scheme not in ("always", "first", "never"):
+            raise ValueError(f"Metaspace prepend_scheme `{scheme}` is not supported")
+        return (spec.get("replacement", SPIECE), scheme), False
+    if kind == "Split":
+        pattern = spec.get("pattern") or {}
+        if pattern != {"String": " "} or spec.get("behavior") != "MergedWithPrevious" \
+                or spec.get("invert"):
+            raise ValueError(f"Split on {pattern} with behavior `{spec.get('behavior')}` (invert"
+                             f" {spec.get('invert')}) is not supported: the port reads Gemma's,"
+                             " on the string \" \" merged with the previous piece")
+        return None, True
+    raise ValueError(f"pre-tokenizer `{kind}` is not supported: the port's BPE tokenizer reads"
+                     " ByteLevel, Sequence[Split, ByteLevel], Metaspace, Split on \" \" and none")
+
+
+def _normalizer(spec: Optional[dict]):
+    """A str -> str function for a tokenizer.json normalizer (None for
+    none): NFC, Prepend (to a non-empty text), Replace of a string, or a
+    Sequence of them."""
+    kind = None if spec is None else spec.get("type")
+    if kind is None:
+        return None
+    if kind == "NFC":
+        return unicode.nfc
+    if kind == "Prepend":
+        prefix = spec["prepend"]
+        return lambda s: prefix + s if s else s
+    if kind == "Replace" and "String" in (spec.get("pattern") or {}):
+        old, new = spec["pattern"]["String"], spec["content"]
+        return lambda s: s.replace(old, new) if old else s
+    if kind == "Sequence":
+        parts = [_normalizer(n) for n in spec.get("normalizers") or []]
+
+        def run(s: str) -> str:
+            for part in parts:
+                s = part(s)
+            return s
+
+        return run
+    what = "Replace of a Regex" if kind == "Replace" else kind
+    raise ValueError(f"normalizer `{what}` is not supported by the port's BPE tokenizer (it reads"
+                     " NFC, Prepend, Replace of a string and a Sequence of them)")
+
+
 def _post_processor(spec: Optional[dict]) -> tuple:
     """(ids before, ids after) the text: nothing for ByteLevel, a Sequence's
     one template, else unigram.py's `_template`."""
@@ -229,28 +324,29 @@ def legacy_spec(path: str, config: Optional[dict] = None) -> dict:
 
 
 def _class_specials(config: dict, model_type: Optional[str]) -> tuple:
-    """(default special tokens, whether it is a RoBERTa class) of the
-    tokenizer class (tokenizer_config.json's, else the model type's);
-    refuses a class that is not a RoBERTa, Qwen2 or plain one."""
+    """(class name, its default special tokens) of the tokenizer class
+    (tokenizer_config.json's, else the model type's); refuses a class that
+    is not a RoBERTa, Qwen2, Llama, Gemma or plain one."""
     name = config.get("tokenizer_class") or _DEFAULT_CLASS.get(model_type, ROBERTA_CLASSES[0])
-    if name in LLAMA_CLASSES:
-        raise ValueError(f"tokenizer class `{name}` is not supported: the port does not read"
-                         " Llama-2's and Mistral's sentencepiece BPE with byte fallback")
-    read = ROBERTA_CLASSES + QWEN2_CLASSES + PLAIN_CLASSES
+    read = ROBERTA_CLASSES + QWEN2_CLASSES + LLAMA_CLASSES + GEMMA_CLASSES + PLAIN_CLASSES
     if name not in read:
         raise ValueError(f"tokenizer class `{name}` is not supported by the port's BPE tokenizer"
                          f" (it reads {', '.join(read)})")
     if name in ROBERTA_CLASSES:
-        return _SPECIALS, True
-    return (_QWEN2_SPECIALS if name in QWEN2_CLASSES else {}), False
+        return name, _SPECIALS
+    if name in LLAMA_CLASSES:
+        return name, _LLAMA_SPECIALS
+    if name in GEMMA_CLASSES:
+        return name, _GEMMA_SPECIALS
+    return name, (_QWEN2_SPECIALS if name in QWEN2_CLASSES else {})
 
 
 class BPE:
     """Tokenize texts into input ids and attention masks from a parsed
-    `tokenizer.json` whose model is BPE over ByteLevel words (`config`:
-    the checkpoint's tokenizer_config.json; `model_type`: its
-    config.json's, which names the tokenizer class when `config` does
-    not)."""
+    `tokenizer.json` whose model is BPE, over ByteLevel words or
+    sentencepiece-style ones (`config`: the checkpoint's
+    tokenizer_config.json; `model_type`: its config.json's, which names
+    the tokenizer class when `config` does not)."""
 
     def __init__(self, spec: dict, config: Optional[dict] = None,
                  model_type: Optional[str] = None):
@@ -260,39 +356,58 @@ class BPE:
         if kind != "BPE":
             raise ValueError(f"tokenizer model `{kind}` is not supported by the port's BPE"
                              " tokenizer")
-        for key in ("dropout", "byte_fallback", "continuing_subword_prefix", "end_of_word_suffix",
-                    "fuse_unk"):
+        for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
             if model.get(key):
                 raise ValueError(f"BPE with {key} {model[key]!r} is not supported")
-        normalizer = (spec.get("normalizer") or {}).get("type")
-        if normalizer not in (None, "NFC"):
-            raise ValueError(f"normalizer `{normalizer}` is not supported by the port's BPE"
-                             " tokenizer (it reads none or NFC)")
-        self.normalize = unicode.nfc if normalizer == "NFC" else None
-        self.use_regex, self.split = _pre_tokenizer(spec.get("pre_tokenizer"))
-        self.ignore_merges = bool(model.get("ignore_merges"))
+        self.normalize = _normalizer(spec.get("normalizer"))
+        pre = spec.get("pre_tokenizer")
+        self.byte_level = (pre or {}).get("type") in ("ByteLevel", "Sequence")
         self.vocab = dict(model["vocab"])
-        missing = [c for c in bytes_to_unicode().values() if c not in self.vocab]
-        if missing:
-            raise ValueError(f"the BPE vocabulary lacks {len(missing)} byte symbols, such as"
-                             f" `{missing[0]}`: the port reads byte-level vocabularies only")
+        self.byte_fallback = bool(model.get("byte_fallback"))
+        self.fuse_unk = bool(model.get("fuse_unk"))
+        if self.byte_level:
+            for key in ("byte_fallback", "fuse_unk"):
+                if model.get(key):
+                    raise ValueError(f"BPE with {key} {model[key]!r} over ByteLevel words is not"
+                                     " supported: the port reads it in sentencepiece-style files")
+            self.use_regex, self.split = _pre_tokenizer(pre)
+            missing = [c for c in bytes_to_unicode().values() if c not in self.vocab]
+            if missing:
+                raise ValueError(f"the BPE vocabulary lacks {len(missing)} byte symbols, such as"
+                                 f" `{missing[0]}`: the port reads byte-level vocabularies only")
+            self.metaspace, self.space_words = None, False
+        else:
+            self.use_regex, self.split = False, None
+            self.metaspace, self.space_words = _spm_pre_tokenizer(pre)
+        self.unk = model.get("unk_token")
+        if self.unk is not None and self.unk not in self.vocab:
+            raise ValueError(f"the BPE unk_token `{self.unk}` is not in the vocabulary")
+        # each byte's fallback piece, where the vocabulary holds it
+        self.byte_pieces = {b: byte_piece(b) for b in range(256) if byte_piece(b) in self.vocab}
+        self.ignore_merges = bool(model.get("ignore_merges"))
         self.ranks = {}
         for rank, merge in enumerate(model.get("merges") or []):
             a, b = merge.split(" ") if isinstance(merge, str) else merge
             if a + b not in self.vocab:
                 raise ValueError(f"the merge `{a} {b}` makes a token the vocabulary lacks")
             self.ranks[a, b] = rank  # a repeated merge keeps its last rank
+
+        name, defaults = _class_specials(config, model_type)
+        spm_class = name in LLAMA_CLASSES + GEMMA_CLASSES
+        roberta = name in ROBERTA_CLASSES
+        if name in LLAMA_CLASSES and config.get("add_prefix_space") is not None:
+            raise ValueError(f"{name} with add_prefix_space is not supported: transformers then"
+                             " rebuilds the tokenizer from the sentencepiece model")
         # transformers sets a ByteLevel pre-tokenizer's flag from the config;
         # a Sequence keeps its own (false)
-        self.add_prefix_space = self.split is None and bool(config.get("add_prefix_space", False))
-        self.before, self.after = _post_processor(spec.get("post_processor"))
-        self.padding_side = config.get("padding_side", "right")
+        self.add_prefix_space = (self.byte_level and self.split is None
+                                 and bool(config.get("add_prefix_space", False)))
+        self.padding_side = config.get("padding_side", "left" if spm_class else "right")
         self.truncation_side = config.get("truncation_side", "right")
         for key in ("padding_side", "truncation_side"):
             if getattr(self, key) not in ("right", "left"):
                 raise ValueError(f"{key} `{getattr(self, key)}` is not right or left")
 
-        defaults, roberta = _class_specials(config, model_type)
         tokens = {tok["content"]: dict(tok) for tok in spec.get("added_tokens") or []}
         flagged = list((config.get("added_tokens_decoder") or {}).values())
         for key in _SPECIALS:
@@ -307,7 +422,8 @@ class BPE:
             content = tok["content"]
             tid = tokens[content]["id"] if content in tokens else self.vocab.get(content)
             if tid is None:
-                raise ValueError(f"the special token `{content}` is not in the vocabulary")
+                raise ValueError(f"the special token `{content}` ({name}'s) is not in the"
+                                 " vocabulary")
             tokens[content] = {**tok, "id": tid}
         for content, tok in tokens.items():
             if tok.get("single_word"):
@@ -321,6 +437,20 @@ class BPE:
                                 if bool(tok.get("normalized")) == normalized})
 
         self._raw, self._normalized = matched(False), matched(True)
+
+        if spm_class:
+            # update_post_processor: the class's template, not the file's
+            self.before, self.after = [], []
+            for key, flag, on, side in (("bos_token", "add_bos_token", True, self.before),
+                                        ("eos_token", "add_eos_token", False, self.after)):
+                if config.get(flag, on):
+                    token = _token_content(config.get(key, defaults.get(key)))
+                    if token is None:
+                        raise ValueError(f"{flag} is true but tokenizer_config.json names no"
+                                         f" {key}")
+                    side.append(self.token_to_id(token))
+        else:
+            self.before, self.after = _post_processor(spec.get("post_processor"))
 
         pad = _token_content(config.get("pad_token", None if roberta else defaults.get("pad_token")))
         if pad is None and not roberta:
@@ -339,20 +469,66 @@ class BPE:
 
     # -- one word ------------------------------------------------------------
 
-    def _merge(self, word: str) -> list:
-        """The word's symbols after every merge, lowest rank first."""
-        symbols = list(word)
+    def _symbols(self, word: str) -> list:
+        """A sentencepiece-style word's symbols before any merge: its
+        characters, those the vocabulary lacks as their bytes' pieces
+        (byte_fallback) or as unk (fuse_unk: a run of them as one; byte
+        pieces met while the run is open go before it), else dropped."""
+        out, vocab, open_unk = [], self.vocab, False
+        for ch in word:
+            if ch in vocab:
+                if open_unk:
+                    out.append(self.unk)
+                    open_unk = False
+                out.append(ch)
+                continue
+            if self.byte_fallback:
+                pieces = [self.byte_pieces.get(b) for b in ch.encode("utf-8")]
+                if None not in pieces:
+                    out += pieces
+                    continue
+            if self.unk is not None:
+                if open_unk and not self.fuse_unk:
+                    out.append(self.unk)
+                open_unk = True
+        if open_unk:
+            out.append(self.unk)
+        return out
+
+    def _merge(self, symbols) -> list:
+        """The symbols after every merge, the adjacent pair of lowest rank
+        first (on a tie the leftmost): a heap of candidate pairs over a
+        linked list, an entry skipped once its pair has changed."""
+        symbols = list(symbols)
         ranks = self.ranks
-        while len(symbols) > 1:
-            best, at = None, -1
-            for i in range(len(symbols) - 1):
-                rank = ranks.get((symbols[i], symbols[i + 1]))
-                if rank is not None and (best is None or rank < best):
-                    best, at = rank, i
-            if best is None:
-                break
-            symbols[at:at + 2] = [symbols[at] + symbols[at + 1]]
-        return symbols
+        n = len(symbols)
+        nxt = [*range(1, n), -1]
+        prv = list(range(-1, n - 1))
+        heap = []
+        for i in range(n - 1):
+            rank = ranks.get((symbols[i], symbols[i + 1]))
+            if rank is not None:
+                heap.append((rank, i))
+        heapq.heapify(heap)
+        while heap:
+            rank, i = heapq.heappop(heap)
+            j = nxt[i]
+            if symbols[i] is None or j < 0 or ranks.get((symbols[i], symbols[j])) != rank:
+                continue  # merged away, or its pair changed since it was pushed
+            symbols[i] += symbols[j]
+            symbols[j] = None
+            k = nxt[i] = nxt[j]
+            if k >= 0:
+                prv[k] = i
+                rank = ranks.get((symbols[i], symbols[k]))
+                if rank is not None:
+                    heapq.heappush(heap, (rank, i))
+            p = prv[i]
+            if p >= 0:
+                rank = ranks.get((symbols[p], symbols[i]))
+                if rank is not None:
+                    heapq.heappush(heap, (rank, p))
+        return [sym for sym in symbols if sym is not None]
 
     def _word_ids(self, word: str) -> list:
         ids = self._words.get(word)
@@ -360,7 +536,8 @@ class BPE:
             if self.ignore_merges and word in self.vocab:
                 ids = [self.vocab[word]]
             else:
-                ids = [self.vocab[symbol] for symbol in self._merge(word)]
+                symbols = word if self.byte_level else self._symbols(word)
+                ids = [self.vocab[symbol] for symbol in self._merge(symbols)]
             with self._lock:
                 if len(self._words) >= _WORD_CACHE_MAX:
                     self._words.clear()
@@ -369,27 +546,39 @@ class BPE:
 
     # -- one text ------------------------------------------------------------
 
-    def _piece_ids(self, piece: str) -> list:
+    def _words_of(self, part: str, at_start: bool) -> list:
+        """The pre-tokenizer's words of one piece between added tokens
+        (`at_start`: the piece starts the text)."""
+        if self.byte_level:
+            return byte_level_words(part, self.add_prefix_space, self.use_regex, self.split)
+        if self.metaspace is not None:
+            replacement, scheme = self.metaspace
+            part = part.replace(" ", replacement)
+            if not part.startswith(replacement) and (
+                    scheme == "always" or (scheme == "first" and at_start)):
+                part = replacement + part
+        return _SPACE_WORDS.findall(part) if self.space_words else [part]
+
+    def _piece_ids(self, piece: str, at_start: bool) -> list:
         out = []
         if self.normalize is not None:
             piece = self.normalize(piece)
-        for part in self._normalized.split(piece):
+        for i, part in enumerate(self._normalized.split(piece)):
             if isinstance(part, int):
                 out.append(part)
             elif part:
-                for word in byte_level_words(part, self.add_prefix_space, self.use_regex,
-                                             self.split):
+                for word in self._words_of(part, at_start and i == 0):
                     out += self._word_ids(word)
         return out
 
     def ids(self, text: str) -> list:
         """The ids of one text, without the template's special tokens."""
         out = []
-        for part in self._raw.split(text):
+        for i, part in enumerate(self._raw.split(text)):
             if isinstance(part, int):
                 out.append(part)
             elif part:
-                out += self._piece_ids(part)
+                out += self._piece_ids(part, i == 0)
         return out
 
     # -- a batch -------------------------------------------------------------

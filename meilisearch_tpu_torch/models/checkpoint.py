@@ -1,6 +1,6 @@
 """Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, CamemBERT,
-DistilBERT, MPNet, ELECTRA, ModernBERT, DeBERTa-v2, Qwen3, Qwen2, Llama or
-Mistral checkpoint directory without transformers.
+DistilBERT, MPNet, ELECTRA, ModernBERT, DeBERTa-v2, Qwen3, Qwen2, Llama,
+Mistral or Gemma 3 checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -8,7 +8,9 @@ A directory as transformers' `save_pretrained` leaves it:
   which `build_model` gives to `ModernBertModel`,
   models/deberta_v2.py::CONFIG_KEYS for `deberta-v2`, which it gives to
   `DebertaV2Model`, and models/decoder.py::CONFIG_KEYS for `qwen3`,
-  `qwen2`, `llama` and `mistral`, which it gives to `DecoderModel`);
+  `qwen2`, `llama` and `mistral`, which it gives to `DecoderModel`, and
+  models/gemma3.py::CONFIG_KEYS for `gemma3_text`, which it gives to
+  `Gemma3Model`);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
@@ -17,8 +19,9 @@ A directory as transformers' `save_pretrained` leaves it:
   type: a `tokenizer.json` whose model is Unigram (XLM-R's, CamemBERT's
   and DeBERTa-v3's SentencePiece vocabularies) is read by
   models/unigram.py, one whose model is BPE
-  (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level BPE) by
-  models/bpe.py; without a tokenizer.json,
+  (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level BPE;
+  Llama-2's, Mistral's and Gemma's sentencepiece BPE with byte fallback)
+  by models/bpe.py; without a tokenizer.json,
   `vocab.json` and `merges.txt` are RoBERTa's older layout (models/bpe.py
   lays them out as a tokenizer.json); otherwise `vocab.txt`, one
   WordPiece token per line (models/wordpiece.py; a WordPiece
@@ -31,10 +34,11 @@ A directory as transformers' `save_pretrained` leaves it:
   `add_prefix_space`; the special tokens and `added_tokens_decoder`).
 
 Checkpoint names map onto `BertModel`'s, `ModernBertModel`'s,
-`DebertaV2Model`'s and `DecoderModel`'s (`hf_to_state_dict`): a `bert.`,
-`roberta.` (RoBERTa's and CamemBERT's), `distilbert.`, `mpnet.`,
-`electra.`, `deberta.` or `model.` (ModernBERT's and the `*ForCausalLM`
-decoders') prefix is dropped, so are the pooler, the
+`DebertaV2Model`'s, `DecoderModel`'s and `Gemma3Model`'s
+(`hf_to_state_dict`): a `bert.`, `roberta.` (RoBERTa's and CamemBERT's),
+`distilbert.`, `mpnet.`, `electra.`, `deberta.` or `model.` (ModernBERT's
+and the `*ForCausalLM` decoders', `Gemma3ForCausalLM`'s too) prefix is
+dropped, so are the pooler, the
 pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
 `ModernBertForMaskedLM`'s `head.` and `decoder.`; ELECTRA's
 `discriminator_predictions.`, `generator_predictions.` and
@@ -56,7 +60,7 @@ the same for a Flax parameter tree given as numpy arrays (transformers'
 `FlaxBertModel.params`, or `FlaxXLMRobertaModel.params`, the same tree,
 or `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
 `weight` (out, in), `scale` and `embedding` become `weight`. No Flax
-MPNet, CamemBERT, DeBERTa-v2, Qwen2 or Qwen3 exists, and the JAX
+MPNet, CamemBERT, DeBERTa-v2, Qwen2, Qwen3 or Gemma 3 exists, and the JAX
 package reads ELECTRA (fault 3.16) and Llama and Mistral (fault 3.17)
 through its torch branch: for those it holds a torch
 `state_dict`, whose numpy arrays `hf_to_state_dict` carries as they are.
@@ -73,7 +77,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import bert, deberta_v2, decoder, modernbert
+from . import bert, deberta_v2, decoder, gemma3, modernbert
 from .bert import BertModel
 from .bpe import BPE, legacy_spec
 from .deberta_v2 import DebertaV2Model
@@ -81,11 +85,13 @@ from .decoder import DecoderModel
 from .fixtures import (
     camembert_tokenizer_config,
     deberta_v2_tokenizer_config,
+    gemma_tokenizer_config,
     llama3_tokenizer_config,
     modernbert_tokenizer_config,
     mpnet_tokenizer_config,
     qwen2_tokenizer_config,
 )
+from .gemma3 import Gemma3Model
 from .modernbert import ModernBertModel
 from .unigram import Unigram
 from .wordpiece import WordPiece
@@ -154,25 +160,30 @@ def _to_mpnet(name: str) -> str:
 
 # model types with a module of their own, and its checks
 _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
-           **{kind: DecoderModel for kind in decoder.MODEL_TYPES}}
+           **{kind: DecoderModel for kind in decoder.MODEL_TYPES},
+           gemma3.MODEL_TYPE: Gemma3Model}
+# (`gemma3`, the multimodal model, is refused by models/gemma3.py by name)
 _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config,
-           **{kind: decoder.check_config for kind in decoder.MODEL_TYPES}}
+           **{kind: decoder.check_config for kind in decoder.MODEL_TYPES},
+           gemma3.MODEL_TYPE: gemma3.check_config, "gemma3": gemma3.check_config}
 # model types whose checkpoints are published as model.safetensors
-_SAFETENSORS = ("modernbert", *decoder.MODEL_TYPES)
+_SAFETENSORS = ("modernbert", *decoder.MODEL_TYPES, gemma3.MODEL_TYPE)
 
 
 def check_config(config: dict) -> dict:
     """Raise ValueError unless the port runs `config`'s model: a
     `modernbert` config checked by models/modernbert.py, a `deberta-v2`
     one by models/deberta_v2.py, a `qwen3`, `qwen2`, `llama` or `mistral`
-    one by models/decoder.py, any other by models/bert.py."""
+    one by models/decoder.py, a `gemma3_text` (or `gemma3`) one by
+    models/gemma3.py, any other by models/bert.py."""
     return _CHECKS.get(config.get("model_type"), bert.check_config)(config)
 
 
 def new_model(config: dict):
     """The module that runs `config`'s model: `ModernBertModel` for
     `modernbert`, `DebertaV2Model` for `deberta-v2`, `DecoderModel` for
-    the decoders, `BertModel` for the other families."""
+    the decoders, `Gemma3Model` for `gemma3_text`, `BertModel` for the
+    other families."""
     return _MODELS.get(config.get("model_type"), BertModel)(config)
 
 
@@ -379,9 +390,10 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     bert unless `config` names one), the weights as pytorch_model.bin
     (BertModel's names, DistilBERT's or MPNet's for such a config,
     DebertaV2Model's for `deberta-v2`; ELECTRA's there too, the one file
-    the JAX package reads it from, fault 3.16), or for `modernbert` and
-    the decoders as model.safetensors, the file their checkpoints are
-    published in (ModernBertModel's and DecoderModel's names), and
+    the JAX package reads it from, fault 3.16), or for `modernbert`, the
+    decoders and `gemma3_text` as model.safetensors, the file their
+    checkpoints are published in (ModernBertModel's, DecoderModel's and
+    Gemma3Model's names), and
     tokenizer_config.json (`tokenizer_config` as given, else:), with either
     `vocab` as vocab.txt (MPNetTokenizerFast's special tokens for an
     `mpnet` config, ElectraTokenizer's class for `electra`) or
@@ -391,15 +403,16 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     BPE one with RoBERTa's, add_prefix_space false, or, for a `modernbert`
     config, a BPE one with its own specials and `PreTrainedTokenizerFast`'s
     config, fixtures.modernbert_tokenizer_config; for `qwen3` and `qwen2`
-    Qwen2Tokenizer's, fixtures.qwen2_tokenizer_config, and for `llama` and
-    `mistral` Llama-3's, fixtures.llama3_tokenizer_config)."""
+    Qwen2Tokenizer's, fixtures.qwen2_tokenizer_config, for `llama` and
+    `mistral` Llama-3's, fixtures.llama3_tokenizer_config, and for
+    `gemma3_text` GemmaTokenizer's, fixtures.gemma_tokenizer_config)."""
     os.makedirs(path, exist_ok=True)
     config = {"model_type": "bert", **config}
     model_type = config["model_type"]
     rename = {"distilbert": _to_distilbert, "mpnet": _to_mpnet}.get(model_type)
     if rename is not None:
         state_dict = {rename(k): v for k, v in state_dict.items()}
-    if model_type not in ("distilbert", "modernbert", *decoder.MODEL_TYPES):
+    if model_type not in ("distilbert", "modernbert", *decoder.MODEL_TYPES, gemma3.MODEL_TYPE):
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
@@ -418,7 +431,8 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
         own = {"modernbert": modernbert_tokenizer_config, "camembert": camembert_tokenizer_config,
                "deberta-v2": deberta_v2_tokenizer_config, "qwen3": qwen2_tokenizer_config,
                "qwen2": qwen2_tokenizer_config, "llama": llama3_tokenizer_config,
-               "mistral": llama3_tokenizer_config}.get(model_type)
+               "mistral": llama3_tokenizer_config,
+               gemma3.MODEL_TYPE: gemma_tokenizer_config}.get(model_type)
         if own is not None:
             tok_config = own(tokenizer_json)
         elif bpe:

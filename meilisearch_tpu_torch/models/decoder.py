@@ -53,6 +53,8 @@ Everything runs in float32. On a CUDA device the forward raises when
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -125,10 +127,32 @@ def check_config(config: dict) -> dict:
     return {**config, "num_key_value_heads": kv, "head_dim": head_dim}
 
 
-def attention_scale(head_dim: int, device: torch.device) -> torch.Tensor:
-    """head_dim ** -0.5 as a float32 tensor on `device` (fault 3.4: the
-    card multiplies by the same float32 the CPU does)."""
+def attention_scale(head_dim: float, device: torch.device) -> torch.Tensor:
+    """head_dim ** -0.5 (Gemma 3's query_pre_attn_scalar ** -0.5) as a
+    float32 tensor on `device` (fault 3.4: the card multiplies by the same
+    float32 the CPU does)."""
     return torch.full((), head_dim ** -0.5, dtype=torch.float32, device=device)
+
+
+def blocked_keys(attention_mask: torch.Tensor, *, causal: bool,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """(B, 1, L, L) bool, True where key j is hidden from query i, as
+    transformers' masks compose (`masking_utils`): j is padding (the
+    padding mask is ANDed last, after any OR), or, `causal`, j > i, or,
+    with a `window`, |i - j| >= window (a causal window keeps i - j <
+    window, Mistral's and Gemma-3's `sliding_window_overlay`; a
+    bidirectional one |i - j| < window, Gemma-3's
+    `_bidirectional_window_overlay`). A query row hidden from every key is
+    one the caller zeroes after the softmax."""
+    L = attention_mask.shape[1]
+    rows = torch.arange(L, device=attention_mask.device)
+    offset = rows[:, None] - rows[None, :]  # i - j
+    hidden = attention_mask[:, None, None, :] == 0
+    if causal:
+        hidden = hidden | (offset < 0)
+    if window is not None:
+        hidden = hidden | (offset.abs() >= window)
+    return hidden
 
 
 class RMSNorm(nn.Module):
@@ -142,23 +166,24 @@ class RMSNorm(nn.Module):
         return self.weight * (x * torch.rsqrt(variance + self.eps))
 
 
-class _Attention(nn.Module):
-    def __init__(self, c: dict):
+class Attention(nn.Module):
+    """Grouped-query attention with rotary positions under a replacing
+    mask (biases on Q/K/V and on O as given; `norm`: the class of the
+    per-head Q/K norm, None for none). Gemma 3's stack uses it too."""
+
+    def __init__(self, c: dict, qkv_bias: bool, o_bias: bool, norm=None):
         super().__init__()
         h, d = c["hidden_size"], c["head_dim"]
         self.heads, self.kv_heads, self.head_dim = (c["num_attention_heads"],
                                                     c["num_key_value_heads"], d)
-        kind = c["model_type"]
-        qkv_bias = kind == "qwen2" or (kind in ("qwen3", "llama") and c["attention_bias"])
-        o_bias = kind in ("qwen3", "llama") and c["attention_bias"]
         self.q_proj = nn.Linear(h, self.heads * d, bias=qkv_bias)
         self.k_proj = nn.Linear(h, self.kv_heads * d, bias=qkv_bias)
         self.v_proj = nn.Linear(h, self.kv_heads * d, bias=qkv_bias)
         self.o_proj = nn.Linear(self.heads * d, h, bias=o_bias)
-        self.qk_norm = kind == "qwen3"
+        self.qk_norm = norm is not None
         if self.qk_norm:
-            self.q_norm = RMSNorm(d, c["rms_norm_eps"])
-            self.k_norm = RMSNorm(d, c["rms_norm_eps"])
+            self.q_norm = norm(d, c["rms_norm_eps"])
+            self.k_norm = norm(d, c["rms_norm_eps"])
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -182,28 +207,32 @@ class _Attention(nn.Module):
         return self.o_proj(out)
 
 
-class _MLP(nn.Module):
-    """down(silu(gate(x)) * up(x)), no biases."""
+class GatedMLP(nn.Module):
+    """down(act(gate(x)) * up(x)), no biases (`act`: SiLU for the
+    decoders, tanh GELU for Gemma 3)."""
 
-    def __init__(self, c: dict):
+    def __init__(self, c: dict, act):
         super().__init__()
         h, i = c["hidden_size"], c["intermediate_size"]
         self.gate_proj = nn.Linear(h, i, bias=False)
         self.up_proj = nn.Linear(h, i, bias=False)
         self.down_proj = nn.Linear(i, h, bias=False)
+        self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
 
 
 class _Layer(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
-        h, eps = c["hidden_size"], c["rms_norm_eps"]
+        h, eps, kind = c["hidden_size"], c["rms_norm_eps"], c["model_type"]
+        qkv_bias = kind == "qwen2" or (kind in ("qwen3", "llama") and c["attention_bias"])
+        o_bias = kind in ("qwen3", "llama") and c["attention_bias"]
         self.input_layernorm = RMSNorm(h, eps)
-        self.self_attn = _Attention(c)
+        self.self_attn = Attention(c, qkv_bias, o_bias, RMSNorm if kind == "qwen3" else None)
         self.post_attention_layernorm = RMSNorm(h, eps)
-        self.mlp = _MLP(c)
+        self.mlp = GatedMLP(c, F.silu)
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -224,14 +253,6 @@ class DecoderModel(nn.Module):
         self.layers = nn.ModuleList(_Layer(config) for _ in range(config["num_hidden_layers"]))
         self.norm = RMSNorm(config["hidden_size"], config["rms_norm_eps"])
 
-    @staticmethod
-    def blocked(attention_mask: torch.Tensor) -> torch.Tensor:
-        """(B, 1, L, L) bool, True where key j is hidden from query i: j > i,
-        or j is padding."""
-        L = attention_mask.shape[1]
-        future = torch.ones((L, L), dtype=torch.bool, device=attention_mask.device).triu(1)
-        return future | (attention_mask[:, None, None, :] == 0)
-
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """(B, L) int64 ids and 0/1 mask -> (B, L, hidden) float32, the
         last hidden state."""
@@ -248,7 +269,7 @@ class DecoderModel(nn.Module):
                              f" ({c['sliding_window']})")
         x = self.embed_tokens(input_ids)
         cos, sin = rotary(L, c["head_dim"], float(c["rope_theta"]), x.device)
-        blocked = self.blocked(attention_mask)
+        blocked = blocked_keys(attention_mask, causal=True)
         scale = attention_scale(c["head_dim"], x.device)
         for layer in self.layers:
             x = layer(x, blocked, cos, sin, scale)

@@ -12,7 +12,11 @@ byte-level BPE one as its RoBERTa converter writes it,
 in ModernBERT's layout and the config published beside it,
 `qwen2_tokenizer_json` and `llama3_tokenizer_json` seeded ones in Qwen2's
 and Llama-3's layouts (their Split pre-tokenizers) with
-`qwen2_tokenizer_config` and `llama3_tokenizer_config`, and `mpnet_vocab`
+`qwen2_tokenizer_config` and `llama3_tokenizer_config`,
+`llama_tokenizer_json` and `gemma_tokenizer_json` seeded sentencepiece
+BPEs with byte fallback as transformers' Llama converter (legacy or
+Metaspace) and Gemma converter write them, with `llama_tokenizer_config`
+and `gemma_tokenizer_config`, and `mpnet_vocab`
 and `mpnet_tokenizer_config` an MPNet WordPiece vocabulary and the
 tokenizer_config.json `MPNetTokenizerFast.save_pretrained` writes beside
 it. No serving path calls them.
@@ -23,11 +27,19 @@ from __future__ import annotations
 import base64
 import struct
 from collections import Counter
-from typing import Optional
+import re
+from typing import Callable, Optional
 
 import numpy as np
 
-from .bpe import LLAMA3_SPLIT, QWEN2_SPLIT, byte_level_words, bytes_to_unicode, split_pattern
+from .bpe import (
+    LLAMA3_SPLIT,
+    QWEN2_SPLIT,
+    byte_level_words,
+    byte_piece,
+    bytes_to_unicode,
+    split_pattern,
+)
 from .unigram import SPIECE
 
 
@@ -230,15 +242,18 @@ def _added_decoder(spec: dict) -> dict:
             for tok in spec["added_tokens"]}
 
 
-def train_merges(texts: list, n_merges: int, split: Optional[str] = None) -> list:
+def train_merges(texts: list, n_merges: int, split: Optional[str] = None,
+                 to_words: Optional[Callable] = None) -> list:
     """A small BPE trainer: up to `n_merges` merges over the ByteLevel words
-    of `texts` (cut by the Split pattern `split` where given), each time
-    the adjacent pair most frequent over the words (on a tie, the smallest
-    pair), until no pair occurs twice."""
+    of `texts` (cut by the Split pattern `split` where given; or the
+    words `to_words(text)` gives, over characters), each time the adjacent
+    pair most frequent over the words (on a tie, the smallest pair), until
+    no pair occurs twice."""
     pattern = None if split is None else split_pattern(split)
     words = Counter()
     for text in texts:
-        words.update(byte_level_words(text, split=pattern))
+        words.update(byte_level_words(text, split=pattern) if to_words is None
+                     else to_words(text))
     split = {w: list(w) for w in words}
     pairs: Counter = Counter()
     where: dict = {}  # pair -> the words holding it
@@ -275,22 +290,30 @@ def train_merges(texts: list, n_merges: int, split: Optional[str] = None) -> lis
 
 
 def _grow_vocab(vocab: dict, head: int, texts: list, size: int, seed: int,
-                n_trained: int, split: Optional[str] = None) -> list:
-    """Add to `vocab` (`head` specials, then the 256 byte symbols) the
-    merges of `train_merges` over `texts`, then seeded merges of two
-    existing tokens (not specials) into a new one, until it holds `size`
+                n_trained: int, split: Optional[str] = None,
+                to_words: Optional[Callable] = None, longest: Optional[int] = None) -> list:
+    """Add to `vocab` (`head` entries that never merge, then the symbols)
+    the merges of `train_merges` over `texts`, then seeded merges of two
+    existing tokens (not the head; with `longest`, a token under that many
+    characters and one character) into a new one, until it holds `size`
     tokens; returns the merges."""
     merges = []
-    for a, b in train_merges(texts, n_trained, split):
+    for a, b in train_merges(texts, n_trained, split, to_words):
         if a + b not in vocab and len(vocab) < size:
             vocab[a + b] = len(vocab)
             merges.append([a, b])
     rng = np.random.default_rng(seed)
     tokens = list(vocab)[head:]
+    chars = [t for t in tokens if len(t) == 1]
     while len(vocab) < size:
-        for i, j in rng.integers(0, len(tokens), (4096, 2)).tolist():
-            a, b = tokens[i], tokens[j]
-            if a + b in vocab or len(vocab) >= size:
+        if longest:  # a token shorter than `longest` grows by one character
+            picks = np.stack([rng.integers(0, len(tokens), 4096),
+                              rng.integers(0, len(chars), 4096)], axis=1)
+        else:
+            picks = rng.integers(0, len(tokens), (4096, 2))
+        for i, j in picks.tolist():
+            a, b = tokens[i], (chars[j] if longest else tokens[j])
+            if a + b in vocab or len(vocab) >= size or (longest and len(a) >= longest):
                 continue
             vocab[a + b] = len(vocab)
             merges.append([a, b])
@@ -544,6 +567,144 @@ def llama3_tokenizer_config(spec: dict, pad_token: str = "<|finetune_right_pad_i
               "model_input_names": ["input_ids", "attention_mask"],
               "model_max_length": 131072, "pad_token": pad_token,
               "tokenizer_class": "PreTrainedTokenizerFast"}
+    if padding_side is not None:
+        config["padding_side"] = padding_side
+    return config
+
+
+SPM_PIECE_MAX = 16  # sentencepiece's max_piece_length default
+SPM_DECODER = [{"type": "Replace", "pattern": {"String": SPIECE}, "content": " "},
+               {"type": "ByteFallback"}, {"type": "Fuse"}]
+
+
+def spm_training_words(text: str) -> list:
+    """A text's words as sentencepiece trains on them: spaces as U+2581,
+    one in front, each word opening with it."""
+    return re.findall(f"{SPIECE}[^{SPIECE}]*|[^{SPIECE}]+", SPIECE + text.replace(" ", SPIECE))
+
+
+def _spm_bpe(head: list, texts: list, vocab_size: int, seed: int, n_trained: int,
+             chars: str = "") -> tuple:
+    """(vocab, merges) of a seeded sentencepiece BPE: `head`, the 256
+    `<0xNN>` byte pieces, U+2581, `chars` and every character of `texts`,
+    then merges trained on their words and seeded merges of two pieces
+    that are neither the head nor byte pieces, up to sentencepiece's 16
+    characters a piece, `vocab_size` in all."""
+    vocab = {t: i for i, t in enumerate(head)}
+    for b in range(256):
+        vocab[byte_piece(b)] = len(vocab)
+    fixed = len(vocab)
+    for ch in dict.fromkeys(SPIECE + chars + "".join(sorted(set("".join(texts)) - {" "}))):
+        vocab.setdefault(ch, len(vocab))
+    merges = _grow_vocab(vocab, fixed, texts, vocab_size, seed, n_trained,
+                         to_words=spm_training_words, longest=SPM_PIECE_MAX)
+    return vocab, merges
+
+
+def _spm_model(vocab: dict, merges: list) -> dict:
+    return {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+            "continuing_subword_prefix": None, "end_of_word_suffix": None, "fuse_unk": True,
+            "byte_fallback": True, "ignore_merges": False, "vocab": vocab, "merges": merges}
+
+
+LLAMA_HEAD = ("<unk>", "<s>", "</s>")
+
+
+def llama_tokenizer_json(texts: list, vocab_size: int, seed: int, legacy: bool = True,
+                         n_trained: int = 4096) -> dict:
+    """A tokenizer.json as transformers' Llama converter and
+    `LlamaTokenizerFast` write it for Llama-2's and Mistral's
+    sentencepiece BPE: `<unk> <s> </s>` (ids 0-2, added specials), the 256
+    `<0xNN>` pieces, then the seeded BPE of `_spm_bpe`, `vocab_size`
+    pieces (32,000 published); BPE with byte_fallback and fuse_unk, unk
+    `<unk>`; the legacy layout's normalizer Sequence[Prepend("▁"),
+    Replace(" ", "▁")] and no pre-tokenizer, or (`legacy` false) no
+    normalizer and Metaspace (prepend scheme first, no split); the
+    template `<s> $A`."""
+    vocab, merges = _spm_bpe(list(LLAMA_HEAD), texts, vocab_size, seed, n_trained)
+    if legacy:
+        normalizer = {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": SPIECE},
+            {"type": "Replace", "pattern": {"String": " "}, "content": SPIECE}]}
+        pre = None
+    else:
+        normalizer = None
+        pre = {"type": "Metaspace", "replacement": SPIECE, "prepend_scheme": "first",
+               "split": False}
+    decoder = SPM_DECODER + [{"type": "Strip", "content": " ", "start": 1, "stop": 0}]
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": _added(enumerate(LLAMA_HEAD)), "normalizer": normalizer,
+            "pre_tokenizer": pre, "post_processor": _single_template(["<s>", "$A"], vocab),
+            "decoder": {"type": "Sequence", "decoders": decoder},
+            "model": _spm_model(vocab, merges)}
+
+
+def llama_tokenizer_config(spec: dict, pad_token: Optional[str] = "</s>",
+                           add_bos_token: bool = True, add_eos_token: bool = False,
+                           padding_side: Optional[str] = None,
+                           legacy: Optional[bool] = None) -> dict:
+    """The tokenizer_config.json `LlamaTokenizerFast.save_pretrained`
+    writes beside such a tokenizer.json (class `LlamaTokenizer`, its
+    specials, every added token's flags), with `pad_token` (Llama-2
+    publishes none; batched embedding needs one), the template's flags,
+    and `padding_side` and `legacy` where given."""
+    config = {"add_bos_token": add_bos_token, "add_eos_token": add_eos_token,
+              "added_tokens_decoder": _added_decoder(spec), "bos_token": "<s>",
+              "clean_up_tokenization_spaces": False, "eos_token": "</s>", "extra_special_tokens": {},
+              "model_max_length": 1000000000000000019884624838656, "pad_token": pad_token,
+              "sp_model_kwargs": {}, "tokenizer_class": "LlamaTokenizer", "unk_token": "<unk>",
+              "use_default_system_prompt": False}
+    for key, value in (("padding_side", padding_side), ("legacy", legacy)):
+        if value is not None:
+            config[key] = value
+    return config
+
+
+# Gemma's sentencepiece pieces open with these (unk at 3); then its
+# special turn markers and, not special, some of its user-defined pieces
+GEMMA_HEAD = ("<pad>", "<eos>", "<bos>", "<unk>", "<mask>", "[multimodal]")
+GEMMA_TURNS = ("<start_of_turn>", "<end_of_turn>")
+GEMMA_USER = ("<table>", "<h1>", "</h1>")
+
+
+def gemma_tokenizer_json(texts: list, vocab_size: int, seed: int,
+                         n_trained: int = 4096) -> dict:
+    """A tokenizer.json as transformers' Gemma converter and
+    `GemmaTokenizerFast` write it: GEMMA_HEAD (ids 0-5, `<unk>` at 3),
+    GEMMA_TURNS (special) and GEMMA_USER (not special), all added tokens
+    matched on the raw text; the 256 `<0xNN>` pieces, "\\t" and "\\n" and
+    the seeded BPE of `_spm_bpe`, `vocab_size` pieces (262,144 in
+    EmbeddingGemma); BPE with byte_fallback and fuse_unk, unk `<unk>`;
+    the normalizer Replace(" ", "▁"), the pre-tokenizer Split(" ",
+    MergedWithPrevious) and the template `<bos> $A`."""
+    head = [*GEMMA_HEAD, *GEMMA_TURNS, *GEMMA_USER]
+    vocab, merges = _spm_bpe(head, texts, vocab_size, seed, n_trained, chars="\t\n")
+    added = _added(enumerate(head[:len(GEMMA_HEAD) + len(GEMMA_TURNS)]))
+    added += [{**tok, "special": False} for tok in _added(
+        (vocab[t], t) for t in GEMMA_USER)]
+    return {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": {"type": "Replace", "pattern": {"String": " "}, "content": SPIECE},
+            "pre_tokenizer": {"type": "Split", "pattern": {"String": " "},
+                              "behavior": "MergedWithPrevious", "invert": False},
+            "post_processor": _single_template(["<bos>", "$A"], vocab),
+            "decoder": {"type": "Sequence", "decoders": SPM_DECODER},
+            "model": _spm_model(vocab, merges)}
+
+
+def gemma_tokenizer_config(spec: dict, add_bos_token: bool = True, add_eos_token: bool = False,
+                           padding_side: Optional[str] = None) -> dict:
+    """The tokenizer_config.json `GemmaTokenizerFast.save_pretrained` writes
+    beside such a tokenizer.json (class `GemmaTokenizer`, its specials, the
+    turn markers as additional specials, every added token's flags), with
+    the template's flags and `padding_side` where given."""
+    config = {"add_bos_token": add_bos_token, "add_eos_token": add_eos_token,
+              "added_tokens_decoder": _added_decoder(spec),
+              "additional_special_tokens": list(GEMMA_TURNS), "bos_token": "<bos>",
+              "clean_up_tokenization_spaces": False, "eos_token": "<eos>",
+              "extra_special_tokens": {}, "model_max_length": 2048, "pad_token": "<pad>",
+              "sp_model_kwargs": {}, "spaces_between_special_tokens": False,
+              "tokenizer_class": "GemmaTokenizer", "unk_token": "<unk>",
+              "use_default_system_prompt": False}
     if padding_side is not None:
         config["padding_side"] = padding_side
     return config

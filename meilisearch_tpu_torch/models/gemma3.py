@@ -1,0 +1,212 @@
+"""Gemma 3's text stack as one torch module (the port's K8 for `model_type`
+`gemma3_text`: google/embeddinggemma-300m and the Gemma 3 decoders).
+
+It computes what transformers' torch `Gemma3TextModel` computes under its
+default attention (`sdpa`) on a padded batch with no cache, the model the
+JAX package's encoder (`models/hf_encoder.py` there) runs through its
+torch branch. It returns the last hidden state (pooling stays in
+models/hf_encoder.py):
+
+- `embed_tokens` times `hidden_size ** 0.5` rounded to float32, as
+  `Gemma3TextScaledWordEmbedding` stores it;
+- each layer: `input_layernorm`, attention, `post_attention_layernorm`,
+  the residual; `pre_feedforward_layernorm`, the MLP
+  (`down_proj(gelu_tanh(gate_proj(x)) * up_proj(x))`),
+  `post_feedforward_layernorm`, the residual. Every RMSNorm is
+  `x * rsqrt(mean(x^2) + eps) * (1 + w)` in float32 (its weights start
+  at 0);
+- attention: `q_proj`, `k_proj`, `v_proj` to `num_attention_heads` and
+  `num_key_value_heads` heads of `head_dim` (biases on all four
+  projections under `attention_bias`), a per-head RMSNorm (`q_norm`,
+  `k_norm`) over head_dim, then rotary positions (models/modernbert.py's
+  tables: transformers' default rotary embedding, at `rope_theta` in
+  `full_attention` layers and `rope_local_base_freq` in
+  `sliding_attention` ones; positions 0..L-1 in every row, left-padded
+  rows included); K and V repeated over the query heads of their group
+  (transformers' `repeat_kv`); scores times `query_pre_attn_scalar **
+  -0.5` as a float32 tensor on the device (fault 3.4), softmax, times V;
+  `o_proj` (models/decoder.py's `Attention` and `GatedMLP`, with Gemma's
+  norm and activation);
+- the final `norm`.
+
+`layer_types` is the config's, or, as `Gemma3TextConfig` derives it,
+layer i sliding unless (i + 1) is a multiple of `sliding_window_pattern`
+(6: five sliding layers, then a full one). With
+`use_bidirectional_attention` (EmbeddingGemma) `Gemma3TextConfig` turns
+the file's `sliding_window` w into w // 2 + 1 when it is built, and this
+module does the same (`window`): full layers see every real key, sliding
+ones key j from query i iff |i - j| < window; a left-pad query sees the
+real keys within its reach. Otherwise the stack is causal: key j is
+visible iff j <= i, in sliding layers also i - j < window. Padding keys
+are hidden either way. The masks (models/decoder.py's `blocked_keys`)
+replace the scores of hidden keys with float32's lowest, never add to
+them, and a query with no visible key gets an attention output of
+exactly 0, as torch's `scaled_dot_product_attention` gives transformers
+(hazard 3.18). Attention is written as explicit products and a softmax,
+not `scaled_dot_product_attention`, which picks its own kernels and
+rounding.
+
+Parameter names are transformers' (`embed_tokens.weight`,
+`layers.{i}.{input,post_attention,pre_feedforward,post_feedforward}_layernorm.weight`,
+`layers.{i}.self_attn.{q,k,v,o}_proj.{weight,bias}`,
+`layers.{i}.self_attn.{q,k}_norm.weight`,
+`layers.{i}.mlp.{gate,up,down}_proj.weight`, `norm.weight`), so a
+checkpoint's tensors load by name (models/checkpoint.py drops
+`Gemma3ForCausalLM`'s `model.` prefix and `lm_head.`).
+
+Refused by name: the multimodal `gemma3` model type, a `rope_scaling`
+other than the default, `attn_logit_softcapping`, a `hidden_activation`
+other than `gelu_pytorch_tanh`, `partial_rotary_factor`, and a
+`layer_types` entry other than `sliding_attention` and `full_attention`.
+
+Everything runs in float32. On a CUDA device the forward raises when
+`torch.backends.cuda.matmul.allow_tf32` is set, as models/bert.py does.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .decoder import Attention, GatedMLP, attention_scale, blocked_keys
+from .modernbert import rotary
+
+MODEL_TYPE = "gemma3_text"
+LAYER_TYPES = ("sliding_attention", "full_attention")
+# the widths a config must give (transformers' config names)
+CONFIG_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+               "num_attention_heads")
+# Gemma3TextConfig's defaults for the keys a config may leave out
+DEFAULTS = {"num_key_value_heads": 4, "head_dim": 256, "hidden_activation": "gelu_pytorch_tanh",
+            "rms_norm_eps": 1e-6, "rope_theta": 1_000_000.0, "attention_bias": False,
+            "query_pre_attn_scalar": 256, "sliding_window": 4096, "layer_types": None,
+            "attn_logit_softcapping": None, "rope_scaling": None,
+            "rope_local_base_freq": 10_000.0, "use_bidirectional_attention": False,
+            "sliding_window_pattern": 6}
+
+
+def check_config(config: dict) -> dict:
+    """Raise ValueError unless `config` describes a Gemma 3 text stack this
+    module runs; return it with Gemma3TextConfig's defaults filled in,
+    `layer_types` derived where it is missing, and `window`, the sliding
+    layers' reach as transformers' config object holds it."""
+    kind = config.get("model_type")
+    if kind == "gemma3":
+        raise ValueError("model_type `gemma3` (Gemma3ForConditionalGeneration, text and vision)"
+                         " is not supported: the port runs `gemma3_text`")
+    if kind != MODEL_TYPE:
+        raise ValueError(f"model_type `{kind}` is not {MODEL_TYPE}")
+    config = {**DEFAULTS, **config}
+    missing = [k for k in CONFIG_KEYS if k not in config]
+    if missing:
+        raise ValueError(f"the {kind} config lacks {missing}")
+    if config["hidden_activation"] != "gelu_pytorch_tanh":
+        raise ValueError(f"hidden_activation `{config['hidden_activation']}` is not supported:"
+                         " the port runs the tanh-GELU-gated MLP only")
+    rope = config["rope_scaling"]
+    if rope is not None and (rope.get("rope_type", rope.get("type")) or "default") != "default":
+        raise ValueError(f"rope_scaling {rope} is not supported: the port runs the default"
+                         " rotary embedding only")
+    if config.get("partial_rotary_factor", 1.0) != 1.0:
+        raise ValueError("partial_rotary_factor is not supported: the port rotates the whole"
+                         " head")
+    if config["attn_logit_softcapping"] is not None:
+        raise ValueError(f"attn_logit_softcapping {config['attn_logit_softcapping']} is not"
+                         " supported: the port's scores are not capped")
+    layers = config["num_hidden_layers"]
+    types = config["layer_types"]
+    if types is None:
+        pattern = config["sliding_window_pattern"]
+        types = [LAYER_TYPES[(i + 1) % pattern == 0] for i in range(layers)]
+    if len(types) != layers or any(t not in LAYER_TYPES for t in types):
+        raise ValueError(f"layer_types {types} are not supported: the port runs {layers} of"
+                         f" {LAYER_TYPES}")
+    window = config["sliding_window"]
+    if "sliding_attention" in types and not isinstance(window, int):
+        raise ValueError(f"sliding_window {window!r} is not a number of tokens")
+    if window is not None and config["use_bidirectional_attention"]:
+        window = window // 2 + 1  # as Gemma3TextConfig builds it
+    heads = config["num_attention_heads"]
+    kv = config["num_key_value_heads"] or heads
+    if heads % kv:
+        raise ValueError(f"num_attention_heads {heads} is not a multiple of"
+                         f" num_key_value_heads {kv}")
+    if config["head_dim"] % 2:
+        raise ValueError(f"head_dim {config['head_dim']} is odd: the rotary embedding needs"
+                         " pairs")
+    return {**config, "num_key_value_heads": kv, "layer_types": list(types), "window": window}
+
+
+def embed_scale(hidden: int, device: torch.device) -> torch.Tensor:
+    """hidden ** 0.5 rounded to float32, as Gemma3TextScaledWordEmbedding
+    stores it, on `device`."""
+    return torch.full((), hidden ** 0.5, dtype=torch.float32, device=device)
+
+
+class RMSNorm(nn.Module):
+    """Gemma's RMSNorm: x * rsqrt(mean(x^2) + eps) * (1 + w), w from 0."""
+
+    def __init__(self, width: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(width))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        normed = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps)
+        return normed * (1.0 + self.weight)
+
+
+class _Layer(nn.Module):
+    def __init__(self, c: dict, layer: int):
+        super().__init__()
+        h, eps = c["hidden_size"], c["rms_norm_eps"]
+        self.sliding = c["layer_types"][layer] == "sliding_attention"
+        self.input_layernorm = RMSNorm(h, eps)
+        self.self_attn = Attention(c, c["attention_bias"], c["attention_bias"], RMSNorm)
+        self.post_attention_layernorm = RMSNorm(h, eps)
+        self.pre_feedforward_layernorm = RMSNorm(h, eps)
+        self.mlp = GatedMLP(c, partial(F.gelu, approximate="tanh"))
+        self.post_feedforward_layernorm = RMSNorm(h, eps)
+
+    def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        attn = self.self_attn(self.input_layernorm(x), blocked, cos, sin, scale)
+        x = x + self.post_attention_layernorm(attn)
+        return x + self.post_feedforward_layernorm(self.mlp(self.pre_feedforward_layernorm(x)))
+
+
+class Gemma3Model(nn.Module):
+    """A Gemma 3 text stack, widths from a transformers-style config dict
+    (`config` holds Gemma3TextConfig's names, defaults filled in)."""
+
+    def __init__(self, config: dict):
+        super().__init__()
+        config = check_config(config)
+        self.config = config
+        self.embed_tokens = nn.Embedding(config["vocab_size"], config["hidden_size"])
+        self.layers = nn.ModuleList(_Layer(config, i) for i in range(config["num_hidden_layers"]))
+        self.norm = RMSNorm(config["hidden_size"], config["rms_norm_eps"])
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """(B, L) int64 ids and 0/1 mask -> (B, L, hidden) float32, the
+        last hidden state."""
+        if input_ids.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "the text encoder needs full float32 matmuls:"
+                " torch.backends.cuda.matmul.allow_tf32 is True"
+            )
+        c = self.config
+        L, d, device = input_ids.shape[1], c["head_dim"], input_ids.device
+        x = self.embed_tokens(input_ids) * embed_scale(c["hidden_size"], device)
+        causal = not c["use_bidirectional_attention"]
+        full = (blocked_keys(attention_mask, causal=causal),
+                *rotary(L, d, float(c["rope_theta"]), device))
+        sliding = (blocked_keys(attention_mask, causal=causal, window=c["window"]),
+                   *rotary(L, d, float(c["rope_local_base_freq"]), device))
+        scale = attention_scale(c["query_pre_attn_scalar"], device)
+        for layer in self.layers:
+            x = layer(x, *(sliding if layer.sliding else full), scale)
+        return self.norm(x)

@@ -2,7 +2,7 @@
 
 Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
 families, ModernBERT, DeBERTa-v2) or decoder (Qwen3, Qwen2, Llama,
-Mistral) checkpoint pulled from the hub, tokenized, mean/CLS-pooled, optionally L2-normalized;
+Mistral, Gemma 3) checkpoint pulled from the hub, tokenized, mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
 embeddings (LRU-cached upstream). Zero-egress deployments point `model`
 at a local path.
@@ -14,13 +14,15 @@ its own pieces and no transformers: the checkpoint directory is read by
 models/checkpoint.py, texts are tokenized on the host by
 models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's,
 CamemBERT's and DeBERTa-v3's vocabularies), models/unigram.py, or, for
-a byte-level BPE (RoBERTa's, ModernBERT's, Qwen2's, Llama-3's),
-models/bpe.py (all three with `tokenizers`' own Unicode tables,
+a BPE (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level one;
+Llama-2's, Mistral's and Gemma's with byte fallback), models/bpe.py (all
+three with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
 XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA),
 models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
-`DebertaV2Model` or models/decoder.py's `DecoderModel` (Qwen3, Qwen2,
-Llama and Mistral) runs on the device
+`DebertaV2Model`, models/decoder.py's `DecoderModel` (Qwen3, Qwen2,
+Llama and Mistral) or models/gemma3.py's `Gemma3Model` (Gemma 3's text
+stack, EmbeddingGemma) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state; otherwise the mean over the attention mask), and
 the result is L2-normalized in numpy exactly as there. Only a local
@@ -44,6 +46,7 @@ from ..ops.chain_keys import LaunchCounter
 from .checkpoint import build_model, build_tokenizer, load_checkpoint
 from .deberta_v2 import attention_span
 from .decoder import MODEL_TYPES as DECODER_TYPES
+from .gemma3 import MODEL_TYPE as GEMMA3_TYPE
 
 # Texts per forward pass. 256 texts of 128 tokens give each linear layer
 # 32,768 rows, enough to fill the card; at the 512-token limit, the largest
@@ -88,9 +91,10 @@ class TextEncoder:
             return CHUNK_TEXTS
         c = self._model.config
         L, heads = self.max_len, c["num_attention_heads"]
-        gated = c.get("model_type") in ("modernbert", *DECODER_TYPES)
+        gated = c.get("model_type") in ("modernbert", *DECODER_TYPES, GEMMA3_TYPE)
         # the feed-forward's widest activation: ModernBERT's GeGLU and the
-        # decoders' gated MLP project to two halves, 2 x intermediate_size
+        # decoders' and Gemma 3's gated MLPs project to two halves,
+        # 2 x intermediate_size
         ffn = c["intermediate_size"] * (2 if gated else 1)
         # the widest of the hidden width and Q's heads x head_dim (a
         # decoder's head_dim need not be hidden_size / heads)

@@ -365,8 +365,11 @@ def test_ignore_merges_takes_a_whole_word(decoder_dirs, tmp_path, ignore):
     ("qwen2-right", {"pad_token": None}, "pad token"),
 ])
 def test_unread_decoder_tokenizer_configs_are_refused(decoder_dirs, layout, change, match):
-    """Llama-2's and Mistral's sentencepiece class (named, or the `llama`
-    and `mistral` default), another padding side, no pad token."""
+    """The Llama class (named, or the `llama` and `mistral` default) over
+    Llama-3's byte-level file: LlamaTokenizerFast's default unk `<unk>` is
+    not in its vocabulary (with the unk named, the class reads it:
+    tests/test_torch_bpe_byte_fallback.py); another padding side; no pad
+    token."""
     path = decoder_dirs[layout]
     with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
         spec = json.load(f)

@@ -13,7 +13,8 @@ port's search
 path on the card, typo pass included, must answer exactly as its host
 scorer, the vector legs on the card as its numpy host pass, and the text
 encoder (K8), BERT, XLM-R, RoBERTa with its byte-level BPE,
-DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA and DeBERTa-v2, on the
+DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA, DeBERTa-v2, the
+decoders, and Gemma 3 and Llama from byte-fallback tokenizers, on the
 card as the same checkpoint on the CPU."""
 
 import sys
@@ -692,6 +693,72 @@ def test_decoder_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, kind,
     got = card.encode(texts)
     assert next(card._model.parameters()).is_cuda
     assert isinstance(card._model, DecoderModel) and card._model.config["model_type"] == kind
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    assert int(mask[:, 0].min()) == 0 and int(mask[:, -1].min()) == 1  # left padding
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
+def _byte_fallback_checkpoint(path, kind, layout, seed=0):
+    """A 2-layer decoder at DECODER_WIDTHS[kind] (llama, mistral) or at
+    google/embeddinggemma-300m's widths (gemma3_text: bidirectional, or
+    causal with `layout` "causal", a 16-token sliding window so the long
+    texts reach past it), written by the port as model.safetensors beside
+    a seeded sentencepiece BPE with byte fallback: Llama's legacy or
+    Metaspace layout (`layout` "legacy"/"metaspace") or Gemma's, each
+    with its class's tokenizer_config.json (left padding by default)."""
+    from meilisearch_tpu_torch.models import fixtures
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+
+    texts = _enc_texts(200, seed)
+    if kind == "gemma3_text":
+        spec = fixtures.gemma_tokenizer_json(texts, 1500, seed=seed)
+        tok_config = fixtures.gemma_tokenizer_config(spec, add_eos_token=True)
+        widths = {"hidden_size": 768, "intermediate_size": 1152, "num_attention_heads": 3,
+                  "num_key_value_heads": 1, "head_dim": 256, "query_pre_attn_scalar": 256,
+                  "sliding_window": 16, "use_bidirectional_attention": layout != "causal",
+                  "layer_types": ["sliding_attention", "full_attention"]}
+    else:
+        spec = fixtures.llama_tokenizer_json(texts, 1500, seed=seed, legacy=layout == "legacy")
+        tok_config = fixtures.llama_tokenizer_config(spec)
+        widths = {"hidden_act": "silu", **DECODER_WIDTHS[kind]}
+    config = {"model_type": kind, "vocab_size": len(spec["model"]["vocab"]),
+              "num_hidden_layers": 2, "rms_norm_eps": 1e-6, **widths}
+    torch.manual_seed(seed)
+    model = new_model(config)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.add_(torch.randn(p.shape) * 0.1)
+    write_checkpoint(str(path), config, model.state_dict(), tokenizer_json=spec,
+                     tokenizer_config=tok_config)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("kind, layout", [("gemma3_text", "bidirectional"),
+                                          ("gemma3_text", "causal"), ("llama", "legacy"),
+                                          ("mistral", "metaspace")])
+def test_byte_fallback_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, kind, layout,
+                                                          pooling):
+    """Gemma 3's text stack (bidirectional, EmbeddingGemma's, and causal;
+    its sliding layers' window bites on the long texts) and Llama and
+    Mistral from byte-fallback tokenizer files on the card: a left-padded
+    batch with byte pieces (emoji, CJK) beside texts of 200 to 512 tokens,
+    against the CPU within ENC_TOL (1e-4)."""
+    from meilisearch_tpu_torch.models import bpe, hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _byte_fallback_checkpoint(tmp_path, kind, layout, seed=18)
+    texts = _enc_texts(15, seed=19) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80), "",
+                                       "emoji \U0001F680 中文 café \U0001F44D\U0001F3FD"]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert card._model.config["model_type"] == kind
+    assert isinstance(card._tokenizer, bpe.BPE) and card._tokenizer.byte_fallback
     _ids, mask = card._tokenizer(texts, card.max_len)
     assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
     assert int(mask[:, 0].min()) == 0 and int(mask[:, -1].min()) == 1  # left padding

@@ -187,7 +187,9 @@ def test_prefixed_names_load(ckpt):
 ])
 def test_a_bpe_tokenizer_is_refused(ckpt, tmp_path, change, match):
     """A byte-level BPE reads (models/bpe.py); a BPE it does not read, with
-    byte_fallback or a Metaspace pre-tokenizer, is refused by name."""
+    byte_fallback over ByteLevel words (the port reads byte fallback in
+    sentencepiece-style files only) or a Metaspace pre-tokenizer that
+    splits, is refused by name."""
     path = str(tmp_path / "bpe")
     shutil.copytree(ckpt["xlmr"], path)
     byte_level = {"type": "ByteLevel", "add_prefix_space": False, "use_regex": True}
