@@ -77,7 +77,7 @@ Phases, each fatal on failure:
      nothing downloaded) is written to a temporary directory; the port's
      encoder on the card must agree with the same checkpoint on the CPU
      within ENC_TOL on 80 texts; a fourth App ingests ENC_DOCS synthetic
-     hackernews documents (50,000 of the configuration's 150,000) over HTTP
+     hackernews documents (25,000 of the configuration's 150,000) over HTTP
      with a huggingFace embedder on that
      checkpoint and Meilisearch's default documentTemplate, every document
      embedded at indexing on the card (wall time, tokens, tokens/s, peak
@@ -216,11 +216,32 @@ Phases, each fatal on failure:
      documents: the encoder on the card against the CPU within ENC_TOL on
      texts that fall back to bytes (emoji, CJK, accents, runs of unknown
      symbols), a left-padded batch under forceCls and under mean pooling,
-     and a 2-layer checkpoint of the same widths with a 16-token
-     sliding window on phase 13's long texts, each card against CPU;
-     tokens/s and the host share, peak device memory, 256 hybrid responses
-     against the host pass, a query's forward and launches against its
-     weight-read bound, and one chunk against its float32 bound.
+     and two 2-layer checkpoints of the same widths on phase 13's long
+     texts, one with a 16-token sliding window and one causal (layer
+     types from sliding_window_pattern 2, rope_scaling linear 8 on the
+     full layer only, attn_logit_softcapping 50, which the reference
+     ignores, and the erf GELU), each card against CPU; tokens/s and the
+     host share, peak device memory, 256 hybrid responses against the
+     host pass, a query's forward and launches against its weight-read
+     bound, and one chunk against its float32 bound;
+  17. Llama-3.2-1B path (hn10k-llama32-1b-hf), after the earlier phases'
+     encoders are let go: a checkpoint at meta-llama/Llama-3.2-1B's
+     published config.json widths and depth (llama: vocab 128,256, hidden
+     2,048, 16 layers, 32 heads of 64 over 8 KV heads, intermediate
+     8,192, rope_theta 500,000 under rope_scaling llama3, factor 32 over
+     8,192 positions; seeded random weights at initializer_range 0.02,
+     written as model.safetensors) with a seeded byte-level BPE in
+     Llama-3's layout (128,000 pieces, 256 specials) and its
+     tokenizer_config.json (models/fixtures.py), through its own App as
+     phase 11 over 10,000 documents: the encoder on the card against the
+     CPU within ENC_TOL on 85 texts and on phase 13's long texts, and
+     three 2-layer checkpoints at its widths on the long texts (qwen3 with
+     yarn, a 16-token window from layer 1 and the erf GELU; mistral with
+     a 16-token window under linear 2; llama with MLP biases and
+     gelu_new), each card against CPU; tokens/s and the host share, peak
+     device memory, 256 hybrid responses against the host pass, a query's
+     forward and launches against its weight-read bound, and one chunk
+     against its float32 bound.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -324,15 +345,15 @@ VEC_SERVED_PER_CLIENT = 8
 # huggingFace embedder at BAAI/bge-base-en-v1.5's published width (random
 # weights from a seed, nothing downloaded) and Meilisearch's default
 # documentTemplate; every document is embedded at indexing on the card.
-# 50,000 of its 150,000 documents: the depth cut that keeps the whole
-# script under 700 s with phase 14
+# 25,000 of its 150,000 documents: the depth cut (50,000 until phase 17
+# came) that keeps the whole script near 900 s with phase 17
 BGE_CONFIG = {
     "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
     "num_attention_heads": 12, "intermediate_size": 3072,
     "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
 }
 BGE_INIT_STD = 0.02  # BERT's initializer_range
-ENC_DOCS, ENC_WRITE, ENC_SEED = 50_000, 1_000, 2025
+ENC_DOCS, ENC_WRITE, ENC_SEED = 25_000, 1_000, 2025
 ENC_TOL = 1e-4  # max abs error of normalized embeddings, card against the CPU
 ENC_TEXT = ["rust compiler", "machine learning database", "cloud security", "python web"]
 ENC_TIMED_TOKENS = 128  # tokens per text of the timed indexing chunk
@@ -491,7 +512,62 @@ EMBEDDINGGEMMA_CONFIG = {
 # one full), a 16-token sliding_window (a reach of 9), on the long texts
 GEMMA_WINDOW_CONFIG = {**EMBEDDINGGEMMA_CONFIG, "num_hidden_layers": 2, "sliding_window": 16,
                        "layer_types": ["sliding_attention", "full_attention"]}
+# and a causal one: layer types from sliding_window_pattern 2 (sliding, then
+# full), the larger Gemma 3 decoders' linear 8 on the full layer's rotary
+# only, a softcap the reference ignores (fault 3.20), the erf GELU
+GEMMA_VARIANT_CONFIG = {
+    **{k: v for k, v in GEMMA_WINDOW_CONFIG.items() if k != "layer_types"},
+    "use_bidirectional_attention": False, "sliding_window_pattern": 2,
+    "rope_scaling": {"rope_type": "linear", "factor": 8.0}, "attn_logit_softcapping": 50.0,
+    "hidden_activation": "gelu"}
 P16_DOCS, P16_SEED = 10_000, 2032
+# phase 17, hn10k-llama32-1b-hf: meta-llama/Llama-3.2-1B's published
+# config.json (llama, rope_scaling llama3 factor 32 over 8,192 positions,
+# tied embeddings) with seeded random weights at its initializer_range
+# 0.02, a seeded byte-level BPE in Llama-3's layout (128,000 pieces, then
+# its 256 specials from <|begin_of_text|> at 128,000) and
+# PreTrainedTokenizerFast's tokenizer_config.json with pad
+# <|finetune_right_pad_id|>. 10,000 of the configuration's 150,000
+# hackernews documents: phase 16's depth cut; widths, depth and
+# vocabulary size are the published ones
+LLAMA32_1B_CONFIG = {
+    "model_type": "llama", "vocab_size": 128_256, "hidden_size": 2048,
+    "intermediate_size": 8192, "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64, "rms_norm_eps": 1e-5, "rope_theta": 500_000.0,
+    "rope_scaling": {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    "max_position_embeddings": 131_072, "hidden_act": "silu", "attention_bias": False,
+    "attention_dropout": 0.0, "mlp_bias": False, "tie_word_embeddings": True,
+    "initializer_range": 0.02, "bos_token_id": 128_000, "eos_token_id": 128_001,
+}
+LLAMA3_BPE_SIZE, LLAMA3_RESERVED = 128_000, 248
+P17_DOCS, P17_SEED = 10_000, 2033
+# the decoder variants, 2 layers each at the phase's widths on its
+# tokenizer, on phase 13's long texts: (a) Qwen3's documented long-context
+# yarn (factor 4 over 32,768) with a 16-token window from layer 1 and the
+# erf GELU, (b) a Mistral window of 16 under linear 2, (c) Llama's MLP
+# biases (drawn, not 0) and gelu_new
+_P17_WIDTHS = {k: LLAMA32_1B_CONFIG[k] for k in (
+    "vocab_size", "hidden_size", "intermediate_size", "num_attention_heads",
+    "num_key_value_heads", "head_dim", "rms_norm_eps", "rope_theta")}
+DECODER_VARIANTS = {
+    "(a) qwen3, yarn 4 over 32,768, window 16 from layer 1, gelu": {
+        **_P17_WIDTHS, "model_type": "qwen3", "num_hidden_layers": 2,
+        "max_position_embeddings": 131_072, "use_sliding_window": True, "sliding_window": 16,
+        "max_window_layers": 1, "hidden_act": "gelu",
+        "rope_scaling": {"rope_type": "yarn", "factor": 4.0,
+                         "original_max_position_embeddings": 32_768}},
+    "(b) mistral, window 16, linear 2": {
+        **_P17_WIDTHS, "model_type": "mistral", "num_hidden_layers": 2, "sliding_window": 16,
+        "rope_scaling": {"rope_type": "linear", "factor": 2.0}},
+    "(c) llama, mlp_bias, gelu_new": {
+        **{k: v for k, v in LLAMA32_1B_CONFIG.items() if k != "num_hidden_layers"},
+        "num_hidden_layers": 2, "mlp_bias": True, "hidden_act": "gelu_new"},
+}
+# Llama-3's specials, contractions under (?i:...), digit runs and newlines
+P17_TEXT = ["x'Sy it'S we'LL don'T x'\u017fy", "<|begin_of_text|> inside <|eot_id|> <|python_tag|>",
+            "<|start_header_id|>user<|end_header_id|> hi", "1 12 123 1234567 3.14159",
+            "a\r\n\r\n  b  \n c"]
 # characters the vocabulary lacks fall back to their UTF-8 bytes: emoji,
 # CJK, accents, runs of unknown symbols; Gemma's specials and its
 # non-special added tokens
@@ -1219,13 +1295,14 @@ def bge_vocab() -> list:
     return vocab + [f"filler{i}" for i in range(n - len(vocab))]
 
 
-def random_state_dict(config: dict, seed: int) -> dict:
+def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
     """BERT's initialization of a model of `config` (XLM-R's, DistilBERT's,
     MPNet's, ModernBERT's, the decoders' and Gemma 3's too): weights,
     MPNet's relative attention bias table among them, normal(0,
-    BGE_INIT_STD) from a seeded torch.Generator, biases 0, LayerNorm and
-    RMSNorm scales 1 (Gemma's `1 + w` RMSNorm weights 0, as transformers
-    starts them). The module is built on the meta device for its names and
+    BGE_INIT_STD) from a seeded torch.Generator, biases 0 (normal(0,
+    bias_std) where given, so a check sees them), LayerNorm and RMSNorm
+    scales 1 (Gemma's `1 + w` RMSNorm weights 0, as transformers starts
+    them). The module is built on the meta device for its names and
     shapes."""
     import torch
 
@@ -1245,7 +1322,8 @@ def random_state_dict(config: dict, seed: int) -> dict:
         if name in norms:
             state[name] = torch.full(p.shape, norms[name])
         elif name.endswith("bias"):
-            state[name] = torch.zeros(p.shape)
+            state[name] = (torch.randn(p.shape, generator=g) * bias_std if bias_std
+                           else torch.zeros(p.shape))
         else:
             state[name] = torch.randn(p.shape, generator=g) * BGE_INIT_STD
     return state
@@ -1962,9 +2040,13 @@ def write_gemma_checkpoint(path: str, config: dict, seed: int, spec: dict) -> No
 
 
 def window_check(path: str, device, label: str) -> float:
-    """GEMMA_WINDOW_CONFIG's 2-layer checkpoint beside `path`'s tokenizer
-    files: phase 13's long texts in one batch (`long_check`), after
-    checking that its reach (9 tokens) is under their lengths."""
+    """Two 2-layer checkpoints at EmbeddingGemma's widths beside `path`'s
+    tokenizer files, GEMMA_WINDOW_CONFIG's (bidirectional) and
+    GEMMA_VARIANT_CONFIG's (causal, scaled global rotary, softcap, erf
+    GELU): phase 13's long texts in one batch (`long_check`) for each,
+    after checking that its reach (9 and 16 tokens) is under their
+    lengths and its layers are one sliding, one full; returns the larger
+    error."""
     import json
     import os
     import tempfile
@@ -1973,13 +2055,22 @@ def window_check(path: str, device, label: str) -> float:
 
     with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
         spec = json.load(f)
-    reach = check_config(GEMMA_WINDOW_CONFIG)["window"]
-    with tempfile.TemporaryDirectory() as small:
-        write_gemma_checkpoint(small, GEMMA_WINDOW_CONFIG, P16_SEED + 1, spec)
-        if reach >= LONG_TOKENS:
-            raise AssertionError(f"the window ({reach} tokens) would not bite")
-        return long_check(small, device, f"{label} 2 layers, sliding_window 16 (reach {reach})",
-                          texts=long_check_texts(P16_SEED))
+    err = 0.0
+    for config, seed, what in (
+            (GEMMA_WINDOW_CONFIG, P16_SEED + 1, "sliding_window 16"),
+            (GEMMA_VARIANT_CONFIG, P16_SEED + 2, "(d) causal, sliding_window_pattern 2,"
+             " sliding_window 16, rope_scaling linear 8, attn_logit_softcapping 50, gelu")):
+        checked = check_config(config)
+        reach = checked["window"]
+        if reach >= LONG_TOKENS or checked["layer_types"] != ["sliding_attention",
+                                                              "full_attention"]:
+            raise AssertionError(f"the window ({reach} tokens, {checked['layer_types']}) would"
+                                 " not bite")
+        with tempfile.TemporaryDirectory() as small:
+            write_gemma_checkpoint(small, config, seed, spec)
+            err = max(err, long_check(small, device, f"{label} 2 layers, {what} (reach {reach})",
+                                      texts=long_check_texts(P16_SEED)))
+    return err
 
 
 def embeddinggemma_phase(device, card: str, n_docs: int) -> dict:
@@ -1997,6 +2088,108 @@ def embeddinggemma_phase(device, card: str, n_docs: int) -> dict:
                   tokenizer="BPE", model_type="gemma3_text",
                   checks=(left_pad_check, window_check))
     say(f"phase 16 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def llama32_spec() -> dict:
+    """The 128,256-entry tokenizer.json in Llama-3's layout, its merges
+    trained on the phase's own texts; checked against the config's
+    vocabulary size and special ids."""
+    from meilisearch_tpu_torch.models.fixtures import llama3_tokenizer_json
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(BPE_TRAIN_DOCS, seed=P17_SEED)]
+    spec = llama3_tokenizer_json(texts + P11_TEXT + P11_CHECK_TEXT, LLAMA3_BPE_SIZE,
+                                 seed=P17_SEED, n_reserved=LLAMA3_RESERVED)
+    vocab = spec["model"]["vocab"]
+    c = LLAMA32_1B_CONFIG
+    if len(vocab) != c["vocab_size"] or [vocab["<|begin_of_text|>"], vocab["<|end_of_text|>"]] \
+            != [c["bos_token_id"], c["eos_token_id"]]:
+        raise AssertionError("the tokenizer is not laid out as Llama-3.2-1B's")
+    return spec
+
+
+def write_llama_checkpoint(path: str, config: dict, seed: int, spec: dict,
+                           bias_std: float = 0.0) -> None:
+    """A decoder checkpoint of `config` (DecoderModel's names, seeded
+    weights), written as model.safetensors beside `spec` and Llama-3's
+    tokenizer_config.json."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import llama3_tokenizer_config
+
+    write_checkpoint(path, config, random_state_dict(config, seed, bias_std), tokenizer_json=spec,
+                     tokenizer_config=llama3_tokenizer_config(spec))
+
+
+def llama32_long_check(path: str, device, label: str) -> float:
+    """The phase's checkpoint on phase 13's long texts in one batch
+    (`long_check`), after checking that the module runs the llama3
+    rotary."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    if enc._model.rope.kind != "llama3":
+        raise AssertionError(f"{label}: the module runs the {enc._model.rope.kind} rotary")
+    return long_check(path, device, f"{label} 16 layers, llama3 rope",
+                      texts=long_check_texts(P17_SEED))
+
+
+def decoder_variants_check(path: str, device, label: str) -> float:
+    """DECODER_VARIANTS' 2-layer checkpoints beside `path`'s tokenizer files
+    (MLP biases drawn at BGE_INIT_STD): phase 13's long texts in one batch
+    (`long_check`) for each, after checking that each window's reach is
+    under their lengths; returns the largest error."""
+    import json
+    import os
+    import tempfile
+
+    from meilisearch_tpu_torch.models.checkpoint import check_config
+
+    with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    err = 0.0
+    for i, (what, config) in enumerate(DECODER_VARIANTS.items()):
+        checked = check_config(config)
+        if checked["window"] is not None and checked["window"] >= LONG_TOKENS:
+            raise AssertionError(f"{what}: the window ({checked['window']} tokens) would not bite")
+        with tempfile.TemporaryDirectory() as small:
+            write_llama_checkpoint(small, config, P17_SEED + 1 + i, spec, bias_std=BGE_INIT_STD)
+            err = max(err, long_check(small, device, f"{label} variant {what}",
+                                      texts=long_check_texts(P17_SEED)))
+    return err
+
+
+def llama32_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 17, the Llama-3.2-1B path: hn10k-llama32-1b-hf through its own
+    App (`hf_path`), with the long check and the decoder variants, after
+    the earlier phases' encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 17 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    t0 = time.perf_counter()
+    spec = llama32_spec()
+    say(f"Llama-3 tokenizer ({len(spec['model']['vocab'])} entries,"
+        f" {len(spec['model']['merges'])} merges) built in {time.perf_counter() - t0:.3f} s")
+    out = hf_path(device, card, n_docs, label="Llama-3.2-1B", index="l32",
+                  write=lambda path: write_llama_checkpoint(path, LLAMA32_1B_CONFIG, P17_SEED,
+                                                            spec),
+                  seed=P17_SEED, queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P17_TEXT,
+                  tokenizer="BPE", model_type="llama",
+                  checks=(llama32_long_check, decoder_variants_check))
+    say(f"phase 17 wall: {time.perf_counter() - t_phase:.3f} s")
     return out
 
 
@@ -2967,6 +3160,7 @@ def main() -> int:
     families_phase(device, card, P14_DOCS)
     qwen3_embedding_phase(device, card, P15_DOCS)
     embeddinggemma_phase(device, card, P16_DOCS)
+    llama32_phase(device, card, P17_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

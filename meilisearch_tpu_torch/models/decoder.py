@@ -17,34 +17,56 @@ returns the last hidden state (pooling stays in models/hf_encoder.py):
   `qwen2` always, for `qwen3` and `llama` under `attention_bias` (on
   `o_proj` too), for `mistral` never; for `qwen3` a per-head RMSNorm
   (`q_norm`, `k_norm`) over head_dim before the rotary; rotary positions
-  on Q and K (models/modernbert.py's tables: transformers' default rotary
-  embedding at `rope_theta`, positions 0..L-1 in every row as
-  transformers gives them when no position ids are passed, left-padded
-  rows included; rotary scores depend only on the offset between
-  tokens); K and V repeated over `num_attention_heads //
-  num_key_value_heads` (each KV head serves its group of consecutive
-  query heads, transformers' `repeat_kv`); scores (Q K^T) times
-  `head_dim ** -0.5` as a float32 tensor on the device (fault 3.4),
-  softmax, times V; `o_proj`; the residual; `post_attention_layernorm`,
-  `down_proj(silu(gate_proj(x)) * up_proj(x))`, the residual;
+  on Q and K (models/rope.py's tables for the config's `rope_scaling`:
+  `default`, `linear`, `dynamic`, `yarn`, `llama3` or `longrope`, at
+  `rope_theta`, positions 0..L-1 in every row as transformers gives them
+  when no position ids are passed, left-padded rows included); K and V
+  repeated over `num_attention_heads // num_key_value_heads` (each KV
+  head serves its group of consecutive query heads, transformers'
+  `repeat_kv`); scores (Q K^T) times `head_dim ** -0.5` as a float32
+  tensor on the device (fault 3.4), softmax, times V; `o_proj`; the
+  residual; `post_attention_layernorm`,
+  `down_proj(act(gate_proj(x)) * up_proj(x))` (`hidden_act`, one of
+  models/activations.py's; biases on the three under Llama's `mlp_bias`,
+  which Qwen2's, Qwen3's and Mistral's MLPs do not read), the residual;
 - the final `norm`.
 
-Key j is visible to query i iff j <= i and j is a real token. The mask
-replaces the scores of the keys a query does not see with float32's
-lowest, never adds to them; a query with no visible key (a left-padded
-row's pad tokens) gets an attention output of exactly 0, as torch's
-`scaled_dot_product_attention` gives transformers by default (hazard
-3.18): not the uniform average an additive mask gives (transformers'
-`eager`), and never NaN, which a zero pooling weight would not cancel.
-Attention is written as explicit products and a softmax, not
-`scaled_dot_product_attention`, which picks its own kernels and rounding.
+Key j is visible to query i iff j <= i and j is a real token; in a
+sliding layer also iff i - j < `window`. Which layers slide is each
+family's:
+- `qwen2`, `qwen3`: `sliding_window` holds only under
+  `use_sliding_window`; `layer_types` is the config's, or, as
+  `Qwen2Config`/`Qwen3Config` derive it, layer i sliding iff there is a
+  window and i >= `max_window_layers`;
+- `mistral`: every layer slides when `sliding_window` is set (of any
+  size), none when it is null;
+- `llama`: no layer slides.
+Where a `sliding_attention` layer has no window, transformers raises
+(Qwen's mask, Llama's and Mistral's cache), and the port refuses the
+config by name.
+
+The mask replaces the scores of the keys a query does not see with
+float32's lowest, never adds to them; a query with no visible key (a
+left-padded row's pad tokens) gets an attention output of exactly 0, as
+torch's `scaled_dot_product_attention` gives transformers by default
+(hazard 3.18): not the uniform average an additive mask gives
+(transformers' `eager`), and never NaN, which a zero pooling weight
+would not cancel. Attention is written as explicit products and a
+softmax, not `scaled_dot_product_attention`, which picks its own kernels
+and rounding.
+
+Refused by name, as transformers raises on each: `partial_rotary_factor`
+(its rotary tables do not fit the head), Mistral's `dynamic`, `yarn` and
+`longrope` without a `head_dim` (those tables read the None its config
+stores), a `rope_scaling` models/rope.py refuses, and an activation
+models/activations.py does not run.
 
 Parameter names are transformers' (`embed_tokens.weight`,
 `layers.{i}.input_layernorm.weight`,
 `layers.{i}.self_attn.{q,k,v,o}_proj.{weight,bias}`,
 `layers.{i}.self_attn.{q,k}_norm.weight`,
 `layers.{i}.post_attention_layernorm.weight`,
-`layers.{i}.mlp.{gate,up,down}_proj.weight`, `norm.weight`), so a
+`layers.{i}.mlp.{gate,up,down}_proj.{weight,bias}`, `norm.weight`), so a
 checkpoint's tensors load by name (models/checkpoint.py).
 
 Everything runs in float32. On a CUDA device the forward raises when
@@ -56,15 +78,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .modernbert import rotary, rotate_half
+from .activations import activation
+from .rope import READS_STORED_HEAD_DIM, Rope, rope_type, rotate_half
 
 MODEL_TYPES = ("qwen3", "qwen2", "llama", "mistral")
-# the longest batch the encoder gives the module (TextEncoder's max_len): a
-# sliding window at least this wide never bites
-MAX_LEN = 512
+LAYER_TYPES = ("full_attention", "sliding_attention")
 # the widths a config must give (transformers' config names)
 CONFIG_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
                "num_attention_heads")
@@ -72,19 +92,50 @@ CONFIG_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_lay
 _COMMON = {"hidden_act": "silu", "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
            "rope_scaling": None, "num_key_value_heads": None, "head_dim": None,
            "attention_bias": False, "mlp_bias": False, "layer_types": None}
+_QWEN = {"num_key_value_heads": 32, "max_position_embeddings": 32_768,
+         "use_sliding_window": False, "sliding_window": 4096, "max_window_layers": 28}
 DEFAULTS = {
-    "qwen3": {**_COMMON, "num_key_value_heads": 32, "head_dim": 128,
-              "use_sliding_window": False},
-    "qwen2": {**_COMMON, "num_key_value_heads": 32, "use_sliding_window": False},
-    "llama": _COMMON,
-    "mistral": {**_COMMON, "num_key_value_heads": 8, "sliding_window": 4096},
+    "qwen3": {**_COMMON, **_QWEN, "head_dim": 128},
+    "qwen2": {**_COMMON, **_QWEN},
+    "llama": {**_COMMON, "max_position_embeddings": 2048},
+    "mistral": {**_COMMON, "num_key_value_heads": 8, "max_position_embeddings": 131_072,
+                "sliding_window": 4096},
 }
+
+
+def layer_types(kind: str, config: dict) -> tuple:
+    """(layer_types, window) of a config with its defaults filled in: each
+    layer's attention as the family's transformers model runs it, and the
+    sliding layers' window (None if none slides)."""
+    n, given = config["num_hidden_layers"], config["layer_types"]
+    if given is not None and (len(given) != n or any(t not in LAYER_TYPES for t in given)):
+        raise ValueError(f"layer_types {given} are not supported: the port runs {n} of"
+                         f" {LAYER_TYPES}")
+    if kind in ("qwen2", "qwen3"):
+        window = config["sliding_window"] if config["use_sliding_window"] else None
+        types = list(given) if given is not None else [
+            LAYER_TYPES[window is not None and i >= config["max_window_layers"]]
+            for i in range(n)]
+        if "sliding_attention" in types and window is None:
+            raise ValueError(f"layer_types {types} slide with no window: {kind} keeps"
+                             " sliding_window only under use_sliding_window, and transformers"
+                             " raises on such a config")
+        return types, window
+    # Llama's and Mistral's attention reads no layer_types (a Mistral window
+    # slides in every layer), but transformers' cache does, and raises on a
+    # sliding entry with no sliding_window
+    if "sliding_attention" in (given or ()) and config.get("sliding_window") is None:
+        raise ValueError(f"layer_types {given} slide with no sliding_window: transformers raises"
+                         f" on such a {kind} config")
+    window = config["sliding_window"] if kind == "mistral" else None
+    return [LAYER_TYPES[window is not None]] * n, window
 
 
 def check_config(config: dict) -> dict:
     """Raise ValueError unless `config` describes a decoder this module
-    runs; return it with its family's defaults filled in, and
-    `num_key_value_heads` and `head_dim` resolved."""
+    runs; return it with its family's defaults filled in,
+    `num_key_value_heads` and `head_dim` resolved, and `layer_types` and
+    `window` as `layer_types` gives them."""
     kind = config.get("model_type")
     if kind not in MODEL_TYPES:
         raise ValueError(f"model_type `{kind}` is not one of {MODEL_TYPES}")
@@ -92,28 +143,10 @@ def check_config(config: dict) -> dict:
     missing = [k for k in CONFIG_KEYS if k not in config]
     if missing:
         raise ValueError(f"the {kind} config lacks {missing}")
-    if config["hidden_act"] != "silu":
-        raise ValueError(f"hidden_act `{config['hidden_act']}` is not supported: the port runs"
-                         " the SiLU-gated MLP only")
-    rope = config["rope_scaling"]
-    if rope is not None and (rope.get("rope_type", rope.get("type")) or "default") != "default":
-        raise ValueError(f"rope_scaling {rope} is not supported: the port runs the default"
-                         " rotary embedding only")
+    activation(config["hidden_act"])
     if config.get("partial_rotary_factor", 1.0) != 1.0:
         raise ValueError("partial_rotary_factor is not supported: the port rotates the whole"
-                         " head")
-    if config.get("use_sliding_window"):
-        raise ValueError(f"use_sliding_window true is not supported for {kind}: the port runs"
-                         " full causal attention only")
-    window = config.get("sliding_window") if kind == "mistral" else None
-    if window is not None and window < MAX_LEN:
-        raise ValueError(f"sliding_window {window} is not supported: the port runs windows of"
-                         f" {MAX_LEN} tokens or more only, which never bite")
-    if config["mlp_bias"]:
-        raise ValueError("mlp_bias true is not supported: the port's MLP has no biases")
-    if "sliding_attention" in (config["layer_types"] or ()):
-        raise ValueError(f"layer_types {config['layer_types']} are not supported: the port runs"
-                         " full attention layers only")
+                         " head, and transformers' rotary for these families raises on it")
     heads = config["num_attention_heads"]
     kv = config["num_key_value_heads"] or heads
     if heads % kv:
@@ -121,10 +154,18 @@ def check_config(config: dict) -> dict:
                          f" num_key_value_heads {kv}")
     if config["head_dim"] is None and config["hidden_size"] % heads:
         raise ValueError("hidden_size is not a multiple of num_attention_heads")
+    if kind == "mistral" and config["head_dim"] is None \
+            and rope_type(config["rope_scaling"]) in READS_STORED_HEAD_DIM:
+        raise ValueError(f"rope_scaling {config['rope_scaling']} is not supported for a mistral"
+                         " config without head_dim: transformers' tables read the None"
+                         " MistralConfig stores, and raise")
     head_dim = config["head_dim"] or config["hidden_size"] // heads
     if head_dim % 2:
         raise ValueError(f"head_dim {head_dim} is odd: the rotary embedding needs pairs")
-    return {**config, "num_key_value_heads": kv, "head_dim": head_dim}
+    Rope.from_config(config, float(config["rope_theta"]), head_dim)
+    types, window = layer_types(kind, config)
+    return {**config, "num_key_value_heads": kv, "head_dim": head_dim, "layer_types": types,
+            "window": window}
 
 
 def attention_scale(head_dim: float, device: torch.device) -> torch.Tensor:
@@ -208,15 +249,15 @@ class Attention(nn.Module):
 
 
 class GatedMLP(nn.Module):
-    """down(act(gate(x)) * up(x)), no biases (`act`: SiLU for the
-    decoders, tanh GELU for Gemma 3)."""
+    """down(act(gate(x)) * up(x)) (`act`: the config's activation; biases
+    on the three projections with `bias`, Llama's `mlp_bias`)."""
 
-    def __init__(self, c: dict, act):
+    def __init__(self, c: dict, act, bias: bool = False):
         super().__init__()
         h, i = c["hidden_size"], c["intermediate_size"]
-        self.gate_proj = nn.Linear(h, i, bias=False)
-        self.up_proj = nn.Linear(h, i, bias=False)
-        self.down_proj = nn.Linear(i, h, bias=False)
+        self.gate_proj = nn.Linear(h, i, bias=bias)
+        self.up_proj = nn.Linear(h, i, bias=bias)
+        self.down_proj = nn.Linear(i, h, bias=bias)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -232,7 +273,8 @@ class _Layer(nn.Module):
         self.input_layernorm = RMSNorm(h, eps)
         self.self_attn = Attention(c, qkv_bias, o_bias, RMSNorm if kind == "qwen3" else None)
         self.post_attention_layernorm = RMSNorm(h, eps)
-        self.mlp = GatedMLP(c, F.silu)
+        self.mlp = GatedMLP(c, activation(c["hidden_act"]),
+                            bias=kind == "llama" and c["mlp_bias"])
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -243,12 +285,13 @@ class _Layer(nn.Module):
 class DecoderModel(nn.Module):
     """A Qwen3, Qwen2, Llama or Mistral decoder stack, widths from a
     transformers-style config dict (`config` holds its config's names,
-    defaults filled in)."""
+    defaults filled in; `rope`, its rotary embedding)."""
 
     def __init__(self, config: dict):
         super().__init__()
         config = check_config(config)
         self.config = config
+        self.rope = Rope.from_config(config, float(config["rope_theta"]), config["head_dim"])
         self.embed_tokens = nn.Embedding(config["vocab_size"], config["hidden_size"])
         self.layers = nn.ModuleList(_Layer(config) for _ in range(config["num_hidden_layers"]))
         self.norm = RMSNorm(config["hidden_size"], config["rms_norm_eps"])
@@ -262,15 +305,13 @@ class DecoderModel(nn.Module):
                 " torch.backends.cuda.matmul.allow_tf32 is True"
             )
         c = self.config
-        L = input_ids.shape[1]
-        if c.get("sliding_window") is not None and c["model_type"] == "mistral" \
-                and L > c["sliding_window"]:
-            raise ValueError(f"a batch of {L} tokens is longer than the sliding window"
-                             f" ({c['sliding_window']})")
         x = self.embed_tokens(input_ids)
-        cos, sin = rotary(L, c["head_dim"], float(c["rope_theta"]), x.device)
-        blocked = blocked_keys(attention_mask, causal=True)
+        cos, sin = self.rope.tables(input_ids.shape[1], x.device)
+        blocked = {"full_attention": blocked_keys(attention_mask, causal=True)}
+        if c["window"] is not None:
+            blocked["sliding_attention"] = blocked_keys(attention_mask, causal=True,
+                                                        window=c["window"])
         scale = attention_scale(c["head_dim"], x.device)
-        for layer in self.layers:
-            x = layer(x, blocked, cos, sin, scale)
+        for layer, kind in zip(self.layers, c["layer_types"]):
+            x = layer(x, blocked[kind], cos, sin, scale)
         return self.norm(x)

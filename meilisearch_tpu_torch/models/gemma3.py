@@ -11,18 +11,21 @@ models/hf_encoder.py):
   `Gemma3TextScaledWordEmbedding` stores it;
 - each layer: `input_layernorm`, attention, `post_attention_layernorm`,
   the residual; `pre_feedforward_layernorm`, the MLP
-  (`down_proj(gelu_tanh(gate_proj(x)) * up_proj(x))`),
+  (`down_proj(act(gate_proj(x)) * up_proj(x))`, `hidden_activation`
+  one of models/activations.py's, tanh GELU by default),
   `post_feedforward_layernorm`, the residual. Every RMSNorm is
   `x * rsqrt(mean(x^2) + eps) * (1 + w)` in float32 (its weights start
   at 0);
 - attention: `q_proj`, `k_proj`, `v_proj` to `num_attention_heads` and
   `num_key_value_heads` heads of `head_dim` (biases on all four
   projections under `attention_bias`), a per-head RMSNorm (`q_norm`,
-  `k_norm`) over head_dim, then rotary positions (models/modernbert.py's
-  tables: transformers' default rotary embedding, at `rope_theta` in
-  `full_attention` layers and `rope_local_base_freq` in
-  `sliding_attention` ones; positions 0..L-1 in every row, left-padded
-  rows included); K and V repeated over the query heads of their group
+  `k_norm`) over head_dim, then rotary positions (models/rope.py's
+  tables: in `full_attention` layers the config's `rope_scaling` at
+  `rope_theta`; in `sliding_attention` ones the default rotary at
+  `rope_local_base_freq`, unscaled, as `Gemma3TextModel` builds its
+  `rotary_emb_local` from a copy of the config with `rope_scaling`
+  `default`; positions 0..L-1 in every row, left-padded rows
+  included); K and V repeated over the query heads of their group
   (transformers' `repeat_kv`); scores times `query_pre_attn_scalar **
   -0.5` as a float32 tensor on the device (fault 3.4), softmax, times V;
   `o_proj` (models/decoder.py's `Attention` and `GatedMLP`, with Gemma's
@@ -54,9 +57,15 @@ Parameter names are transformers' (`embed_tokens.weight`,
 checkpoint's tensors load by name (models/checkpoint.py drops
 `Gemma3ForCausalLM`'s `model.` prefix and `lm_head.`).
 
+`attn_logit_softcapping` is accepted and ignored: transformers'
+`Gemma3Attention` stores it but never passes it to the attention
+function, so the reference's scores are not capped (fault 3.20).
+
 Refused by name: the multimodal `gemma3` model type, a `rope_scaling`
-other than the default, `attn_logit_softcapping`, a `hidden_activation`
-other than `gelu_pytorch_tanh`, `partial_rotary_factor`, and a
+models/rope.py refuses or that names its type under the older `type`
+alone (Gemma3TextConfig, unlike the decoders' configs, does not rename
+it), a `hidden_activation` models/activations.py does not run,
+`partial_rotary_factor` (transformers' rotary raises on it), and a
 `layer_types` entry other than `sliding_attention` and `full_attention`.
 
 Everything runs in float32. On a CUDA device the forward raises when
@@ -65,14 +74,12 @@ Everything runs in float32. On a CUDA device the forward raises when
 
 from __future__ import annotations
 
-from functools import partial
-
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from .activations import activation
 from .decoder import Attention, GatedMLP, attention_scale, blocked_keys
-from .modernbert import rotary
+from .rope import Rope
 
 MODEL_TYPE = "gemma3_text"
 LAYER_TYPES = ("sliding_attention", "full_attention")
@@ -85,7 +92,7 @@ DEFAULTS = {"num_key_value_heads": 4, "head_dim": 256, "hidden_activation": "gel
             "query_pre_attn_scalar": 256, "sliding_window": 4096, "layer_types": None,
             "attn_logit_softcapping": None, "rope_scaling": None,
             "rope_local_base_freq": 10_000.0, "use_bidirectional_attention": False,
-            "sliding_window_pattern": 6}
+            "sliding_window_pattern": 6, "max_position_embeddings": 131_072}
 
 
 def check_config(config: dict) -> dict:
@@ -103,19 +110,14 @@ def check_config(config: dict) -> dict:
     missing = [k for k in CONFIG_KEYS if k not in config]
     if missing:
         raise ValueError(f"the {kind} config lacks {missing}")
-    if config["hidden_activation"] != "gelu_pytorch_tanh":
-        raise ValueError(f"hidden_activation `{config['hidden_activation']}` is not supported:"
-                         " the port runs the tanh-GELU-gated MLP only")
-    rope = config["rope_scaling"]
-    if rope is not None and (rope.get("rope_type", rope.get("type")) or "default") != "default":
-        raise ValueError(f"rope_scaling {rope} is not supported: the port runs the default"
-                         " rotary embedding only")
+    activation(config["hidden_activation"], "hidden_activation")
+    scaling = config["rope_scaling"]
+    if scaling is not None and "type" in scaling and "rope_type" not in scaling:
+        raise ValueError(f"rope_scaling {scaling} names its type under `type` only:"
+                         " Gemma3TextConfig's validation requires `rope_type`, and raises")
     if config.get("partial_rotary_factor", 1.0) != 1.0:
         raise ValueError("partial_rotary_factor is not supported: the port rotates the whole"
-                         " head")
-    if config["attn_logit_softcapping"] is not None:
-        raise ValueError(f"attn_logit_softcapping {config['attn_logit_softcapping']} is not"
-                         " supported: the port's scores are not capped")
+                         " head, and transformers' rotary for gemma3_text raises on it")
     layers = config["num_hidden_layers"]
     types = config["layer_types"]
     if types is None:
@@ -137,6 +139,7 @@ def check_config(config: dict) -> dict:
     if config["head_dim"] % 2:
         raise ValueError(f"head_dim {config['head_dim']} is odd: the rotary embedding needs"
                          " pairs")
+    Rope.from_config(config, float(config["rope_theta"]), config["head_dim"])
     return {**config, "num_key_value_heads": kv, "layer_types": list(types), "window": window}
 
 
@@ -168,7 +171,7 @@ class _Layer(nn.Module):
         self.self_attn = Attention(c, c["attention_bias"], c["attention_bias"], RMSNorm)
         self.post_attention_layernorm = RMSNorm(h, eps)
         self.pre_feedforward_layernorm = RMSNorm(h, eps)
-        self.mlp = GatedMLP(c, partial(F.gelu, approximate="tanh"))
+        self.mlp = GatedMLP(c, activation(c["hidden_activation"]))
         self.post_feedforward_layernorm = RMSNorm(h, eps)
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
@@ -180,12 +183,17 @@ class _Layer(nn.Module):
 
 class Gemma3Model(nn.Module):
     """A Gemma 3 text stack, widths from a transformers-style config dict
-    (`config` holds Gemma3TextConfig's names, defaults filled in)."""
+    (`config` holds Gemma3TextConfig's names, defaults filled in;
+    `rope` and `local_rope`, the full and sliding layers' rotary
+    embeddings)."""
 
     def __init__(self, config: dict):
         super().__init__()
         config = check_config(config)
         self.config = config
+        d = config["head_dim"]
+        self.rope = Rope.from_config(config, float(config["rope_theta"]), d)
+        self.local_rope = Rope("default", float(config["rope_local_base_freq"]), d)
         self.embed_tokens = nn.Embedding(config["vocab_size"], config["hidden_size"])
         self.layers = nn.ModuleList(_Layer(config, i) for i in range(config["num_hidden_layers"]))
         self.norm = RMSNorm(config["hidden_size"], config["rms_norm_eps"])
@@ -199,13 +207,12 @@ class Gemma3Model(nn.Module):
                 " torch.backends.cuda.matmul.allow_tf32 is True"
             )
         c = self.config
-        L, d, device = input_ids.shape[1], c["head_dim"], input_ids.device
+        L, device = input_ids.shape[1], input_ids.device
         x = self.embed_tokens(input_ids) * embed_scale(c["hidden_size"], device)
         causal = not c["use_bidirectional_attention"]
-        full = (blocked_keys(attention_mask, causal=causal),
-                *rotary(L, d, float(c["rope_theta"]), device))
+        full = (blocked_keys(attention_mask, causal=causal), *self.rope.tables(L, device))
         sliding = (blocked_keys(attention_mask, causal=causal, window=c["window"]),
-                   *rotary(L, d, float(c["rope_local_base_freq"]), device))
+                   *self.local_rope.tables(L, device))
         scale = attention_scale(c["query_pre_attn_scalar"], device)
         for layer in self.layers:
             x = layer(x, *(sliding if layer.sliding else full), scale)

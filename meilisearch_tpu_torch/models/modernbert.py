@@ -15,8 +15,9 @@ hidden state (pooling stays in models/hf_encoder.py):
   (`rotate_half`; cos and sin of `inv_freq @ positions`, positions 0..L-1
   in every row, `inv_freq = 1 / theta ** (arange(0, d, 2) / d)`, all in
   float32 and on the host with transformers' own ops at its shapes, so
-  they are the same bits on every device); scores (Q K^T) * d^-0.5 plus
-  the layer's additive mask, softmax, times V; `Wo`; the residual; then
+  they are the same bits on every device: models/rope.py's `rotary`);
+  scores (Q K^T) * d^-0.5 plus the layer's additive mask, softmax, times
+  V; `Wo`; the residual; then
   `mlp_norm`, `Wi` split in two halves, exact (erf) GELU of the first
   times the second (GeGLU), `Wo`, the residual;
 - layer types: layer i is global when i % `global_attn_every_n_layers` is
@@ -48,11 +49,11 @@ Everything runs in float32. On a CUDA device the forward raises when
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .rope import rotary, rotate_half
 
 # the widths and flags a config must give (transformers' ModernBertConfig
 # names; its defaults are answerdotai/ModernBERT-base's)
@@ -109,25 +110,6 @@ def layer_theta(config: dict, layer: int) -> float:
     if is_global(config, layer) or config["local_rope_theta"] is None:
         return config["global_rope_theta"]
     return config["local_rope_theta"]
-
-
-@lru_cache(maxsize=64)
-def rotary(n: int, dim: int, theta: float, device: torch.device) -> tuple:
-    """(cos, sin), each (1, 1, n, dim) float32 on `device`, for positions
-    0..n-1: transformers' default rotary embedding, computed on the CPU
-    with its ops at its shapes (`inv_freq` as `_compute_default_rope_parameters`
-    makes it, the (1, dim/2, 1) @ (1, 1, n) product, then cos and sin of
-    the doubled frequencies) and then copied to `device`."""
-    inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.int64).float() / dim))
-    positions = torch.arange(n).unsqueeze(0)
-    freqs = (inv_freq[None, :, None].float() @ positions[:, None, :].float()).transpose(1, 2)
-    emb = torch.cat((freqs, freqs), dim=-1)
-    return (emb.cos().unsqueeze(1).to(device), emb.sin().unsqueeze(1).to(device))
-
-
-def rotate_half(x: torch.Tensor) -> torch.Tensor:
-    x1, x2 = x[..., : x.shape[-1] // 2], x[..., x.shape[-1] // 2:]
-    return torch.cat((-x2, x1), dim=-1)
 
 
 class _Embeddings(nn.Module):

@@ -14,8 +14,9 @@ path on the card, typo pass included, must answer exactly as its host
 scorer, the vector legs on the card as its numpy host pass, and the text
 encoder (K8), BERT, XLM-R, RoBERTa with its byte-level BPE,
 DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA, DeBERTa-v2, the
-decoders, and Gemma 3 and Llama from byte-fallback tokenizers, on the
-card as the same checkpoint on the CPU."""
+decoders (with scaled rotaries, sliding windows, MLP biases and other
+activations too), and Gemma 3 and Llama from byte-fallback tokenizers, on
+the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -643,13 +644,13 @@ DECODER_WIDTHS = {
 }
 
 
-def _decoder_checkpoint(path, kind, seed=0):
-    """A decoder checkpoint at DECODER_WIDTHS[kind] with 2 layers, written
-    by the port as model.safetensors with a seeded byte-level BPE in
-    Qwen2's layout (qwen3, qwen2) or Llama-3's (llama, mistral) and
-    tokenizer_config.json's padding_side `left`, as Qwen3-Embedding
-    publishes; RMSNorm weights and Qwen2's biases drawn off their
-    defaults."""
+def _decoder_checkpoint(path, kind, seed=0, extra=None):
+    """A decoder checkpoint at DECODER_WIDTHS[kind] with 2 layers (and the
+    config keys of `extra`), written by the port as model.safetensors with
+    a seeded byte-level BPE in Qwen2's layout (qwen3, qwen2) or Llama-3's
+    (llama, mistral) and tokenizer_config.json's padding_side `left`, as
+    Qwen3-Embedding publishes; RMSNorm weights and the biases drawn off
+    their defaults."""
     from meilisearch_tpu_torch.models import fixtures
     from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
     from meilisearch_tpu_torch.models.decoder import DecoderModel
@@ -663,7 +664,7 @@ def _decoder_checkpoint(path, kind, seed=0):
         tok_config = fixtures.llama3_tokenizer_config(spec, padding_side="left")
     config = {"model_type": kind, "vocab_size": len(spec["model"]["vocab"]),
               "num_hidden_layers": 2, "rms_norm_eps": 1e-6, "hidden_act": "silu",
-              **DECODER_WIDTHS[kind]}
+              **DECODER_WIDTHS[kind], **(extra or {})}
     torch.manual_seed(seed)
     model = DecoderModel(config)
     with torch.no_grad():
@@ -701,7 +702,7 @@ def test_decoder_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, kind,
     assert float(np.abs(got - want).max()) <= 1e-4
 
 
-def _byte_fallback_checkpoint(path, kind, layout, seed=0):
+def _byte_fallback_checkpoint(path, kind, layout, seed=0, extra=None):
     """A 2-layer decoder at DECODER_WIDTHS[kind] (llama, mistral) or at
     google/embeddinggemma-300m's widths (gemma3_text: bidirectional, or
     causal with `layout` "causal", a 16-token sliding window so the long
@@ -725,7 +726,7 @@ def _byte_fallback_checkpoint(path, kind, layout, seed=0):
         tok_config = fixtures.llama_tokenizer_config(spec)
         widths = {"hidden_act": "silu", **DECODER_WIDTHS[kind]}
     config = {"model_type": kind, "vocab_size": len(spec["model"]["vocab"]),
-              "num_hidden_layers": 2, "rms_norm_eps": 1e-6, **widths}
+              "num_hidden_layers": 2, "rms_norm_eps": 1e-6, **widths, **(extra or {})}
     torch.manual_seed(seed)
     model = new_model(config)
     with torch.no_grad():
@@ -762,6 +763,58 @@ def test_byte_fallback_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path,
     _ids, mask = card._tokenizer(texts, card.max_len)
     assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
     assert int(mask[:, 0].min()) == 0 and int(mask[:, -1].min()) == 1  # left padding
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
+# the decoder configurations past the published defaults, 2 layers at
+# DECODER_WIDTHS or EmbeddingGemma's widths: (kind, config keys, what the
+# module must read from them)
+DECODER_VARIANTS = {
+    "llama-llama3-mlp-bias": ("llama", {
+        "rope_scaling": {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                         "high_freq_factor": 4.0, "original_max_position_embeddings": 64},
+        "mlp_bias": True, "hidden_act": "gelu_new"}, ("llama3", None)),
+    "qwen3-yarn-window": ("qwen3", {
+        "rope_scaling": {"rope_type": "yarn", "factor": 4.0,
+                         "original_max_position_embeddings": 32_768},
+        "max_position_embeddings": 131_072, "use_sliding_window": True, "sliding_window": 16,
+        "max_window_layers": 1, "hidden_act": "gelu"}, ("yarn", 16)),
+    "mistral-window-linear": ("mistral", {
+        "sliding_window": 16, "rope_scaling": {"rope_type": "linear", "factor": 2.0}},
+        ("linear", 16)),
+    "gemma3-causal-linear": ("gemma3_text", {
+        "rope_scaling": {"rope_type": "linear", "factor": 8.0},
+        "attn_logit_softcapping": 50.0, "hidden_activation": "gelu"}, ("linear", 16)),
+}
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("name", DECODER_VARIANTS)
+def test_decoder_variants_on_the_card_match_the_cpu(cuda_device, tmp_path, name, pooling):
+    """A scaled rotary (llama3, yarn's attention factor, linear), sliding
+    windows that bite (Qwen3's from layer 1, Mistral's in every layer,
+    Gemma 3's causal one beside its unscaled local rotary), Llama's MLP
+    biases and other activations on the card: a left-padded batch of
+    short texts beside ones of 200 to 512 tokens, against the CPU within
+    ENC_TOL (1e-4)."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind, extra, (rope_kind, window) = DECODER_VARIANTS[name]
+    if kind == "gemma3_text":
+        path = _byte_fallback_checkpoint(tmp_path, kind, "causal", seed=20, extra=extra)
+    else:
+        path = _decoder_checkpoint(tmp_path, kind, seed=20, extra=extra)
+    texts = _enc_texts(15, seed=21) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80), "",
+                                       "x'Sy it's 1234567 a\r\n\r\n b"]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert card._model.rope.kind == rope_kind and card._model.config["window"] == window
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask[:, 0].min()) == 0  # left padding
     want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
     assert bool(np.isfinite(got).all())
     assert float(np.abs(got - want).max()) <= 1e-4

@@ -2,9 +2,11 @@
 `qwen2`, `llama` and `mistral` model types (models/decoder.py: pre-norm
 RMSNorm, rotary positions, grouped-query attention under a causal mask,
 the SiLU-gated MLP; Qwen3's per-head Q/K norm, Qwen2's Q/K/V biases,
-Llama's `attention_bias`, Mistral's `sliding_window`), their weight names,
-Qwen2's and Llama-3's byte-level BPE tokenizers with left padding, and
-the encoder against transformers and the JAX package's `FlaxTextEncoder`.
+Llama's `attention_bias`), their weight names, Qwen2's and Llama-3's
+byte-level BPE tokenizers with left padding, and the encoder against
+transformers and the JAX package's `FlaxTextEncoder`, at the published
+defaults (rope scaling, sliding layers, `mlp_bias` and the other
+activations: tests/test_torch_decoder_configs.py).
 
 Nothing is downloaded. Tiny decoders (2 layers, hidden 64, 4 heads over 2
 KV heads, intermediate 96; Qwen3 with `head_dim` 32, not 64 / 4) are
@@ -234,14 +236,10 @@ def test_a_safetensors_file_is_read_as_one_host_copy(ckpt):
     assert model.norm.weight.data_ptr() == c.state_dict["norm.weight"].data_ptr()
 
 
+# what transformers raises on (tests/test_torch_decoder_configs.py pins each
+# raise): sliding layers with no window (a Qwen config keeps sliding_window
+# only under use_sliding_window), a rotary of half the head, uneven groups
 REFUSED = [
-    ("qwen3", {"hidden_act": "gelu"}, "hidden_act"),
-    ("llama", {"rope_scaling": {"rope_type": "llama3", "factor": 8.0}}, "rope_scaling"),
-    ("qwen2", {"rope_scaling": {"type": "yarn", "factor": 4.0}}, "rope_scaling"),
-    ("qwen2", {"use_sliding_window": True}, "use_sliding_window"),
-    ("qwen3", {"use_sliding_window": True}, "use_sliding_window"),
-    ("mistral", {"sliding_window": 256}, "sliding_window"),
-    ("llama", {"mlp_bias": True}, "mlp_bias"),
     ("qwen3", {"layer_types": ["full_attention", "sliding_attention"]}, "layer_types"),
     ("llama", {"partial_rotary_factor": 0.5}, "partial_rotary_factor"),
     ("qwen2", {"num_key_value_heads": 3}, "num_key_value_heads"),
@@ -268,19 +266,11 @@ def test_defaults_fill_what_a_config_leaves_out(kind):
     assert got["num_key_value_heads"] == (want.num_key_value_heads or 64)
     assert got["head_dim"] == (getattr(want, "head_dim", None) or 2048 // 64)
     for key in ("rms_norm_eps", "rope_theta", "rope_scaling", "attention_bias", "mlp_bias",
-                "use_sliding_window"):
+                "use_sliding_window", "max_position_embeddings", "max_window_layers"):
         if hasattr(want, key):
             assert got[key] == getattr(want, key), key
     if kind == "mistral":
         assert got["sliding_window"] == want.sliding_window == 4096
-
-
-def test_a_batch_longer_than_mistrals_window_is_refused(ckpt):
-    c = checkpoint.load_checkpoint(ckpt["mistral-right"])
-    model = decoder.DecoderModel({**c.config, "sliding_window": 512})
-    ids = torch.zeros((1, 513), dtype=torch.int64)
-    with pytest.raises(ValueError, match="sliding window"):
-        model(ids, torch.ones_like(ids))
 
 
 # -- the forward and the encoder ----------------------------------------------------

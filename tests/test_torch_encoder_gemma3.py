@@ -252,9 +252,6 @@ def test_weight_names_of_the_causal_lm_map_onto_the_model(ckpt):
 
 REFUSED = [
     ({"model_type": "gemma3"}, "gemma3"),
-    ({"rope_scaling": {"rope_type": "linear", "factor": 8.0}}, "rope_scaling"),
-    ({"attn_logit_softcapping": 50.0}, "attn_logit_softcapping"),
-    ({"hidden_activation": "gelu"}, "hidden_activation"),
     ({"partial_rotary_factor": 0.5}, "partial_rotary_factor"),
     ({"layer_types": ["chunked_attention"] * 3}, "layer_types"),
     ({"num_key_value_heads": 3}, "num_key_value_heads"),
@@ -277,7 +274,7 @@ def test_defaults_fill_what_a_config_leaves_out():
     for key in ("num_key_value_heads", "head_dim", "hidden_activation", "rms_norm_eps",
                 "rope_theta", "attention_bias", "query_pre_attn_scalar", "layer_types",
                 "attn_logit_softcapping", "rope_local_base_freq",
-                "use_bidirectional_attention"):
+                "use_bidirectional_attention", "max_position_embeddings"):
         assert got[key] == getattr(want, key), key
     assert got["window"] == want.sliding_window == 4096
 
