@@ -115,7 +115,7 @@ Phases, each fatal on failure:
      here; the port's encoder on the card must agree with the CPU within
      ENC_TOL on 80 texts (accents, Cyrillic, CJK, Arabic, combining marks,
      runs of spaces, unknown characters, the empty string); a fifth App
-     ingests 50,000 synthetic hackernews documents over HTTP with a
+     ingests 25,000 synthetic hackernews documents over HTTP with a
      huggingFace embedder on that checkpoint, every document embedded at
      indexing on the card (host tokenization apart from the forwards, wall
      time, tokens, tokens/s, peak device memory); 8 hybrid searches with a
@@ -241,7 +241,32 @@ Phases, each fatal on failure:
      gelu_new), each card against CPU; tokens/s and the host share, peak
      device memory, 256 hybrid responses against the host pass, a query's
      forward and launches against its weight-read bound, and one chunk
-     against its float32 bound.
+     against its float32 bound;
+  18. ALBERT and ERNIE 3.0 paths (hn10k-albertsmall-hf,
+     hn10k-ernie3base-hf), after the earlier phases' encoders are let go:
+     checkpoints at sentence-transformers/paraphrase-albert-small-v2's
+     published widths (albert: 6 passes over one shared layer, 128-wide
+     embeddings projected to 768, 12 heads, intermediate 3,072, gelu_new,
+     vocab 30,000) with a seeded 30,000-entry Unigram tokenizer.json in
+     AlbertConverter's layout (NFKD, StripAccents, Lowercase, the charsmap,
+     `[CLS] $A [SEP]`), and at nghuyong/ernie-3.0-base-zh's (ernie: 12
+     layers of 768, 12 heads, intermediate 3,072, vocab 40,000, 4 token
+     types, use_task_id over 3 task types, 2,048 positions) with a seeded
+     40,000-entry WordPiece vocabulary laid out as ERNIE 3.0's (CJK
+     characters first); seeded random weights at initializer_range 0.02,
+     written as pytorch_model.bin; each through its own App as phase 11
+     over 10,000 documents: the encoder on the card against the CPU
+     within ENC_TOL on 85 texts and on phase 13's long texts, tokens/s and
+     the host share, peak device memory, 256 hybrid responses against the
+     host pass, a query's forward and launches against its weight-read
+     bound, and one chunk against its float32 bound; then eight 2-layer
+     checkpoints at published widths on the long texts, card against CPU:
+     RoFormer at junnyu/roformer_chinese_base's (with and without
+     rotary_value), RemBERT at google/rembert's, Megatron-BERT at
+     nvidia/megatron-bert-cased-345m's, BertGeneration at
+     google/bert_for_seq_generation_L-24_bbc_encoder's, BERT at
+     bge-base's with relative_key and with relative_key_query, and ALBERT
+     at paraphrase-albert-small-v2's as 4 passes over 2 groups of 2.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -361,15 +386,17 @@ ENC_TIMED_TOKENS = 128  # tokens per text of the timed indexing chunk
 # published config.json (xlm-roberta-base's widths) with seeded random
 # weights, a seeded 250,002-piece SentencePiece-Unigram tokenizer.json
 # written as transformers' XLM-R converter writes it (NFKC and NMT's
-# character map, Strip, Replace, Metaspace, <s> $A </s>), and 50,000
-# hackernews documents embedded at indexing on the card
+# character map, Strip, Replace, Metaspace, <s> $A </s>), and 25,000 of
+# its 50,000 hackernews documents embedded at indexing on the card (the
+# depth cut, 50,000 until phase 18 came, that keeps the whole script under
+# 1,000 s)
 E5_CONFIG = {
     "model_type": "xlm-roberta", "vocab_size": 250_002, "hidden_size": 768,
     "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
     "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5,
     "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "hidden_act": "gelu",
 }
-E5_DOCS, E5_SEED = 50_000, 2026
+E5_DOCS, E5_SEED = 25_000, 2026
 E5_TEXT = ["rust compiler", "machine learning database", "поиск cloud security",
            "python web 検索"]
 # multilingual texts of the card-against-CPU check (accents, Cyrillic, CJK,
@@ -564,6 +591,67 @@ DECODER_VARIANTS = {
         **{k: v for k, v in LLAMA32_1B_CONFIG.items() if k != "num_hidden_layers"},
         "num_hidden_layers": 2, "mlp_bias": True, "hidden_act": "gelu_new"},
 }
+# phase 18, hn10k-albertsmall-hf: sentence-transformers/
+# paraphrase-albert-small-v2's published config.json, and
+# hn10k-ernie3base-hf: nghuyong/ernie-3.0-base-zh's; seeded random weights
+# at initializer_range 0.02, 10,000 of the configurations' 150,000
+# hackernews documents (phase 17's depth cut; widths, depth and vocabulary
+# sizes are the published ones)
+ALBERT_SMALL_CONFIG = {
+    "model_type": "albert", "vocab_size": 30_000, "embedding_size": 128, "hidden_size": 768,
+    "num_hidden_layers": 6, "num_hidden_groups": 1, "inner_group_num": 1,
+    "num_attention_heads": 12, "intermediate_size": 3072, "max_position_embeddings": 512,
+    "type_vocab_size": 2, "layer_norm_eps": 1e-12, "hidden_act": "gelu_new",
+    "position_embedding_type": "absolute", "pad_token_id": 0, "bos_token_id": 2,
+    "eos_token_id": 3,
+}
+ERNIE3_BASE_CONFIG = {
+    "model_type": "ernie", "vocab_size": 40_000, "hidden_size": 768, "num_hidden_layers": 12,
+    "num_attention_heads": 12, "intermediate_size": 3072, "max_position_embeddings": 2048,
+    "type_vocab_size": 4, "task_type_vocab_size": 3, "use_task_id": True,
+    "layer_norm_eps": 1e-5, "hidden_act": "gelu", "pad_token_id": 0,
+}
+P18_DOCS, P18_SEED = 10_000, 2034
+# the BERT-shaped variants, 2 layers each at a published checkpoint's widths
+# (ALBERT: 4 passes, the fewest that 2 groups of 2 allow), on phase 13's
+# long texts
+_ROFORMER_BASE = {
+    "model_type": "roformer", "vocab_size": 50_000, "embedding_size": 768, "hidden_size": 768,
+    "num_hidden_layers": 2, "num_attention_heads": 12, "intermediate_size": 3072,
+    "max_position_embeddings": 1536, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+    "hidden_act": "gelu", "rotary_value": False, "pad_token_id": 0}
+BERT_VARIANTS = {
+    "(a) roformer_chinese_base": _ROFORMER_BASE,
+    "(b) roformer_chinese_base, rotary_value": {**_ROFORMER_BASE, "rotary_value": True},
+    "(c) rembert": {
+        "model_type": "rembert", "vocab_size": 250_300, "input_embedding_size": 256,
+        "output_embedding_size": 1664, "hidden_size": 1152, "num_hidden_layers": 2,
+        "num_attention_heads": 18, "intermediate_size": 4608, "max_position_embeddings": 512,
+        "type_vocab_size": 2, "layer_norm_eps": 1e-12, "hidden_act": "gelu", "pad_token_id": 0},
+    "(d) megatron-bert-cased-345m": {
+        "model_type": "megatron-bert", "vocab_size": 29_056, "hidden_size": 1024,
+        "num_hidden_layers": 2, "num_attention_heads": 16, "intermediate_size": 4096,
+        "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+        "hidden_act": "gelu", "pad_token_id": 0},
+    "(e) bert_for_seq_generation_L-24_bbc_encoder": {
+        "model_type": "bert-generation", "vocab_size": 50_358, "hidden_size": 1024,
+        "num_hidden_layers": 2, "num_attention_heads": 16, "intermediate_size": 4096,
+        "max_position_embeddings": 512, "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+        "pad_token_id": 0},
+    "(f) bge-base, relative_key": {
+        **BGE_CONFIG, "num_hidden_layers": 2, "position_embedding_type": "relative_key"},
+    "(g) bge-base, relative_key_query": {
+        **BGE_CONFIG, "num_hidden_layers": 2, "position_embedding_type": "relative_key_query"},
+    "(h) paraphrase-albert-small-v2, 4 passes over 2 groups of 2": {
+        **ALBERT_SMALL_CONFIG, "num_hidden_layers": 4, "num_hidden_groups": 2,
+        "inner_group_num": 2},
+}
+# ALBERT's quotes, accents (NFKD, then stripped), [MASK] with lstrip and
+# full-width forms; ERNIE's CJK characters beside English and its specials
+P18_ALBERT_TEXT = ["``quoted'' and ''again``", "Café naïve — déjà vu, ÉLÈVE",
+                   "hello [MASK] world", "x[MASK]y  [MASK]  z", "Ａｂｃ ﬁne ½ Ωmega"]
+P18_ERNIE_TEXT = ["机器学习的搜索引擎", "中文 相似度 search [MASK]", "一二三 四五 [UNK] 六",
+                  "ＡＢＣ full-width ｄｅｆ 七八九"]
 # Llama-3's specials, contractions under (?i:...), digit runs and newlines
 P17_TEXT = ["x'Sy it'S we'LL don'T x'\u017fy", "<|begin_of_text|> inside <|eot_id|> <|python_tag|>",
             "<|start_header_id|>user<|end_header_id|> hi", "1 12 123 1234567 3.14159",
@@ -1302,11 +1390,12 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
     BGE_INIT_STD) from a seeded torch.Generator, biases 0 (normal(0,
     bias_std) where given, so a check sees them), LayerNorm and RMSNorm
     scales 1 (Gemma's `1 + w` RMSNorm weights 0, as transformers starts
-    them). The module is built on the meta device for its names and
+    them), RoFormer's position table its sinusoids (as transformers starts
+    it). The module is built on the meta device for its names and
     shapes."""
     import torch
 
-    from meilisearch_tpu_torch.models import gemma3
+    from meilisearch_tpu_torch.models import gemma3, roformer
     from meilisearch_tpu_torch.models.checkpoint import new_model
     from meilisearch_tpu_torch.models.decoder import RMSNorm
 
@@ -1321,6 +1410,8 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
     for name, p in model.named_parameters():
         if name in norms:
             state[name] = torch.full(p.shape, norms[name])
+        elif name == roformer.POSITIONS:
+            state[name] = roformer.sinusoidal_table(*p.shape).clone()
         elif name.endswith("bias"):
             state[name] = (torch.randn(p.shape, generator=g) * bias_std if bias_std
                            else torch.zeros(p.shape))
@@ -2193,22 +2284,158 @@ def llama32_phase(device, card: str, n_docs: int) -> dict:
     return out
 
 
+def write_albert_checkpoint(path: str, config: dict = ALBERT_SMALL_CONFIG,
+                            seed: int = P18_SEED, spec=None) -> None:
+    """An ALBERT checkpoint of `config` (AlbertModel's names, the projection
+    as encoder.embedding_hidden_mapping_in), written as pytorch_model.bin
+    beside a 30,000-entry Unigram tokenizer.json in AlbertConverter's
+    layout (e5_pieces and e5_charsmap) and AlbertTokenizerFast's
+    tokenizer_config.json, or beside `spec`."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import albert_tokenizer_json
+
+    if spec is None:
+        spec = albert_tokenizer_json(e5_pieces(29_995, P18_SEED), e5_charsmap())
+    if len(spec["model"]["vocab"]) != config["vocab_size"]:
+        raise AssertionError(f"ALBERT's vocabulary has {len(spec['model']['vocab'])} entries")
+    write_checkpoint(path, config, random_state_dict(config, seed), tokenizer_json=spec)
+
+
+def wordpiece_vocab(size: int) -> list:
+    """`size` WordPiece entries laid out as ERNIE 3.0's vocab.txt
+    (fixtures.ernie_vocab) over the corpus's words and the template's
+    field names."""
+    from meilisearch_tpu_torch.models.fixtures import ernie_vocab
+    from meilisearch_tpu_torch.utils.synthetic import WORDS
+
+    return ernie_vocab(WORDS + "title url author https example com user".split(), size)
+
+
+def write_wordpiece_checkpoint(path: str, config: dict, seed: int) -> None:
+    """A checkpoint of `config` written as pytorch_model.bin beside a
+    WordPiece vocab.txt of its vocabulary size (uncased, BertTokenizer's
+    class)."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    write_checkpoint(path, config, random_state_dict(config, seed),
+                     wordpiece_vocab(config["vocab_size"]), do_lower_case=True)
+
+
+def albert_long_check(path: str, device, label: str) -> float:
+    """The phase's checkpoint on phase 13's long texts in one batch
+    (`long_check`), after checking that its 6 passes run one layer's
+    weights."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    passes = enc._model.passes()
+    if len(passes) != 6 or any(p is not passes[0] for p in passes):
+        raise AssertionError(f"{label}: the passes do not share one layer")
+    return long_check(path, device, f"{label} 6 shared passes",
+                      texts=long_check_texts(P18_SEED))
+
+
+def bert_variants_check(path: str, device, label: str) -> float:
+    """BERT_VARIANTS' checkpoints (ALBERT's beside `path`'s tokenizer.json,
+    the others beside a WordPiece vocabulary of their size): phase 13's
+    long texts in one batch (`long_check`) for each, after checking that
+    the module runs the variant's mechanism; returns the largest error."""
+    import json
+    import os
+    import tempfile
+
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    err = 0.0
+    for i, (what, config) in enumerate(BERT_VARIANTS.items()):
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as small:
+            if config.get("model_type") == "albert":
+                write_albert_checkpoint(small, config, P18_SEED + 1 + i, spec)
+            else:
+                write_wordpiece_checkpoint(small, config, P18_SEED + 1 + i)
+            enc = encoder(small, "useModel", device)
+            enc._load()
+            mine = {k: enc._model.config.get(k) for k in (
+                "model_type", "position_embedding_type", "rotary_value", "num_hidden_groups")}
+            if any(config.get(k) not in (None, v) for k, v in mine.items()):
+                raise AssertionError(f"{what}: the module reads {mine}")
+            err = max(err, long_check(small, device, f"{label} variant {what}",
+                                      texts=long_check_texts(P18_SEED)))
+            encoder.cache_clear()
+        say(f"{label} variant {what}: {time.perf_counter() - t:.3f} s")
+    say(f"{label} variants: largest error {err:.3e} (bound {ENC_TOL:g})")
+    encoder(path, "useModel", device)._load()  # hf_path goes on with `path`'s, cached
+    return err
+
+
+def bert_families_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 18, hn10k-albertsmall-hf and hn10k-ernie3base-hf, each through
+    its own App (`hf_path`) with the long check (ALBERT's with the
+    BERT-shaped variants beside its tokenizer), once the earlier phases'
+    encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 18 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    out = {}
+    for label, index, write, tokenizer, model_type, check_texts, checks in (
+            ("paraphrase-albert-small-v2", "al", write_albert_checkpoint, "Unigram", "albert",
+             E5_CHECK_TEXT + P18_ALBERT_TEXT, (albert_long_check, bert_variants_check)),
+            ("ernie-3.0-base-zh", "er",
+             lambda path: write_wordpiece_checkpoint(path, ERNIE3_BASE_CONFIG, P18_SEED),
+             "WordPiece", "ernie", P11_CHECK_TEXT + P18_ERNIE_TEXT,
+             (partial(long_check, texts=long_check_texts(P18_SEED)),))):
+        t = time.perf_counter()
+        out[label] = hf_path(device, card, n_docs, label=label, index=index, write=write,
+                             seed=P18_SEED, queries=P11_TEXT, check_texts=check_texts,
+                             tokenizer=tokenizer, model_type=model_type, checks=checks)
+        say(f"phase 18 {label} wall: {time.perf_counter() - t:.3f} s")
+    say(f"phase 18 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
-    Linear layers, QK^T and PV (over heads x head_dim, wider than the
-    model in Qwen3), and for DeBERTa-v2 the c2p and p2c products against
-    the (2 span)-row relative embeddings and those embeddings' projections
-    (the embeddings, MPNet's bias table and the bucket gathers are
-    gathers, not products)."""
+    Linear layers (ALBERT's shared ones once for each pass that runs
+    them), QK^T and PV (over heads x head_dim, wider than the model in
+    Qwen3), the relative keys' einsum(Q, pos) (and einsum(K, pos)), and
+    for DeBERTa-v2 the c2p and p2c products against the (2 span)-row
+    relative embeddings and those embeddings' projections (the
+    embeddings, MPNet's bias table and the bucket and distance gathers
+    are gathers, not products)."""
     from torch import nn
 
+    from meilisearch_tpu_torch.models.albert import AlbertModel
+    from meilisearch_tpu_torch.models.bert import RELATIVE_KEYS
     from meilisearch_tpu_torch.models.deberta_v2 import DebertaV2Model, attention_span
+
+    def weights(module) -> int:
+        return sum(m.weight.numel() for m in module.modules() if isinstance(m, nn.Linear))
 
     c = model.config
     h, layers = c["hidden_size"], c["num_hidden_layers"]
     width = c["num_attention_heads"] * c["head_dim"] if c.get("head_dim") else h
-    linear = sum(m.weight.numel() for m in model.modules() if isinstance(m, nn.Linear))
+    linear = weights(model)
+    if isinstance(model, AlbertModel):
+        passes = model.passes()
+        layers = len(passes)
+        linear = weights(model.embeddings_project) + sum(weights(p) for p in passes)
     flops = 2 * linear * n * L + 4 * L * L * width * layers * n
+    if c.get("position_embedding_type") in RELATIVE_KEYS:
+        kinds = 1 + (c["position_embedding_type"] == "relative_key_query")
+        flops += 2 * L * L * width * layers * n * kinds
     if isinstance(model, DebertaV2Model) and c["relative_attention"]:
         span, kinds = attention_span(c), len(set(c["pos_att_type"]))
         flops += layers * kinds * (4 * L * span * h * n + 4 * span * h * h)
@@ -3161,6 +3388,7 @@ def main() -> int:
     qwen3_embedding_phase(device, card, P15_DOCS)
     embeddinggemma_phase(device, card, P16_DOCS)
     llama32_phase(device, card, P17_DOCS)
+    bert_families_phase(device, card, P18_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

@@ -1,4 +1,5 @@
-"""The MLP activations of the port's decoders (models/decoder.py,
+"""The MLP activations of the port's encoders and decoders
+(models/bert.py, models/albert.py, models/roformer.py, models/decoder.py,
 models/gemma3.py): its own copy of the transformers `ACT2FN` names it
 runs, each written in torch as transformers writes it, so each gives the
 same bits:

@@ -1,8 +1,11 @@
 """BERT's encoder forward as a torch module (the port's K8), for the
-BERT, RoBERTa, XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA
-checkpoints (`model_type` `bert`, `roberta`, `xlm-roberta`, `camembert`,
-`distilbert`, `mpnet`, `electra`), which share one architecture (MPNet
-adds a relative position bias, ELECTRA an embedding projection).
+BERT, RoBERTa, XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE,
+BertGeneration, RemBERT and Megatron-BERT checkpoints (`model_type`
+`bert`, `roberta`, `xlm-roberta`, `camembert`, `distilbert`, `mpnet`,
+`electra`, `ernie`, `bert-generation`, `rembert`, `megatron-bert`), which
+share one architecture (MPNet adds a relative position bias, ELECTRA and
+RemBERT an embedding projection, ERNIE a task-type embedding,
+Megatron-BERT moves its LayerNorms before each block).
 
 For BERT it computes what transformers' `FlaxBertModel` computes when the
 JAX package's encoder (`models/hf_encoder.py` there) applies it under
@@ -12,11 +15,13 @@ JAX package's encoder (`models/hf_encoder.py` there) applies it under
 for DistilBERT, what `FlaxDistilBertModel` and the torch
 `DistilBertModel` compute (a DistilBERT config's `dim`, `n_layers`,
 `n_heads` and `hidden_dim` are read as BERT's widths, and its weights
-load under BERT's names, models/checkpoint.py); for MPNet, what the
-torch `MPNetModel` computes (the JAX package's torch branch: transformers
-has no Flax MPNet); for ELECTRA, what the torch `ElectraModel` computes
-(the JAX package's torch branch; its Flax branch raises, fault 3.16). It
-returns the last hidden state (the encoder reads no pooler):
+load under BERT's names, models/checkpoint.py); for MPNet, ELECTRA,
+ERNIE, BertGeneration, RemBERT and Megatron-BERT, what the torch
+`MPNetModel`, `ElectraModel`, `ErnieModel`, `BertGenerationEncoder`,
+`RemBertModel` and `MegatronBertModel` compute (the JAX package's torch
+branch: transformers has no Flax model of these, and its Flax ELECTRA
+raises, fault 3.16). It returns the last hidden state (the encoder reads
+no pooler):
 
 - embeddings: word + token type (all zeros) + position, then LayerNorm
   (`layer_norm_eps`); dropout is off. BERT's positions are 0..L-1. The
@@ -26,11 +31,27 @@ returns the last hidden state (the encoder reads no pooler):
   token-type embedding: word + position (0..L-1), LayerNorm eps 1e-12.
   MPNet has none either: word + position, its positions RoBERTa's from
   the padding id 1 (`MPNetEmbeddings` hard-codes it, whatever
-  `pad_token_id` says; another pad id is refused). ELECTRA's embeddings
-  and their LayerNorm are `embedding_size` wide (default `hidden_size`),
-  positions 0..L-1; when that differs from `hidden_size`,
-  `embeddings_project` (a Linear with bias) takes them to the encoder's
-  width (google/electra-small-discriminator: 128 to 256);
+  `pad_token_id` says; another pad id is refused); nor has BertGeneration
+  (word + position). ERNIE adds, after the positions, row 0 of
+  `task_type_embeddings` when `use_task_id` (transformers' default
+  task_type_ids are zeros). Megatron-BERT's embeddings have no LayerNorm.
+  ELECTRA's embeddings and their LayerNorm are `embedding_size` wide
+  (default `hidden_size`), RemBERT's `input_embedding_size` wide; when
+  that differs from `hidden_size`, `embeddings_project` (a Linear with
+  bias; RemBERT's `encoder.embedding_hidden_mapping_in`, renamed by
+  models/checkpoint.py) takes them to the encoder's width
+  (google/electra-small-discriminator: 128 to 256; google/rembert: 256
+  to 1152);
+- `position_embedding_type` `relative_key` or `relative_key_query`
+  (read, as transformers reads it, by `bert`, the RoBERTa family,
+  `electra`, `ernie`, `megatron-bert` and `bert-generation`): no absolute
+  position is added (but for BertGeneration, whose embeddings always add
+  it), and each layer's `attention.self.distance_embedding`
+  (2 max_position_embeddings - 1 rows of head_dim) is gathered at
+  l - r + max_position_embeddings - 1 for query l and key r, the (L, L)
+  index built on the host and cached by L; the scores are
+  `BertSelfAttention`'s eager order: Q K^T, plus einsum(Q, pos) (and
+  einsum(K, pos) for `relative_key_query`), then / sqrt(d_head);
 - MPNet only: one relative position bias per forward, added in every
   layer. Bucket (i, j) of the raw indices' distance j - i follows
   `MPNetEncoder.relative_position_bucket` with its defaults (32 buckets,
@@ -40,13 +61,18 @@ returns the last hidden state (the encoder reads no pooler):
   the same torch float32 ops at the same shape, cached by L, and gathered
   from `encoder.relative_attention_bias` into a (1, heads, L, L) bias on
   the device;
-- each layer: Q/K/V projections, scores (Q / sqrt(d_head)) K^T plus an
-  additive bias of finfo(float32).min on padded keys (MPNet: (Q K^T) /
-  sqrt(d_head), plus the position bias, then the padding bias: each
-  family keeps its own order), softmax, times V,
+- each layer: Q/K/V projections, scores (Q / sqrt(d_head)) K^T (MPNet:
+  (Q K^T) / sqrt(d_head), plus the position bias; the relative keys'
+  order above: each family keeps its own), padded keys' scores REPLACED
+  by finfo(float32).min (`masked_fill_`, never added), softmax, times V,
   the output projection, residual and LayerNorm; then the intermediate
-  projection, exact (erf) GELU, the output projection, residual and
-  LayerNorm.
+  projection, the activation (`hidden_act` through models/activations.py:
+  exact (erf) GELU by default, `gelu_new` and the rest of its list;
+  another name is refused), the output projection, residual and
+  LayerNorm. Megatron-BERT's layer is pre-LayerNorm: `attention.ln`
+  before self-attention and the residual added with no norm after, `ln`
+  before the intermediate and again no norm after, and `encoder.ln` after
+  the last layer.
 
 Attention is written as explicit products and a softmax, the same math
 as `FlaxBertSelfAttention`, not `scaled_dot_product_attention`, which
@@ -55,8 +81,12 @@ module's parameter names are those of transformers' torch `BertModel`
 (`embeddings.word_embeddings.weight`,
 `encoder.layer.{i}.attention.self.query.weight`, ...; MPNet's
 `encoder.relative_attention_bias.weight`, ELECTRA's
-`embeddings_project.weight`), so a checkpoint's tensors load by name
-(models/checkpoint.py).
+`embeddings_project.weight`, ERNIE's
+`embeddings.task_type_embeddings.weight`, the relative keys'
+`encoder.layer.{i}.attention.self.distance_embedding.weight`,
+Megatron-BERT's `encoder.layer.{i}.attention.ln.weight`,
+`encoder.layer.{i}.ln.weight` and `encoder.ln.weight`), so a
+checkpoint's tensors load by name (models/checkpoint.py).
 
 Everything runs in float32. On a CUDA device the forward raises when
 `torch.backends.cuda.matmul.allow_tf32` is set (TF32 keeps about three
@@ -70,8 +100,9 @@ from functools import lru_cache
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from .activations import activation
 
 # the widths a config must give (transformers' BertConfig names)
 CONFIG_KEYS = (
@@ -86,7 +117,13 @@ CONFIG_KEYS = (
 )
 # model types whose positions count from the padding id
 ROBERTA_TYPES = ("roberta", "xlm-roberta", "camembert")
-MODEL_TYPES = ("bert", *ROBERTA_TYPES, "distilbert", "mpnet", "electra")
+MODEL_TYPES = ("bert", *ROBERTA_TYPES, "distilbert", "mpnet", "electra", "ernie",
+               "bert-generation", "rembert", "megatron-bert")
+# model types whose transformers modules read `relative_key` and
+# `relative_key_query` (RemBERT's, DistilBERT's and MPNet's do not)
+RELATIVE_TYPES = ("bert", *ROBERTA_TYPES, "electra", "ernie", "bert-generation",
+                  "megatron-bert")
+RELATIVE_KEYS = ("relative_key", "relative_key_query")
 # MPNet's fixed padding id, and the bucketing transformers always applies
 # (MPNetEncoder.compute_position_bias passes num_buckets=32 and the
 # default max_distance=128 whatever the config says)
@@ -111,7 +148,8 @@ def _distilbert_config(config: dict) -> dict:
         raise ValueError("dim is not a multiple of n_heads")
     return {**config, "hidden_size": config["dim"], "num_hidden_layers": config["n_layers"],
             "num_attention_heads": config["n_heads"], "intermediate_size": config["hidden_dim"],
-            "type_vocab_size": 0, "layer_norm_eps": 1e-12, "embedding_size": config["dim"]}
+            "type_vocab_size": 0, "layer_norm_eps": 1e-12, "embedding_size": config["dim"],
+            "hidden_act": "gelu", "position_embedding_type": "absolute"}
 
 
 def _mpnet_config(config: dict) -> dict:
@@ -131,38 +169,49 @@ def check_config(config: dict) -> dict:
     """Raise ValueError unless `config` describes a model this module runs;
     return it with BERT's width names (CONFIG_KEYS; a DistilBERT config's
     widths renamed, `type_vocab_size` 0: no token-type embedding, as for
-    MPNet; `embedding_size`, the embeddings' width, `hidden_size` unless an
-    ELECTRA config gives another)."""
+    MPNet and BertGeneration; `embedding_size`, the embeddings' width,
+    `hidden_size` unless an ELECTRA config gives another or a RemBERT
+    config its `input_embedding_size`; `hidden_act` and
+    `position_embedding_type` with their defaults)."""
     model_type = config.get("model_type", "bert")
     if model_type not in MODEL_TYPES:
         raise ValueError(
-            f"model_type `{model_type}` is not supported: the port runs BERT,"
-            " RoBERTa, XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA"
-            " checkpoints here, ModernBERT ones in models/modernbert.py and"
-            " DeBERTa-v2 ones in models/deberta_v2.py, no other"
+            f"model_type `{model_type}` is not supported: the port runs BERT, RoBERTa,"
+            " XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration,"
+            " RemBERT and Megatron-BERT checkpoints here, ALBERT ones in models/albert.py,"
+            " RoFormer ones in models/roformer.py, ModernBERT ones in models/modernbert.py"
+            " and DeBERTa-v2 ones in models/deberta_v2.py, no other"
         )
     if model_type == "distilbert":
         return _distilbert_config(config)
     if model_type == "mpnet":
         config = _mpnet_config(config)
+    elif model_type == "bert-generation":
+        config = {**config, "type_vocab_size": 0}
     if model_type in ROBERTA_TYPES and config.get("pad_token_id") is None:
         raise ValueError(f"a `{model_type}` config must give pad_token_id")
     act = config.get("hidden_act", "gelu")
-    if act != "gelu":
-        raise ValueError(
-            f"hidden_act `{act}` is not supported: the port runs exact GELU only"
-        )
+    activation(act)
     positions = config.get("position_embedding_type", "absolute")
-    if positions != "absolute":
-        raise ValueError(f"position_embedding_type `{positions}` is not supported: the port"
-                         " reads absolute position embeddings only")
+    if positions != "absolute" and (positions not in RELATIVE_KEYS
+                                    or model_type not in RELATIVE_TYPES):
+        raise ValueError(f"position_embedding_type `{positions}` is not supported for"
+                         f" `{model_type}`: the port reads absolute position embeddings, and"
+                         f" {' and '.join(RELATIVE_KEYS)} where transformers reads them"
+                         f" ({', '.join(RELATIVE_TYPES)})")
     missing = [k for k in CONFIG_KEYS if k not in config]
+    if model_type == "rembert" and "input_embedding_size" not in config:
+        missing.append("input_embedding_size")
+    if model_type == "ernie" and config.get("use_task_id") and "task_type_vocab_size" not in config:
+        missing.append("task_type_vocab_size")
     if missing:
         raise ValueError(f"the model config lacks {missing}")
     if config["hidden_size"] % config["num_attention_heads"]:
         raise ValueError("hidden_size is not a multiple of num_attention_heads")
-    width = config.get("embedding_size") if model_type == "electra" else None
-    return {**config, "embedding_size": width or config["hidden_size"]}
+    width = {"electra": config.get("embedding_size"),
+             "rembert": config.get("input_embedding_size")}.get(model_type)
+    return {**config, "embedding_size": width or config["hidden_size"], "hidden_act": act,
+            "position_embedding_type": positions}
 
 
 @lru_cache(maxsize=32)
@@ -190,31 +239,67 @@ def relative_position_buckets(n: int) -> torch.Tensor:
     return ret.to(torch.int32)
 
 
+@lru_cache(maxsize=32)
+def distance_index(n: int, max_positions: int) -> torch.Tensor:
+    """The relative keys' (n, n) row index into `distance_embedding`:
+    query l minus key r, plus max_positions - 1. int64, on the CPU."""
+    pos = torch.arange(n, dtype=torch.long)
+    return pos[:, None] - pos[None, :] + (max_positions - 1)
+
+
+def relative_scores(scores: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                    pos: torch.Tensor, kind: str) -> torch.Tensor:
+    """`scores` (B, heads, L, L) plus the relative keys' terms of (B, heads,
+    L, d) q and k over the (L, L, d) distance embeddings `pos`, as
+    transformers adds them: einsum(q, pos), then einsum(k, pos) for
+    `relative_key_query`."""
+    scores = scores + torch.einsum("bhld,lrd->bhlr", q, pos)
+    if kind == "relative_key_query":
+        scores = scores + torch.einsum("bhrd,lrd->bhlr", k, pos)
+    return scores
+
+
 class _Embeddings(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
         h = c["embedding_size"]
+        model_type = c.get("model_type", "bert")
         self.word_embeddings = nn.Embedding(c["vocab_size"], h)
         self.position_embeddings = nn.Embedding(c["max_position_embeddings"], h)
         if c["type_vocab_size"]:
             self.token_type_embeddings = nn.Embedding(c["type_vocab_size"], h)
-        else:  # DistilBERT
+        else:  # DistilBERT, MPNet, BertGeneration
             self.token_type_embeddings = None
-        self.LayerNorm = nn.LayerNorm(h, eps=c["layer_norm_eps"])
-        from_pad = c.get("model_type", "bert") in (*ROBERTA_TYPES, "mpnet")
+        if model_type == "ernie" and c.get("use_task_id"):
+            self.task_type_embeddings = nn.Embedding(c["task_type_vocab_size"], h)
+        else:
+            self.task_type_embeddings = None
+        if model_type == "megatron-bert":
+            self.LayerNorm = None
+        else:
+            self.LayerNorm = nn.LayerNorm(h, eps=c["layer_norm_eps"])
+        from_pad = model_type in (*ROBERTA_TYPES, "mpnet")
         self.padding_idx = c["pad_token_id"] if from_pad else None
+        # transformers adds absolute positions unless the keys are relative;
+        # BertGenerationEmbeddings adds them whatever the config says
+        self.absolute = (c.get("position_embedding_type", "absolute") == "absolute"
+                         or model_type == "bert-generation")
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         L = input_ids.shape[1]
-        # Flax's order: (words + token types) + positions
+        # Flax's order: (words + token types) + positions (+ ERNIE's task type)
         x = self.word_embeddings(input_ids)
         if self.token_type_embeddings is not None:
             x = x + self.token_type_embeddings.weight[0]
-        if self.padding_idx is None:
-            return self.LayerNorm(x + self.position_embeddings.weight[:L])
-        real = (input_ids != self.padding_idx).long()
-        positions = torch.cumsum(real, dim=1) * real + self.padding_idx
-        return self.LayerNorm(x + self.position_embeddings(positions))
+        if self.absolute and self.padding_idx is None:
+            x = x + self.position_embeddings.weight[:L]
+        elif self.absolute:
+            real = (input_ids != self.padding_idx).long()
+            positions = torch.cumsum(real, dim=1) * real + self.padding_idx
+            x = x + self.position_embeddings(positions)
+        if self.task_type_embeddings is not None:
+            x = x + self.task_type_embeddings.weight[0]
+        return x if self.LayerNorm is None else self.LayerNorm(x)
 
 
 class _SelfAttention(nn.Module):
@@ -225,9 +310,16 @@ class _SelfAttention(nn.Module):
         self.query = nn.Linear(h, h)
         self.key = nn.Linear(h, h)
         self.value = nn.Linear(h, h)
+        self.relative = c.get("position_embedding_type", "absolute")
+        if self.relative in RELATIVE_KEYS:
+            self.distance_embedding = nn.Embedding(2 * c["max_position_embeddings"] - 1,
+                                                   h // self.heads)
+        else:
+            self.distance_embedding = None
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor,
-                position_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, blocked: torch.Tensor,
+                position_bias: Optional[torch.Tensor] = None,
+                distance: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, L, h = x.shape
         d = h // self.heads
 
@@ -235,58 +327,87 @@ class _SelfAttention(nn.Module):
             return t.view(B, L, self.heads, d).transpose(1, 2)
 
         k, v = split(self.key(x)), split(self.value(x))
-        if position_bias is None:  # Flax BERT's order: (Q / sqrt(d)) K^T
+        if self.distance_embedding is not None:  # BertSelfAttention's order
+            q = split(self.query(x))
+            scores = torch.matmul(q, k.transpose(-1, -2))
+            scores = relative_scores(scores, q, k, self.distance_embedding(distance),
+                                     self.relative) / math.sqrt(d)
+        elif position_bias is None:  # Flax BERT's order: (Q / sqrt(d)) K^T
             scores = torch.matmul(split(self.query(x)) / math.sqrt(d), k.transpose(-1, -2))
         else:  # MPNet's: (Q K^T) / sqrt(d) + the position bias
             scores = torch.matmul(split(self.query(x)), k.transpose(-1, -2)) / math.sqrt(d)
             scores = scores + position_bias
-        probs = torch.softmax(scores + bias, dim=-1)
+        scores.masked_fill_(blocked, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores, dim=-1)
         return torch.matmul(probs, v).transpose(1, 2).reshape(B, L, h)
 
 
 class _Output(nn.Module):
-    """dense, then LayerNorm(dense(x) + residual)."""
+    """dense, then LayerNorm(dense(x) + residual); Megatron-BERT's has no
+    LayerNorm (`norm` false): dense(x) + residual."""
 
-    def __init__(self, n_in: int, c: dict):
+    def __init__(self, n_in: int, c: dict, norm: bool = True):
         super().__init__()
         self.dense = nn.Linear(n_in, c["hidden_size"])
-        self.LayerNorm = nn.LayerNorm(c["hidden_size"], eps=c["layer_norm_eps"])
+        if norm:
+            self.LayerNorm = nn.LayerNorm(c["hidden_size"], eps=c["layer_norm_eps"])
+        else:
+            self.LayerNorm = None
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(x) + residual)
+        y = self.dense(x) + residual
+        return y if self.LayerNorm is None else self.LayerNorm(y)
+
+
+def _pre_norm(c: dict) -> bool:
+    """Megatron-BERT's layers norm before each block, not after."""
+    return c.get("model_type") == "megatron-bert"
 
 
 class _Attention(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
+        if _pre_norm(c):
+            self.ln = nn.LayerNorm(c["hidden_size"], eps=c["layer_norm_eps"])
+        else:
+            self.ln = None
         self.self = _SelfAttention(c)
-        self.output = _Output(c["hidden_size"], c)
+        self.output = _Output(c["hidden_size"], c, norm=self.ln is None)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor,
-                position_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.output(self.self(x, bias, position_bias), x)
+    def forward(self, x: torch.Tensor, blocked: torch.Tensor,
+                position_bias: Optional[torch.Tensor],
+                distance: Optional[torch.Tensor]) -> torch.Tensor:
+        h = x if self.ln is None else self.ln(x)
+        return self.output(self.self(h, blocked, position_bias, distance), x)
 
 
 class _Intermediate(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
         self.dense = nn.Linear(c["hidden_size"], c["intermediate_size"])
+        self.act = activation(c.get("hidden_act", "gelu"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(self.dense(x))  # exact (erf) GELU
+        return self.act(self.dense(x))
 
 
 class _Layer(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
         self.attention = _Attention(c)
+        if _pre_norm(c):
+            self.ln = nn.LayerNorm(c["hidden_size"], eps=c["layer_norm_eps"])
+        else:
+            self.ln = None
         self.intermediate = _Intermediate(c)
-        self.output = _Output(c["intermediate_size"], c)
+        self.output = _Output(c["intermediate_size"], c, norm=self.ln is None)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor,
-                position_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        a = self.attention(x, bias, position_bias)
-        return self.output(self.intermediate(a), a)
+    def forward(self, x: torch.Tensor, blocked: torch.Tensor,
+                position_bias: Optional[torch.Tensor],
+                distance: Optional[torch.Tensor]) -> torch.Tensor:
+        a = self.attention(x, blocked, position_bias, distance)
+        h = a if self.ln is None else self.ln(a)
+        return self.output(self.intermediate(h), a)
 
 
 class _Encoder(nn.Module):
@@ -298,6 +419,10 @@ class _Encoder(nn.Module):
                 c["relative_attention_num_buckets"], c["num_attention_heads"])
         else:
             self.relative_attention_bias = None
+        if _pre_norm(c):  # Megatron-BERT's final LayerNorm
+            self.ln = nn.LayerNorm(c["hidden_size"], eps=c["layer_norm_eps"])
+        else:
+            self.ln = None
 
     def position_bias(self, L: int, device: torch.device) -> Optional[torch.Tensor]:
         """MPNet's (1, heads, L, L) bias; None for the other families."""
@@ -310,8 +435,10 @@ class _Encoder(nn.Module):
 class BertModel(nn.Module):
     """BERT's encoder stack, widths from a transformers-style config dict
     (the RoBERTa family's positions, DistilBERT's layout, MPNet's
-    positions and relative position bias, or ELECTRA's embedding
-    projection, when `model_type` names it); `config` holds BERT's width
+    positions and relative position bias, ELECTRA's or RemBERT's
+    embedding projection, ERNIE's task type, BertGeneration's missing
+    token type, Megatron-BERT's pre-LayerNorm layers, or the relative
+    keys, when the config names them); `config` holds BERT's width
     names."""
 
     def __init__(self, config: dict):
@@ -319,7 +446,7 @@ class BertModel(nn.Module):
         config = check_config(config)
         self.config = config
         self.embeddings = _Embeddings(config)
-        if config["embedding_size"] != config["hidden_size"]:  # ELECTRA-small
+        if config["embedding_size"] != config["hidden_size"]:  # ELECTRA-small, RemBERT
             self.embeddings_project = nn.Linear(config["embedding_size"], config["hidden_size"])
         else:
             self.embeddings_project = None
@@ -336,13 +463,12 @@ class BertModel(nn.Module):
         x = self.embeddings(input_ids)
         if self.embeddings_project is not None:
             x = self.embeddings_project(x)
-        # (B, 1, 1, L): 0 on real keys, float32's lowest on padded ones
-        bias = torch.where(
-            attention_mask[:, None, None, :] > 0,
-            torch.zeros((), dtype=x.dtype, device=x.device),
-            torch.full((), torch.finfo(x.dtype).min, dtype=x.dtype, device=x.device),
-        )
-        position_bias = self.encoder.position_bias(input_ids.shape[1], x.device)
+        blocked = (attention_mask == 0)[:, None, None, :]  # (B, 1, 1, L): padded keys
+        L = input_ids.shape[1]
+        position_bias = self.encoder.position_bias(L, x.device)
+        distance = None
+        if self.config["position_embedding_type"] in RELATIVE_KEYS:
+            distance = distance_index(L, self.config["max_position_embeddings"]).to(x.device)
         for layer in self.encoder.layer:
-            x = layer(x, bias, position_bias)
-        return x
+            x = layer(x, blocked, position_bias, distance)
+        return x if self.encoder.ln is None else self.encoder.ln(x)

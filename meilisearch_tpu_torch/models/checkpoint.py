@@ -1,10 +1,14 @@
 """Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, CamemBERT,
-DistilBERT, MPNet, ELECTRA, ModernBERT, DeBERTa-v2, Qwen3, Qwen2, Llama,
-Mistral or Gemma 3 checkpoint directory without transformers.
+DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT,
+ALBERT, RoFormer, ModernBERT, DeBERTa-v2, Qwen3, Qwen2, Llama, Mistral or
+Gemma 3 checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
-  or DISTILBERT_KEYS; models/modernbert.py::CONFIG_KEYS for `modernbert`,
+  or DISTILBERT_KEYS; models/albert.py::CONFIG_KEYS for `albert` and
+  models/roformer.py::CONFIG_KEYS for `roformer`, which `build_model`
+  gives to `AlbertModel` and `RoFormerModel`;
+  models/modernbert.py::CONFIG_KEYS for `modernbert`,
   which `build_model` gives to `ModernBertModel`,
   models/deberta_v2.py::CONFIG_KEYS for `deberta-v2`, which it gives to
   `DebertaV2Model`, and models/decoder.py::CONFIG_KEYS for `qwen3`,
@@ -31,19 +35,24 @@ A directory as transformers' `save_pretrained` leaves it:
   model file (`spm.model`, `sentencepiece.bpe.model`), which the port
   does not parse. Beside it, `tokenizer_config.json` (`do_lower_case`,
   default true; `strip_accents`; `tokenize_chinese_chars`;
-  `add_prefix_space`; the special tokens and `added_tokens_decoder`).
+  `add_prefix_space`; the special tokens and `added_tokens_decoder`;
+  `tokenizer_class`, where `RoFormerTokenizer(Fast)`, whose jieba
+  pre-tokenizer the port does not run, is refused by name).
 
-Checkpoint names map onto `BertModel`'s, `ModernBertModel`'s,
-`DebertaV2Model`'s, `DecoderModel`'s and `Gemma3Model`'s
-(`hf_to_state_dict`): a `bert.`, `roberta.` (RoBERTa's and CamemBERT's),
-`distilbert.`, `mpnet.`, `electra.`, `deberta.` or `model.` (ModernBERT's
-and the `*ForCausalLM` decoders', `Gemma3ForCausalLM`'s too) prefix is
-dropped, so are the pooler, the
+Checkpoint names map onto `BertModel`'s, `AlbertModel`'s,
+`RoFormerModel`'s, `ModernBertModel`'s, `DebertaV2Model`'s,
+`DecoderModel`'s and `Gemma3Model`'s (`hf_to_state_dict`): a `bert.`
+(BERT's, Megatron-BERT's and BertGeneration's), `roberta.` (RoBERTa's and
+CamemBERT's), `distilbert.`, `mpnet.`, `electra.`, `ernie.`, `rembert.`,
+`albert.`, `roformer.`, `deberta.` or `model.` (ModernBERT's and the
+`*ForCausalLM` decoders', `Gemma3ForCausalLM`'s too) prefix is dropped,
+so are the pooler, the
 pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
 `ModernBertForMaskedLM`'s `head.` and `decoder.`; ELECTRA's
 `discriminator_predictions.`, `generator_predictions.` and
 `generator_lm_head.`; `DebertaV2ForMaskedLM`'s `lm_predictions.` and the
-`mask_predictions.` transformers ignores) and the
+`mask_predictions.` transformers ignores; ALBERT's `predictions.` and
+`sop_classifier.`) and the
 `position_ids`, `token_type_ids` and `rotary_emb.inv_freq` buffers, and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
 (`transformer.layer.N`: `attention.{q,k,v,out}_lin`, `sa_layer_norm`,
@@ -55,13 +64,18 @@ layers keep `encoder.layer.N` and BERT's names but for the attention
 (`attention.attn.{q,k,v}` to `attention.self.{query,key,value}`,
 `attention.attn.o` to `attention.output.dense`, `attention.LayerNorm` to
 `attention.output.LayerNorm`); `encoder.relative_attention_bias` is
-kept, and so is ELECTRA's `embeddings_project`. `flax_to_state_dict` does
-the same for a Flax parameter tree given as numpy arrays (transformers'
+kept, and so is ELECTRA's `embeddings_project`; RemBERT's and ALBERT's
+`encoder.embedding_hidden_mapping_in` is that projection under another
+name and becomes `embeddings_project` (`write_checkpoint` names it back).
+Megatron-BERT's `attention.ln.` and `ln.` are kept as they are.
+`flax_to_state_dict` does the same for a Flax parameter tree given as numpy arrays (transformers'
 `FlaxBertModel.params`, or `FlaxXLMRobertaModel.params`, the same tree,
 or `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
 `weight` (out, in), `scale` and `embedding` become `weight`. No Flax
-MPNet, CamemBERT, DeBERTa-v2, Qwen2, Qwen3 or Gemma 3 exists, and the JAX
-package reads ELECTRA (fault 3.16) and Llama and Mistral (fault 3.17)
+MPNet, CamemBERT, DeBERTa-v2, ERNIE, BertGeneration, RemBERT,
+Megatron-BERT, Qwen2, Qwen3 or Gemma 3 exists, and the JAX
+package reads ELECTRA (fault 3.16), RoFormer (fault 3.23) and Llama and
+Mistral (fault 3.17)
 through its torch branch: for those it holds a torch
 `state_dict`, whose numpy arrays `hf_to_state_dict` carries as they are.
 """
@@ -77,12 +91,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import bert, deberta_v2, decoder, gemma3, modernbert
+from . import albert, bert, deberta_v2, decoder, gemma3, modernbert, roformer
+from .albert import AlbertModel
 from .bert import BertModel
 from .bpe import BPE, legacy_spec
 from .deberta_v2 import DebertaV2Model
 from .decoder import DecoderModel
 from .fixtures import (
+    albert_tokenizer_config,
     camembert_tokenizer_config,
     deberta_v2_tokenizer_config,
     gemma_tokenizer_config,
@@ -93,6 +109,7 @@ from .fixtures import (
 )
 from .gemma3 import Gemma3Model
 from .modernbert import ModernBertModel
+from .roformer import RoFormerModel
 from .unigram import Unigram
 from .wordpiece import WordPiece
 
@@ -104,11 +121,16 @@ _ST_DTYPES = {
 # torch dtype -> safetensors dtype, for writing
 _ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.int64: "I64",
              torch.int32: "I32"}
-_PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "electra.", "deberta.", "model.")
+_PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "electra.", "ernie.", "rembert.",
+             "albert.", "roformer.", "deberta.", "model.")
 _DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "head.", "decoder.",
             "discriminator_predictions.", "generator_predictions.", "generator_lm_head.",
-            "lm_predictions.", "mask_predictions.",
+            "lm_predictions.", "mask_predictions.", "predictions.", "sop_classifier.",
             "embeddings.position_ids", "embeddings.token_type_ids")
+# RemBERT's and ALBERT's name of the embeddings' projection -> the modules'
+_MAPPING_IN, _PROJECT = "encoder.embedding_hidden_mapping_in.", "embeddings_project."
+# tokenizer classes refused by name: RoFormer's jieba pre-tokenizer
+_REFUSED_TOKENIZERS = ("RoFormerTokenizer", "RoFormerTokenizerFast")
 # sentencepiece model files, which the port does not parse
 _SPM_FILES = ("spm.model", "sentencepiece.bpe.model", "sentencepiece.model")
 # DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
@@ -158,12 +180,21 @@ def _to_mpnet(name: str) -> str:
     return _rename_layer(name, _LAYER, _LAYER, [(ours, theirs) for theirs, ours in _MPNET_NAMES])
 
 
+def _to_mapping_in(name: str) -> str:
+    """The module's projection under RemBERT's and ALBERT's name."""
+    if name.startswith(_PROJECT):
+        return _MAPPING_IN + name[len(_PROJECT):]
+    return name
+
+
 # model types with a module of their own, and its checks
 _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
+           albert.MODEL_TYPE: AlbertModel, roformer.MODEL_TYPE: RoFormerModel,
            **{kind: DecoderModel for kind in decoder.MODEL_TYPES},
            gemma3.MODEL_TYPE: Gemma3Model}
 # (`gemma3`, the multimodal model, is refused by models/gemma3.py by name)
 _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config,
+           albert.MODEL_TYPE: albert.check_config, roformer.MODEL_TYPE: roformer.check_config,
            **{kind: decoder.check_config for kind in decoder.MODEL_TYPES},
            gemma3.MODEL_TYPE: gemma3.check_config, "gemma3": gemma3.check_config}
 # model types whose checkpoints are published as model.safetensors
@@ -173,15 +204,17 @@ _SAFETENSORS = ("modernbert", *decoder.MODEL_TYPES, gemma3.MODEL_TYPE)
 def check_config(config: dict) -> dict:
     """Raise ValueError unless the port runs `config`'s model: a
     `modernbert` config checked by models/modernbert.py, a `deberta-v2`
-    one by models/deberta_v2.py, a `qwen3`, `qwen2`, `llama` or `mistral`
-    one by models/decoder.py, a `gemma3_text` (or `gemma3`) one by
+    one by models/deberta_v2.py, an `albert` one by models/albert.py, a
+    `roformer` one by models/roformer.py, a `qwen3`, `qwen2`, `llama` or
+    `mistral` one by models/decoder.py, a `gemma3_text` (or `gemma3`) one by
     models/gemma3.py, any other by models/bert.py."""
     return _CHECKS.get(config.get("model_type"), bert.check_config)(config)
 
 
 def new_model(config: dict):
     """The module that runs `config`'s model: `ModernBertModel` for
-    `modernbert`, `DebertaV2Model` for `deberta-v2`, `DecoderModel` for
+    `modernbert`, `DebertaV2Model` for `deberta-v2`, `AlbertModel` for
+    `albert`, `RoFormerModel` for `roformer`, `DecoderModel` for
     the decoders, `Gemma3Model` for `gemma3_text`, `BertModel` for the
     other families."""
     return _MODELS.get(config.get("model_type"), BertModel)(config)
@@ -224,8 +257,8 @@ def read_safetensors(path: str) -> dict:
 
 def hf_to_state_dict(named: dict) -> dict:
     """A checkpoint's tensors (torch or numpy) under BertModel's (or
-    ModernBertModel's, or DebertaV2Model's) names, as float32 CPU
-    tensors."""
+    AlbertModel's, RoFormerModel's, ModernBertModel's, DebertaV2Model's,
+    ...) names, as float32 CPU tensors."""
     out = {}
     for name, value in named.items():
         for prefix in _PREFIXES:
@@ -233,6 +266,8 @@ def hf_to_state_dict(named: dict) -> dict:
                 name = name[len(prefix):]
         if name.startswith(_DROPPED) or name.endswith("rotary_emb.inv_freq"):
             continue
+        if name.startswith(_MAPPING_IN):
+            name = _PROJECT + name[len(_MAPPING_IN):]
         if name.startswith("transformer.layer."):
             name = _rename_layer(name, "transformer.layer.", _LAYER, _DISTILBERT_NAMES)
         elif name.startswith(_LAYER):
@@ -301,12 +336,19 @@ def load_checkpoint(path: str) -> Checkpoint:
     with open(os.path.join(path, "config.json")) as f:
         config = json.load(f)
     check_config(config)
-    state = read_weights(path)
     tok_path = os.path.join(path, "tokenizer_config.json")
     tokenizer = {}
     if os.path.exists(tok_path):
         with open(tok_path) as f:
             tokenizer = json.load(f)
+    if tokenizer.get("tokenizer_class") in _REFUSED_TOKENIZERS:
+        raise ValueError(
+            f"tokenizer_class `{tokenizer['tokenizer_class']}` is not supported: its jieba"
+            " pre-tokenizer is not in the port (a RoFormer checkpoint saved with BertTokenizer's"
+            " class loads)")
+    state = read_weights(path)
+    if config.get("model_type") == roformer.MODEL_TYPE:
+        state = roformer.with_positions(config, state)
     spec = None
     json_path = os.path.join(path, "tokenizer.json")
     if os.path.exists(json_path):
@@ -389,8 +431,11 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
     bert unless `config` names one), the weights as pytorch_model.bin
     (BertModel's names, DistilBERT's or MPNet's for such a config,
-    DebertaV2Model's for `deberta-v2`; ELECTRA's there too, the one file
-    the JAX package reads it from, fault 3.16), or for `modernbert`, the
+    RemBERT's and ALBERT's `encoder.embedding_hidden_mapping_in` for their
+    `embeddings_project`, AlbertModel's, RoFormerModel's and
+    DebertaV2Model's for `albert`, `roformer` and `deberta-v2`; ELECTRA's
+    there too, the one file the JAX package reads it from, fault 3.16),
+    or for `modernbert`, the
     decoders and `gemma3_text` as model.safetensors, the file their
     checkpoints are published in (ModernBertModel's, DecoderModel's and
     Gemma3Model's names), and
@@ -398,8 +443,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     `vocab` as vocab.txt (MPNetTokenizerFast's special tokens for an
     `mpnet` config, ElectraTokenizer's class for `electra`) or
     `tokenizer_json` (a Unigram tokenizer.json with XLM-R's special tokens,
-    CamemBERT's config for `camembert` and DeBERTa-v2's for `deberta-v2`,
-    fixtures.camembert_tokenizer_config and deberta_v2_tokenizer_config; a
+    CamemBERT's config for `camembert`, DeBERTa-v2's for `deberta-v2` and
+    ALBERT's for `albert`, fixtures.camembert_tokenizer_config,
+    deberta_v2_tokenizer_config and albert_tokenizer_config; a
     BPE one with RoBERTa's, add_prefix_space false, or, for a `modernbert`
     config, a BPE one with its own specials and `PreTrainedTokenizerFast`'s
     config, fixtures.modernbert_tokenizer_config; for `qwen3` and `qwen2`
@@ -409,10 +455,12 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     os.makedirs(path, exist_ok=True)
     config = {"model_type": "bert", **config}
     model_type = config["model_type"]
-    rename = {"distilbert": _to_distilbert, "mpnet": _to_mpnet}.get(model_type)
+    rename = {"distilbert": _to_distilbert, "mpnet": _to_mpnet, "rembert": _to_mapping_in,
+              albert.MODEL_TYPE: _to_mapping_in}.get(model_type)
     if rename is not None:
         state_dict = {rename(k): v for k, v in state_dict.items()}
-    if model_type not in ("distilbert", "modernbert", *decoder.MODEL_TYPES, gemma3.MODEL_TYPE):
+    if model_type not in ("distilbert", "modernbert", albert.MODEL_TYPE, *decoder.MODEL_TYPES,
+                          gemma3.MODEL_TYPE):
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
@@ -429,6 +477,7 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                       "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>",
                       "mask_token": "<mask>"}
         own = {"modernbert": modernbert_tokenizer_config, "camembert": camembert_tokenizer_config,
+               albert.MODEL_TYPE: albert_tokenizer_config,
                "deberta-v2": deberta_v2_tokenizer_config, "qwen3": qwen2_tokenizer_config,
                "qwen2": qwen2_tokenizer_config, "llama": llama3_tokenizer_config,
                "mistral": llama3_tokenizer_config,

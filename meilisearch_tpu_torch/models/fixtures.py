@@ -6,6 +6,9 @@ XLM-RoBERTa converter writes it, `camembert_tokenizer_json` and
 `deberta_v3_tokenizer_json` as its CamemBERT and DeBERTa-v2 converters
 do (with `camembert_tokenizer_config` and `deberta_v2_tokenizer_config`,
 what the fast tokenizers' `save_pretrained` writes beside them),
+`albert_tokenizer_json` and `albert_tokenizer_config` as its ALBERT
+converter and `AlbertTokenizerFast` write them, `ernie_vocab` a WordPiece
+vocabulary laid out as ERNIE 3.0's (CJK characters first),
 `roberta_tokenizer_json` a seeded
 byte-level BPE one as its RoBERTa converter writes it,
 `modernbert_tokenizer_json` and `modernbert_tokenizer_config` a seeded one
@@ -232,6 +235,73 @@ def deberta_v2_tokenizer_config(spec: dict) -> dict:
             "model_max_length": 512, "pad_token": "[PAD]", "sep_token": "[SEP]",
             "split_by_punct": any(p["type"] == "Punctuation" for p in pre),
             "tokenizer_class": "DebertaV2TokenizerFast", "unk_token": "[UNK]"}
+
+
+# ALBERT's sentencepiece model opens with these five pieces
+ALBERT_HEAD = ("<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]")
+
+
+def albert_tokenizer_json(vocab: list, charsmap: Optional[bytes] = None,
+                          do_lower_case: bool = True, keep_accents: bool = False) -> dict:
+    """A tokenizer.json as transformers' ALBERT converter and
+    `AlbertTokenizerFast` write it for a sentencepiece model whose pieces
+    are ALBERT_HEAD then `vocab` [(piece, score)]: a piece that ends in a
+    digit and a comma scores 100 less (the converter's
+    `check_number_comma`); unk_id 1; the added tokens 0-4, `[MASK]` with
+    lstrip; the normalizer Sequence[Replace("``", '"'), Replace("''",
+    '"'), NFKD and StripAccents (unless `keep_accents`), Lowercase (with
+    `do_lower_case`), Precompiled (when `charsmap` is given), Replace("
+    {2,}", " ")]; Metaspace (always, split); `[CLS] $A [SEP]`.
+    paraphrase-albert-small-v2's 30,000 entries take 29,995 pieces in
+    `vocab`."""
+    def score(piece, s):
+        comma = len(piece) >= 2 and piece[-1] == "," and piece[-2].isdigit()
+        return float(s) - 100 if comma else float(s)
+
+    pieces = [[p, 0.0] for p in ALBERT_HEAD] + [[p, score(p, s)] for p, s in vocab]
+    added = _added(enumerate(ALBERT_HEAD), lstrip=("[MASK]",))
+    normalizers = [{"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+                   {"type": "Replace", "pattern": {"String": "''"}, "content": '"'}]
+    if not keep_accents:
+        normalizers += [{"type": "NFKD"}, {"type": "StripAccents"}]
+    if do_lower_case:
+        normalizers.append({"type": "Lowercase"})
+    if charsmap is not None:
+        normalizers.append(_precompiled(charsmap))
+    normalizers.append({"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "})
+    return _unigram_spec(pieces, 1, added, {"type": "Sequence", "normalizers": normalizers},
+                         METASPACE, _template(("[CLS]", 2), ("[SEP]", 3), False, 1))
+
+
+def albert_tokenizer_config(spec: dict) -> dict:
+    """The tokenizer_config.json `AlbertTokenizerFast.save_pretrained`
+    writes beside such a tokenizer.json, `do_lower_case` and
+    `keep_accents` read from it (model_max_length 512, as published)."""
+    kinds = [n["type"] for n in spec["normalizer"]["normalizers"]]
+    return {"added_tokens_decoder": _added_decoder(spec), "bos_token": "[CLS]",
+            "clean_up_tokenization_spaces": False, "cls_token": "[CLS]",
+            "do_lower_case": "Lowercase" in kinds, "eos_token": "[SEP]",
+            "extra_special_tokens": {}, "keep_accents": "StripAccents" not in kinds,
+            "mask_token": "[MASK]", "model_max_length": 512, "pad_token": "<pad>",
+            "remove_space": True, "sep_token": "[SEP]", "tokenizer_class": "AlbertTokenizerFast",
+            "unk_token": "<unk>"}
+
+
+# ERNIE 3.0's vocab.txt opens with these, then its most frequent characters
+ERNIE_HEAD = ("[PAD]", "[CLS]", "[SEP]", "[MASK]", "[UNK]")
+
+
+def ernie_vocab(words: list, size: int, n_cjk: int = 6000) -> list:
+    """`size` WordPiece entries laid out as ERNIE 3.0's Chinese vocab.txt
+    begins (ERNIE_HEAD), then `n_cjk` CJK characters from U+4E00, the
+    printable ASCII characters, `words`, every ASCII character's ## piece,
+    then filler."""
+    chars = [chr(c) for c in range(33, 127)]
+    vocab = list(ERNIE_HEAD) + [chr(0x4E00 + i) for i in range(n_cjk)]
+    vocab = list(dict.fromkeys(vocab + chars + list(words) + ["##" + c for c in chars]))
+    if len(vocab) > size:
+        raise ValueError(f"{len(vocab)} entries do not fit a vocabulary of {size}")
+    return vocab + [f"filler{i}" for i in range(size - len(vocab))]
 
 
 def _added_decoder(spec: dict) -> dict:

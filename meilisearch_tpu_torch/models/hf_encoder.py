@@ -1,8 +1,9 @@
 """In-process text embedding on the store's device (K8).
 
 Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
-families, ModernBERT, DeBERTa-v2) or decoder (Qwen3, Qwen2, Llama,
-Mistral, Gemma 3) checkpoint pulled from the hub, tokenized, mean/CLS-pooled, optionally L2-normalized;
+families, ALBERT, RoFormer, ModernBERT, DeBERTa-v2) or decoder (Qwen3,
+Qwen2, Llama, Mistral, Gemma 3) checkpoint pulled from the hub, tokenized,
+mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
 embeddings (LRU-cached upstream). Zero-egress deployments point `model`
 at a local path.
@@ -13,12 +14,15 @@ checkpoint has no Flax weights. The port computes the same function with
 its own pieces and no transformers: the checkpoint directory is read by
 models/checkpoint.py, texts are tokenized on the host by
 models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's,
-CamemBERT's and DeBERTa-v3's vocabularies), models/unigram.py, or, for
+CamemBERT's, DeBERTa-v3's, ALBERT's and RemBERT's vocabularies),
+models/unigram.py, or, for
 a BPE (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level one;
 Llama-2's, Mistral's and Gemma's with byte fallback), models/bpe.py (all
 three with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
-XLM-RoBERTa, CamemBERT, DistilBERT, MPNet and ELECTRA),
+XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE,
+BertGeneration, RemBERT and Megatron-BERT), models/albert.py's
+`AlbertModel`, models/roformer.py's `RoFormerModel`,
 models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
 `DebertaV2Model`, models/decoder.py's `DecoderModel` (Qwen3, Qwen2,
 Llama and Mistral) or models/gemma3.py's `Gemma3Model` (Gemma 3's text
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ops.chain_keys import LaunchCounter
+from .bert import RELATIVE_KEYS
 from .checkpoint import build_model, build_tokenizer, load_checkpoint
 from .deberta_v2 import attention_span
 from .decoder import MODEL_TYPES as DECODER_TYPES
@@ -102,6 +107,11 @@ class TextEncoder:
         # per text at max_len: scores, their bias sum and softmax, and the
         # hidden, intermediate and projection activations, float32
         per_text = 4 * (3 * heads * L * L + L * (6 * width + 2 * ffn))
+        if c.get("position_embedding_type") in RELATIVE_KEYS:
+            # the relative keys' score terms: einsum(Q, pos), and
+            # einsum(K, pos) for relative_key_query
+            per_text += 4 * heads * L * L * (1 + (c["position_embedding_type"]
+                                                  == "relative_key_query"))
         if c.get("model_type") == "deberta-v2" and c["relative_attention"]:
             # DeBERTa's c2p and p2c: two (heads, L, 2 span) products and
             # their two (heads, L, L) gathers

@@ -11,8 +11,10 @@ point, and nothing here asks the host's Python:
 
 - `BertNormalizer` and `BertPreTokenizer`'s classes (control, whitespace,
   CJK, punctuation, split whitespace) and the non-spacing marks that
-  `strip_accents` drops after NFD (`strip_marks`);
-- `nfd`, `nfc` and `nfkc` (Unicode's normalization algorithm: full
+  `strip_accents` drops after NFD (`strip_marks`); the combining marks
+  the `StripAccents` normalizer drops (`strip_accents`, every mark,
+  spacing and enclosing ones too);
+- `nfd`, `nfkd`, `nfc` and `nfkc` (Unicode's normalization algorithm: full
   decomposition, canonical reordering by combining class, canonical
   composition of primary composites, Hangul by arithmetic) over the
   crate's decompositions, combining classes and composites;
@@ -88,6 +90,9 @@ class _Tables:
         self.lower = {ord(c): low for c, low in _map(_t.LOWERCASE).items()}
         marks = ranges("NONSPACING_MARK")
         self.marks = {cp: None for a, b in zip(marks.lo, marks.hi) for cp in range(a, b + 1)}
+        combining = ranges("COMBINING_MARK")
+        self.combining = {cp: None for a, b in zip(combining.lo, combining.hi)
+                          for cp in range(a, b + 1)}
         self.ccc = {}
         for tok in _t.COMBINING.split():
             ccc, span = tok.split(":")
@@ -169,6 +174,13 @@ def nfc(text: str) -> str:
     return _compose(_reorder(text.translate(t.nfd), t.ccc), t)
 
 
+def nfkd(text: str) -> str:
+    if text.isascii():
+        return text
+    t = tables()
+    return _reorder(text.translate(t.nfkd), t.ccc)
+
+
 def nfkc(text: str) -> str:
     if text.isascii():
         return text
@@ -179,6 +191,13 @@ def nfkc(text: str) -> str:
 def strip_marks(text: str) -> str:
     """`text` without the non-spacing marks `strip_accents` drops (after NFD)."""
     return text.translate(tables().marks)
+
+
+def strip_accents(text: str) -> str:
+    """`tokenizers`' StripAccents: `text` without its combining marks."""
+    if text.isascii():
+        return text
+    return text.translate(tables().combining)
 
 
 def lowercase(text: str) -> str:

@@ -1,7 +1,7 @@
 """SentencePiece-Unigram tokenization from a `tokenizer.json`, as the
 `tokenizers` library runs it (what `AutoTokenizer` gives an XLM-RoBERTa,
-CamemBERT or DeBERTa-v2 checkpoint, and BERT checkpoints that carry
-XLM-R's vocabulary).
+CamemBERT, DeBERTa-v2, ALBERT or RemBERT checkpoint, and BERT checkpoints
+that carry XLM-R's vocabulary).
 
 The JAX package tokenizes through `AutoTokenizer(texts, padding=True,
 truncation=True, max_length=max_len)`. This module reads the same file
@@ -12,8 +12,10 @@ and gives the same input ids and attention masks, on the host:
    cut out and kept whole; the rest is split around them;
 2. the normalizer, on each piece between added tokens: `Sequence`,
    `Precompiled` (sentencepiece's compiled character map, below), `Strip`,
-   `Replace` (a string or a `Regex`), `NFKC`, `Nmt` and `Lowercase` (NFKC
-   and Lowercase from `tokenizers`' own tables, models/unicode.py);
+   `Replace` (a string or a `Regex`), `NFKC`, `NFKD`, `StripAccents`
+   (ALBERT's and RemBERT's converters write these two), `Nmt` and
+   `Lowercase` (NFKC, NFKD, StripAccents and Lowercase from `tokenizers`'
+   own tables, models/unicode.py);
 3. the pre-tokenizer: `Metaspace`, alone or as the last of a `Sequence`
    whose first may be `Punctuation` with the `Isolated` behavior (what
    DeBERTa-v2's converter writes when `split_by_punct`): each punctuation
@@ -352,6 +354,10 @@ def _normalizer(spec: Optional[dict]):
         return lambda s: s.replace(literal, content) if literal else s
     if kind == "NFKC":
         return unicode.nfkc
+    if kind == "NFKD":
+        return unicode.nfkd
+    if kind == "StripAccents":
+        return unicode.strip_accents
     if kind == "Nmt":
         return lambda s: s.translate(_NMT_TABLE)
     if kind == "Lowercase":

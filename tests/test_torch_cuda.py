@@ -13,10 +13,11 @@ port's search
 path on the card, typo pass included, must answer exactly as its host
 scorer, the vector legs on the card as its numpy host pass, and the text
 encoder (K8), BERT, XLM-R, RoBERTa with its byte-level BPE,
-DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA, DeBERTa-v2, the
-decoders (with scaled rotaries, sliding windows, MLP biases and other
-activations too), and Gemma 3 and Llama from byte-fallback tokenizers, on
-the card as the same checkpoint on the CPU."""
+DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA, DeBERTa-v2, ERNIE,
+BertGeneration, RemBERT, Megatron-BERT, RoFormer, ALBERT, BERT's relative
+keys, the decoders (with scaled rotaries, sliding windows, MLP biases and
+other activations too), and Gemma 3 and Llama from byte-fallback
+tokenizers, on the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -818,6 +819,105 @@ def test_decoder_variants_on_the_card_match_the_cpu(cuda_device, tmp_path, name,
     want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
     assert bool(np.isfinite(got).all())
     assert float(np.abs(got - want).max()) <= 1e-4
+
+
+# the BERT-shaped families at a published checkpoint's widths, cut to 2
+# layers (ALBERT: 2 passes, or 4 over 2 groups of 2): ernie-3.0-base-zh,
+# bert_for_seq_generation_L-24_bbc_encoder, google/rembert,
+# megatron-bert-cased-345m, roformer_chinese_base (with and without
+# rotary_value), BERT at bge-base's width with each relative key, and
+# paraphrase-albert-small-v2
+BERT_SHAPED = {
+    "ernie": {"model_type": "ernie", "hidden_size": 768, "num_attention_heads": 12,
+              "intermediate_size": 3072, "max_position_embeddings": 2048,
+              "type_vocab_size": 4, "use_task_id": True, "task_type_vocab_size": 3,
+              "layer_norm_eps": 1e-5},
+    "bert-generation": {"model_type": "bert-generation", "hidden_size": 1024,
+                        "num_attention_heads": 16, "intermediate_size": 4096,
+                        "max_position_embeddings": 512, "layer_norm_eps": 1e-12},
+    "rembert": {"model_type": "rembert", "hidden_size": 1152, "num_attention_heads": 18,
+                "intermediate_size": 4608, "input_embedding_size": 256,
+                "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12},
+    "megatron-bert": {"model_type": "megatron-bert", "hidden_size": 1024,
+                      "num_attention_heads": 16, "intermediate_size": 4096,
+                      "max_position_embeddings": 512, "type_vocab_size": 2,
+                      "layer_norm_eps": 1e-12},
+    "roformer": {"model_type": "roformer", "hidden_size": 768, "num_attention_heads": 12,
+                 "intermediate_size": 3072, "max_position_embeddings": 1536,
+                 "type_vocab_size": 2, "layer_norm_eps": 1e-12},
+    "roformer-rotary-value": {"model_type": "roformer", "hidden_size": 768,
+                              "num_attention_heads": 12, "intermediate_size": 3072,
+                              "max_position_embeddings": 1536, "type_vocab_size": 2,
+                              "layer_norm_eps": 1e-12, "rotary_value": True},
+    "bert-relative-key": {"hidden_size": 768, "num_attention_heads": 12,
+                          "intermediate_size": 3072, "max_position_embeddings": 512,
+                          "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+                          "position_embedding_type": "relative_key", "hidden_act": "gelu_new"},
+    "bert-relative-key-query": {"hidden_size": 768, "num_attention_heads": 12,
+                                "intermediate_size": 3072, "max_position_embeddings": 512,
+                                "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+                                "position_embedding_type": "relative_key_query"},
+    "albert": {"model_type": "albert", "embedding_size": 128, "hidden_size": 768,
+               "num_hidden_groups": 1, "inner_group_num": 1, "num_attention_heads": 12,
+               "intermediate_size": 3072, "max_position_embeddings": 512,
+               "type_vocab_size": 2, "layer_norm_eps": 1e-12, "hidden_act": "gelu_new"},
+    "albert-groups": {"model_type": "albert", "embedding_size": 128, "hidden_size": 768,
+                      "num_hidden_layers": 4, "num_hidden_groups": 2, "inner_group_num": 2,
+                      "num_attention_heads": 12, "intermediate_size": 3072,
+                      "max_position_embeddings": 512, "type_vocab_size": 2,
+                      "layer_norm_eps": 1e-12, "hidden_act": "gelu_new"},
+}
+
+
+def _bert_shaped_checkpoint(path, name, seed=0):
+    """A checkpoint written by the port at BERT_SHAPED[name]'s widths with
+    seeded weights: ALBERT with a seeded Unigram tokenizer.json in
+    AlbertConverter's layout, the others with a WordPiece vocabulary of
+    CJK characters in ERNIE's layout."""
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import (
+        albert_tokenizer_json,
+        build_charsmap,
+        ernie_vocab,
+    )
+
+    config = {"model_type": "bert", "num_hidden_layers": 2, **BERT_SHAPED[name], "pad_token_id": 0}
+    spec, vocab = None, None
+    if config["model_type"] == "albert":
+        spec = albert_tokenizer_json(_spm_pieces(seed), build_charsmap({"Ａ": "A"}))
+        config["vocab_size"] = len(spec["model"]["vocab"])
+    else:
+        vocab = ernie_vocab(ENC_WORDS, 8000)
+        config["vocab_size"] = len(vocab)
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, new_model(config).state_dict(), vocab,
+                     tokenizer_json=spec)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("name", BERT_SHAPED)
+def test_bert_shaped_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, name, pooling):
+    """ERNIE's task type, BertGeneration, RemBERT's and ALBERT's
+    projections, Megatron-BERT's pre-norms, RoFormer's interleaved
+    rotation, the relative keys and ALBERT's shared layers on the card: a
+    padded batch of short texts beside ones of 200 to 512 tokens, CJK
+    characters, against the CPU."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _bert_shaped_checkpoint(tmp_path, name, seed=16)
+    texts = _enc_texts(15, seed=17) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80),
+                                       "", "一丁七 万丈", "x [MASK] y"]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert card._model.config["model_type"] == BERT_SHAPED[name].get("model_type", "bert")
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-5
 
 
 def test_encoder_chunks_on_the_card(cuda_device, tmp_path, monkeypatch):

@@ -207,11 +207,14 @@ def test_the_published_electra_small_widths_give_the_projection():
 
 
 @pytest.mark.parametrize("change, match", [
-    ({"hidden_act": "gelu_new"}, "hidden_act"),
-    ({"position_embedding_type": "relative_key"}, "position_embedding_type"),
+    ({"hidden_act": "gelu_10"}, "hidden_act"),
+    ({"position_embedding_type": "rotary"}, "position_embedding_type"),
 ])
 @pytest.mark.parametrize("kind", ["cam", "el"])
 def test_unread_configs_are_refused(ckpt, kind, change, match):
+    """An activation outside models/activations.py's list and a position
+    type transformers does not know (`gelu_new` and the relative keys run:
+    tests/test_torch_encoder_bert_variants.py)."""
     config = {**checkpoint.load_checkpoint(ckpt[kind]).config, **change}
     with pytest.raises(ValueError, match=match):
         bert.BertModel(config)

@@ -188,9 +188,12 @@ def test_weight_names_with_and_without_the_mpnet_prefix(ckpt):
 @pytest.mark.parametrize("change, match", [
     ({"pad_token_id": 0}, "pad_token_id"),
     ({"relative_attention_num_buckets": 16}, "relative_attention_num_buckets"),
-    ({"hidden_act": "relu"}, "hidden_act"),
+    ({"hidden_act": "gelu_10"}, "hidden_act"),
+    ({"position_embedding_type": "relative_key"}, "position_embedding_type"),
 ])
 def test_unread_mpnet_configs_are_refused(ckpt, change, match):
+    """MPNet's attention reads no relative keys; its activation goes through
+    models/activations.py's list, which lacks `gelu_10`."""
     config = {**checkpoint.load_checkpoint(ckpt["bin"]).config, **change}
     with pytest.raises(ValueError, match=match):
         bert.BertModel(config)

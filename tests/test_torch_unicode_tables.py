@@ -3,8 +3,8 @@ tables, not Python's `unicodedata`.
 
 `meilisearch_tpu_torch/models/_unicode_tables.py` is generated by
 `tools/unicode_tables.py` from `tokenizers`; models/unicode.py reads it.
-Every table (and NFD, NFC, NFKC and Lowercase built on them) is held
-here against `tokenizers` on every code point from U+0000 to U+10FFFF
+Every table (and NFD, NFC, NFKC, NFKD, StripAccents and Lowercase built
+on them) is held here against `tokenizers` on every code point from U+0000 to U+10FFFF
 (surrogates excepted), in two contexts, each batched into long strings:
 alone (code points joined by newlines, which neither compose nor reorder
 with anything) and between two letters ("a{c}b").
@@ -86,12 +86,14 @@ def test_bert_pre_tokenizer_on_every_code_point():
         assert got == want, _first_difference(got, want)
 
 
-@pytest.mark.parametrize("form", ["NFD", "NFC", "NFKC", "Lowercase"])
+@pytest.mark.parametrize("form", ["NFD", "NFC", "NFKC", "Lowercase", "NFKD", "StripAccents"])
 def test_normalization_forms_on_every_code_point(form):
-    """NFC is ModernBERT's BPE normalizer (models/bpe.py)."""
+    """NFC is ModernBERT's BPE normalizer (models/bpe.py); NFKD and
+    StripAccents are ALBERT's and RemBERT's (models/unigram.py)."""
     ref = getattr(normalizers, form)()
     port = {"NFD": unicode.nfd, "NFC": unicode.nfc, "NFKC": unicode.nfkc,
-            "Lowercase": unicode.lowercase}[form]
+            "Lowercase": unicode.lowercase, "NFKD": unicode.nfkd,
+            "StripAccents": unicode.strip_accents}[form]
     for text in _contexts():
         got, want = port(text), ref.normalize_str(text)
         assert got == want, _first_difference(got, want)

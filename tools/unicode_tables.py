@@ -27,6 +27,8 @@ place in a Rust string), through the public pipeline pieces:
   the code points that `NFC` keeps whole and `NFD` splits;
 - `BertNormalizer(strip_accents)` of each code point that `NFD` keeps:
   the non-spacing marks it drops;
+- `StripAccents` of each code point: the combining marks it drops (every
+  mark, spacing and enclosing ones too, whatever `NFD` does with them);
 - `Lowercase`: each code point's lowercase string where it differs;
 - the ByteLevel pre-tokenizer's regular expression engine: `\\p{L}`,
   `\\p{N}` and `\\s`, matched by `Split(Regex(...))` over every code point.
@@ -80,8 +82,9 @@ def bert_tables() -> dict:
     strip = normalizers.BertNormalizer(clean_text=False, handle_chinese_chars=False,
                                        strip_accents=True, lowercase=False)
     nfd = normalizers.NFD()
+    strip_accents = normalizers.StripAccents()
     split = pre_tokenizers.BertPreTokenizer()
-    control, space, cjk, punct, split_space, marks = [], [], [], [], [], []
+    control, space, cjk, punct, split_space, marks, combining = [], [], [], [], [], [], []
     for cp in CODE_POINTS:
         ch = chr(cp)
         out = clean.normalize_str(ch)
@@ -100,8 +103,14 @@ def bert_tables() -> dict:
             split_space.append(cp)
         if nfd.normalize_str(ch) == ch and strip.normalize_str(ch) == "":
             marks.append(cp)
+        out = strip_accents.normalize_str(ch)
+        if out == "":
+            combining.append(cp)
+        elif out != ch:
+            raise AssertionError(f"StripAccents maps U+{cp:04X} to {out!r}")
     return {"BERT_CONTROL": control, "BERT_WHITESPACE": space, "BERT_CJK": cjk,
-            "BERT_PUNCT": punct, "BERT_SPLIT_SPACE": split_space, "NONSPACING_MARK": marks}
+            "BERT_PUNCT": punct, "BERT_SPLIT_SPACE": split_space, "NONSPACING_MARK": marks,
+            "COMBINING_MARK": combining}
 
 
 def normalization_tables() -> dict:
@@ -184,7 +193,8 @@ CHECKED_UNIDATA = "{unicodedata.unidata_version}"
 '''
     parts = [head]
     for name in ("BERT_CONTROL", "BERT_WHITESPACE", "BERT_CJK", "BERT_PUNCT", "BERT_SPLIT_SPACE",
-                 "NONSPACING_MARK", "BYTE_LEVEL_LETTER", "BYTE_LEVEL_NUMBER", "BYTE_LEVEL_SPACE"):
+                 "NONSPACING_MARK", "COMBINING_MARK", "BYTE_LEVEL_LETTER", "BYTE_LEVEL_NUMBER",
+                 "BYTE_LEVEL_SPACE"):
         parts.append(wrap(name, ranges(tables[name]).split()))
     for name in ("CANONICAL", "COMPATIBILITY", "LOWERCASE"):
         parts.append(wrap(name, [f"{cp:04X}={seq(v)}" for cp, v in sorted(tables[name].items())]))
