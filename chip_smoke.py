@@ -92,7 +92,7 @@ Phases, each fatal on failure:
      device clock, the chunk against its float32 bound;
   8. chain scorer and scatter-gather (run right after phase 3, on its
      store): `entry.entry()` once against the plain version;
-     `entry.dryrun_multichip(1)` in a one-rank NCCL group over 250,000
+     `entry.dryrun_multichip(1)` in a one-rank NCCL group over 125,000
      documents (keyword, typo, tie-block and filter top-10, facet
      histogram and vector top-10, each against the host), then each
      collective it made timed alone in a one-rank NCCL group; the executor
@@ -190,7 +190,7 @@ Phases, each fatal on failure:
      forward and launches, and one chunk against its float32 bound;
   15. decoder embedder path (hn10k-qwen3emb-hf): a checkpoint at
      Qwen/Qwen3-Embedding-0.6B's published config.json widths and depth
-     (qwen3: vocab 151,669, hidden 1,024, 28 layers, 16 heads of 128 over
+     (qwen3: vocab 151,669, hidden 1,024, 14 of its 28 layers, 16 heads of 128 over
      8 KV heads, intermediate 3,072, rope_theta 1,000,000; seeded random
      weights at initializer_range 0.02, written as model.safetensors) with
      a seeded 151,643-entry byte-level BPE in Qwen2's layout (NFC, the
@@ -266,7 +266,32 @@ Phases, each fatal on failure:
      nvidia/megatron-bert-cased-345m's, BertGeneration at
      google/bert_for_seq_generation_L-24_bbc_encoder's, BERT at
      bge-base's with relative_key and with relative_key_query, and ALBERT
-     at paraphrase-albert-small-v2's as 4 passes over 2 groups of 2.
+     at paraphrase-albert-small-v2's as 4 passes over 2 groups of 2;
+  19. MobileBERT and XLNet paths (hn10k-mobilebert-hf,
+     hn10k-xlnetbase-hf), after the earlier phases' encoders are let go:
+     checkpoints at google/mobilebert-uncased's published config.json
+     (mobilebert: 24 layers, 512 wide around a 128-wide bottleneck, 4
+     heads, 4 stacked FFNs of 512, NoNorm, relu, the trigram embedding,
+     vocab 30,522) with a seeded 30,522-entry WordPiece vocabulary, and at
+     xlnet-base-cased's (xlnet: 12 layers of 768, 12 heads, d_inner 3,072,
+     relative attention, vocab 32,000, pad id 5) with a seeded
+     32,000-entry Unigram tokenizer.json in XLNetConverter's layout
+     (left padding, `$A <sep> <cls>`, `<cls>` of type 2, the pad of type
+     3, the token types passed to the model); seeded random weights at
+     initializer_range 0.02, written as model.safetensors; each through
+     its own App as phase 11 over 10,000 documents: the encoder on the
+     card against the CPU within ENC_TOL on 85 texts and on phase 13's
+     long texts (XLNet's also left-padded under forceCls and under mean
+     pooling), tokens/s and the host share, peak device memory, 256
+     hybrid responses against the host pass, a query's forward and
+     launches against its weight-read bound, and one chunk against its
+     float32 bound; then five 2-layer checkpoints at published widths on
+     the long texts, card against CPU: SqueezeBERT at
+     squeezebert-uncased's (grouped 1 x 1 convolutions), XLM at
+     xlm-mlm-en-2048's over a WordPiece (its zero token types add word row
+     0), DeBERTa-v2 at deberta-v2-xlarge's with its ConvLayer, DeBERTa-v2
+     without relative attention or absolute positions, and DistilBERT
+     with sinusoidal positions and ReLU.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -339,9 +364,9 @@ K6_TOPK = 10  # the k at which the top-k mode and chain_query_topk are timed
 # 9 lexicographic mins of 12 compares and 6 selects, 3 mask selects and
 # 4 skip adds; the final 3 mins and the clip; the keys mode's packing
 K6_OPS_FIRST, K6_OPS_TERM, K6_OPS_FINAL, K6_OPS_PACK = 18, 223, 60, 30
-# the dry run's depth: half the keyword phase's, the cut that keeps the
-# whole script under 750 s with phase 16
-DRYRUN_DOCS = 250_000
+# the dry run's depth: a quarter of the keyword phase's, the cut that
+# keeps the whole script under 1,000 s with phase 19 (half before it)
+DRYRUN_DOCS = 125_000
 # the dry run's queries (meilisearch_tpu_torch/entry.py), served through
 # the executor with MEILI_TPU_DEVICE=1 beside QUERIES
 CHAIN_QUERIES = [
@@ -496,15 +521,16 @@ DEBERTA_V3_CONFIG = {
 P14_DOCS, P14_SEED = 10_000, 2030
 # phase 15, hn10k-qwen3emb-hf: Qwen/Qwen3-Embedding-0.6B's published
 # config.json with seeded random weights (transformers' initializer_range
-# 0.02, so 28 random layers stay finite), a seeded 151,643-entry byte-level
-# BPE in Qwen2's layout with its 26 specials (151,669 ids) and
+# 0.02, so the random layers stay finite), a seeded 151,643-entry
+# byte-level BPE in Qwen2's layout with its 26 specials (151,669 ids) and
 # Qwen3-Embedding's `$A <|endoftext|>` template, and its tokenizer_config's
 # padding_side left. 10,000 of the configuration's 150,000 hackernews
-# documents: phase 14's depth cut; widths, depth and vocabulary size are
-# the published ones
+# documents: phase 14's depth cut; 14 of its 28 layers, the cut that keeps
+# the whole script under 1,000 s with phase 19; widths and vocabulary
+# size are the published ones
 QWEN3_EMBEDDING_CONFIG = {
     "model_type": "qwen3", "vocab_size": 151_669, "hidden_size": 1024,
-    "num_hidden_layers": 28, "num_attention_heads": 16, "num_key_value_heads": 8,
+    "num_hidden_layers": 14, "num_attention_heads": 16, "num_key_value_heads": 8,
     "head_dim": 128, "intermediate_size": 3072, "rope_theta": 1_000_000,
     "rms_norm_eps": 1e-6, "max_position_embeddings": 32_768, "tie_word_embeddings": True,
     "hidden_act": "silu", "attention_bias": False, "attention_dropout": 0.0,
@@ -555,7 +581,7 @@ P16_DOCS, P16_SEED = 10_000, 2032
 # its 256 specials from <|begin_of_text|> at 128,000) and
 # PreTrainedTokenizerFast's tokenizer_config.json with pad
 # <|finetune_right_pad_id|>. 10,000 of the configuration's 150,000
-# hackernews documents: phase 16's depth cut; widths, depth and
+# hackernews documents: phase 16's depth cut; its 16 layers, widths and
 # vocabulary size are the published ones
 LLAMA32_1B_CONFIG = {
     "model_type": "llama", "vocab_size": 128_256, "hidden_size": 2048,
@@ -646,6 +672,68 @@ BERT_VARIANTS = {
         **ALBERT_SMALL_CONFIG, "num_hidden_layers": 4, "num_hidden_groups": 2,
         "inner_group_num": 2},
 }
+# phase 19, hn10k-mobilebert-hf: google/mobilebert-uncased's published
+# config.json (MobileBertConfig's defaults: the 128-wide bottleneck inside
+# 512-wide layers, 4 stacked FFNs, NoNorm, the trigram embedding), and
+# hn10k-xlnetbase-hf: xlnet-base-cased's; seeded random weights at
+# initializer_range 0.02 (NoNorm's scales 1 and MobileBERT's pad row 0, as
+# transformers starts them), a seeded 30,522-entry WordPiece and a seeded
+# 32,000-piece Unigram in XLNetConverter's layout (left padding, `<cls>`
+# last with type 2). 10,000 of the configurations' 150,000 hackernews
+# documents: phase 18's depth cut; widths, depth and vocabulary sizes are
+# the published ones
+MOBILEBERT_UNCASED_CONFIG = {
+    "model_type": "mobilebert", "vocab_size": 30_522, "hidden_size": 512,
+    "num_hidden_layers": 24, "num_attention_heads": 4, "intermediate_size": 512,
+    "hidden_act": "relu", "max_position_embeddings": 512, "type_vocab_size": 2,
+    "embedding_size": 128, "true_hidden_size": 128, "intra_bottleneck_size": 128,
+    "use_bottleneck": True, "use_bottleneck_attention": False,
+    "key_query_shared_bottleneck": True, "num_feedforward_networks": 4,
+    "normalization_type": "no_norm", "trigram_input": True, "classifier_activation": False,
+    "layer_norm_eps": 1e-12, "pad_token_id": 0,
+}
+XLNET_BASE_CONFIG = {
+    "model_type": "xlnet", "vocab_size": 32_000, "d_model": 768, "n_layer": 12, "n_head": 12,
+    "d_head": 64, "d_inner": 3072, "ff_activation": "gelu", "untie_r": True,
+    "attn_type": "bi", "bi_data": False, "clamp_len": -1, "same_length": False,
+    "mem_len": None, "reuse_len": None, "layer_norm_eps": 1e-12, "pad_token_id": 5,
+    "bos_token_id": 1, "eos_token_id": 2,
+}
+P19_DOCS, P19_SEED = 10_000, 2035
+# the other encoders the JAX package embeds, 2 layers each at a published
+# checkpoint's widths, on phase 13's long texts: (a) squeezebert-uncased's
+# grouped convolutions, (b) xlm-mlm-en-2048 over a WordPiece (its zero
+# token types add word row 0), (c) deberta-v2-xlarge's ConvLayer, (d)
+# deberta-v3-base's widths without relative attention or absolute
+# positions, (e) multi-qa-distilbert-cos-v1's widths with sinusoidal
+# positions and ReLU
+P19_VARIANTS = {
+    "(a) squeezebert-uncased": {
+        "model_type": "squeezebert", "vocab_size": 30_528, "hidden_size": 768,
+        "embedding_size": 768, "num_hidden_layers": 2, "num_attention_heads": 12,
+        "intermediate_size": 3072, "hidden_act": "gelu", "max_position_embeddings": 512,
+        "type_vocab_size": 2, "q_groups": 4, "k_groups": 4, "v_groups": 4,
+        "post_attention_groups": 1, "intermediate_groups": 4, "output_groups": 4,
+        "layer_norm_eps": 1e-12, "pad_token_id": 0},
+    "(b) xlm-mlm-en-2048": {
+        "model_type": "xlm", "vocab_size": 30_145, "emb_dim": 2048, "n_layers": 2,
+        "n_heads": 16, "gelu_activation": True, "sinusoidal_embeddings": False,
+        "causal": False, "n_langs": 1, "use_lang_emb": True, "max_position_embeddings": 512,
+        "layer_norm_eps": 1e-12, "pad_index": 2, "pad_token_id": 2, "is_encoder": True},
+    "(c) deberta-v2-xlarge, ConvLayer": {
+        **DEBERTA_V3_CONFIG, "hidden_size": 1536, "num_hidden_layers": 2,
+        "num_attention_heads": 24, "intermediate_size": 6144, "conv_kernel_size": 3,
+        "conv_act": "gelu"},
+    "(d) deberta-v2, no relative attention": {
+        **DEBERTA_V3_CONFIG, "num_hidden_layers": 2, "relative_attention": False},
+    "(e) distilbert, sinusoidal, relu": {
+        **DISTILBERT_CONFIG, "n_layers": 2, "sinusoidal_pos_embds": True, "activation": "relu"},
+}
+# XLNet's specials and its quotes (two backquotes and two single quotes
+# become `"`), accents stripped after NFKD, runs of spaces
+P19_XLNET_TEXT = ["``quoted'' and ''again``", "Café naïve — déjà vu, ÉLÈVE",
+                  "hello <mask> world <cls> <sep>", "x<mask>y  <mask>  z", "runs    of   spaces"]
+P19_MOBILEBERT_TEXT = ["hello [MASK] world", "[CLS] x [SEP] y [PAD]", "HELLO World's"]
 # ALBERT's quotes, accents (NFKD, then stripped), [MASK] with lstrip and
 # full-width forms; ERNIE's CJK characters beside English and its specials
 P18_ALBERT_TEXT = ["``quoted'' and ''again``", "Café naïve — déjà vu, ÉLÈVE",
@@ -1390,12 +1478,13 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
     BGE_INIT_STD) from a seeded torch.Generator, biases 0 (normal(0,
     bias_std) where given, so a check sees them), LayerNorm and RMSNorm
     scales 1 (Gemma's `1 + w` RMSNorm weights 0, as transformers starts
-    them), RoFormer's position table its sinusoids (as transformers starts
-    it). The module is built on the meta device for its names and
-    shapes."""
+    them), RoFormer's position table its sinusoids (and DistilBERT's and
+    XLM's where the config asks for them), MobileBERT's NoNorm scales 1
+    and its pad row 0 (as transformers starts them). The module is built
+    on the meta device for its names and shapes."""
     import torch
 
-    from meilisearch_tpu_torch.models import gemma3, roformer
+    from meilisearch_tpu_torch.models import gemma3, mobilebert, roformer
     from meilisearch_tpu_torch.models.checkpoint import new_model
     from meilisearch_tpu_torch.models.decoder import RMSNorm
 
@@ -1403,8 +1492,12 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
         model = new_model(config)
     norms = {f"{m}.{p}": 0.0 if isinstance(mod, gemma3.RMSNorm) or p != "weight" else 1.0
              for m, mod in model.named_modules()
-             if isinstance(mod, (torch.nn.LayerNorm, RMSNorm, gemma3.RMSNorm))
+             if isinstance(mod, (torch.nn.LayerNorm, RMSNorm, gemma3.RMSNorm, mobilebert.NoNorm))
              for p, _ in mod.named_parameters()}
+    # embedding rows transformers starts at 0 (`padding_idx`: MobileBERT's pad)
+    zero_rows = {f"{m}.weight": mod.padding_idx for m, mod in model.named_modules()
+                 if isinstance(mod, torch.nn.Embedding) and mod.padding_idx is not None}
+    sinusoidal = config.get("sinusoidal_pos_embds") or config.get("sinusoidal_embeddings")
     g = torch.Generator().manual_seed(seed)
     state = {}
     for name, p in model.named_parameters():
@@ -1412,12 +1505,30 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
             state[name] = torch.full(p.shape, norms[name])
         elif name == roformer.POSITIONS:
             state[name] = roformer.sinusoidal_table(*p.shape).clone()
+        elif sinusoidal and name.endswith("position_embeddings.weight"):
+            state[name] = sinusoidal_positions(*p.shape)
         elif name.endswith("bias"):
             state[name] = (torch.randn(p.shape, generator=g) * bias_std if bias_std
                            else torch.zeros(p.shape))
         else:
             state[name] = torch.randn(p.shape, generator=g) * BGE_INIT_STD
+        if name in zero_rows:
+            state[name][zero_rows[name]] = 0.0
     return state
+
+
+def sinusoidal_positions(n_pos: int, dim: int):
+    """DistilBERT's and XLM's sinusoidal position table as transformers
+    fills it (`create_sinusoidal_embeddings`: float64 angles, sin on the
+    even columns, cos on the odd ones, then float32)."""
+    import numpy as np
+    import torch
+
+    pos = np.arange(n_pos)[:, None] / np.power(10000, 2 * (np.arange(dim) // 2) / dim)[None, :]
+    out = torch.empty(n_pos, dim)
+    out[:, 0::2] = torch.FloatTensor(np.sin(pos[:, 0::2]))
+    out[:, 1::2] = torch.FloatTensor(np.cos(pos[:, 1::2]))
+    return out
 
 
 def write_bge_checkpoint(path: str) -> None:
@@ -2030,7 +2141,7 @@ def families_phase(device, card: str, n_docs: int) -> dict:
 
 
 def write_qwen3_embedding_checkpoint(path: str) -> None:
-    """A checkpoint of Qwen3-Embedding-0.6B's width (28 layers,
+    """A checkpoint of Qwen3-Embedding-0.6B's width (14 of its 28 layers,
     DecoderModel's names), written as model.safetensors with a
     151,643-entry byte-level BPE tokenizer.json in Qwen2's layout, its
     merges trained through Qwen2's Split pattern on the phase's own texts,
@@ -2225,7 +2336,8 @@ def llama32_long_check(path: str, device, label: str) -> float:
     enc._load()
     if enc._model.rope.kind != "llama3":
         raise AssertionError(f"{label}: the module runs the {enc._model.rope.kind} rotary")
-    return long_check(path, device, f"{label} 16 layers, llama3 rope",
+    return long_check(path, device, f"{label} {LLAMA32_1B_CONFIG['num_hidden_layers']} layers,"
+                      " llama3 rope",
                       texts=long_check_texts(P17_SEED))
 
 
@@ -2406,32 +2518,179 @@ def bert_families_phase(device, card: str, n_docs: int) -> dict:
     return out
 
 
+def write_mobilebert_checkpoint(path: str) -> None:
+    """A checkpoint of google/mobilebert-uncased's config (24 layers,
+    MobileBertModel's names) beside a 30,522-entry WordPiece vocab.txt."""
+    write_wordpiece_checkpoint(path, MOBILEBERT_UNCASED_CONFIG, P19_SEED)
+
+
+@lru_cache(maxsize=1)
+def xlnet_spec() -> dict:
+    """A 32,000-entry Unigram tokenizer.json in XLNetConverter's layout
+    (cased, accents stripped, as xlnet-base-cased): its nine specials, then
+    e5_pieces, with e5_charsmap."""
+    from meilisearch_tpu_torch.models.fixtures import xlnet_tokenizer_json
+
+    spec = xlnet_tokenizer_json(e5_pieces(31_991, P19_SEED), e5_charsmap())
+    if len(spec["model"]["vocab"]) != XLNET_BASE_CONFIG["vocab_size"]:
+        raise AssertionError("the tokenizer is not laid out as xlnet-base-cased's")
+    return spec
+
+
+def write_xlnet_checkpoint(path: str) -> None:
+    """A checkpoint of xlnet-base-cased's config (12 layers, XLNetModel's
+    names) beside `xlnet_spec()` and XLNetTokenizerFast's
+    tokenizer_config.json."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    write_checkpoint(path, XLNET_BASE_CONFIG, random_state_dict(XLNET_BASE_CONFIG, P19_SEED),
+                     tokenizer_json=xlnet_spec())
+
+
+def mobilebert_long_check(path: str, device, label: str) -> float:
+    """Phase 13's long texts in one batch (`long_check`), after checking
+    that the module runs MobileBERT's mechanisms: NoNorm, the trigram, 4
+    FFNs a layer, the shared bottleneck and a zero pad row."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+    from meilisearch_tpu_torch.models.mobilebert import NoNorm
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    m = enc._model
+    layer = m.encoder.layer[0]
+    if not (isinstance(m.embeddings.LayerNorm, NoNorm) and m.embeddings.trigram
+            and len(layer.ffn) == 3 and layer.bottleneck.attention is not None
+            and not bool(m.embeddings.word_embeddings.weight[0].any())):
+        raise AssertionError(f"{label}: the module does not run MobileBERT's layout")
+    return long_check(path, device, f"{label} (24 layers)", texts=long_check_texts(P19_SEED))
+
+
+def xlnet_long_check(path: str, device, label: str) -> float:
+    """Phase 13's long texts in one batch (`long_check`), after checking
+    that the encoder passes XLNet's token types: `<cls>` last with type 2,
+    the left padding type 3."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    _ids, mask, types = enc.tokenize(LEFT_PAD_TEXT)
+    if not enc._types or types is None or int(types[:, -1].min()) != 2 \
+            or not bool((types[mask == 0] == 3).all()) or int(mask[:, 0].min()) != 0:
+        raise AssertionError(f"{label}: the token types do not reach the model")
+    return long_check(path, device, f"{label} (relative attention)",
+                      texts=long_check_texts(P19_SEED))
+
+
+def p19_variants_check(path: str, device, label: str) -> float:
+    """P19_VARIANTS' checkpoints (DeBERTa's beside phase 14's Unigram
+    tokenizer.json, the others beside a WordPiece vocabulary of their
+    size): phase 13's long texts in one batch (`long_check`) for each,
+    after checking that the module runs the variant's mechanism; returns
+    the largest error."""
+    import tempfile
+
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import deberta_v3_tokenizer_json
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    deberta_spec = None
+    err = 0.0
+    for i, (what, config) in enumerate(P19_VARIANTS.items()):
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as small:
+            if config["model_type"] == "deberta-v2":
+                if deberta_spec is None:
+                    deberta_spec = deberta_v3_tokenizer_json(e5_pieces(127_996, P14_SEED + 1),
+                                                             e5_charsmap())
+                write_checkpoint(small, config, random_state_dict(config, P19_SEED + 1 + i),
+                                 tokenizer_json=deberta_spec)
+            else:
+                write_wordpiece_checkpoint(small, config, P19_SEED + 1 + i)
+            enc = encoder(small, "useModel", device)
+            enc._load()
+            c = enc._model.config
+            mine = {k: c.get(k) for k in ("model_type", "q_groups", "conv_kernel_size",
+                                          "relative_attention", "sinusoidal_pos_embds",
+                                          "emb_dim")}
+            wrong = [k for k, v in mine.items() if config.get(k) not in (None, v)]
+            if config.get("activation") not in (None, c.get("hidden_act")):
+                wrong.append("activation")
+            if (config["model_type"] == "xlm") is not enc._types:
+                wrong.append("token types")  # XLM's only, from BertTokenizer's class
+            if wrong:
+                raise AssertionError(f"{what}: the module reads {wrong} otherwise: {mine}")
+            err = max(err, long_check(small, device, f"{label} variant {what}",
+                                      texts=long_check_texts(P19_SEED)))
+            encoder.cache_clear()
+        say(f"{label} variant {what}: {time.perf_counter() - t:.3f} s")
+    say(f"{label} variants: largest error {err:.3e} (bound {ENC_TOL:g})")
+    encoder(path, "useModel", device)._load()  # hf_path goes on with `path`'s, cached
+    return err
+
+
+def more_families_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 19, hn10k-mobilebert-hf and hn10k-xlnetbase-hf, each through
+    its own App (`hf_path`) with its checks (XLNet's left-padded batch
+    under both poolings, its token types, and P19_VARIANTS beside it), once
+    the earlier phases' encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 19 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    out = {}
+    for label, index, write, tokenizer, model_type, check_texts, checks in (
+            ("mobilebert-uncased", "mb", write_mobilebert_checkpoint, "WordPiece", "mobilebert",
+             P11_CHECK_TEXT + P19_MOBILEBERT_TEXT, (mobilebert_long_check,)),
+            ("xlnet-base-cased", "xl", write_xlnet_checkpoint, "Unigram", "xlnet",
+             E5_CHECK_TEXT + P19_XLNET_TEXT,
+             (left_pad_check, xlnet_long_check, p19_variants_check))):
+        t = time.perf_counter()
+        out[label] = hf_path(device, card, n_docs, label=label, index=index, write=write,
+                             seed=P19_SEED, queries=P11_TEXT, check_texts=check_texts,
+                             tokenizer=tokenizer, model_type=model_type, checks=checks)
+        say(f"phase 19 {label} wall: {time.perf_counter() - t:.3f} s")
+    say(f"phase 19 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
-    Linear layers (ALBERT's shared ones once for each pass that runs
-    them), QK^T and PV (over heads x head_dim, wider than the model in
-    Qwen3), the relative keys' einsum(Q, pos) (and einsum(K, pos)), and
-    for DeBERTa-v2 the c2p and p2c products against the (2 span)-row
-    relative embeddings and those embeddings' projections (the
-    embeddings, MPNet's bias table and the bucket and distance gathers
-    are gathers, not products)."""
-    from torch import nn
-
+    Linear and Conv1d layers and XLNet's token projections (ALBERT's
+    shared ones once for each pass that runs them), QK^T and PV (over
+    heads x head_dim, wider than the model in Qwen3; over MobileBERT's
+    true_hidden_size, narrower), the relative keys' einsum(Q, pos) (and
+    einsum(K, pos)), for DeBERTa-v2 the c2p and p2c products against the
+    (2 span)-row relative embeddings and those embeddings' projections,
+    for XLNet its position keys (`r` over the 2L rows of the position
+    table, once a forward) and scores (the embeddings, MPNet's bias table
+    and the bucket and distance gathers are gathers, not products)."""
     from meilisearch_tpu_torch.models.albert import AlbertModel
     from meilisearch_tpu_torch.models.bert import RELATIVE_KEYS
     from meilisearch_tpu_torch.models.deberta_v2 import DebertaV2Model, attention_span
-
-    def weights(module) -> int:
-        return sum(m.weight.numel() for m in module.modules() if isinstance(m, nn.Linear))
+    from meilisearch_tpu_torch.models.mobilebert import MobileBertModel
+    from meilisearch_tpu_torch.models.xlnet import XLNetModel
 
     c = model.config
     h, layers = c["hidden_size"], c["num_hidden_layers"]
     width = c["num_attention_heads"] * c["head_dim"] if c.get("head_dim") else h
-    linear = weights(model)
+    if isinstance(model, MobileBertModel):
+        width = c["true_hidden_size"]
+    linear = projection_weights(model)
+    if isinstance(model, XLNetModel):  # `r` is charged below, on 2L rows
+        linear -= sum(layer.rel_attn.r.numel() for layer in model.layer)
     if isinstance(model, AlbertModel):
         passes = model.passes()
         layers = len(passes)
-        linear = weights(model.embeddings_project) + sum(weights(p) for p in passes)
+        linear = (projection_weights(model.embeddings_project)
+                  + sum(projection_weights(p) for p in passes))
     flops = 2 * linear * n * L + 4 * L * L * width * layers * n
     if c.get("position_embedding_type") in RELATIVE_KEYS:
         kinds = 1 + (c["position_embedding_type"] == "relative_key_query")
@@ -2439,7 +2698,25 @@ def encoder_flops(model, n: int, L: int) -> float:
     if isinstance(model, DebertaV2Model) and c["relative_attention"]:
         span, kinds = attention_span(c), len(set(c["pos_att_type"]))
         flops += layers * kinds * (4 * L * span * h * n + 4 * span * h * h)
+    if isinstance(model, XLNetModel):
+        # the position keys over 2L rows, once a forward, and the position
+        # scores against them, before rel_shift
+        flops += layers * (2 * 2 * L * h * h + 2 * L * 2 * L * width * n)
     return flops
+
+
+def projection_weights(module) -> int:
+    """The weights of `module`'s Linear and Conv1d layers and XLNet's
+    einsum projections (`q`, `k`, `v`, `o`, `r`)."""
+    from torch import nn
+
+    from meilisearch_tpu_torch.models.xlnet import XLNetModel
+
+    n = sum(m.weight.numel() for m in module.modules() if isinstance(m, (nn.Linear, nn.Conv1d)))
+    if isinstance(module, XLNetModel):
+        n += sum(getattr(layer.rel_attn, w).numel() for layer in module.layer
+                 for w in ("q", "k", "v", "o", "r"))
+    return n
 
 
 def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
@@ -2449,15 +2726,13 @@ def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     chunk's TFLOP/s against the float32 bound."""
     import torch
 
-    from torch import nn
-
     query = "rust compiler performance benchmark for machine learning on gpu"
-    ids, mask = enc._tokenizer([query], enc.max_len)
-    q_ms = _median_ms(lambda: enc.forward(ids, mask), reps=REPEATS)
+    ids, mask, types = enc.tokenize([query])
+    q_ms = _median_ms(lambda: enc.forward(ids, mask, types), reps=REPEATS)
     _kernel_ms, launches = leg_breakdown(f"one query's forward ({ids.shape[1]} tokens)",
-                                         lambda: enc.forward(ids, mask), device)
-    # a query reads every Linear weight once (float32)
-    linear = sum(m.weight.numel() for m in enc._model.modules() if isinstance(m, nn.Linear))
+                                         lambda: enc.forward(ids, mask, types), device)
+    # a query reads every Linear (Conv1d, XLNet projection) weight once (float32)
+    linear = projection_weights(enc._model)
     q_bound_ms = max(4 * linear / HBM_BYTES_S,
                      encoder_flops(enc._model, 1, ids.shape[1]) / FP32_FLOP_S) * 1e3
     c = enc._model.config
@@ -2465,7 +2740,8 @@ def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     g = torch.Generator().manual_seed(ENC_SEED)
     cids = torch.randint(1000, c["vocab_size"], (n, L), generator=g)
     cmask = torch.ones((n, L), dtype=torch.int64)
-    chunk_ms = _median_ms(lambda: enc.forward(cids, cmask), reps=REPEATS)
+    ctypes = None if types is None else torch.zeros_like(cids)
+    chunk_ms = _median_ms(lambda: enc.forward(cids, cmask, ctypes), reps=REPEATS)
     flops = encoder_flops(enc._model, n, L)
     bound_ms = flops / FP32_FLOP_S * 1e3
     say(f"timing the {width}-width encoder on {card}: one query's forward ({ids.shape[1]}"
@@ -3389,6 +3665,7 @@ def main() -> int:
     embeddinggemma_phase(device, card, P16_DOCS)
     llama32_phase(device, card, P17_DOCS)
     bert_families_phase(device, card, P18_DOCS)
+    more_families_phase(device, card, P19_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

@@ -1,6 +1,7 @@
 """The MLP activations of the port's encoders and decoders
 (models/bert.py, models/albert.py, models/roformer.py, models/decoder.py,
-models/gemma3.py): its own copy of the transformers `ACT2FN` names it
+models/gemma3.py, models/mobilebert.py, models/squeezebert.py, models/xlnet.py,
+and DeBERTa-v2's `conv_act`): its own copy of the transformers `ACT2FN` names it
 runs, each written in torch as transformers writes it, so each gives the
 same bits:
 
@@ -12,7 +13,8 @@ same bits:
   their explicit formulas (not torch's tanh GELU, which rounds
   otherwise);
 - `quick_gelu`: `x sigmoid(1.702 x)`;
-- `relu`: `F.relu`.
+- `relu`: `F.relu`;
+- `tanh`: `torch.tanh` (DeBERTa-v2's ConvLayer default).
 
 Any other name is refused by name.
 """
@@ -41,7 +43,8 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 ACTIVATIONS = {"silu": F.silu, "swish": F.silu, "gelu": F.gelu,
                "gelu_pytorch_tanh": partial(F.gelu, approximate="tanh"), "gelu_new": gelu_new,
-               "gelu_fast": gelu_fast, "quick_gelu": quick_gelu, "relu": F.relu}
+               "gelu_fast": gelu_fast, "quick_gelu": quick_gelu, "relu": F.relu,
+               "tanh": torch.tanh}
 
 
 def activation(name: str, key: str = "hidden_act"):

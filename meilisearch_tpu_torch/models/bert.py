@@ -28,7 +28,11 @@ no pooler):
   RoBERTa family's count from `pad_token_id` + 1 over the tokens that are
   not the pad id, and a pad token takes position `pad_token_id`
   (transformers' `create_position_ids_from_input_ids`). DistilBERT has no
-  token-type embedding: word + position (0..L-1), LayerNorm eps 1e-12.
+  token-type embedding: word + position (0..L-1), LayerNorm eps 1e-12;
+  with `sinusoidal_pos_embds` the position table is the file's, as the
+  torch `DistilBertModel` loads it (transformers writes the sinusoid into
+  it and never trains it), and its `activation` is any of
+  models/activations.py's;
   MPNet has none either: word + position, its positions RoBERTa's from
   the padding id 1 (`MPNetEmbeddings` hard-codes it, whatever
   `pad_token_id` says; another pad id is refused); nor has BertGeneration
@@ -137,19 +141,13 @@ def _distilbert_config(config: dict) -> dict:
     missing = [k for k in DISTILBERT_KEYS if k not in config]
     if missing:
         raise ValueError(f"the distilbert config lacks {missing}")
-    if config["activation"] != "gelu":
-        raise ValueError(
-            f"activation `{config['activation']}` is not supported: the port runs exact GELU only"
-        )
-    if config.get("sinusoidal_pos_embds"):
-        raise ValueError("sinusoidal_pos_embds: true is not supported: the port reads learned"
-                         " position embeddings only")
+    activation(config["activation"], "activation")
     if config["dim"] % config["n_heads"]:
         raise ValueError("dim is not a multiple of n_heads")
     return {**config, "hidden_size": config["dim"], "num_hidden_layers": config["n_layers"],
             "num_attention_heads": config["n_heads"], "intermediate_size": config["hidden_dim"],
             "type_vocab_size": 0, "layer_norm_eps": 1e-12, "embedding_size": config["dim"],
-            "hidden_act": "gelu", "position_embedding_type": "absolute"}
+            "hidden_act": config["activation"], "position_embedding_type": "absolute"}
 
 
 def _mpnet_config(config: dict) -> dict:
@@ -179,8 +177,10 @@ def check_config(config: dict) -> dict:
             f"model_type `{model_type}` is not supported: the port runs BERT, RoBERTa,"
             " XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration,"
             " RemBERT and Megatron-BERT checkpoints here, ALBERT ones in models/albert.py,"
-            " RoFormer ones in models/roformer.py, ModernBERT ones in models/modernbert.py"
-            " and DeBERTa-v2 ones in models/deberta_v2.py, no other"
+            " RoFormer ones in models/roformer.py, ModernBERT ones in models/modernbert.py,"
+            " DeBERTa-v2 ones in models/deberta_v2.py, MobileBERT ones in"
+            " models/mobilebert.py, SqueezeBERT ones in models/squeezebert.py, XLM ones in"
+            " models/xlm.py and XLNet ones in models/xlnet.py, no other"
         )
     if model_type == "distilbert":
         return _distilbert_config(config)

@@ -1,7 +1,8 @@
 """Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, CamemBERT,
 DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT,
-ALBERT, RoFormer, ModernBERT, DeBERTa-v2, Qwen3, Qwen2, Llama, Mistral or
-Gemma 3 checkpoint directory without transformers.
+ALBERT, RoFormer, ModernBERT, DeBERTa-v2, MobileBERT, SqueezeBERT, XLM,
+XLNet, Qwen3, Qwen2, Llama, Mistral or Gemma 3 checkpoint directory
+without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -14,7 +15,10 @@ A directory as transformers' `save_pretrained` leaves it:
   `DebertaV2Model`, and models/decoder.py::CONFIG_KEYS for `qwen3`,
   `qwen2`, `llama` and `mistral`, which it gives to `DecoderModel`, and
   models/gemma3.py::CONFIG_KEYS for `gemma3_text`, which it gives to
-  `Gemma3Model`);
+  `Gemma3Model`; `mobilebert`, `squeezebert`, `xlm` and `xlnet` configs,
+  their config class's defaults filled in, to models/mobilebert.py's,
+  models/squeezebert.py's, models/xlm.py's and models/xlnet.py's
+  modules);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
@@ -37,22 +41,29 @@ A directory as transformers' `save_pretrained` leaves it:
   default true; `strip_accents`; `tokenize_chinese_chars`;
   `add_prefix_space`; the special tokens and `added_tokens_decoder`;
   `tokenizer_class`, where `RoFormerTokenizer(Fast)`, whose jieba
-  pre-tokenizer the port does not run, is refused by name).
+  pre-tokenizer the port does not run, and `XLMTokenizer`, whose Moses
+  tokenizer it does not run either (AutoTokenizer's class for an `xlm`
+  directory that names none), are refused by name; `model_input_names`,
+  or the class, says whether transformers' tokenizer gives token types,
+  `gives_token_types`).
 
 Checkpoint names map onto `BertModel`'s, `AlbertModel`'s,
 `RoFormerModel`'s, `ModernBertModel`'s, `DebertaV2Model`'s,
+`MobileBertModel`'s, `SqueezeBertModel`'s, `XLMModel`'s, `XLNetModel`'s,
 `DecoderModel`'s and `Gemma3Model`'s (`hf_to_state_dict`): a `bert.`
 (BERT's, Megatron-BERT's and BertGeneration's), `roberta.` (RoBERTa's and
 CamemBERT's), `distilbert.`, `mpnet.`, `electra.`, `ernie.`, `rembert.`,
-`albert.`, `roformer.`, `deberta.` or `model.` (ModernBERT's and the
-`*ForCausalLM` decoders', `Gemma3ForCausalLM`'s too) prefix is dropped,
-so are the pooler, the
-pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
+`albert.`, `roformer.`, `deberta.`, `mobilebert.`, `model.` (ModernBERT's
+and the `*ForCausalLM` decoders', `Gemma3ForCausalLM`'s too) or
+`transformer.` (SqueezeBERT's, XLM's and XLNet's; DistilBERT's
+`transformer.layer.N.` keeps it) prefix is dropped, so are the pooler,
+the pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
 `ModernBertForMaskedLM`'s `head.` and `decoder.`; ELECTRA's
 `discriminator_predictions.`, `generator_predictions.` and
 `generator_lm_head.`; `DebertaV2ForMaskedLM`'s `lm_predictions.` and the
 `mask_predictions.` transformers ignores; ALBERT's `predictions.` and
-`sop_classifier.`) and the
+`sop_classifier.`; XLM's `pred_layer.` and `sequence_summary.`; XLNet's
+`lm_loss.`, `sequence_summary.` and `logits_proj.`) and the
 `position_ids`, `token_type_ids` and `rotary_emb.inv_freq` buffers, and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
 (`transformer.layer.N`: `attention.{q,k,v,out}_lin`, `sa_layer_norm`,
@@ -73,7 +84,8 @@ Megatron-BERT's `attention.ln.` and `ln.` are kept as they are.
 or `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
 `weight` (out, in), `scale` and `embedding` become `weight`. No Flax
 MPNet, CamemBERT, DeBERTa-v2, ERNIE, BertGeneration, RemBERT,
-Megatron-BERT, Qwen2, Qwen3 or Gemma 3 exists, and the JAX
+Megatron-BERT, MobileBERT, SqueezeBERT, XLM, XLNet, Qwen2, Qwen3 or
+Gemma 3 exists, and the JAX
 package reads ELECTRA (fault 3.16), RoFormer (fault 3.23) and Llama and
 Mistral (fault 3.17)
 through its torch branch: for those it holds a torch
@@ -91,7 +103,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import albert, bert, deberta_v2, decoder, gemma3, modernbert, roformer
+from . import (
+    albert,
+    bert,
+    deberta_v2,
+    decoder,
+    gemma3,
+    mobilebert,
+    modernbert,
+    roformer,
+    squeezebert,
+    xlm,
+    xlnet,
+)
 from .albert import AlbertModel
 from .bert import BertModel
 from .bpe import BPE, legacy_spec
@@ -106,12 +130,17 @@ from .fixtures import (
     modernbert_tokenizer_config,
     mpnet_tokenizer_config,
     qwen2_tokenizer_config,
+    xlnet_tokenizer_config,
 )
 from .gemma3 import Gemma3Model
+from .mobilebert import MobileBertModel
 from .modernbert import ModernBertModel
 from .roformer import RoFormerModel
+from .squeezebert import SqueezeBertModel
 from .unigram import Unigram
 from .wordpiece import WordPiece
+from .xlm import XLMModel
+from .xlnet import XLNetModel
 
 # safetensors dtype -> numpy little-endian dtype (BF16 is widened below)
 _ST_DTYPES = {
@@ -122,15 +151,28 @@ _ST_DTYPES = {
 _ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.int64: "I64",
              torch.int32: "I32"}
 _PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "electra.", "ernie.", "rembert.",
-             "albert.", "roformer.", "deberta.", "model.")
+             "albert.", "roformer.", "deberta.", "model.", "mobilebert.")
+# SqueezeBERT's, XLM's and XLNet's base-model prefix; DistilBERT's layers
+# (`transformer.layer.N.` over DistilBERT's leaves) keep it
+_TRANSFORMER = "transformer."
 _DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "head.", "decoder.",
             "discriminator_predictions.", "generator_predictions.", "generator_lm_head.",
             "lm_predictions.", "mask_predictions.", "predictions.", "sop_classifier.",
+            "pred_layer.", "lm_loss.", "sequence_summary.", "logits_proj.",
             "embeddings.position_ids", "embeddings.token_type_ids")
 # RemBERT's and ALBERT's name of the embeddings' projection -> the modules'
 _MAPPING_IN, _PROJECT = "encoder.embedding_hidden_mapping_in.", "embeddings_project."
-# tokenizer classes refused by name: RoFormer's jieba pre-tokenizer
-_REFUSED_TOKENIZERS = ("RoFormerTokenizer", "RoFormerTokenizerFast")
+# tokenizer classes refused by name: RoFormer's jieba pre-tokenizer, XLM's
+# Moses tokenizer and `</w>` BPE (AutoTokenizer's class for an `xlm`
+# checkpoint whose tokenizer_config.json names none)
+_REFUSED_TOKENIZERS = {"RoFormerTokenizer": "its jieba pre-tokenizer",
+                       "RoFormerTokenizerFast": "its jieba pre-tokenizer",
+                       "XLMTokenizer": "its Moses punctuation normalizer and tokenizer"}
+# tokenizer classes whose `model_input_names` leave out token_type_ids
+# (the others give them, PreTrainedTokenizerBase's default)
+_UNTYPED_TOKENIZERS = ("RobertaTokenizer", "XLMRobertaTokenizer", "CamembertTokenizer",
+                       "DistilBertTokenizer", "MPNetTokenizer", "LlamaTokenizer",
+                       "GemmaTokenizer", "Qwen2Tokenizer", "GPT2Tokenizer", "BartTokenizer")
 # sentencepiece model files, which the port does not parse
 _SPM_FILES = ("spm.model", "sentencepiece.bpe.model", "sentencepiece.model")
 # DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
@@ -180,6 +222,15 @@ def _to_mpnet(name: str) -> str:
     return _rename_layer(name, _LAYER, _LAYER, [(ours, theirs) for theirs, ours in _MPNET_NAMES])
 
 
+def _distilbert_layer(name: str) -> bool:
+    """`transformer.layer.N.` over one of DistilBERT's layer leaves (XLNet's
+    `transformer.layer.N.rel_attn.` and `.ff.` are not)."""
+    if not name.startswith("transformer.layer."):
+        return False
+    leaf = name[len("transformer.layer."):].partition(".")[2]
+    return leaf.startswith(tuple(old for old, _new in _DISTILBERT_NAMES))
+
+
 def _to_mapping_in(name: str) -> str:
     """The module's projection under RemBERT's and ALBERT's name."""
     if name.startswith(_PROJECT):
@@ -191,14 +242,24 @@ def _to_mapping_in(name: str) -> str:
 _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
            albert.MODEL_TYPE: AlbertModel, roformer.MODEL_TYPE: RoFormerModel,
            **{kind: DecoderModel for kind in decoder.MODEL_TYPES},
-           gemma3.MODEL_TYPE: Gemma3Model}
+           gemma3.MODEL_TYPE: Gemma3Model, mobilebert.MODEL_TYPE: MobileBertModel,
+           squeezebert.MODEL_TYPE: SqueezeBertModel, xlm.MODEL_TYPE: XLMModel,
+           xlnet.MODEL_TYPE: XLNetModel}
 # (`gemma3`, the multimodal model, is refused by models/gemma3.py by name)
 _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config,
            albert.MODEL_TYPE: albert.check_config, roformer.MODEL_TYPE: roformer.check_config,
            **{kind: decoder.check_config for kind in decoder.MODEL_TYPES},
-           gemma3.MODEL_TYPE: gemma3.check_config, "gemma3": gemma3.check_config}
-# model types whose checkpoints are published as model.safetensors
-_SAFETENSORS = ("modernbert", *decoder.MODEL_TYPES, gemma3.MODEL_TYPE)
+           gemma3.MODEL_TYPE: gemma3.check_config, "gemma3": gemma3.check_config,
+           mobilebert.MODEL_TYPE: mobilebert.check_config,
+           squeezebert.MODEL_TYPE: squeezebert.check_config, xlm.MODEL_TYPE: xlm.check_config,
+           xlnet.MODEL_TYPE: xlnet.check_config}
+# model types whose modules fill in their config class's defaults
+_OWN_DEFAULTS = (mobilebert.MODEL_TYPE, squeezebert.MODEL_TYPE, xlm.MODEL_TYPE,
+                 xlnet.MODEL_TYPE)
+# model types whose checkpoints the port writes as model.safetensors: those
+# published so, and those that have no Flax class (the JAX package's
+# encoder reads either file through its torch branch)
+_SAFETENSORS = ("modernbert", *decoder.MODEL_TYPES, gemma3.MODEL_TYPE, *_OWN_DEFAULTS)
 
 
 def check_config(config: dict) -> dict:
@@ -264,6 +325,8 @@ def hf_to_state_dict(named: dict) -> dict:
         for prefix in _PREFIXES:
             if name.startswith(prefix):
                 name = name[len(prefix):]
+        if name.startswith(_TRANSFORMER) and not _distilbert_layer(name):
+            name = name[len(_TRANSFORMER):]
         if name.startswith(_DROPPED) or name.endswith("rotary_emb.inv_freq"):
             continue
         if name.startswith(_MAPPING_IN):
@@ -341,11 +404,14 @@ def load_checkpoint(path: str) -> Checkpoint:
     if os.path.exists(tok_path):
         with open(tok_path) as f:
             tokenizer = json.load(f)
-    if tokenizer.get("tokenizer_class") in _REFUSED_TOKENIZERS:
+    tok_class = tokenizer.get("tokenizer_class")
+    if not tok_class and config.get("model_type") == xlm.MODEL_TYPE:
+        tok_class = "XLMTokenizer"  # AutoTokenizer's class for the model type
+    if tok_class in _REFUSED_TOKENIZERS:
         raise ValueError(
-            f"tokenizer_class `{tokenizer['tokenizer_class']}` is not supported: its jieba"
-            " pre-tokenizer is not in the port (a RoFormer checkpoint saved with BertTokenizer's"
-            " class loads)")
+            f"tokenizer_class `{tok_class}` is not supported: {_REFUSED_TOKENIZERS[tok_class]}"
+            " is not in the port (a checkpoint saved with a WordPiece, Unigram or BPE tokenizer"
+            " class the port reads loads)")
     state = read_weights(path)
     if config.get("model_type") == roformer.MODEL_TYPE:
         state = roformer.with_positions(config, state)
@@ -393,6 +459,18 @@ def build_tokenizer(ckpt: Checkpoint):
     return Unigram(ckpt.tokenizer_json, ckpt.tokenizer, ckpt.config.get("model_type"))
 
 
+def gives_token_types(ckpt: Checkpoint) -> bool:
+    """Whether transformers' tokenizer for the checkpoint returns
+    `token_type_ids` (which the JAX package's encoder passes to the model):
+    tokenizer_config.json's `model_input_names`, else its class's
+    (`_UNTYPED_TOKENIZERS` leave them out)."""
+    names = ckpt.tokenizer.get("model_input_names")
+    if names is not None:
+        return "token_type_ids" in names
+    tok_class = ckpt.tokenizer.get("tokenizer_class") or ""
+    return tok_class.removesuffix("Fast") not in _UNTYPED_TOKENIZERS
+
+
 def build_model(ckpt: Checkpoint):
     """The checkpoint's module (`new_model`) holding its weights (every
     parameter must be present), on the CPU, in eval mode. The module is
@@ -438,14 +516,17 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     or for `modernbert`, the
     decoders and `gemma3_text` as model.safetensors, the file their
     checkpoints are published in (ModernBertModel's, DecoderModel's and
-    Gemma3Model's names), and
+    Gemma3Model's names), as for `mobilebert`, `squeezebert`, `xlm` and
+    `xlnet`, which have no Flax class (their modules' names, no prefix),
+    and
     tokenizer_config.json (`tokenizer_config` as given, else:), with either
     `vocab` as vocab.txt (MPNetTokenizerFast's special tokens for an
     `mpnet` config, ElectraTokenizer's class for `electra`) or
     `tokenizer_json` (a Unigram tokenizer.json with XLM-R's special tokens,
-    CamemBERT's config for `camembert`, DeBERTa-v2's for `deberta-v2` and
-    ALBERT's for `albert`, fixtures.camembert_tokenizer_config,
-    deberta_v2_tokenizer_config and albert_tokenizer_config; a
+    CamemBERT's config for `camembert`, DeBERTa-v2's for `deberta-v2`,
+    ALBERT's for `albert` and XLNet's for `xlnet`,
+    fixtures.camembert_tokenizer_config, deberta_v2_tokenizer_config,
+    albert_tokenizer_config and xlnet_tokenizer_config; a
     BPE one with RoBERTa's, add_prefix_space false, or, for a `modernbert`
     config, a BPE one with its own specials and `PreTrainedTokenizerFast`'s
     config, fixtures.modernbert_tokenizer_config; for `qwen3` and `qwen2`
@@ -460,7 +541,7 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     if rename is not None:
         state_dict = {rename(k): v for k, v in state_dict.items()}
     if model_type not in ("distilbert", "modernbert", albert.MODEL_TYPE, *decoder.MODEL_TYPES,
-                          gemma3.MODEL_TYPE):
+                          gemma3.MODEL_TYPE, *_OWN_DEFAULTS):
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
@@ -481,7 +562,8 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                "deberta-v2": deberta_v2_tokenizer_config, "qwen3": qwen2_tokenizer_config,
                "qwen2": qwen2_tokenizer_config, "llama": llama3_tokenizer_config,
                "mistral": llama3_tokenizer_config,
-               gemma3.MODEL_TYPE: gemma_tokenizer_config}.get(model_type)
+               gemma3.MODEL_TYPE: gemma_tokenizer_config,
+               xlnet.MODEL_TYPE: xlnet_tokenizer_config}.get(model_type)
         if own is not None:
             tok_config = own(tokenizer_json)
         elif bpe:

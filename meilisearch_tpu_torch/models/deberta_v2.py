@@ -1,6 +1,6 @@
 """DeBERTa-v2's encoder forward as a torch module (the port's K8 for
-`model_type` `deberta-v2`: microsoft/deberta-v3-base and the models
-fine-tuned from it).
+`model_type` `deberta-v2`: microsoft/deberta-v3-base, deberta-v2-xlarge
+and -xxlarge, and the models fine-tuned from them).
 
 It computes what transformers' torch `DebertaV2Model` computes, the model
 the JAX package's encoder (`models/hf_encoder.py` there) runs through its
@@ -43,11 +43,22 @@ last hidden state (pooling stays in models/hf_encoder.py):
   projection, exact (erf) GELU, the output projection, residual and
   LayerNorm, as in BERT.
 
-Refused by name: `conv_kernel_size` > 0 (deberta-v2-xlarge's
-`ConvLayer`), `relative_attention: false` without
-`position_biased_input` (no position information at all), another
-`hidden_act`, and an `attention_head_size` that is not hidden_size /
-heads.
+- with `conv_kernel_size` > 0 (deberta-v2-xlarge and -xxlarge), layer 0's
+  output goes through the `ConvLayer` (`encoder.conv`): a `Conv1d` over
+  the EMBEDDING output (`conv_kernel_size` wide, padding (k - 1) // 2,
+  `conv_groups`; models/conv.py's grouped product, not cuDNN's TF32), its
+  padded positions zeroed, `conv_act` (models/activations.py; default
+  `tanh`, `gelu` in the published files), then LayerNorm(layer 0's output
+  + that), times the mask; the next layers read that;
+- with `relative_attention: false` no relative term is added; without
+  `position_biased_input` too the model reads no position at all, as
+  transformers runs it. The scale's factor counts `pos_att_type` either
+  way, as `DisentangledSelfAttention` counts it.
+
+Refused by name: another `hidden_act`, an `attention_head_size` that is
+not hidden_size / heads, a `conv_act` outside models/activations.py,
+`conv_groups` that do not divide the hidden size and an even
+`conv_kernel_size` (transformers raises on it).
 
 Attention is written as explicit products and a softmax, not
 `scaled_dot_product_attention`. Parameter names are `DebertaV2Model`'s
@@ -71,6 +82,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .activations import activation
+from .conv import Conv1d
+
 # the widths a config must give (transformers' DebertaV2Config names)
 CONFIG_KEYS = (
     "vocab_size",
@@ -84,7 +98,8 @@ CONFIG_KEYS = (
 DEFAULTS = {"hidden_act": "gelu", "type_vocab_size": 0, "layer_norm_eps": 1e-7,
             "relative_attention": False, "max_relative_positions": -1, "pad_token_id": 0,
             "position_biased_input": True, "pos_att_type": None, "position_buckets": -1,
-            "share_att_key": False, "norm_rel_ebd": "none", "conv_kernel_size": 0}
+            "share_att_key": False, "norm_rel_ebd": "none", "conv_kernel_size": 0,
+            "conv_groups": 1, "conv_act": "tanh"}
 
 
 def check_config(config: dict) -> dict:
@@ -101,11 +116,14 @@ def check_config(config: dict) -> dict:
         raise ValueError(f"hidden_act `{config['hidden_act']}` is not supported: the port runs"
                          " exact GELU only")
     if config["conv_kernel_size"] > 0:
-        raise ValueError("conv_kernel_size > 0 is not supported: the port does not run"
-                         " DeBERTa-v2's ConvLayer")
-    if not config["relative_attention"] and not config["position_biased_input"]:
-        raise ValueError("relative_attention: false without position_biased_input is not"
-                         " supported: such a model reads no position at all")
+        activation(config["conv_act"], "conv_act")
+        if config["conv_kernel_size"] % 2 == 0:
+            raise ValueError(f"an even conv_kernel_size ({config['conv_kernel_size']}) is not"
+                             " supported: its padding shortens the sequence, and transformers'"
+                             " ConvLayer raises on the residual")
+        if config["hidden_size"] % config["conv_groups"]:
+            raise ValueError(f"conv_groups {config['conv_groups']} does not divide hidden_size:"
+                             " torch's Conv1d raises on it")
     if config["hidden_size"] % config["num_attention_heads"]:
         raise ValueError("hidden_size is not a multiple of num_attention_heads")
     head = config["hidden_size"] // config["num_attention_heads"]
@@ -298,6 +316,26 @@ class _Layer(nn.Module):
         return self.output(self.intermediate(a), a)
 
 
+class _ConvLayer(nn.Module):
+    """DeBERTa-v2's ConvLayer after layer 0: a Conv1d over the embedding
+    output, padded positions zeroed, `conv_act`, LayerNorm(layer 0's
+    output + that), times the mask."""
+
+    def __init__(self, c: dict):
+        super().__init__()
+        k, h = c["conv_kernel_size"], c["hidden_size"]
+        self.conv = Conv1d(h, h, k, padding=(k - 1) // 2, groups=c["conv_groups"])
+        self.LayerNorm = nn.LayerNorm(h, eps=c["layer_norm_eps"])
+        self.act = activation(c["conv_act"], "conv_act")
+
+    def forward(self, embedded: torch.Tensor, residual: torch.Tensor,
+                attention_mask: torch.Tensor) -> torch.Tensor:
+        out = self.conv(embedded.permute(0, 2, 1)).permute(0, 2, 1)
+        out = out.masked_fill((attention_mask == 0)[:, :, None], 0)
+        keep = attention_mask[:, :, None].to(out.dtype)
+        return self.LayerNorm(residual + self.act(out)) * keep
+
+
 class _Encoder(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
@@ -306,6 +344,7 @@ class _Encoder(nn.Module):
             self.rel_embeddings = nn.Embedding(2 * attention_span(c), c["hidden_size"])
         if "layer_norm" in c["norm_rel_ebd"]:
             self.LayerNorm = nn.LayerNorm(c["hidden_size"], eps=c["layer_norm_eps"])
+        self.conv = _ConvLayer(c) if c["conv_kernel_size"] > 0 else None
 
 
 class DebertaV2Model(nn.Module):
@@ -346,6 +385,9 @@ class DebertaV2Model(nn.Module):
         mask = real[:, None, None, :] & real[:, None, :, None]  # (B, 1, L, L)
         scale = attention_scale(c, x.device)
         rel = self.relative(input_ids.shape[1], x.device)
-        for layer in self.encoder.layer:
+        embedded = x
+        for i, layer in enumerate(self.encoder.layer):
             x = layer(x, mask, scale, rel)
+            if i == 0 and self.encoder.conv is not None:
+                x = self.encoder.conv(embedded, x, attention_mask)
         return x

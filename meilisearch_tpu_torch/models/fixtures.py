@@ -287,6 +287,57 @@ def albert_tokenizer_config(spec: dict) -> dict:
             "unk_token": "<unk>"}
 
 
+# XLNet's sentencepiece model opens with these nine pieces, `<eod>` and
+# `<eop>` user-defined, the others control symbols
+XLNET_HEAD = ("<unk>", "<s>", "</s>", "<cls>", "<sep>", "<pad>", "<mask>", "<eod>", "<eop>")
+XLNET_USER = ("<eod>", "<eop>")
+
+
+def xlnet_tokenizer_json(vocab: list, charsmap: Optional[bytes] = None,
+                         do_lower_case: bool = False, keep_accents: bool = False) -> dict:
+    """A tokenizer.json as transformers' XLNet converter and
+    `XLNetTokenizerFast` write it for a sentencepiece model whose pieces
+    are XLNET_HEAD then `vocab` [(piece, score)]: ALBERT's scores and
+    normalizers (`albert_tokenizer_json`; cased and accent-stripping by
+    default, as xlnet-base-cased), unk_id 0; the added tokens 0-8, `<mask>`
+    with lstrip, the user-defined ones not special; Metaspace (always,
+    split); `$A:0 <sep>:0 <cls>:2`. xlnet-base-cased's 32,000 entries take
+    31,991 pieces in `vocab`."""
+    spec = albert_tokenizer_json([], charsmap, do_lower_case, keep_accents)
+    scored = albert_tokenizer_json(vocab)["model"]["vocab"][len(ALBERT_HEAD):]
+    pieces = [[p, 0.0] for p in XLNET_HEAD] + scored
+    added = _added(enumerate(XLNET_HEAD), lstrip=("<mask>",))
+    for tok in added:
+        tok["special"] = tok["content"] not in XLNET_USER
+    seq = {"Sequence": {"id": "A", "type_id": 0}}
+    single = [seq, {"SpecialToken": {"id": "<sep>", "type_id": 0}},
+              {"SpecialToken": {"id": "<cls>", "type_id": 2}}]
+    pair = [seq, {"SpecialToken": {"id": "<sep>", "type_id": 0}},
+            {"Sequence": {"id": "B", "type_id": 1}},
+            {"SpecialToken": {"id": "<sep>", "type_id": 1}},
+            {"SpecialToken": {"id": "<cls>", "type_id": 2}}]
+    special = {t: {"id": t, "ids": [XLNET_HEAD.index(t)], "tokens": [t]}
+               for t in ("<cls>", "<sep>")}
+    return _unigram_spec(pieces, 0, added, spec["normalizer"], METASPACE,
+                         {"type": "TemplateProcessing", "single": single, "pair": pair,
+                          "special_tokens": special})
+
+
+def xlnet_tokenizer_config(spec: dict) -> dict:
+    """The tokenizer_config.json `XLNetTokenizerFast.save_pretrained`
+    writes beside such a tokenizer.json, `do_lower_case` and
+    `keep_accents` read from it (no model_max_length: XLNet has no
+    length limit)."""
+    kinds = [n["type"] for n in spec["normalizer"]["normalizers"]]
+    return {"added_tokens_decoder": _added_decoder(spec),
+            "additional_special_tokens": ["<eop>", "<eod>"], "bos_token": "<s>",
+            "clean_up_tokenization_spaces": False, "cls_token": "<cls>",
+            "do_lower_case": "Lowercase" in kinds, "eos_token": "</s>",
+            "extra_special_tokens": {}, "keep_accents": "StripAccents" not in kinds,
+            "mask_token": "<mask>", "pad_token": "<pad>", "remove_space": True,
+            "sep_token": "<sep>", "tokenizer_class": "XLNetTokenizerFast", "unk_token": "<unk>"}
+
+
 # ERNIE 3.0's vocab.txt opens with these, then its most frequent characters
 ERNIE_HEAD = ("[PAD]", "[CLS]", "[SEP]", "[MASK]", "[UNK]")
 

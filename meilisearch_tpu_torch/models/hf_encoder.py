@@ -1,7 +1,8 @@
 """In-process text embedding on the store's device (K8).
 
 Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
-families, ALBERT, RoFormer, ModernBERT, DeBERTa-v2) or decoder (Qwen3,
+families, ALBERT, RoFormer, ModernBERT, DeBERTa-v2, MobileBERT,
+SqueezeBERT, XLM, XLNet) or decoder (Qwen3,
 Qwen2, Llama, Mistral, Gemma 3) checkpoint pulled from the hub, tokenized,
 mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
@@ -14,7 +15,7 @@ checkpoint has no Flax weights. The port computes the same function with
 its own pieces and no transformers: the checkpoint directory is read by
 models/checkpoint.py, texts are tokenized on the host by
 models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's,
-CamemBERT's, DeBERTa-v3's, ALBERT's and RemBERT's vocabularies),
+CamemBERT's, DeBERTa-v3's, ALBERT's, RemBERT's and XLNet's vocabularies),
 models/unigram.py, or, for
 a BPE (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level one;
 Llama-2's, Mistral's and Gemma's with byte fallback), models/bpe.py (all
@@ -24,12 +25,21 @@ XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE,
 BertGeneration, RemBERT and Megatron-BERT), models/albert.py's
 `AlbertModel`, models/roformer.py's `RoFormerModel`,
 models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
-`DebertaV2Model`, models/decoder.py's `DecoderModel` (Qwen3, Qwen2,
-Llama and Mistral) or models/gemma3.py's `Gemma3Model` (Gemma 3's text
+`DebertaV2Model`, models/mobilebert.py's `MobileBertModel`,
+models/squeezebert.py's `SqueezeBertModel`, models/xlm.py's `XLMModel`,
+models/xlnet.py's `XLNetModel`, models/decoder.py's `DecoderModel`
+(Qwen3, Qwen2, Llama and Mistral) or models/gemma3.py's `Gemma3Model` (Gemma 3's text
 stack, EmbeddingGemma) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
-the first token's state; otherwise the mean over the attention mask), and
-the result is L2-normalized in numpy exactly as there. Only a local
+the first token's state, a pad's under left padding, as there; otherwise
+the mean over the attention mask), and the result is L2-normalized in
+numpy exactly as there (under `forceCls` with left padding, every chunk
+of a call is padded to the call's longest text, as the JAX package pads
+its one batch: a pad's state can depend on how far it pads). The JAX
+package passes every output of its
+tokenizer to the torch model (`**tok`), token types included; the port
+passes them to the models that read them (XLNet, XLM), as `tokenize`
+gives them. Only a local
 checkpoint directory is read: nothing is downloaded.
 
 `device=None` is the CPU, the host pass. On a CUDA device a failure
@@ -47,8 +57,9 @@ import numpy as np
 import torch
 
 from ..ops.chain_keys import LaunchCounter
+from . import squeezebert, xlnet
 from .bert import RELATIVE_KEYS
-from .checkpoint import build_model, build_tokenizer, load_checkpoint
+from .checkpoint import build_model, build_tokenizer, gives_token_types, load_checkpoint
 from .deberta_v2 import attention_span
 from .decoder import MODEL_TYPES as DECODER_TYPES
 from .gemma3 import MODEL_TYPE as GEMMA3_TYPE
@@ -80,6 +91,7 @@ class TextEncoder:
         self.seconds = self.tokenize_seconds = 0.0
         self._model = None
         self._tokenizer = None
+        self._types = False  # whether the model is given the tokenizer's token types
         self._lock = threading.Lock()
 
     def _load(self) -> None:
@@ -88,7 +100,9 @@ class TextEncoder:
                 return
             ckpt = load_checkpoint(self.model_name)
             self._tokenizer = build_tokenizer(ckpt)
-            self._model = build_model(ckpt).to(self.device)
+            model = build_model(ckpt)
+            self._types = getattr(model, "reads_token_types", False) and gives_token_types(ckpt)
+            self._model = model.to(self.device)
 
     def chunk_texts(self) -> int:
         """Texts per forward pass on this encoder's device."""
@@ -112,10 +126,25 @@ class TextEncoder:
             # einsum(K, pos) for relative_key_query
             per_text += 4 * heads * L * L * (1 + (c["position_embedding_type"]
                                                   == "relative_key_query"))
-        if c.get("model_type") == "deberta-v2" and c["relative_attention"]:
+        kind = c.get("model_type")
+        if kind == "deberta-v2" and c["relative_attention"]:
             # DeBERTa's c2p and p2c: two (heads, L, 2 span) products and
             # their two (heads, L, L) gathers
             per_text += 4 * heads * L * (4 * attention_span(c) + 2 * L)
+        if kind == "deberta-v2" and c["conv_kernel_size"] > 0:
+            # the ConvLayer's unfolded windows (kernel x hidden) and its output
+            per_text += 4 * L * (c["conv_kernel_size"] + 2) * c["hidden_size"]
+        elif kind == xlnet.MODEL_TYPE:
+            # XLNet's (heads, L, 2L) position scores and their shifted copy,
+            # and the segment term (heads, L, L)
+            per_text += 4 * heads * L * 5 * L
+        elif kind == squeezebert.MODEL_TYPE:
+            # SqueezeBERT's channel-last copies around each LayerNorm and the
+            # grouped products' copies of their inputs
+            per_text += 4 * L * (2 * width + ffn)
+        # (MobileBERT's widest activations are its 512-wide hidden state and
+        # intermediate_size, each FFN of the stack run after the other, and
+        # its 3 x 128 trigram embedding: counted above)
         free, _total = torch.cuda.mem_get_info(self.device)
         return max(1, min(CHUNK_TEXTS, free // 4 // per_text))
 
@@ -124,12 +153,30 @@ class TextEncoder:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        """Pooled (B, hidden) float32 on the device for host-tokenized ids."""
+    def tokenize(self, texts: list) -> tuple:
+        """(input_ids, attention_mask, token_type_ids or None) CPU tensors:
+        the types only where the model reads them and transformers'
+        tokenizer gives them (XLNet's segment term, XLM's type rows); the
+        Unigram tokenizer's are its template's (XLNet's `<cls>` 2, its pad
+        3), the others' all zeros."""
+        if not self._types:
+            return (*self._tokenizer(texts, self.max_len), None)
+        if hasattr(self._tokenizer, "encode_types"):
+            return self._tokenizer.encode_types(texts, self.max_len)
+        ids, mask = self._tokenizer(texts, self.max_len)
+        return ids, mask, torch.zeros_like(ids)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Pooled (B, hidden) float32 on the device for host-tokenized ids
+        (and the token types `tokenize` gives, where it gives them)."""
         ids, mask = self._upload(input_ids), self._upload(attention_mask)
         with torch.inference_mode():
             FORWARDS.add()
-            hidden = self._model(ids, mask)
+            if token_type_ids is None:
+                hidden = self._model(ids, mask)
+            else:
+                hidden = self._model(ids, mask, self._upload(token_type_ids))
             if self.pooling == "forceCls":
                 return hidden[:, 0]
             m = mask[:, :, None].to(hidden.dtype)
@@ -143,12 +190,25 @@ class TextEncoder:
         step = self.chunk_texts()
         tokens = 0
         tokenize_s = 0.0
+        whole = None
+        if (self.pooling == "forceCls" and len(texts) > step
+                and getattr(self._tokenizer, "padding_side", "right") == "left"):
+            # forceCls pools position 0, a pad for every text shorter than
+            # its batch's longest under left padding, and a pad's state can
+            # read the text (XLNet, a bidirectional Gemma 3): each chunk is
+            # cut from the call's one padded batch, as the JAX package pads
+            t = time.perf_counter()
+            whole = self.tokenize(texts)
+            tokenize_s += time.perf_counter() - t
         for s in range(0, len(texts), step):
             t = time.perf_counter()
-            ids, mask = self._tokenizer(texts[s : s + step], self.max_len)
+            if whole is None:
+                ids, mask, types = self.tokenize(texts[s : s + step])
+            else:
+                ids, mask, types = (None if x is None else x[s : s + step] for x in whole)
             tokenize_s += time.perf_counter() - t
             tokens += int(mask.sum())
-            emb[s : s + len(ids)] = self.forward(ids, mask).float().cpu().numpy()
+            emb[s : s + len(ids)] = self.forward(ids, mask, types).float().cpu().numpy()
         with self._lock:
             self.texts += len(texts)
             self.tokens += tokens

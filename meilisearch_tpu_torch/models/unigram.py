@@ -1,7 +1,7 @@
 """SentencePiece-Unigram tokenization from a `tokenizer.json`, as the
 `tokenizers` library runs it (what `AutoTokenizer` gives an XLM-RoBERTa,
-CamemBERT, DeBERTa-v2, ALBERT or RemBERT checkpoint, and BERT checkpoints
-that carry XLM-R's vocabulary).
+CamemBERT, DeBERTa-v2, ALBERT, RemBERT or XLNet checkpoint, and BERT
+checkpoints that carry XLM-R's vocabulary).
 
 The JAX package tokenizes through `AutoTokenizer(texts, padding=True,
 truncation=True, max_length=max_len)`. This module reads the same file
@@ -31,10 +31,15 @@ and gives the same input ids and attention masks, on the host:
    run of such characters is one `<unk>` (`unk_id`). Words are cached:
    the segmentation depends on the word alone;
 5. the post-processor, `TemplateProcessing` or `RobertaProcessing` (`<s>
-   $A </s>`, DeBERTa's `[CLS] $A [SEP]`), after truncation to `max_len`
-   less the special tokens, and padding with the pad token (the config's
-   `pad_token`, else the class default: `[PAD]` for `deberta-v2`, `<pad>`
-   for the rest) to the longest text of the call.
+   $A </s>`, DeBERTa's `[CLS] $A [SEP]`, XLNet's `$A:0 <sep>:0 <cls>:2`),
+   after truncation to `max_len` less the special tokens, and padding with
+   the pad token (the config's `pad_token`, else the class default: `[PAD]`
+   for `deberta-v2`, `<pad>` for the rest) to the longest text of the
+   call, on the config's `padding_side`, else the class's: the left for
+   `XLNetTokenizer(Fast)` (the class of a `tokenizer_class`-less `xlnet`
+   checkpoint), the right for the rest. `encode_types` also gives the
+   token type ids: the template's, and for the padding the class's pad
+   type (3 for XLNet's, 0 for the rest).
 
 `Precompiled` follows the `spm_precompiled` crate that `tokenizers` wraps.
 The blob is a little-endian u32 (the trie's size in bytes), a darts-clone
@@ -75,6 +80,13 @@ _WORD_CACHE_MAX = 1 << 20  # cached words before the cache is emptied
 # the pad token of a model type's tokenizer class, when its
 # tokenizer_config.json names none (DebertaV2TokenizerFast's `[PAD]`)
 _DEFAULT_PAD = {"deberta-v2": "[PAD]"}
+# the tokenizer class AutoTokenizer picks for a model type when
+# tokenizer_config.json names none, where it pads otherwise than on the
+# right with type 0
+_CLASS_OF_TYPE = {"xlnet": "XLNetTokenizer"}
+# a class's padding side and the token type of its pad (XLNetTokenizer's
+# `padding_side` and `_pad_token_type_id`)
+_CLASS_PADDING = {"XLNetTokenizer": ("left", 3)}
 
 # char::is_whitespace (Unicode White_Space), which Strip and lstrip/rstrip use
 _WHITESPACE = frozenset(map(chr, [*range(0x09, 0x0E), 0x20, 0x85, 0xA0, 0x1680,
@@ -404,23 +416,40 @@ def _metaspace(spec: Optional[dict]) -> tuple:
 
 def _template(spec: Optional[dict]) -> tuple:
     """(ids before, ids after) the sequence for a single text."""
+    return _typed_template(spec)[:2]
+
+
+def _typed_template(spec: Optional[dict]) -> tuple:
+    """(ids before, ids after, (their type ids before, the text's type id,
+    after)) the sequence for a single text."""
     kind = None if spec is None else spec.get("type")
     if kind in ("RobertaProcessing", "BertProcessing"):
-        return [spec["cls"][1]], [spec["sep"][1]]
+        return [spec["cls"][1]], [spec["sep"][1]], ([0], 0, [0])
     if kind == "TemplateProcessing":
         before, after, seen = [], [], False
+        types_before, types_after, text_type = [], [], 0
         for item in spec["single"]:
             if "Sequence" in item:
                 if item["Sequence"]["id"] != "A" or seen:
                     raise ValueError("the single template must hold $A once")
                 seen = True
+                text_type = item["Sequence"].get("type_id", 0)
             else:
                 ids = spec["special_tokens"][item["SpecialToken"]["id"]]["ids"]
                 (after if seen else before).extend(ids)
+                type_id = item["SpecialToken"].get("type_id", 0)
+                (types_after if seen else types_before).extend([type_id] * len(ids))
         if not seen:
             raise ValueError("the single template must hold $A once")
-        return before, after
+        return before, after, (types_before, text_type, types_after)
     raise ValueError(f"post-processor `{kind}` is not supported by the port's Unigram tokenizer")
+
+
+def _tokenizer_class(config: dict, model_type: Optional[str]) -> Optional[str]:
+    """The transformers tokenizer class (without `Fast`) AutoTokenizer
+    builds: tokenizer_config.json's, else the model type's."""
+    name = config.get("tokenizer_class") or _CLASS_OF_TYPE.get(model_type) or ""
+    return name.removesuffix("Fast") or None
 
 
 def _token_content(token) -> Optional[str]:
@@ -488,7 +517,7 @@ class Unigram:
         self.normalize = _normalizer(spec.get("normalizer"))
         self.punct, self.replacement, self.scheme, self.split = _pre_tokenizer(
             spec.get("pre_tokenizer"))
-        self.before, self.after = _template(spec.get("post_processor"))
+        self.before, self.after, self.types = _typed_template(spec.get("post_processor"))
 
         added = {}
         for tok in spec.get("added_tokens") or []:
@@ -507,6 +536,11 @@ class Unigram:
         self.pad = self.token_to_id(pad)
         if self.pad is None:
             raise ValueError(f"the pad token `{pad}` is not in the tokenizer")
+        side, self.pad_type = _CLASS_PADDING.get(_tokenizer_class(config or {}, model_type),
+                                                 ("right", 0))
+        self.padding_side = (config or {}).get("padding_side", side)
+        if self.padding_side not in ("right", "left"):
+            raise ValueError(f"padding_side `{self.padding_side}` is not right or left")
         self._words: dict = {}
         self._lock = threading.Lock()
 
@@ -617,13 +651,24 @@ class Unigram:
     def __call__(self, texts: list, max_len: int = 512):
         """(input_ids, attention_mask), (len(texts), longest) int64 CPU
         tensors: the template around each text's ids, truncated to
-        max_len, padded with the pad token."""
+        max_len, padded with the pad token on the padding side."""
+        return self.encode_types(texts, max_len)[:2]
+
+    def encode_types(self, texts: list, max_len: int = 512):
+        """(input_ids, attention_mask, token_type_ids): the template's type
+        ids around the text's, the pad's (`pad_type`) in the padding."""
         room = max(max_len - len(self.before) - len(self.after), 0)
         rows = [[*self.before, *self.ids(t)[:room], *self.after] for t in texts]
         width = max((len(r) for r in rows), default=0)
         ids = torch.full((len(rows), width), self.pad, dtype=torch.int64)
         mask = torch.zeros((len(rows), width), dtype=torch.int64)
+        types = torch.full((len(rows), width), self.pad_type, dtype=torch.int64)
+        before, text_type, after = self.types
         for i, r in enumerate(rows):
-            ids[i, : len(r)] = torch.tensor(r, dtype=torch.int64)
-            mask[i, : len(r)] = 1
-        return ids, mask
+            at = width - len(r) if self.padding_side == "left" else 0
+            ids[i, at:at + len(r)] = torch.tensor(r, dtype=torch.int64)
+            mask[i, at:at + len(r)] = 1
+            n = len(r) - len(before) - len(after)
+            types[i, at:at + len(r)] = torch.tensor([*before, *[text_type] * n, *after],
+                                                    dtype=torch.int64)
+        return ids, mask, types

@@ -920,6 +920,89 @@ def test_bert_shaped_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, n
     assert float(np.abs(got - want).max()) <= 1e-5
 
 
+# the other encoders the JAX package embeds, at a published checkpoint's widths cut to
+# 2 layers: google/mobilebert-uncased, xlnet-base-cased (left padding, its
+# token types passed), squeezebert-uncased, xlm-mlm-en-2048, deberta-v2-xlarge
+# (the ConvLayer), DeBERTa-v2 without relative attention, and DistilBERT with
+# sinusoidal positions and ReLU
+MORE_FAMILIES = {
+    "mobilebert": {"model_type": "mobilebert"},
+    "xlnet": {"model_type": "xlnet", "d_model": 768, "n_head": 12, "d_inner": 3072,
+              "n_layer": 2},
+    "squeezebert": {"model_type": "squeezebert"},
+    "xlm": {"model_type": "xlm", "emb_dim": 2048, "n_heads": 16, "n_layers": 2},
+    "deberta-v2-conv": {"model_type": "deberta-v2", "hidden_size": 1536,
+                        "num_attention_heads": 24, "intermediate_size": 6144,
+                        "max_position_embeddings": 512, "relative_attention": True,
+                        "position_buckets": 256, "pos_att_type": "p2c|c2p",
+                        "norm_rel_ebd": "layer_norm", "share_att_key": True,
+                        "position_biased_input": False, "conv_kernel_size": 3,
+                        "conv_act": "gelu", "layer_norm_eps": 1e-7},
+    "deberta-v2-norel": {"model_type": "deberta-v2", "hidden_size": 768,
+                         "num_attention_heads": 12, "intermediate_size": 3072,
+                         "max_position_embeddings": 512, "relative_attention": False,
+                         "position_biased_input": False, "pos_att_type": "p2c|c2p"},
+    "distilbert-sinusoidal": {"model_type": "distilbert", "dim": 768, "n_layers": 2,
+                              "n_heads": 12, "hidden_dim": 3072, "activation": "relu",
+                              "max_position_embeddings": 512, "sinusoidal_pos_embds": True},
+}
+
+
+def _more_families_checkpoint(path, name, seed=0):
+    """A checkpoint written by the port at MORE_FAMILIES[name]'s widths with
+    seeded weights: XLNet with a seeded Unigram tokenizer.json in
+    XLNetConverter's layout, DeBERTa-v2 in DebertaV2Converter's, the others
+    with a small WordPiece vocabulary."""
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import (
+        build_charsmap,
+        deberta_v3_tokenizer_json,
+        xlnet_tokenizer_json,
+    )
+
+    config = {"num_hidden_layers": 2, **MORE_FAMILIES[name]}
+    spec, vocab = None, None
+    if name == "xlnet":
+        spec = xlnet_tokenizer_json(_spm_pieces(seed), build_charsmap({"Ａ": "A"}))
+    elif name.startswith("deberta"):
+        spec = deberta_v3_tokenizer_json(_spm_pieces(seed), build_charsmap({"Ａ": "A"}))
+    else:
+        letters = "abcdefghijklmnopqrstuvwxyz0123456789"
+        vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *ENC_WORDS, *letters,
+                 *("##" + c for c in letters), *".,:/-!?#"]
+    # DeBERTa's [MASK] is an added token past the model's pieces
+    config["vocab_size"] = len(vocab) if spec is None else len(spec["model"]["vocab"]) + 100
+    torch.manual_seed(seed)
+    write_checkpoint(str(path), config, new_model(config).state_dict(), vocab,
+                     tokenizer_json=spec)
+    return str(path)
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("name", MORE_FAMILIES)
+def test_more_encoder_families_on_the_card_match_the_cpu(cuda_device, tmp_path, name, pooling):
+    """MobileBERT's trigram and bottlenecks, XLNet's relative attention and
+    segment term (left padding, `<cls>` type 2), SqueezeBERT's grouped
+    convolutions, XLM's type rows, DeBERTa-v2's ConvLayer and DistilBERT's
+    sinusoidal table on the card: a padded batch of short texts beside ones
+    of 200 to 512 tokens, against the CPU."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = _more_families_checkpoint(tmp_path, name, seed=18)
+    texts = _enc_texts(15, seed=19) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80),
+                                       "", "x [MASK] y", "<cls> <sep> x"]
+    card = hf_encoder.TextEncoder(path, pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    _ids, mask, types = card.tokenize(texts)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    assert (types is not None) is (name in ("xlnet", "xlm"))
+    want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
 def test_encoder_chunks_on_the_card(cuda_device, tmp_path, monkeypatch):
     """Chunks of 3 texts on the card, each padded to its own longest,
     against one CPU pass; the chunk size read from the card's memory."""

@@ -20,7 +20,9 @@ backend); the port's `TextEncoder` runs on the CPU (`device=None`).
 The encoder on the card is held against this CPU pass in
 tests/test_torch_cuda.py (marked `cuda`)."""
 
+import json
 import os
+import shutil
 import string
 
 import numpy as np
@@ -198,15 +200,39 @@ def test_safetensors_reader_dtypes(tmp_path):
 @pytest.mark.parametrize(
     "change, match",
     [({"model_type": "funnel"}, "model_type"), ({"hidden_act": "gelu_10"}, "hidden_act")]
-    + [({"model_type": kind}, "model_type")
-       for kind in ("mobilebert", "squeezebert", "xlm", "xlnet", "nystromformer", "bart")],
+    + [({"model_type": kind}, "model_type") for kind in ("nystromformer", "bart", "t5")]
+    + [({"model_type": "mobilebert", "normalization_type": "batch_norm"}, "normalization_type"),
+       ({"model_type": "xlm", "tokenizer_class": "XLMTokenizer"}, "XLMTokenizer.*Moses"),
+       ({"model_type": "xlm", "tokenizer_class": None}, "XLMTokenizer.*Moses")],
 )
-def test_other_model_families_are_refused(ckpt, change, match):
-    """The families ROADMAP still lists, and an activation outside
-    models/activations.py's list (transformers runs `gelu_10`)."""
+def test_other_model_families_are_refused(ckpt, change, match, tmp_path):
+    """Whole directories: the families the reference cannot run either
+    (`funnel`: AutoModel raises on a config.json without `architectures`;
+    `nystromformer`: a shape error unless the batch is
+    `segment_means_seq_len` long; `bart`: `BartModel` is passed
+    `token_type_ids`; `t5`: the JAX package raises), an activation outside
+    models/activations.py's list (transformers runs `gelu_10`), a
+    MobileBERT norm transformers does not know, and XLM's Moses tokenizer,
+    named in tokenizer_config.json (`tokenizer_class`) or, where that names
+    none, AutoTokenizer's class for an `xlm` directory."""
+    path = str(tmp_path / "changed")
+    shutil.copytree(ckpt["dir"], path)
+    change = dict(change)
+    tok_class = change.pop("tokenizer_class", False)
     config = {**checkpoint.load_checkpoint(ckpt["dir"]).config, **change}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    if tok_class is not False:
+        with open(os.path.join(path, "tokenizer_config.json")) as f:
+            tok = json.load(f)
+        tok.pop("tokenizer_class", None)
+        with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+            json.dump({**tok, **({"tokenizer_class": tok_class} if tok_class else {})}, f)
+    else:
+        with pytest.raises(ValueError, match=match):
+            checkpoint.check_config(config)
     with pytest.raises(ValueError, match=match):
-        bert.BertModel(config)
+        checkpoint.load_checkpoint(path)
 
 
 # -- the encoder ------------------------------------------------------------

@@ -20,7 +20,11 @@ output far beyond the tolerance):
   embeddings through `embed_proj`;
 - `nobucket`: no buckets, distances clamped at 24, c2p only (scale
   factor 2);
-- `abs`: no relative attention, absolute positions only.
+- `abs`: no relative attention, absolute positions only;
+- `conv`: deberta-v2-xlarge's flags at these widths: `v3`'s with the
+  `ConvLayer` after layer 0 (kernel 3, `gelu`, here 2 groups);
+- `norel`: no relative attention and no absolute positions (no position
+  at all, as transformers runs it), the scale still counting c2p and p2c.
 They sit beside a seeded Unigram tokenizer.json in `DebertaV2Converter`'s
 layout (`models/fixtures.py::deberta_v3_tokenizer_json`, held here
 against the converter itself). transformers has no Flax DeBERTa-v2, so
@@ -106,6 +110,12 @@ CONFIGS = {
                      max_relative_positions=24, pos_att_type=["c2p"], share_att_key=True,
                      position_biased_input=False, norm_rel_ebd="layer_norm"),
     "abs": dict(num_hidden_layers=2, relative_attention=False, position_biased_input=True),
+    "conv": dict(num_hidden_layers=2, relative_attention=True, position_buckets=BUCKETS,
+                 max_relative_positions=-1, pos_att_type="p2c|c2p", norm_rel_ebd="layer_norm",
+                 share_att_key=True, position_biased_input=False, type_vocab_size=0,
+                 conv_kernel_size=3, conv_act="gelu", conv_groups=2),
+    "norel": dict(num_hidden_layers=2, relative_attention=False, position_biased_input=False,
+                  pos_att_type="p2c|c2p"),
 }
 
 
@@ -247,12 +257,55 @@ def test_the_published_widths_give_deberta_v3_base():
     assert ours["encoder.rel_embeddings.weight"].shape == (512, 768)
 
 
+def test_the_published_widths_give_deberta_v2_xlarge():
+    """deberta-v2-xlarge's config.json: the ConvLayer's (1536, 1536, 3)
+    Conv1d and its LayerNorm under transformers' names, `gelu` as its
+    activation; every parameter by name and shape (built on the meta
+    device)."""
+    config = {**PUBLISHED, "vocab_size": 128_100, "hidden_size": 1536,
+              "num_hidden_layers": 24, "num_attention_heads": 24, "intermediate_size": 6144,
+              "conv_kernel_size": 3, "conv_act": "gelu", "max_relative_positions": -1}
+    with torch.device("meta"):
+        model = deberta_v2.DebertaV2Model(config)
+        ours = model.state_dict()
+        theirs = transformers.DebertaV2Model(transformers.DebertaV2Config(**config)).state_dict()
+    assert set(ours) == set(theirs) - {"embeddings.position_ids"}
+    assert all(ours[k].shape == theirs[k].shape for k in ours)
+    assert ours["encoder.conv.conv.weight"].shape == (1536, 1536, 3)
+    assert model.encoder.conv.act is torch.nn.functional.gelu
+
+
+def test_the_conv_layer_reads_the_embedding_output(ckpt):
+    """Layer 0's output goes through the ConvLayer over the EMBEDDING
+    output: fed layer 0's own output instead, or left unmasked, the
+    forward moves beyond the tolerance."""
+    c = checkpoint.load_checkpoint(ckpt["conv"])
+    model = checkpoint.build_model(c)
+    ids, mask = checkpoint.build_tokenizer(c)(_batch(), 512)
+    layer0 = model.encoder.layer[0]
+    conv_layer = model.encoder.conv
+    with torch.no_grad():
+        want = model(ids, mask)
+        x = model.embeddings(ids, mask)
+        real = mask > 0
+        rel = model.relative(ids.shape[1], x.device)
+        scale = deberta_v2.attention_scale(model.config, x.device)
+        out0 = layer0(x, real[:, None, None, :] & real[:, None, :, None], scale, rel)
+        moved = conv_layer(out0, out0, mask)
+        unmasked = conv_layer(x, out0, torch.ones_like(mask))
+        assert float((moved - conv_layer(x, out0, mask)).abs().max()) > 1e-3
+        assert float(unmasked[~real].abs().max()) > 1e-3
+        assert float(conv_layer(x, out0, mask)[~real].abs().max()) == 0.0
+    assert bool(torch.isfinite(want).all())
+
+
 @pytest.mark.parametrize("change, match", [
-    ({"conv_kernel_size": 3}, "conv_kernel_size"),
-    ({"relative_attention": False, "position_biased_input": False}, "position_biased_input"),
+    ({"conv_kernel_size": 3, "conv_act": "gelu_10"}, "conv_act"),
+    ({"conv_kernel_size": 3, "conv_groups": 5}, "conv_groups"),
     ({"hidden_act": "gelu_new"}, "hidden_act"),
     ({"attention_head_size": 8}, "attention_head_size"),
     ({"pos_att_type": "p2c|p2p"}, "pos_att_type"),
+    ({"conv_kernel_size": 2}, "conv_kernel_size"),
 ])
 def test_unread_deberta_configs_are_refused(ckpt, change, match):
     config = {**checkpoint.load_checkpoint(ckpt["v3"]).config, **change}

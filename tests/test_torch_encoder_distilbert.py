@@ -10,7 +10,10 @@ weights and runs transformers' torch `DistilBertModel`, its AutoModel
 branch) and `model.safetensors` alone (transformers converts it for
 `FlaxDistilBertModel`: the Flax branch). DistilBERT's positions start at
 0, so both branches are right; the port is held against each within
-1e-5, both poolings, and through HTTP."""
+1e-5, both poolings, and through HTTP. `sinusoidal_pos_embds` and the
+activations of models/activations.py are held against the JAX package on
+checkpoints of their own (fault 3.24: its Flax branch ignores a sinusoidal
+file's table)."""
 
 import os
 import string
@@ -120,8 +123,8 @@ def test_prefixed_names_and_heads(ckpt):
 
 
 @pytest.mark.parametrize("change, match", [
-    ({"activation": "relu"}, "activation"),
-    ({"sinusoidal_pos_embds": True}, "sinusoidal_pos_embds"),
+    ({"activation": "gelu_10"}, "activation"),
+    ({"dim": 30}, "n_heads"),
     ({"n_heads": 5}, "n_heads"),
 ])
 def test_unread_distilbert_configs_are_refused(ckpt, change, match):
@@ -140,6 +143,110 @@ def test_distilbert_forward_matches_transformers_torch(ckpt):
         want = ref(input_ids=ids, attention_mask=mask).last_hidden_state
         got = model(ids, mask)
     assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.fixture(scope="module")
+def variants(tmp_path_factory):
+    """`sin_bin` / `sin_st`: `sinusoidal_pos_embds` and `relu`, the table
+    transformers fills (the sinusoid) saved as pytorch_model.bin and as
+    model.safetensors; `sin_moved` (`sin_moved_st`): its table reversed
+    in the file;
+    `{act}`: each of ACTIVATIONS, pytorch_model.bin."""
+    root = tmp_path_factory.mktemp("distilbert_variants")
+    out = {}
+
+    def save(name, model, safe):
+        out[name] = str(root / name)
+        model.save_pretrained(out[name], safe_serialization=safe)
+        with open(os.path.join(out[name], "vocab.txt"), "w", encoding="utf-8") as f:
+            f.write("".join(t + "\n" for t in VOCAB))
+        transformers.DistilBertTokenizerFast(
+            os.path.join(out[name], "vocab.txt"), do_lower_case=True).save_pretrained(out[name])
+
+    widths = dict(vocab_size=len(VOCAB), dim=32, n_layers=2, n_heads=4, hidden_dim=64,
+                  max_position_embeddings=512)
+    model = transformers.DistilBertModel(transformers.DistilBertConfig(
+        **widths, sinusoidal_pos_embds=True, activation="relu"))
+    table = model.embeddings.position_embeddings.weight.detach().clone()
+    _draw_weights(model, seed=23)
+    with torch.no_grad():  # the sinusoid, which transformers never trains
+        model.embeddings.position_embeddings.weight.copy_(table)
+    save("sin_bin", model, False)
+    save("sin_st", model, True)
+    with torch.no_grad():
+        model.embeddings.position_embeddings.weight.copy_(table.flip(0))
+    save("sin_moved", model, False)
+    save("sin_moved_st", model, True)
+    for i, act in enumerate(ACTIVATIONS):
+        model = transformers.DistilBertModel(transformers.DistilBertConfig(**widths,
+                                                                           activation=act))
+        _draw_weights(model, seed=29 + i)
+        save(act, model, False)
+    return out
+
+
+ACTIVATIONS = ("relu", "gelu_new", "silu")
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("kind", ["sin_bin", "sin_st"])
+def test_sinusoidal_positions_match_jax(variants, kind, pooling):
+    """`sinusoidal_pos_embds`: the JAX package's torch branch
+    (pytorch_model.bin) reads the file's table, its Flax branch
+    (model.safetensors, converted) computes the sinusoid; the file holds
+    the sinusoid transformers wrote, so both agree with the port, which
+    reads the file."""
+    texts = _texts(8, seed=5) + TEXTS
+    jax_enc = FlaxTextEncoder(variants[kind], pooling)
+    want = jax_enc.encode(texts)
+    assert (jax_enc._torch if kind == "sin_bin" else jax_enc._flax) is not None
+    got = hf_encoder.TextEncoder(variants[kind], pooling, device=None).encode(texts)
+    assert float(np.abs(got - want).max()) <= ATOL
+
+
+@pytest.mark.parametrize("act", ACTIVATIONS)
+def test_activations_match_jax(variants, act):
+    """`activation` through models/activations.py, against the JAX
+    package's torch branch (DistilBERT's `get_activation`)."""
+    texts = _texts(8, seed=6) + TEXTS
+    want = FlaxTextEncoder(variants[act], "useModel").encode(texts)
+    model = checkpoint.build_model(checkpoint.load_checkpoint(variants[act]))
+    assert model.config["hidden_act"] == act
+    got = hf_encoder.TextEncoder(variants[act], "useModel", device=None).encode(texts)
+    assert float(np.abs(got - want).max()) <= ATOL
+
+
+def test_the_files_table_wins_as_in_the_torch_model(variants):
+    """A table that is not the sinusoid: transformers' torch
+    `DistilBertModel` loads the file's (4.57.6), and so does the port; the
+    forward equals AutoModel's on every row."""
+    ref = transformers.AutoModel.from_pretrained(variants["sin_moved"],
+                                                 attn_implementation="eager").eval()
+    c = checkpoint.load_checkpoint(variants["sin_moved"])
+    table = c.state_dict["embeddings.position_embeddings.weight"]
+    assert torch.equal(ref.embeddings.position_embeddings.weight, table)
+    ids, mask = checkpoint.build_tokenizer(c)(_texts(5, seed=9) + TEXTS, 512)
+    with torch.no_grad():
+        want = ref(input_ids=ids, attention_mask=mask).last_hidden_state
+        got = checkpoint.build_model(c)(ids, mask)
+    assert float((got - want).abs().max()) <= ATOL
+
+
+def test_fault_324_the_jax_flax_branch_ignores_a_moved_table(variants):
+    """With `sinusoidal_pos_embds`, Flax DistilBERT has no position table:
+    it computes the sinusoid, so the JAX package's Flax branch (here from
+    model.safetensors) ignores the file's table, which its torch branch
+    (pytorch_model.bin) reads. The port reads the file from either, as the
+    torch branch does."""
+    texts = _texts(8, seed=7) + TEXTS
+    torch_branch = FlaxTextEncoder(variants["sin_moved"], "useModel")
+    flax_branch = FlaxTextEncoder(variants["sin_moved_st"], "useModel")
+    want, flax = torch_branch.encode(texts), flax_branch.encode(texts)
+    assert torch_branch._torch is not None and flax_branch._flax is not None
+    assert float(np.abs(flax - want).max()) > 1e-2
+    for kind in ("sin_moved", "sin_moved_st"):
+        got = hf_encoder.TextEncoder(variants[kind], "useModel", device=None).encode(texts)
+        assert float(np.abs(got - want).max()) <= ATOL
 
 
 @pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
