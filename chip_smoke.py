@@ -291,7 +291,31 @@ Phases, each fatal on failure:
      xlm-mlm-en-2048's over a WordPiece (its zero token types add word row
      0), DeBERTa-v2 at deberta-v2-xlarge's with its ConvLayer, DeBERTa-v2
      without relative attention or absolute positions, and DistilBERT
-     with sinusoidal positions and ReLU.
+     with sinusoidal positions and ReLU;
+  20. XLM and FlauBERT paths (hn10k-xlmen2048-hf,
+     hn10k-flaubertbase-hf), after the earlier phases' encoders are let
+     go: checkpoints at FacebookAI/xlm-mlm-en-2048's published config.json
+     (xlm: 12 layers of 2,048, 16 heads, GELU, vocab 30,145) and at
+     flaubert/flaubert_base_cased's (flaubert: 12 layers of 768, 12
+     heads, post-norm, vocab 68,729), seeded random weights at 0.02,
+     written as model.safetensors, each beside its own tokenizer: a seeded
+     BPE in XLM's layout at the published vocabulary size (vocab.json +
+     merges.txt with counts, models/fixtures.py::moses_bpe_files) and
+     XLMTokenizer's tokenizer_config.json (lowercasing and accent
+     stripping around Moses) or FlaubertTokenizer's (cased, French
+     Moses); each through its own App as phase 11 over 10,000 documents:
+     the encoder on the card against the CPU within ENC_TOL on 86 texts
+     and on a long batch of Moses texts (newlines, tabs, French quotes,
+     non-breaking spaces, elisions, No. 5, 1,000.5, multi-dots and a
+     literal <special1> in front of phase 13's long runs), tokens/s and
+     the host tokenization's share, peak device memory, 256 hybrid
+     responses against the host pass, a query's forward and launches
+     against its weight-read bound, and one chunk against its float32
+     bound; then three 2-layer checkpoints at published widths on the
+     long texts, card against CPU: flaubert_large_cased's pre-norm layers
+     (1,024 wide, layerdrop 0.2), flaubert_base_uncased's `do_lowercase`
+     over 67,542 words, and xlm-mlm-100-1280's widths (200,000 words, 100
+     languages) without `do_lowercase_and_remove_accent`.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -700,6 +724,13 @@ XLNET_BASE_CONFIG = {
     "bos_token_id": 1, "eos_token_id": 2,
 }
 P19_DOCS, P19_SEED = 10_000, 2035
+# FacebookAI/xlm-mlm-en-2048's config.json (XLMConfig's names): 12 layers
+# of 2,048, 16 heads, GELU, one language, 30,145 words
+XLM_EN_2048_CONFIG = {
+    "model_type": "xlm", "vocab_size": 30_145, "emb_dim": 2048, "n_layers": 12,
+    "n_heads": 16, "gelu_activation": True, "sinusoidal_embeddings": False,
+    "causal": False, "n_langs": 1, "use_lang_emb": True, "max_position_embeddings": 512,
+    "layer_norm_eps": 1e-12, "pad_index": 2, "pad_token_id": 2, "is_encoder": True}
 # the other encoders the JAX package embeds, 2 layers each at a published
 # checkpoint's widths, on phase 13's long texts: (a) squeezebert-uncased's
 # grouped convolutions, (b) xlm-mlm-en-2048 over a WordPiece (its zero
@@ -715,11 +746,7 @@ P19_VARIANTS = {
         "type_vocab_size": 2, "q_groups": 4, "k_groups": 4, "v_groups": 4,
         "post_attention_groups": 1, "intermediate_groups": 4, "output_groups": 4,
         "layer_norm_eps": 1e-12, "pad_token_id": 0},
-    "(b) xlm-mlm-en-2048": {
-        "model_type": "xlm", "vocab_size": 30_145, "emb_dim": 2048, "n_layers": 2,
-        "n_heads": 16, "gelu_activation": True, "sinusoidal_embeddings": False,
-        "causal": False, "n_langs": 1, "use_lang_emb": True, "max_position_embeddings": 512,
-        "layer_norm_eps": 1e-12, "pad_index": 2, "pad_token_id": 2, "is_encoder": True},
+    "(b) xlm-mlm-en-2048": {**XLM_EN_2048_CONFIG, "n_layers": 2},
     "(c) deberta-v2-xlarge, ConvLayer": {
         **DEBERTA_V3_CONFIG, "hidden_size": 1536, "num_hidden_layers": 2,
         "num_attention_heads": 24, "intermediate_size": 6144, "conv_kernel_size": 3,
@@ -729,6 +756,51 @@ P19_VARIANTS = {
     "(e) distilbert, sinusoidal, relu": {
         **DISTILBERT_CONFIG, "n_layers": 2, "sinusoidal_pos_embds": True, "activation": "relu"},
 }
+# phase 20 (after phase 19's encoders are let go): xlm-mlm-en-2048 (above)
+# and flaubert/flaubert_base_cased's config.json (12 layers of 768, 12
+# heads, GELU, post-norm, 68,729 words) with their own tokenizers: a
+# seeded BPE in XLM's layout at the published vocabulary sizes
+# (models/fixtures.py::moses_bpe_files: the specials at ids 0-13, merges
+# trained on the corpus's Moses tokens) and each class's
+# tokenizer_config.json (XLM: `do_lowercase_and_remove_accent`; FlauBERT:
+# cased). 10,000 of the configurations' 150,000 hackernews documents:
+# phase 18's depth cut; widths, depth and vocabulary sizes are the
+# published ones
+FLAUBERT_BASE_CASED_CONFIG = {
+    "model_type": "flaubert", "vocab_size": 68_729, "emb_dim": 768, "n_layers": 12,
+    "n_heads": 12, "gelu_activation": True, "sinusoidal_embeddings": False,
+    "causal": False, "n_langs": 1, "use_lang_emb": True, "max_position_embeddings": 512,
+    "layer_norm_eps": 1e-12, "pad_index": 2, "pad_token_id": 2, "is_encoder": True,
+    "pre_norm": False, "layerdrop": 0.0}
+P20_DOCS, P20_SEED = 10_000, 2036
+P20_TRAINING_DOCS = 2_000  # documents whose Moses tokens the seeded merges learn from
+# 2 layers each at a published checkpoint's widths, on the long Moses texts:
+# (a) flaubert_large_cased's pre-norm layers (1,024 wide, 16 heads,
+# layerdrop 0.2) over flaubert_base_cased's tokenizer; (b)
+# flaubert_base_uncased's `do_lowercase` over its own 67,542 words; (c)
+# xlm-mlm-100-1280's widths (1,280, 16 heads, 100 languages, 200,000
+# words) without `do_lowercase_and_remove_accent`. Each: (config, tokenizer
+# class, its flags)
+P20_VARIANTS = {
+    "(a) flaubert_large_cased, pre_norm": (
+        {**FLAUBERT_BASE_CASED_CONFIG, "emb_dim": 1024, "n_heads": 16, "n_layers": 2,
+         "pre_norm": True, "layerdrop": 0.2}, "FlaubertTokenizer", {}),
+    "(b) flaubert_base_uncased": (
+        {**FLAUBERT_BASE_CASED_CONFIG, "n_layers": 2, "vocab_size": 67_542},
+        "FlaubertTokenizer", {"do_lowercase": True}),
+    "(c) xlm-mlm-100-1280": (
+        {**XLM_EN_2048_CONFIG, "emb_dim": 1280, "n_layers": 2, "n_langs": 100,
+         "vocab_size": 200_000}, "XLMTokenizer", {"do_lowercase_and_remove_accent": False}),
+}
+# what Moses does to the encoder's texts: newlines and tabs dropped (two
+# words become one), French quotes and non-breaking spaces, elisions,
+# `No.` before a number, numbers with commas, multi-dots, a literal
+# special token, and the first lowercasing's specials
+P20_TEXT = ["hello\nworld\tagain", "« bonjour » l'homme aujourd'hui", "No. 5 costs 1,000.5 ...",
+            "Say <special1> and </s> <S> <SPECIAL1>", "ÉLÈVE déjà ΣΑΣ Mr. Smith",
+            "x\u00a0% nº\u00a01 5\u00a0000 « a\u00a0» : ;"]
+P20_LONG_HEAD = ("hello\nworld\tagain « bonjour » l'homme aujourd'hui\u00a0: No. 5 costs"
+                 " 1,000.5 ... <special1>")
 # XLNet's specials and its quotes (two backquotes and two single quotes
 # become `"`), accents stripped after NFKD, runs of spaces
 P19_XLNET_TEXT = ["``quoted'' and ''again``", "Café naïve — déjà vu, ÉLÈVE",
@@ -2661,6 +2733,137 @@ def more_families_phase(device, card: str, n_docs: int) -> dict:
     return out
 
 
+@lru_cache(maxsize=None)
+def moses_files(vocab_size: int, lang: str, lowercase: bool) -> tuple:
+    """(vocab.json's dict, merges.txt's text) of a seeded BPE in XLM's
+    layout of `vocab_size` entries, its merges trained on the Moses tokens
+    of P20_TRAINING_DOCS rendered documents (fixtures.moses_bpe_files,
+    merges.txt with counts)."""
+    from meilisearch_tpu_torch.models.fixtures import moses_bpe_files
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(P20_TRAINING_DOCS, seed=P20_SEED)]
+    vocab, merges = moses_bpe_files(texts + P20_TEXT, vocab_size, P20_SEED, lang=lang,
+                                    lowercase=lowercase, counts=True)
+    if len(vocab) != vocab_size:
+        raise AssertionError(f"the seeded BPE has {len(vocab)} entries, not {vocab_size}")
+    return vocab, merges
+
+
+def write_moses_checkpoint(path: str, config: dict, seed: int, tokenizer_class: str,
+                           flags: dict) -> None:
+    """A checkpoint of `config` (XLMModel's names, model.safetensors) beside
+    `moses_files` of its vocabulary size (lowercased as the class's flags
+    ask; "fr" Moses for FlauBERT) and the class's tokenizer_config.json
+    with `flags`."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import moses_tokenizer_config
+
+    flaubert = tokenizer_class == "FlaubertTokenizer"
+    lowercase = (flags.get("do_lowercase", False) if flaubert
+                 else flags.get("do_lowercase_and_remove_accent", True))
+    files = moses_files(config["vocab_size"], "fr" if flaubert else "en", lowercase)
+    write_checkpoint(path, config, random_state_dict(config, seed),
+                     tokenizer_config=moses_tokenizer_config(tokenizer_class, **flags),
+                     moses=files)
+
+
+def moses_long_texts(seed: int) -> tuple:
+    """long_check_texts with P20_LONG_HEAD in front of each long run (so
+    truncation at 512 keeps it)."""
+    return tuple(f"{P20_LONG_HEAD} {t}" if len(t) > 100 else t for t in long_check_texts(seed))
+
+
+def moses_check(path: str, device, label: str) -> float:
+    """The phase's checkpoint on the long Moses texts in one batch
+    (`long_check`), after checking that its tokenizer is the Moses BPE of
+    the class it names, gives token types, and runs Moses's quirks: a
+    newline joins two words, `<special1>` is one id."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    tok = enc._tokenizer
+    _ids, _mask, types = enc.tokenize(["x"])
+    if (type(tok).__name__ != "MosesBPE" or types is None
+            or tok.ids("hello\nworld") != tok.ids("helloworld")
+            or tok.ids("<special1>") != [tok.vocab["<special1>"]]):
+        raise AssertionError(f"{label}: the tokenizer is not XLM's Moses BPE")
+    return long_check(path, device, f"{label} (Moses texts)", texts=moses_long_texts(P20_SEED))
+
+
+def p20_variants_check(path: str, device, label: str) -> float:
+    """P20_VARIANTS' checkpoints on the long Moses texts in one batch
+    (`long_check`) each, after checking that the module and the tokenizer
+    read the variant's flags; returns the largest error."""
+    import tempfile
+
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    err = 0.0
+    for i, (what, (config, tok_class, flags)) in enumerate(P20_VARIANTS.items()):
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as small:
+            write_moses_checkpoint(small, config, P20_SEED + 1 + i, tok_class, flags)
+            enc = encoder(small, "useModel", device)
+            enc._load()
+            c, tok = enc._model.config, enc._tokenizer
+            mine = (c["model_type"], c["emb_dim"], c["pre_norm"], tok.lang, tok.lower_accent,
+                    tok.lowercase)
+            want = (config["model_type"], config["emb_dim"], config.get("pre_norm", False),
+                    "fr" if tok_class == "FlaubertTokenizer" else "en",
+                    flags.get("do_lowercase_and_remove_accent", tok_class == "XLMTokenizer"),
+                    flags.get("do_lowercase", False))
+            if mine != want:
+                raise AssertionError(f"{what}: the encoder reads {mine}, not {want}")
+            err = max(err, long_check(small, device, f"{label} variant {what}",
+                                      texts=moses_long_texts(P20_SEED)))
+            encoder.cache_clear()
+        say(f"{label} variant {what}: {time.perf_counter() - t:.3f} s")
+    say(f"{label} variants: largest error {err:.3e} (bound {ENC_TOL:g})")
+    encoder(path, "useModel", device)._load()  # hf_path goes on with `path`'s, cached
+    return err
+
+
+def moses_families_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 20, hn10k-xlmen2048-hf and hn10k-flaubertbase-hf, each through
+    its own App (`hf_path`) with its Moses checks (and P20_VARIANTS beside
+    FlauBERT's), once the earlier phases' encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 20 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    out = {}
+    for label, index, config, tok_class, checks in (
+            ("xlm-mlm-en-2048", "xe", XLM_EN_2048_CONFIG, "XLMTokenizer", (moses_check,)),
+            ("flaubert_base_cased", "fb", FLAUBERT_BASE_CASED_CONFIG, "FlaubertTokenizer",
+             (moses_check, p20_variants_check))):
+        write = partial(write_moses_checkpoint, config=config, seed=P20_SEED,
+                        tokenizer_class=tok_class, flags={})
+        t = time.perf_counter()
+        out[label] = hf_path(device, card, n_docs, label=label, index=index, write=write,
+                             seed=P20_SEED, queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P20_TEXT,
+                             tokenizer="MosesBPE", model_type=config["model_type"],
+                             checks=checks)
+        hf_encoder.encoder.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"phase 20 {label} wall: {time.perf_counter() - t:.3f} s")
+    say(f"phase 20 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
     Linear and Conv1d layers and XLNet's token projections (ALBERT's
@@ -3666,6 +3869,7 @@ def main() -> int:
     llama32_phase(device, card, P17_DOCS)
     bert_families_phase(device, card, P18_DOCS)
     more_families_phase(device, card, P19_DOCS)
+    moses_families_phase(device, card, P20_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

@@ -180,7 +180,7 @@ def check_config(config: dict) -> dict:
             " RoFormer ones in models/roformer.py, ModernBERT ones in models/modernbert.py,"
             " DeBERTa-v2 ones in models/deberta_v2.py, MobileBERT ones in"
             " models/mobilebert.py, SqueezeBERT ones in models/squeezebert.py, XLM ones in"
-            " models/xlm.py and XLNet ones in models/xlnet.py, no other"
+            " models/xlm.py (FlauBERT ones too) and XLNet ones in models/xlnet.py, no other"
         )
     if model_type == "distilbert":
         return _distilbert_config(config)

@@ -1,8 +1,8 @@
 """Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, CamemBERT,
 DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT,
 ALBERT, RoFormer, ModernBERT, DeBERTa-v2, MobileBERT, SqueezeBERT, XLM,
-XLNet, Qwen3, Qwen2, Llama, Mistral or Gemma 3 checkpoint directory
-without transformers.
+FlauBERT, XLNet, Qwen3, Qwen2, Llama, Mistral or Gemma 3 checkpoint
+directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -15,16 +15,21 @@ A directory as transformers' `save_pretrained` leaves it:
   `DebertaV2Model`, and models/decoder.py::CONFIG_KEYS for `qwen3`,
   `qwen2`, `llama` and `mistral`, which it gives to `DecoderModel`, and
   models/gemma3.py::CONFIG_KEYS for `gemma3_text`, which it gives to
-  `Gemma3Model`; `mobilebert`, `squeezebert`, `xlm` and `xlnet` configs,
-  their config class's defaults filled in, to models/mobilebert.py's,
-  models/squeezebert.py's, models/xlm.py's and models/xlnet.py's
-  modules);
+  `Gemma3Model`; `mobilebert`, `squeezebert`, `xlm`, `flaubert` and
+  `xlnet` configs, their config class's defaults filled in, to
+  models/mobilebert.py's, models/squeezebert.py's, models/xlm.py's and
+  models/xlnet.py's modules);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
   through `torch.load(weights_only=True)`;
-- the tokenizer, chosen by what the directory holds, whatever the model
-  type: a `tokenizer.json` whose model is Unigram (XLM-R's, CamemBERT's
+- the tokenizer: first its class, chosen as `AutoTokenizer` chooses it
+  (tokenizer_config.json's `tokenizer_class`, else config.json's, else
+  the model type's: `XLMTokenizer` for `xlm`, `FlaubertTokenizer` for
+  `flaubert`); those two read `vocab.json` and `merges.txt` through
+  Moses and a `</w>` BPE (models/xlm_bpe.py), never as RoBERTa's
+  byte-level BPE. Otherwise the tokenizer is chosen by what the directory
+  holds, whatever the model type: a `tokenizer.json` whose model is Unigram (XLM-R's, CamemBERT's
   and DeBERTa-v3's SentencePiece vocabularies) is read by
   models/unigram.py, one whose model is BPE
   (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level BPE;
@@ -41,9 +46,8 @@ A directory as transformers' `save_pretrained` leaves it:
   default true; `strip_accents`; `tokenize_chinese_chars`;
   `add_prefix_space`; the special tokens and `added_tokens_decoder`;
   `tokenizer_class`, where `RoFormerTokenizer(Fast)`, whose jieba
-  pre-tokenizer the port does not run, and `XLMTokenizer`, whose Moses
-  tokenizer it does not run either (AutoTokenizer's class for an `xlm`
-  directory that names none), are refused by name; `model_input_names`,
+  pre-tokenizer the port does not run, is refused by name;
+  `model_input_names`,
   or the class, says whether transformers' tokenizer gives token types,
   `gives_token_types`).
 
@@ -55,14 +59,15 @@ Checkpoint names map onto `BertModel`'s, `AlbertModel`'s,
 CamemBERT's), `distilbert.`, `mpnet.`, `electra.`, `ernie.`, `rembert.`,
 `albert.`, `roformer.`, `deberta.`, `mobilebert.`, `model.` (ModernBERT's
 and the `*ForCausalLM` decoders', `Gemma3ForCausalLM`'s too) or
-`transformer.` (SqueezeBERT's, XLM's and XLNet's; DistilBERT's
+`transformer.` (SqueezeBERT's, XLM's, FlauBERT's and XLNet's; DistilBERT's
 `transformer.layer.N.` keeps it) prefix is dropped, so are the pooler,
 the pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
 `ModernBertForMaskedLM`'s `head.` and `decoder.`; ELECTRA's
 `discriminator_predictions.`, `generator_predictions.` and
 `generator_lm_head.`; `DebertaV2ForMaskedLM`'s `lm_predictions.` and the
 `mask_predictions.` transformers ignores; ALBERT's `predictions.` and
-`sop_classifier.`; XLM's `pred_layer.` and `sequence_summary.`; XLNet's
+`sop_classifier.`; XLM's and FlauBERT's `pred_layer.` and
+`sequence_summary.`; XLNet's
 `lm_loss.`, `sequence_summary.` and `logits_proj.`) and the
 `position_ids`, `token_type_ids` and `rotary_emb.inv_freq` buffers, and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
@@ -84,7 +89,7 @@ Megatron-BERT's `attention.ln.` and `ln.` are kept as they are.
 or `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
 `weight` (out, in), `scale` and `embedding` become `weight`. No Flax
 MPNet, CamemBERT, DeBERTa-v2, ERNIE, BertGeneration, RemBERT,
-Megatron-BERT, MobileBERT, SqueezeBERT, XLM, XLNet, Qwen2, Qwen3 or
+Megatron-BERT, MobileBERT, SqueezeBERT, XLM, FlauBERT, XLNet, Qwen2, Qwen3 or
 Gemma 3 exists, and the JAX
 package reads ELECTRA (fault 3.16), RoFormer (fault 3.23) and Llama and
 Mistral (fault 3.17)
@@ -128,6 +133,7 @@ from .fixtures import (
     gemma_tokenizer_config,
     llama3_tokenizer_config,
     modernbert_tokenizer_config,
+    moses_tokenizer_config,
     mpnet_tokenizer_config,
     qwen2_tokenizer_config,
     xlnet_tokenizer_config,
@@ -140,6 +146,8 @@ from .squeezebert import SqueezeBertModel
 from .unigram import Unigram
 from .wordpiece import WordPiece
 from .xlm import XLMModel
+from .xlm_bpe import CLASSES as MOSES_CLASSES
+from .xlm_bpe import MosesBPE
 from .xlnet import XLNetModel
 
 # safetensors dtype -> numpy little-endian dtype (BF16 is widened below)
@@ -162,12 +170,12 @@ _DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "head.", "decoder.",
             "embeddings.position_ids", "embeddings.token_type_ids")
 # RemBERT's and ALBERT's name of the embeddings' projection -> the modules'
 _MAPPING_IN, _PROJECT = "encoder.embedding_hidden_mapping_in.", "embeddings_project."
-# tokenizer classes refused by name: RoFormer's jieba pre-tokenizer, XLM's
-# Moses tokenizer and `</w>` BPE (AutoTokenizer's class for an `xlm`
-# checkpoint whose tokenizer_config.json names none)
+# tokenizer classes refused by name: RoFormer's jieba pre-tokenizer
 _REFUSED_TOKENIZERS = {"RoFormerTokenizer": "its jieba pre-tokenizer",
-                       "RoFormerTokenizerFast": "its jieba pre-tokenizer",
-                       "XLMTokenizer": "its Moses punctuation normalizer and tokenizer"}
+                       "RoFormerTokenizerFast": "its jieba pre-tokenizer"}
+# AutoTokenizer's class for a model type, where the port reads it from the
+# type alone (a directory that names no class)
+_TYPE_TOKENIZERS = {xlm.MODEL_TYPE: "XLMTokenizer", xlm.FLAUBERT_TYPE: "FlaubertTokenizer"}
 # tokenizer classes whose `model_input_names` leave out token_type_ids
 # (the others give them, PreTrainedTokenizerBase's default)
 _UNTYPED_TOKENIZERS = ("RobertaTokenizer", "XLMRobertaTokenizer", "CamembertTokenizer",
@@ -244,7 +252,7 @@ _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
            **{kind: DecoderModel for kind in decoder.MODEL_TYPES},
            gemma3.MODEL_TYPE: Gemma3Model, mobilebert.MODEL_TYPE: MobileBertModel,
            squeezebert.MODEL_TYPE: SqueezeBertModel, xlm.MODEL_TYPE: XLMModel,
-           xlnet.MODEL_TYPE: XLNetModel}
+           xlm.FLAUBERT_TYPE: XLMModel, xlnet.MODEL_TYPE: XLNetModel}
 # (`gemma3`, the multimodal model, is refused by models/gemma3.py by name)
 _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config,
            albert.MODEL_TYPE: albert.check_config, roformer.MODEL_TYPE: roformer.check_config,
@@ -252,10 +260,10 @@ _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check
            gemma3.MODEL_TYPE: gemma3.check_config, "gemma3": gemma3.check_config,
            mobilebert.MODEL_TYPE: mobilebert.check_config,
            squeezebert.MODEL_TYPE: squeezebert.check_config, xlm.MODEL_TYPE: xlm.check_config,
-           xlnet.MODEL_TYPE: xlnet.check_config}
+           xlm.FLAUBERT_TYPE: xlm.check_config, xlnet.MODEL_TYPE: xlnet.check_config}
 # model types whose modules fill in their config class's defaults
 _OWN_DEFAULTS = (mobilebert.MODEL_TYPE, squeezebert.MODEL_TYPE, xlm.MODEL_TYPE,
-                 xlnet.MODEL_TYPE)
+                 xlm.FLAUBERT_TYPE, xlnet.MODEL_TYPE)
 # model types whose checkpoints the port writes as model.safetensors: those
 # published so, and those that have no Flax class (the JAX package's
 # encoder reads either file through its torch branch)
@@ -289,6 +297,8 @@ class Checkpoint:
     tokenizer: dict = field(default_factory=dict)  # tokenizer_config.json
     # the tokenizer.json, parsed (vocab.json + merges.txt laid out as a BPE one)
     tokenizer_json: Optional[dict] = None
+    # XLM's or FlauBERT's: (vocab.json's token -> id, merges.txt's text, class)
+    moses: Optional[tuple] = None
 
 
 def read_safetensors(path: str) -> dict:
@@ -388,6 +398,14 @@ def read_weights(path: str) -> dict:
     )
 
 
+def tokenizer_class(config: dict, tokenizer: dict) -> Optional[str]:
+    """The tokenizer class AutoTokenizer takes for a directory:
+    tokenizer_config.json's `tokenizer_class`, else config.json's, else
+    the model type's where the port reads it from the type alone."""
+    return (tokenizer.get("tokenizer_class") or config.get("tokenizer_class")
+            or _TYPE_TOKENIZERS.get(config.get("model_type")))
+
+
 def load_checkpoint(path: str) -> Checkpoint:
     """Read a local checkpoint directory (no download: a hub name that is
     not a directory raises)."""
@@ -404,9 +422,7 @@ def load_checkpoint(path: str) -> Checkpoint:
     if os.path.exists(tok_path):
         with open(tok_path) as f:
             tokenizer = json.load(f)
-    tok_class = tokenizer.get("tokenizer_class")
-    if not tok_class and config.get("model_type") == xlm.MODEL_TYPE:
-        tok_class = "XLMTokenizer"  # AutoTokenizer's class for the model type
+    tok_class = tokenizer_class(config, tokenizer)
     if tok_class in _REFUSED_TOKENIZERS:
         raise ValueError(
             f"tokenizer_class `{tok_class}` is not supported: {_REFUSED_TOKENIZERS[tok_class]}"
@@ -415,6 +431,16 @@ def load_checkpoint(path: str) -> Checkpoint:
     state = read_weights(path)
     if config.get("model_type") == roformer.MODEL_TYPE:
         state = roformer.with_positions(config, state)
+    if tok_class in MOSES_CLASSES:
+        files = [os.path.join(path, f) for f in ("vocab.json", "merges.txt")]
+        if not all(map(os.path.exists, files)):
+            raise ValueError(f"`{path}`'s tokenizer is {tok_class} (Moses and a `</w>` BPE over"
+                             " vocab.json and merges.txt), and the directory lacks one of them")
+        with open(files[0], encoding="utf-8") as f:
+            vocab = json.load(f)
+        with open(files[1], encoding="utf-8") as f:
+            merges = f.read()
+        return Checkpoint(config, state, [], tokenizer, None, (vocab, merges, tok_class))
     spec = None
     json_path = os.path.join(path, "tokenizer.json")
     if os.path.exists(json_path):
@@ -445,11 +471,14 @@ def load_checkpoint(path: str) -> Checkpoint:
 
 
 def build_tokenizer(ckpt: Checkpoint):
-    """The checkpoint's tokenizer: Unigram or BPE for a tokenizer.json of
-    that model (BPE for vocab.json + merges.txt), else WordPiece over
-    vocab.txt (with a WordPiece tokenizer.json's added tokens and
-    template). Each takes (texts, max_len) and gives (input_ids,
-    attention_mask)."""
+    """The checkpoint's tokenizer: XLM's or FlauBERT's Moses BPE for those
+    classes, Unigram or BPE for a tokenizer.json of that model (BPE for
+    vocab.json + merges.txt), else WordPiece over vocab.txt (with a
+    WordPiece tokenizer.json's added tokens and template). Each takes
+    (texts, max_len) and gives (input_ids, attention_mask)."""
+    if ckpt.moses is not None:
+        vocab, merges, tok_class = ckpt.moses
+        return MosesBPE(vocab, merges, ckpt.tokenizer, tok_class)
     kind = None if ckpt.tokenizer_json is None else ckpt.tokenizer_json["model"]["type"]
     if kind in (None, "WordPiece"):
         return WordPiece.from_config(ckpt.vocab, ckpt.tokenizer, ckpt.tokenizer_json,
@@ -505,7 +534,8 @@ def write_safetensors(path: str, state_dict: dict) -> None:
 
 def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[list] = None,
                      do_lower_case: bool = True, tokenizer_json: Optional[dict] = None,
-                     tokenizer_config: Optional[dict] = None) -> None:
+                     tokenizer_config: Optional[dict] = None,
+                     moses: Optional[tuple] = None) -> None:
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
     bert unless `config` names one), the weights as pytorch_model.bin
     (BertModel's names, DistilBERT's or MPNet's for such a config,
@@ -516,8 +546,8 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     or for `modernbert`, the
     decoders and `gemma3_text` as model.safetensors, the file their
     checkpoints are published in (ModernBertModel's, DecoderModel's and
-    Gemma3Model's names), as for `mobilebert`, `squeezebert`, `xlm` and
-    `xlnet`, which have no Flax class (their modules' names, no prefix),
+    Gemma3Model's names), as for `mobilebert`, `squeezebert`, `xlm`,
+    `flaubert` and `xlnet`, which have no Flax class (their modules' names, no prefix),
     and
     tokenizer_config.json (`tokenizer_config` as given, else:), with either
     `vocab` as vocab.txt (MPNetTokenizerFast's special tokens for an
@@ -532,7 +562,10 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     config, fixtures.modernbert_tokenizer_config; for `qwen3` and `qwen2`
     Qwen2Tokenizer's, fixtures.qwen2_tokenizer_config, for `llama` and
     `mistral` Llama-3's, fixtures.llama3_tokenizer_config, and for
-    `gemma3_text` GemmaTokenizer's, fixtures.gemma_tokenizer_config)."""
+    `gemma3_text` GemmaTokenizer's, fixtures.gemma_tokenizer_config), or
+    `moses`, (vocab.json's dict, merges.txt's text), with XLMTokenizer's
+    tokenizer_config.json (FlaubertTokenizer's for `flaubert`,
+    fixtures.moses_tokenizer_config)."""
     os.makedirs(path, exist_ok=True)
     config = {"model_type": "bert", **config}
     model_type = config["model_type"]
@@ -549,7 +582,13 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
         write_safetensors(os.path.join(path, "model.safetensors"), state_dict)
     else:
         torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
-    if tokenizer_json is not None:
+    if moses is not None:
+        with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+            json.dump(moses[0], f, ensure_ascii=False)
+        with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+            f.write(moses[1])
+        tok_config = moses_tokenizer_config(_TYPE_TOKENIZERS.get(model_type, "XLMTokenizer"))
+    elif tokenizer_json is not None:
         with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
             json.dump(tokenizer_json, f, ensure_ascii=False)
         bpe = tokenizer_json["model"]["type"] == "BPE"

@@ -43,7 +43,9 @@ from .bpe import (
     bytes_to_unicode,
     split_pattern,
 )
+from .moses import moses_tokenize
 from .unigram import SPIECE
+from .xlm_bpe import lowercase_and_remove_accent
 
 
 def build_charsmap(mapping: dict) -> bytes:
@@ -861,3 +863,76 @@ def mpnet_tokenizer_config(vocab: list, do_lower_case: bool = True) -> dict:
             **specials, "do_lower_case": do_lower_case, "strip_accents": None,
             "tokenize_chinese_chars": True, "model_max_length": 512,
             "tokenizer_class": "MPNetTokenizer"}
+
+
+# XLM's and FlauBERT's vocab.json open with their specials (pad_index 2,
+# unk_index 3); both classes' tokenizer_config.json name them
+MOSES_HEAD = ("<s>", "</s>", "<pad>", "<unk>", *(f"<special{i}>" for i in range(10)))
+MOSES_PIECE_MAX = 16  # characters of a seeded piece before it grows no more
+
+
+def moses_training_words(text: str, lang: str = "en", lowercase: bool = True) -> list:
+    """A text's Moses tokens as BPE symbol tuples (the last character with
+    `</w>`), lowercased and stripped of accents as XLM's flag does."""
+    tokens = moses_tokenize(text.lower() if lowercase else text, lang)
+    if lowercase:
+        tokens = lowercase_and_remove_accent(tokens)
+    return [tuple(t[:-1]) + (t[-1] + "</w>",) for t in tokens if t]
+
+
+def moses_bpe_files(texts: list, vocab_size: int, seed: int, lang: str = "en",
+                    lowercase: bool = True, n_trained: int = 4096,
+                    counts: bool = False) -> tuple:
+    """(vocab.json's dict, merges.txt's text) of a seeded BPE in XLM's
+    layout: MOSES_HEAD at ids 0-13, every character of the texts' Moses
+    tokens (`moses_training_words`) inside a word and with `</w>`, the
+    merges of `train_merges` over those tokens, then seeded merges of a
+    piece that ends no word (under MOSES_PIECE_MAX characters) and one
+    character, until `vocab_size` entries; merges.txt one pair a line,
+    with a count after it where `counts` (as XLM's files carry), ending
+    with a newline."""
+    vocab = {t: i for i, t in enumerate(MOSES_HEAD)}
+    words = [w for text in texts for w in moses_training_words(text, lang, lowercase)]
+    chars = sorted({c for w in words for sym in w for c in sym.removesuffix("</w>")})
+    for c in chars:
+        vocab[c] = len(vocab)
+        vocab[c + "</w>"] = len(vocab)
+    merges = []
+    for a, b in train_merges(texts, n_trained,
+                             to_words=lambda t: moses_training_words(t, lang, lowercase)):
+        if a + b not in vocab and len(vocab) < vocab_size:
+            vocab[a + b] = len(vocab)
+            merges.append((a, b))
+    rng = np.random.default_rng(seed)
+    inner = [t for t in list(vocab)[len(MOSES_HEAD):] if not t.endswith("</w>")]
+    symbols = [t for t in list(vocab)[len(MOSES_HEAD):] if len(t.removesuffix("</w>")) == 1]
+    while len(vocab) < vocab_size:
+        picks = np.stack([rng.integers(0, len(inner), 4096),
+                          rng.integers(0, len(symbols), 4096)], axis=1)
+        for i, j in picks.tolist():
+            a, b = inner[i], symbols[j]
+            if a + b in vocab or len(vocab) >= vocab_size or len(a) >= MOSES_PIECE_MAX:
+                continue
+            vocab[a + b] = len(vocab)
+            merges.append((a, b))
+            if not b.endswith("</w>"):
+                inner.append(a + b)
+    lines = [f"{a} {b} {len(merges) - i}" if counts else f"{a} {b}"
+             for i, (a, b) in enumerate(merges)]
+    return vocab, "".join(line + "\n" for line in lines)
+
+
+def moses_tokenizer_config(tokenizer_class: str = "XLMTokenizer", **flags) -> dict:
+    """The tokenizer_config.json `XLMTokenizer.save_pretrained` (or
+    `FlaubertTokenizer`'s) writes over MOSES_HEAD's ids: the specials and
+    `added_tokens_decoder` (no token stripped or normalized), and `flags`
+    (`do_lowercase_and_remove_accent`, `do_lowercase`; each class's default
+    where not given)."""
+    decoder = {str(i): {"content": t, "lstrip": False, "normalized": False, "rstrip": False,
+                        "single_word": False, "special": True} for i, t in enumerate(MOSES_HEAD)}
+    own = ({"do_lowercase": False} if tokenizer_class == "FlaubertTokenizer"
+           else {"do_lowercase_and_remove_accent": True})
+    return {"added_tokens_decoder": decoder, "additional_special_tokens": list(MOSES_HEAD[4:]),
+            "bos_token": "<s>", "cls_token": "</s>", "id2lang": None, "lang2id": None,
+            "mask_token": "<special1>", "pad_token": "<pad>", "sep_token": "</s>",
+            "unk_token": "<unk>", **own, **flags, "tokenizer_class": tokenizer_class}

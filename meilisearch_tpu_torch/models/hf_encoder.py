@@ -2,7 +2,7 @@
 
 Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
 families, ALBERT, RoFormer, ModernBERT, DeBERTa-v2, MobileBERT,
-SqueezeBERT, XLM, XLNet) or decoder (Qwen3,
+SqueezeBERT, XLM, FlauBERT, XLNet) or decoder (Qwen3,
 Qwen2, Llama, Mistral, Gemma 3) checkpoint pulled from the hub, tokenized,
 mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
@@ -14,19 +14,22 @@ The JAX package runs transformers' Flax model under `jax.jit` (its
 checkpoint has no Flax weights. The port computes the same function with
 its own pieces and no transformers: the checkpoint directory is read by
 models/checkpoint.py, texts are tokenized on the host by
-models/wordpiece.py, or, for a Unigram tokenizer.json (XLM-R's,
-CamemBERT's, DeBERTa-v3's, ALBERT's, RemBERT's and XLNet's vocabularies),
+models/wordpiece.py, or, for XLM's and FlauBERT's vocab.json +
+merges.txt, models/xlm_bpe.py (Moses, models/moses.py, then a `</w>`
+BPE), or, for a Unigram tokenizer.json (XLM-R's, CamemBERT's,
+DeBERTa-v3's, ALBERT's, RemBERT's and XLNet's vocabularies),
 models/unigram.py, or, for
 a BPE (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level one;
-Llama-2's, Mistral's and Gemma's with byte fallback), models/bpe.py (all
-three with `tokenizers`' own Unicode tables,
+Llama-2's, Mistral's and Gemma's with byte fallback), models/bpe.py
+(WordPiece, Unigram and BPE with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
 XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE,
 BertGeneration, RemBERT and Megatron-BERT), models/albert.py's
 `AlbertModel`, models/roformer.py's `RoFormerModel`,
 models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
 `DebertaV2Model`, models/mobilebert.py's `MobileBertModel`,
-models/squeezebert.py's `SqueezeBertModel`, models/xlm.py's `XLMModel`,
+models/squeezebert.py's `SqueezeBertModel`, models/xlm.py's `XLMModel`
+(XLM and FlauBERT),
 models/xlnet.py's `XLNetModel`, models/decoder.py's `DecoderModel`
 (Qwen3, Qwen2, Llama and Mistral) or models/gemma3.py's `Gemma3Model` (Gemma 3's text
 stack, EmbeddingGemma) runs on the device
@@ -38,7 +41,7 @@ of a call is padded to the call's longest text, as the JAX package pads
 its one batch: a pad's state can depend on how far it pads). The JAX
 package passes every output of its
 tokenizer to the torch model (`**tok`), token types included; the port
-passes them to the models that read them (XLNet, XLM), as `tokenize`
+passes them to the models that read them (XLNet, XLM, FlauBERT), as `tokenize`
 gives them. Only a local
 checkpoint directory is read: nothing is downloaded.
 

@@ -1,10 +1,12 @@
 """XLM's encoder forward as a torch module (the port's K8 for `model_type`
-`xlm`: FacebookAI/xlm-mlm-en-2048 and the other XLM checkpoints).
+`xlm`: FacebookAI/xlm-mlm-en-2048 and the other XLM checkpoints; and
+`flaubert`: flaubert/flaubert_base_cased and the other FlauBERTs).
 
-It computes what transformers' torch `XLMModel` computes, the model the
-JAX package's encoder (`models/hf_encoder.py` there) runs through its
-torch branch, since transformers has no Flax XLM. It returns the last
-hidden state (pooling stays in models/hf_encoder.py):
+It computes what transformers' torch `XLMModel` and `FlaubertModel`
+compute, the models the JAX package's encoder (`models/hf_encoder.py`
+there) runs through its torch branch, since transformers has no Flax XLM
+or FlauBERT. It returns the last hidden state (pooling stays in
+models/hf_encoder.py):
 
 - embeddings: word (`embeddings`) + position (`position_embeddings`,
   0..L-1: the file's table, learned or, with `sinusoidal_embeddings`, the
@@ -22,7 +24,14 @@ hidden state (pooling stays in models/hf_encoder.py):
   `emb_dim` wide and exact GELU (`gelu_activation`, else ReLU); times the
   padding mask. Without `causal` the masked keys are the padding; with it,
   the keys after the query (and padding is not masked: transformers builds
-  the causal mask alone).
+  the causal mask alone);
+- FlauBERT is XLM's forward (`FlaubertConfig` is `XLMConfig`'s defaults
+  and two more), but with `pre_norm` each layer is `x + attention(
+  layer_norm1(x))`, then `x + ffn(layer_norm2(x))`, times the padding
+  mask, and no norm after either and none at the end
+  (`modeling_flaubert.py:944-974`); `layerdrop` is read and ignored (it
+  drops layers only in training). An `xlm` config's `pre_norm` is not
+  read, as XLMModel reads none.
 
 Config names follow `XLMConfig`, its `attribute_map` included:
 `hidden_size`, `num_attention_heads`, `num_hidden_layers` and `n_words`
@@ -52,23 +61,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-MODEL_TYPE = "xlm"
+MODEL_TYPE, FLAUBERT_TYPE = "xlm", "flaubert"
 # XLMConfig's defaults, xlm-mlm-en-2048's widths
 DEFAULTS = {"vocab_size": 30145, "emb_dim": 2048, "n_layers": 12, "n_heads": 16,
             "gelu_activation": True, "sinusoidal_embeddings": False, "causal": False,
             "n_langs": 1, "use_lang_emb": True, "max_position_embeddings": 512,
             "layer_norm_eps": 1e-12, "pad_index": 2, "is_encoder": True}
-# XLMConfig.attribute_map: the name a file may use -> XLM's own
+# FlaubertConfig's: XLMConfig's and its own two
+FLAUBERT_DEFAULTS = {**DEFAULTS, "pre_norm": False, "layerdrop": 0.0}
+# XLMConfig.attribute_map (FlaubertConfig's too): the name a file may use -> XLM's own
 ALIASES = {"hidden_size": "emb_dim", "num_attention_heads": "n_heads",
            "num_hidden_layers": "n_layers", "n_words": "vocab_size"}
 
 
 def check_config(config: dict) -> dict:
-    """Raise ValueError unless `config` describes an XLM this module runs;
-    return it with XLMConfig's defaults, its aliases resolved, and BERT's
-    width names (`hidden_size`, `num_hidden_layers`, `num_attention_heads`,
+    """Raise ValueError unless `config` describes an XLM or FlauBERT this
+    module runs; return it with XLMConfig's (FlaubertConfig's) defaults, its
+    aliases resolved, `pre_norm` as the model reads it, and BERT's width
+    names (`hidden_size`, `num_hidden_layers`, `num_attention_heads`,
     `intermediate_size` = 4 x `emb_dim`) for models/hf_encoder.py."""
-    config = {**DEFAULTS, **config}
+    flaubert = config.get("model_type") == FLAUBERT_TYPE
+    config = {**(FLAUBERT_DEFAULTS if flaubert else DEFAULTS), **config}
     for alias, name in ALIASES.items():
         if alias in config:
             config[name] = config[alias]
@@ -77,7 +90,8 @@ def check_config(config: dict) -> dict:
                          " (XLM runs as an encoder only)")
     if config["emb_dim"] % config["n_heads"]:
         raise ValueError("emb_dim is not a multiple of n_heads")
-    return {**config, "hidden_size": config["emb_dim"], "num_attention_heads": config["n_heads"],
+    return {**config, "pre_norm": flaubert and bool(config["pre_norm"]),
+            "hidden_size": config["emb_dim"], "num_attention_heads": config["n_heads"],
             "num_hidden_layers": config["n_layers"], "intermediate_size": 4 * config["emb_dim"]}
 
 
@@ -118,8 +132,8 @@ class _FFN(nn.Module):
 
 
 class XLMModel(nn.Module):
-    """XLM's encoder, widths from a transformers-style config dict
-    (XLMConfig's names, defaults filled in)."""
+    """XLM's (or FlauBERT's) encoder, widths from a transformers-style
+    config dict (XLMConfig's names, defaults filled in)."""
 
     reads_token_types = True  # looked up in the word table
 
@@ -161,8 +175,13 @@ class XLMModel(nn.Module):
             blocked = (pos[None, :] > pos[:, None])[None, None]
         else:
             blocked = (attention_mask == 0)[:, None, None, :]  # (B, 1, 1, L): padded keys
+        pre_norm = self.config["pre_norm"]
         for attention, norm1, ffn, norm2 in zip(self.attentions, self.layer_norm1, self.ffns,
                                                 self.layer_norm2):
-            x = norm1(x + attention(x, blocked))
-            x = norm2(x + ffn(x)) * keep
+            if pre_norm:
+                x = x + attention(norm1(x), blocked)
+                x = (x + ffn(norm2(x))) * keep
+            else:
+                x = norm1(x + attention(x, blocked))
+                x = norm2(x + ffn(x)) * keep
         return x

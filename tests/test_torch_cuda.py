@@ -16,8 +16,9 @@ encoder (K8), BERT, XLM-R, RoBERTa with its byte-level BPE,
 DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA, DeBERTa-v2, ERNIE,
 BertGeneration, RemBERT, Megatron-BERT, RoFormer, ALBERT, BERT's relative
 keys, the decoders (with scaled rotaries, sliding windows, MLP biases and
-other activations too), and Gemma 3 and Llama from byte-fallback
-tokenizers, on the card as the same checkpoint on the CPU."""
+other activations too), Gemma 3 and Llama from byte-fallback
+tokenizers, and XLM and FlauBERT from their Moses tokenizers, on the card
+as the same checkpoint on the CPU."""
 
 import sys
 
@@ -999,6 +1000,59 @@ def test_more_encoder_families_on_the_card_match_the_cpu(cuda_device, tmp_path, 
     assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
     assert (types is not None) is (name in ("xlnet", "xlm"))
     want = hf_encoder.TextEncoder(path, pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
+# XLM's and FlauBERT's own tokenizers (Moses and a `</w>` BPE over
+# vocab.json + merges.txt), 2 layers at published widths, and each class's
+# casing flags
+MOSES_FAMILIES = {
+    "xlm-mlm-en-2048": ({"model_type": "xlm", "emb_dim": 2048, "n_heads": 16, "n_layers": 2},
+                        {}),
+    "xlm-mlm-100-1280": ({"model_type": "xlm", "emb_dim": 1280, "n_heads": 16, "n_layers": 2,
+                          "n_langs": 100}, {"do_lowercase_and_remove_accent": False}),
+    "flaubert-large-pre_norm": ({"model_type": "flaubert", "emb_dim": 1024, "n_heads": 16,
+                                 "n_layers": 2, "pre_norm": True, "layerdrop": 0.2}, {}),
+    "flaubert-base-uncased": ({"model_type": "flaubert", "emb_dim": 768, "n_heads": 12,
+                               "n_layers": 2}, {"do_lowercase": True}),
+}
+MOSES_TEXT = ["Hello, World. Café", "l'homme aujourd'hui\nest là", "No. 5 costs 1,000.5 ...",
+              "« bonjour » <special1> <S>", "ÉLÈVE déjà ΣΑΣ"]
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("name", MOSES_FAMILIES)
+def test_moses_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, name, pooling):
+    """XLM and FlauBERT (post- and pre-norm) from their own tokenizers on
+    the card: a padded batch of short texts beside ones of 200 to 512
+    tokens, against the CPU; the token types reach the model."""
+    from meilisearch_tpu_torch.models import fixtures, hf_encoder
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config, flags = MOSES_FAMILIES[name]
+    flaubert = config["model_type"] == "flaubert"
+    lower = flags.get("do_lowercase", not flaubert and
+                      flags.get("do_lowercase_and_remove_accent", True))
+    vocab, merges = fixtures.moses_bpe_files(_enc_texts(60, seed=20) + MOSES_TEXT, 2000, 21,
+                                             lang="fr" if flaubert else "en", lowercase=lower,
+                                             n_trained=400)
+    config = {**config, "vocab_size": len(vocab)}
+    torch.manual_seed(22)
+    tok_config = fixtures.moses_tokenizer_config(
+        "FlaubertTokenizer" if flaubert else "XLMTokenizer", **flags)
+    write_checkpoint(str(tmp_path), config, new_model(config).state_dict(),
+                     tokenizer_config=tok_config, moses=(vocab, merges))
+    texts = _enc_texts(15, seed=23) + MOSES_TEXT + [" ".join(ENC_WORDS * 30),
+                                                     " ".join(ENC_WORDS * 80), ""]
+    card = hf_encoder.TextEncoder(str(tmp_path), pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert type(card._tokenizer).__name__ == "MosesBPE"
+    _ids, mask, types = card.tokenize(texts)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16 and types is not None
+    want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)
     assert bool(np.isfinite(got).all())
     assert float(np.abs(got - want).max()) <= 1e-5
 

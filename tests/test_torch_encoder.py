@@ -212,9 +212,11 @@ def test_other_model_families_are_refused(ckpt, change, match, tmp_path):
     `segment_means_seq_len` long; `bart`: `BartModel` is passed
     `token_type_ids`; `t5`: the JAX package raises), an activation outside
     models/activations.py's list (transformers runs `gelu_10`), a
-    MobileBERT norm transformers does not know, and XLM's Moses tokenizer,
-    named in tokenizer_config.json (`tokenizer_class`) or, where that names
-    none, AutoTokenizer's class for an `xlm` directory."""
+    MobileBERT norm transformers does not know, and a directory whose
+    tokenizer is XLM's Moses BPE, named in tokenizer_config.json
+    (`tokenizer_class`) or, where that names none, AutoTokenizer's class for
+    an `xlm` directory, but which holds no vocab.json and merges.txt (a
+    vocab.txt beside them is never read for it)."""
     path = str(tmp_path / "changed")
     shutil.copytree(ckpt["dir"], path)
     change = dict(change)

@@ -2,9 +2,9 @@
 (models/squeezebert.py: grouped 1 x 1 convolutions in NCW layout,
 models/conv.py) and `xlm` (models/xlm.py: token types looked up in the word
 table, the masked rows, sinusoidal tables read from the file, `causal`)
-model types, their weight names, the refusal of XLM's Moses tokenizer,
-and the encoder against transformers and the JAX package's
-`FlaxTextEncoder`.
+model types, their weight names, XLM's own Moses tokenizer read from a
+named or a legacy directory, and the encoder against transformers and the
+JAX package's `FlaxTextEncoder`.
 
 Nothing is downloaded. Tiny models (2 layers, width 32, 4 heads) are
 built from transformers' configs, their weights drawn with numpy from a
@@ -288,29 +288,51 @@ def test_head_checkpoints_load_under_the_base_names(ckpt, kind, cls, heads):
 # -- XLM's tokenizers ------------------------------------------------------------
 
 
-def test_an_xlm_tokenizer_directory_is_refused(ckpt, tmp_path):
-    """XLM's own tokenizer (`XLMTokenizer`: Moses and a `</w>` BPE) is
-    refused by name: named in tokenizer_config.json, or, with none named,
-    as AutoTokenizer's class for the model type. Its vocab.json and
-    merges.txt are never read as RoBERTa's byte-level BPE."""
-    named = str(tmp_path / "named")
-    shutil.copytree(ckpt["xlm_en"], named)
-    with open(os.path.join(named, "tokenizer_config.json"), "w") as f:
+def _moses_directories(ckpt, root):
+    """`xlm_en`'s weights beside XLM's own tokenizer files (a seeded BPE in
+    XLM's layout, `fixtures.moses_bpe_files`, as many entries as the word
+    table): `named`, its tokenizer_config.json naming XLMTokenizer;
+    `legacy`, vocab.json and merges.txt alone (AutoTokenizer's class for
+    the model type)."""
+    vocab, merges = fixtures.moses_bpe_files(TEXTS + _texts(40, seed=5), len(VOCAB), 5,
+                                             n_trained=60, counts=True)
+    out = {}
+    for name in ("named", "legacy"):
+        out[name] = path = os.path.join(root, name)
+        os.makedirs(path)
+        shutil.copy(os.path.join(ckpt["xlm_en"], "config.json"), path)
+        shutil.copy(os.path.join(ckpt["xlm_en"], "pytorch_model.bin"), path)
+        with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+            json.dump(vocab, f, ensure_ascii=False)
+        with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+            f.write(merges)
+    with open(os.path.join(out["named"], "tokenizer_config.json"), "w") as f:
         json.dump({"tokenizer_class": "XLMTokenizer", "do_lowercase_and_remove_accent": True},
                   f)
-    legacy = str(tmp_path / "legacy")
-    os.makedirs(legacy)
-    shutil.copy(os.path.join(ckpt["xlm_en"], "config.json"), legacy)
-    shutil.copy(os.path.join(ckpt["xlm_en"], "pytorch_model.bin"), legacy)
-    with open(os.path.join(legacy, "vocab.json"), "w") as f:
-        json.dump({"<s>": 0, "</s>": 1, "<pad>": 2, "<unk>": 3, "he": 4, "llo</w>": 5}, f)
-    with open(os.path.join(legacy, "merges.txt"), "w") as f:
-        f.write("#version: 0.2\nh e\nl l\nll o</w>\n")
-    for path in (named, legacy):
-        with pytest.raises(ValueError, match="XLMTokenizer.*Moses"):
-            checkpoint.load_checkpoint(path)
-        with pytest.raises(ValueError, match="XLMTokenizer"):
-            hf_encoder.TextEncoder(path, "useModel", device=None).encode(["hello"])
+    return out
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("name", ["named", "legacy"])
+def test_an_xlm_tokenizer_directory_embeds(ckpt, tmp_path, name, pooling, monkeypatch):
+    """XLM's own tokenizer (`XLMTokenizer`: Moses and a `</w>` BPE), named
+    in tokenizer_config.json or, with none named, AutoTokenizer's class for
+    the model type, tokenizes as transformers' class and embeds as the JAX
+    package; its vocab.json and merges.txt are never read as RoBERTa's
+    byte-level BPE."""
+    monkeypatch.setattr(checkpoint, "legacy_spec", None)  # calling it raises
+    path = _moses_directories(ckpt, str(tmp_path))[name]
+    texts = _batch()
+    ref = transformers.AutoTokenizer.from_pretrained(path)
+    assert type(ref).__name__ == "XLMTokenizer"
+    enc = hf_encoder.TextEncoder(path, pooling, device=None)
+    enc._load()
+    ids, mask, types = enc.tokenize(texts)
+    want = ref(texts, padding=True, truncation=True, max_length=512, return_tensors="pt")
+    assert torch.equal(ids, want["input_ids"]) and torch.equal(mask, want["attention_mask"])
+    assert torch.equal(types, want["token_type_ids"])
+    got = enc.encode(texts)
+    assert float(np.abs(got - FlaxTextEncoder(path, pooling).encode(texts)).max()) <= ATOL
 
 
 @pytest.mark.parametrize("kind, typed", [("xlm_en", True), ("xlm_xlmr", False),

@@ -1,7 +1,8 @@
 """The port stands alone: no file of `meilisearch_tpu_torch/` imports the
-JAX package, jax, transformers or safetensors, and every module of the
-port imports in a process where `meilisearch_tpu`, jax, jaxlib, flax,
-transformers and safetensors cannot be imported."""
+JAX package, jax, transformers, safetensors, sacremoses or `regex` (the
+card's machine has neither of the last two: models/moses.py is the port's
+own Moses, over Python's `re`), and every module of the port imports in a
+process where none of them can be imported."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "meilisearch_tpu_torch"
-FORBIDDEN = ("meilisearch_tpu", "jax", "jaxlib", "flax", "transformers", "safetensors")
+FORBIDDEN = ("meilisearch_tpu", "jax", "jaxlib", "flax", "transformers", "safetensors",
+             "sacremoses", "regex")
 FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
 
 
@@ -49,7 +51,8 @@ import importlib
 import pkgutil
 import sys
 
-for name in ("meilisearch_tpu", "jax", "jaxlib", "flax", "transformers", "safetensors"):
+for name in ("meilisearch_tpu", "jax", "jaxlib", "flax", "transformers", "safetensors",
+             "sacremoses", "regex"):
     sys.modules[name] = None  # import raises ImportError
 
 import meilisearch_tpu_torch
