@@ -92,7 +92,7 @@ Phases, each fatal on failure:
      device clock, the chunk against its float32 bound;
   8. chain scorer and scatter-gather (run right after phase 3, on its
      store): `entry.entry()` once against the plain version;
-     `entry.dryrun_multichip(1)` in a one-rank NCCL group over 125,000
+     `entry.dryrun_multichip(1)` in a one-rank NCCL group over 62,500
      documents (keyword, typo, tie-block and filter top-10, facet
      histogram and vector top-10, each against the host), then each
      collective it made timed alone in a one-rank NCCL group; the executor
@@ -204,10 +204,10 @@ Phases, each fatal on failure:
      query's forward and launches against its weight-read bound, and one
      chunk against its float32 bound;
   16. EmbeddingGemma path (hn10k-embeddinggemma-hf): a checkpoint at
-     google/embeddinggemma-300m's published config.json widths and depth
-     (gemma3_text: vocab 262,144, hidden 768, 24 layers, 3 heads of 256
-     over 1 KV head, intermediate 1,152, five sliding layers then one
-     full, bidirectional; seeded random weights at initializer_range 0.02,
+     google/embeddinggemma-300m's published config.json widths
+     (gemma3_text: vocab 262,144, hidden 768, 12 of its 24 layers, 3 heads
+     of 256 over 1 KV head, intermediate 1,152, five sliding layers then
+     one full, bidirectional; seeded random weights at initializer_range 0.02,
      written as model.safetensors) with a seeded 262,144-piece
      sentencepiece BPE in GemmaConverter's layout (byte fallback to the
      256 <0xNN> pieces, unk at 3) and GemmaTokenizer's
@@ -226,8 +226,8 @@ Phases, each fatal on failure:
      bound, and one chunk against its float32 bound;
   17. Llama-3.2-1B path (hn10k-llama32-1b-hf), after the earlier phases'
      encoders are let go: a checkpoint at meta-llama/Llama-3.2-1B's
-     published config.json widths and depth (llama: vocab 128,256, hidden
-     2,048, 16 layers, 32 heads of 64 over 8 KV heads, intermediate
+     published config.json widths (llama: vocab 128,256, hidden
+     2,048, 8 of its 16 layers, 32 heads of 64 over 8 KV heads, intermediate
      8,192, rope_theta 500,000 under rope_scaling llama3, factor 32 over
      8,192 positions; seeded random weights at initializer_range 0.02,
      written as model.safetensors) with a seeded byte-level BPE in
@@ -295,7 +295,7 @@ Phases, each fatal on failure:
   20. XLM and FlauBERT paths (hn10k-xlmen2048-hf,
      hn10k-flaubertbase-hf), after the earlier phases' encoders are let
      go: checkpoints at FacebookAI/xlm-mlm-en-2048's published config.json
-     (xlm: 12 layers of 2,048, 16 heads, GELU, vocab 30,145) and at
+     (xlm: 6 of its 12 layers of 2,048, 16 heads, GELU, vocab 30,145) and at
      flaubert/flaubert_base_cased's (flaubert: 12 layers of 768, 12
      heads, post-norm, vocab 68,729), seeded random weights at 0.02,
      written as model.safetensors, each beside its own tokenizer: a seeded
@@ -315,7 +315,31 @@ Phases, each fatal on failure:
      long texts, card against CPU: flaubert_large_cased's pre-norm layers
      (1,024 wide, layerdrop 0.2), flaubert_base_uncased's `do_lowercase`
      over 67,542 words, and xlm-mlm-100-1280's widths (200,000 words, 100
-     languages) without `do_lowercase_and_remove_accent`.
+     languages) without `do_lowercase_and_remove_accent`;
+  21. bge-multilingual-gemma2 path (hn10k-bgegemma2-hf), after the
+     earlier phases' encoders are let go: first three 2-layer checkpoints
+     at published widths over seeded 32,000-piece tokenizers, each on
+     phase 13's long texts and a left-padded batch under forceCls and mean
+     pooling, card against CPU: gemma2 at gemma-2-2b's widths with a
+     16-token window and a softcap of 0.5 (ignored, fault 3.20), gemma at
+     gemma-2b's (one KV head of 256, hidden_act gelu beside an unread
+     hidden_activation) and phi3 at Phi-3-mini-4k-instruct's (a
+     Phi3ForCausalLM file, fused qkv_proj and gate_up_proj, a 16-token
+     window, partial_rotary_factor 0.75, a seeded three-field longrope over
+     131,072 positions from 4,096); then a checkpoint at
+     BAAI/bge-multilingual-gemma2's published config.json widths (gemma2:
+     gemma-2-9b's, vocab 256,000, hidden 3,584, 4 of its 42 layers, 16
+     heads of 256 over 8 KV heads, query_pre_attn_scalar 256, intermediate
+     14,336, a 4,096-token window on every other layer, layer types
+     derived; seeded random weights at 0.02, written as model.safetensors)
+     with a seeded 256,000-piece sentencepiece BPE in GemmaConverter's
+     layout, through its own App as phase 11 over 10,000 documents: the
+     encoder on the card against the CPU within ENC_TOL on 83 texts, on
+     the long texts and on the left-padded batch under both poolings,
+     tokens/s and the host share, peak device memory, 256 hybrid
+     responses against the host pass, a query's forward and launches
+     against its weight-read bound, and one chunk against its float32
+     bound.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -388,9 +412,10 @@ K6_TOPK = 10  # the k at which the top-k mode and chain_query_topk are timed
 # 9 lexicographic mins of 12 compares and 6 selects, 3 mask selects and
 # 4 skip adds; the final 3 mins and the clip; the keys mode's packing
 K6_OPS_FIRST, K6_OPS_TERM, K6_OPS_FINAL, K6_OPS_PACK = 18, 223, 60, 30
-# the dry run's depth: a quarter of the keyword phase's, the cut that
-# keeps the whole script under 1,000 s with phase 19 (half before it)
-DRYRUN_DOCS = 125_000
+# the dry run's depth: an eighth of the keyword phase's (a quarter before
+# phase 21, half before phase 19), the first of the cuts that keep the
+# whole script under 1,080 s
+DRYRUN_DOCS = 62_500
 # the dry run's queries (meilisearch_tpu_torch/entry.py), served through
 # the executor with MEILI_TPU_DEVICE=1 beside QUERIES
 CHAIN_QUERIES = [
@@ -572,12 +597,14 @@ P15_DOCS, P15_SEED = 10_000, 2031
 # bos 2, unk 3, the 256 <0xNN> byte pieces) and GemmaTokenizer's
 # tokenizer_config.json with add_bos_token and add_eos_token both true.
 # 10,000 of the configuration's 150,000 hackernews documents: phase 15's
-# depth cut; widths, depth and vocabulary size are the published ones
+# depth cut; widths and vocabulary size are the published ones, and 12 of
+# its 24 layers (two runs of five sliding and one full: the second of the
+# cuts before phase 21)
 EMBEDDINGGEMMA_CONFIG = {
     "model_type": "gemma3_text", "vocab_size": 262_144, "hidden_size": 768,
-    "intermediate_size": 1152, "num_hidden_layers": 24, "num_attention_heads": 3,
+    "intermediate_size": 1152, "num_hidden_layers": 12, "num_attention_heads": 3,
     "num_key_value_heads": 1, "head_dim": 256, "query_pre_attn_scalar": 256,
-    "sliding_window": 512, "layer_types": (["sliding_attention"] * 5 + ["full_attention"]) * 4,
+    "sliding_window": 512, "layer_types": (["sliding_attention"] * 5 + ["full_attention"]) * 2,
     "rope_theta": 1_000_000.0, "rope_local_base_freq": 10_000.0, "rope_scaling": None,
     "rms_norm_eps": 1e-6, "hidden_activation": "gelu_pytorch_tanh", "attention_bias": False,
     "attention_dropout": 0.0, "attn_logit_softcapping": None, "final_logit_softcapping": None,
@@ -605,11 +632,12 @@ P16_DOCS, P16_SEED = 10_000, 2032
 # its 256 specials from <|begin_of_text|> at 128,000) and
 # PreTrainedTokenizerFast's tokenizer_config.json with pad
 # <|finetune_right_pad_id|>. 10,000 of the configuration's 150,000
-# hackernews documents: phase 16's depth cut; its 16 layers, widths and
-# vocabulary size are the published ones
+# hackernews documents: phase 16's depth cut; widths and vocabulary size
+# are the published ones, and 8 of its 16 layers (the third of the cuts
+# before phase 21)
 LLAMA32_1B_CONFIG = {
     "model_type": "llama", "vocab_size": 128_256, "hidden_size": 2048,
-    "intermediate_size": 8192, "num_hidden_layers": 16, "num_attention_heads": 32,
+    "intermediate_size": 8192, "num_hidden_layers": 8, "num_attention_heads": 32,
     "num_key_value_heads": 8, "head_dim": 64, "rms_norm_eps": 1e-5, "rope_theta": 500_000.0,
     "rope_scaling": {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
                      "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
@@ -724,10 +752,11 @@ XLNET_BASE_CONFIG = {
     "bos_token_id": 1, "eos_token_id": 2,
 }
 P19_DOCS, P19_SEED = 10_000, 2035
-# FacebookAI/xlm-mlm-en-2048's config.json (XLMConfig's names): 12 layers
-# of 2,048, 16 heads, GELU, one language, 30,145 words
+# FacebookAI/xlm-mlm-en-2048's config.json (XLMConfig's names): 2,048
+# wide, 16 heads, GELU, one language, 30,145 words; 6 of its 12 layers
+# (the fourth of the cuts before phase 21)
 XLM_EN_2048_CONFIG = {
-    "model_type": "xlm", "vocab_size": 30_145, "emb_dim": 2048, "n_layers": 12,
+    "model_type": "xlm", "vocab_size": 30_145, "emb_dim": 2048, "n_layers": 6,
     "n_heads": 16, "gelu_activation": True, "sinusoidal_embeddings": False,
     "causal": False, "n_langs": 1, "use_lang_emb": True, "max_position_embeddings": 512,
     "layer_norm_eps": 1e-12, "pad_index": 2, "pad_token_id": 2, "is_encoder": True}
@@ -792,6 +821,70 @@ P20_VARIANTS = {
         {**XLM_EN_2048_CONFIG, "emb_dim": 1280, "n_layers": 2, "n_langs": 100,
          "vocab_size": 200_000}, "XLMTokenizer", {"do_lowercase_and_remove_accent": False}),
 }
+# phase 21 (after phase 20's encoders are let go), hn10k-bgegemma2-hf:
+# BAAI/bge-multilingual-gemma2's published config.json (gemma2 at
+# gemma-2-9b's widths: 3,584 wide, 16 heads of 256 over 8 KV heads, so Q
+# is 4,096 wide, query_pre_attn_scalar 256, intermediate 14,336, a
+# 4,096-token window on every other layer from the first, softcaps 50 and
+# 30, which the reference's sdpa and its missing LM head leave unread;
+# no layer_types, so the module derives them) with seeded random weights
+# at its initializer_range 0.02, 4 of its 42 layers (the float32 file of
+# all 42 is 37 GB), a seeded 256,000-piece sentencepiece BPE in
+# GemmaConverter's layout and GemmaTokenizer's tokenizer_config.json
+# (left padding, the class's default). 10,000 of the configuration's
+# 150,000 hackernews documents: phase 20's depth cut
+BGE_GEMMA2_CONFIG = {
+    "model_type": "gemma2", "architectures": ["Gemma2Model"], "vocab_size": 256_000,
+    "hidden_size": 3584, "intermediate_size": 14_336, "num_hidden_layers": 4,
+    "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256,
+    "query_pre_attn_scalar": 256, "sliding_window": 4096, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "rope_theta": 10_000.0, "rms_norm_eps": 1e-6,
+    "hidden_activation": "gelu_pytorch_tanh", "hidden_act": "gelu_pytorch_tanh",
+    "max_position_embeddings": 8192, "attention_bias": False, "attention_dropout": 0.0,
+    "initializer_range": 0.02, "tie_word_embeddings": True, "pad_token_id": 0,
+    "eos_token_id": 1, "bos_token_id": 2}
+BGE_GEMMA2_PUBLISHED_LAYERS = 42
+P21_DOCS, P21_SEED = 10_000, 2037
+P21_VARIANT_VOCAB = 32_000  # the variants' seeded pieces (256,000 published for Gemma)
+P21_VARIANT_TRAIN_DOCS = 1_000  # documents the variants' trained merges learn from
+# the decoder families beside it, 2 layers each at a published
+# checkpoint's widths over a seeded 32,000-piece vocabulary, on phase 13's
+# long texts and a left-padded batch: (a) gemma2 at gemma-2-2b's widths
+# (Gemma2Config's defaults) with a 16-token window that bites and a
+# softcap of 0.5 the reference ignores (fault 3.20); (b) gemma at
+# gemma-2b's widths (one KV head of 256) with hidden_act `gelu` beside a
+# hidden_activation nothing reads; (c) phi3 at Phi-3-mini-4k-instruct's
+# widths (Phi3Config's defaults: fused qkv_proj and gate_up_proj, 32,064
+# rows) as a Phi3ForCausalLM file, with a 16-token window, a quarter of
+# each head passed through unrotated and a three-field longrope over
+# 131,072 positions from 4,096 (seeded factor lists, `p21_longrope`)
+P21_VARIANTS = {
+    "(a) gemma2 at gemma-2-2b's widths, sliding_window 16, attn_logit_softcapping 0.5": {
+        "model_type": "gemma2", "vocab_size": P21_VARIANT_VOCAB, "hidden_size": 2304,
+        "intermediate_size": 9216, "num_hidden_layers": 2, "num_attention_heads": 8,
+        "num_key_value_heads": 4, "head_dim": 256, "query_pre_attn_scalar": 256,
+        "sliding_window": 16, "attn_logit_softcapping": 0.5, "final_logit_softcapping": 30.0,
+        "rope_theta": 10_000.0, "rms_norm_eps": 1e-6, "hidden_activation": "gelu_pytorch_tanh",
+        "max_position_embeddings": 8192, "pad_token_id": 0, "eos_token_id": 1,
+        "bos_token_id": 2},
+    "(b) gemma at gemma-2b's widths, one KV head, hidden_act gelu": {
+        "model_type": "gemma", "vocab_size": P21_VARIANT_VOCAB, "hidden_size": 2048,
+        "intermediate_size": 16_384, "num_hidden_layers": 2, "num_attention_heads": 8,
+        "num_key_value_heads": 1, "head_dim": 256, "hidden_act": "gelu",
+        "hidden_activation": "gelu_pytorch_tanh", "rope_theta": 10_000.0, "rms_norm_eps": 1e-6,
+        "max_position_embeddings": 8192, "pad_token_id": 0, "eos_token_id": 1,
+        "bos_token_id": 2},
+    "(c) phi3 at Phi-3-mini-4k-instruct's widths, Phi3ForCausalLM, sliding_window 16,"
+    " partial_rotary_factor 0.75, longrope": {
+        "model_type": "phi3", "architectures": ["Phi3ForCausalLM"], "vocab_size": 32_064,
+        "hidden_size": 3072, "intermediate_size": 8192, "num_hidden_layers": 2,
+        "num_attention_heads": 32, "num_key_value_heads": 32, "hidden_act": "silu",
+        "rms_norm_eps": 1e-5, "rope_theta": 10_000.0, "sliding_window": 16,
+        "partial_rotary_factor": 0.75, "max_position_embeddings": 131_072,
+        "original_max_position_embeddings": 4096, "rope_scaling": None,
+        "pad_token_id": 32_000, "eos_token_id": 32_000, "bos_token_id": 1},
+}
+P21_TEXT = ["<start_of_turn>user hi<end_of_turn>", "x<table>y  z\ttab", "中文 café 😀 naïve"]
 # what Moses does to the encoder's texts: newlines and tabs dropped (two
 # words become one), French quotes and non-breaking spaces, elisions,
 # `No.` before a number, numbers with commas, multi-dots, a literal
@@ -1687,18 +1780,30 @@ def write_e5_checkpoint(path: str) -> None:
                      tokenizer_json=xlmr_tokenizer_json(e5_pieces(), e5_charsmap()))
 
 
+@lru_cache(maxsize=2)
+def cpu_encoder(path: str):
+    """The checkpoint's encoder on the CPU, loaded once for a phase's checks;
+    kept out of `hf_encoder.encoder`'s cache, which the card's encoders and
+    the App share."""
+    from meilisearch_tpu_torch.models.hf_encoder import TextEncoder
+
+    return TextEncoder(path, "useModel", device=None)
+
+
 def encoder_check(path: str, device, texts: list, width: str = "bge-base") -> float:
     """The checkpoint's normalized embeddings of `texts` on the card against
-    the CPU; returns the max abs error (fails above ENC_TOL)."""
+    the CPU (each device's encoder a cached one, so a phase's checks load
+    the checkpoint once a device); returns the max abs error (fails above
+    ENC_TOL)."""
     import numpy as np
 
-    from meilisearch_tpu_torch.models.hf_encoder import TextEncoder, encoder
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
 
     t0 = time.perf_counter()
     got = encoder(path, "useModel", device).encode(texts)
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
-    want = TextEncoder(path, "useModel", device=None).encode(texts)
+    want = cpu_encoder(path).encode(texts)
     t_cpu = time.perf_counter() - t0
     err = float(np.abs(got - want).max())
     say(f"encoder check: {len(texts)} texts at {width} width, card against CPU: max abs"
@@ -1893,6 +1998,7 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
                 "source": "huggingFace", "model": path}}}
             client.update_settings(index, settings)
             enc = hf_encoder.encoder(path, "useModel", device)
+            enc._load()
             chosen = (type(enc._tokenizer).__name__, enc._model.config["model_type"])
             if chosen != (tokenizer, model_type):
                 raise AssertionError(f"{label}: the encoder chose {chosen}, not"
@@ -2238,13 +2344,25 @@ def write_qwen3_embedding_checkpoint(path: str) -> None:
                      tokenizer_config=qwen2_tokenizer_config(spec, padding_side="left"))
 
 
+@contextlib.contextmanager
+def pooled(enc, pooling: str):
+    """`enc` with its pooling set to `pooling` inside the block: a check's
+    two poolings share the cached encoder's one copy of the model."""
+    before = enc.pooling
+    enc.pooling = pooling
+    try:
+        yield enc
+    finally:
+        enc.pooling = before
+
+
 def left_pad_check(path: str, device, label: str) -> float:
     """LEFT_PAD_TEXT in one batch, left-padded as the checkpoint's
     tokenizer_config.json asks, under forceCls and under mean pooling:
     card against CPU (`encoder_check`'s bound); returns the larger error."""
     import numpy as np
 
-    from meilisearch_tpu_torch.models.hf_encoder import TextEncoder, encoder
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
 
     enc = encoder(path, "useModel", device)
     enc._load()
@@ -2254,9 +2372,10 @@ def left_pad_check(path: str, device, label: str) -> float:
             or int(mask[:, 0].min()) != 0:
         raise AssertionError(f"{label}: the check batch is not left-padded: {lengths}")
     errs = {}
+    cpu = cpu_encoder(path)
     for pooling in ("forceCls", "useModel"):
-        got = encoder(path, pooling, device).encode(LEFT_PAD_TEXT)
-        want = TextEncoder(path, pooling, device=None).encode(LEFT_PAD_TEXT)
+        with pooled(enc, pooling), pooled(cpu, pooling):
+            got, want = enc.encode(LEFT_PAD_TEXT), cpu.encode(LEFT_PAD_TEXT)
         if not np.isfinite(got).all():
             raise AssertionError(f"{label}: non-finite {pooling} vectors on the card")
         errs[pooling] = float(np.abs(got - want).max())
@@ -2861,6 +2980,182 @@ def moses_families_phase(device, card: str, n_docs: int) -> dict:
         torch.cuda.empty_cache()
         say(f"phase 20 {label} wall: {time.perf_counter() - t:.3f} s")
     say(f"phase 20 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def p21_longrope(n: int = 36) -> dict:
+    """Phi-3's three-field longrope with seeded factor lists of n entries
+    (rotated width / 2: 96 x 0.75 / 2 = 36), each ascending, the short
+    ones in [1, 1.2) and the long ones in [1, 40), as the published 128k
+    configurations scale the low frequencies most."""
+    import numpy as np
+
+    rng = np.random.default_rng(P21_SEED)
+    short = np.sort(1.0 + 0.2 * rng.random(n))
+    long = np.sort(1.0 + 39.0 * rng.random(n))
+    return {"type": "longrope", "short_factor": [round(float(x), 4) for x in short],
+            "long_factor": [round(float(x), 4) for x in long]}
+
+
+def p21_spec(vocab_size: int, phi3: bool = False, n_docs: int = BPE_TRAIN_DOCS) -> dict:
+    """A seeded sentencepiece BPE of `vocab_size` pieces, its merges trained
+    on `n_docs` of the phase's own texts: Gemma's layout, or (`phi3`)
+    Llama-2's with Phi-3's chat tokens after it; checked against Gemma's
+    special ids."""
+    from meilisearch_tpu_torch.models import fixtures
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(n_docs, seed=P21_SEED)] + P11_TEXT
+    if phi3:
+        return fixtures.phi3_tokenizer_json(texts, vocab_size, seed=P21_SEED)
+    spec = fixtures.gemma_tokenizer_json(texts, vocab_size, seed=P21_SEED)
+    vocab = spec["model"]["vocab"]
+    if len(vocab) != vocab_size or [vocab[t] for t in ("<pad>", "<eos>", "<bos>", "<unk>")] \
+            != [0, 1, 2, 3]:
+        raise AssertionError("the tokenizer is not laid out as Gemma's")
+    return spec
+
+
+def write_p21_checkpoint(path: str, config: dict, seed: int, spec: dict) -> None:
+    """A `gemma2`, `gemma` or `phi3` checkpoint of `config` (the port's
+    names, seeded weights; a Phi3ForCausalLM's `model.` names and a tied
+    `lm_head.weight` where `architectures` says so), written as
+    model.safetensors beside `spec` and its class's tokenizer_config.json
+    (GemmaTokenizer's, or LlamaTokenizer's with Phi-3's `<|endoftext|>`
+    pad), each padding left by default."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.fixtures import gemma_tokenizer_config, phi3_tokenizer_config
+
+    state = random_state_dict(config, seed)
+    if config.get("architectures") == ["Phi3ForCausalLM"]:
+        state = {**{f"model.{k}": v for k, v in state.items()},
+                 "lm_head.weight": state["embed_tokens.weight"]}
+    phi3 = config["model_type"] == "phi3"
+    write_checkpoint(path, config, state, tokenizer_json=spec,
+                     tokenizer_config=(phi3_tokenizer_config if phi3 else gemma_tokenizer_config)(
+                         spec))
+
+
+def bge_gemma2_long_check(path: str, device, label: str) -> float:
+    """The phase's checkpoint on phase 13's long texts in one batch
+    (`long_check`), after checking that the module runs Gemma 2's derived
+    layer types (sliding, full, ...) with the published window and no Q/K
+    norms."""
+    from meilisearch_tpu_torch.models.gemma2 import Gemma2Model
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    model, c = enc._model, enc._model.config
+    layers = BGE_GEMMA2_CONFIG["num_hidden_layers"]
+    if not isinstance(model, Gemma2Model) or c["window"] != BGE_GEMMA2_CONFIG["sliding_window"] \
+            or c["layer_types"] != ["sliding_attention", "full_attention"] * (layers // 2) \
+            or hasattr(model.layers[0].self_attn, "q_norm"):
+        raise AssertionError(f"{label}: the module is not Gemma 2's: {c['layer_types']}")
+    return long_check(path, device, f"{label} {layers} layers", texts=long_check_texts(P21_SEED))
+
+
+def p21_variants_check(device, label: str) -> float:
+    """P21_VARIANTS' 2-layer checkpoints, each beside its own seeded
+    32,000-piece tokenizer: phase 13's long texts in one batch
+    (`long_check`) and the left-padded batch (`left_pad_check`), card
+    against CPU, after checking that each module reads the variant's
+    traps (the window under the long texts, Gemma's `hidden_act`, Phi-3's
+    fused projections, its rotated width and longrope); returns the
+    largest error. The earlier encoders are let go after each."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from meilisearch_tpu_torch.models import activations
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    t0 = time.perf_counter()
+    specs = {phi3: p21_spec(P21_VARIANT_VOCAB, phi3, P21_VARIANT_TRAIN_DOCS)
+             for phi3 in (False, True)}
+    say(f"{label} variants' tokenizers ({P21_VARIANT_VOCAB} pieces each) built in"
+        f" {time.perf_counter() - t0:.3f} s")
+    err = 0.0
+    for i, (what, config) in enumerate(P21_VARIANTS.items()):
+        t = time.perf_counter()
+        kind = config["model_type"]
+        if kind == "phi3":
+            rotated = int(config["hidden_size"] // config["num_attention_heads"]
+                          * config["partial_rotary_factor"])
+            config = {**config, "rope_scaling": p21_longrope(rotated // 2)}
+        with tempfile.TemporaryDirectory() as small:
+            write_p21_checkpoint(small, config, P21_SEED + 1 + i, specs[kind == "phi3"])
+            enc = encoder(small, "useModel", device)
+            enc._load()
+            model, c = enc._model, enc._model.config
+            layer = model.layers[0]
+            if kind == "phi3":
+                h, heads = config["hidden_size"], config["num_attention_heads"]
+                read = (c["window"], layer.self_attn.fused, model.rope.kind, model.rope.dim,
+                        tuple(layer.self_attn.qkv_proj.weight.shape))
+                want = (config["sliding_window"], True, "longrope", rotated,
+                        (3 * h, h) if config["num_key_value_heads"] == heads else None)
+            elif kind == "gemma":
+                read = (c["window"], layer.mlp.act is activations.ACTIVATIONS["gelu"],
+                        layer.self_attn.kv_heads)
+                want = (None, True, config["num_key_value_heads"])
+            else:
+                read = (c["window"], c["layer_types"], c["attn_logit_softcapping"])
+                want = (config["sliding_window"], ["sliding_attention", "full_attention"], 0.5)
+            if c.get("window") is not None and c["window"] >= LONG_TOKENS:
+                raise AssertionError(f"{what}: the window ({c['window']} tokens) would not bite")
+            if read != want or enc._tokenizer.padding_side != "left":
+                raise AssertionError(f"{what}: the encoder reads {read}, not {want}")
+            err = max(err, long_check(small, device, f"{label} variant {what}",
+                                      texts=long_check_texts(P21_SEED)),
+                      left_pad_check(small, device, f"{label} variant {what}"))
+            encoder.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        say(f"{label} variant {what}: {time.perf_counter() - t:.3f} s")
+    say(f"{label} variants: largest error {err:.3e} (bound {ENC_TOL:g})")
+    return err
+
+
+def bge_gemma2_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 21, hn10k-bgegemma2-hf through its own App (`hf_path`) with
+    the long and left-padded checks, after the variants' checks
+    (`p21_variants_check`), once the earlier phases' encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 21 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    label = "bge-multilingual-gemma2"
+    variants_err = p21_variants_check(device, label)
+    t0 = time.perf_counter()
+    spec = p21_spec(BGE_GEMMA2_CONFIG["vocab_size"])
+    say(f"{label} tokenizer ({len(spec['model']['vocab'])} pieces,"
+        f" {len(spec['model']['merges'])} merges) built in {time.perf_counter() - t0:.3f} s;"
+        f" {BGE_GEMMA2_CONFIG['num_hidden_layers']} of its {BGE_GEMMA2_PUBLISHED_LAYERS}"
+        " layers")
+    out = hf_path(device, card, n_docs, label=label, index="bg2",
+                  write=lambda path: write_p21_checkpoint(path, BGE_GEMMA2_CONFIG, P21_SEED, spec),
+                  seed=P21_SEED, queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P21_TEXT,
+                  tokenizer="BPE", model_type="gemma2",
+                  checks=(bge_gemma2_long_check, left_pad_check))
+    out["err"] = max(out["err"], variants_err)
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 21 wall: {time.perf_counter() - t_phase:.3f} s")
     return out
 
 
@@ -3870,6 +4165,7 @@ def main() -> int:
     bert_families_phase(device, card, P18_DOCS)
     more_families_phase(device, card, P19_DOCS)
     moses_families_phase(device, card, P20_DOCS)
+    bge_gemma2_phase(device, card, P21_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

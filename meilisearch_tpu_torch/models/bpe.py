@@ -3,8 +3,9 @@
 a ModernBERT or Llama-3 one, `PreTrainedTokenizerFast`, and a Qwen2 or
 Qwen3 one, `Qwen2TokenizerFast`) and sentencepiece's with byte fallback
 (what transformers' `LlamaConverter` and `GemmaConverter` write: Llama-2's,
-Mistral's and e5-mistral's files, `LlamaTokenizerFast`, and Gemma's and
-EmbeddingGemma's, `GemmaTokenizerFast`).
+Mistral's, e5-mistral's and Phi-3's files, `LlamaTokenizerFast`, and
+Gemma's, bge-multilingual-gemma2's and EmbeddingGemma's,
+`GemmaTokenizerFast`).
 
 The JAX package tokenizes through `AutoTokenizer(texts, padding=True,
 truncation=True, max_length=max_len)`. This module reads the same files
@@ -26,9 +27,10 @@ and gives the same input ids and attention masks, on the host:
    `<mask>` given as a string `lstrip`; a Qwen2 class (`Qwen2Tokenizer`,
    the default of `qwen2` and `qwen3`) gives `Qwen2TokenizerFast`'s
    (`<|endoftext|>` as unk, eos and pad, no bos); a Llama class
-   (`LlamaTokenizer`, the default of `llama` and `mistral`) gives
+   (`LlamaTokenizer`, the default of `llama`, `mistral` and `phi3`) gives
    `LlamaTokenizerFast`'s (`<unk>`, `<s>`, `</s>`, no pad) and a Gemma
-   class (`GemmaTokenizer`, the default of `gemma3_text`)
+   class (`GemmaTokenizer`, the default of `gemma3_text`, `gemma2` and
+   `gemma`)
    `GemmaTokenizerFast`'s (`<unk>`, `<bos>`, `<eos>`, `<pad>`);
    `PreTrainedTokenizerFast` (the class of ModernBERT's and Llama-3's
    files, and `modernbert`'s default) adds only what the config names,
@@ -120,7 +122,9 @@ LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
 GEMMA_CLASSES = ("GemmaTokenizer", "GemmaTokenizerFast")
 _DEFAULT_CLASS = {"modernbert": "PreTrainedTokenizerFast", "qwen2": "Qwen2TokenizerFast",
                   "qwen3": "Qwen2TokenizerFast", "llama": "LlamaTokenizerFast",
-                  "mistral": "LlamaTokenizerFast", "gemma3_text": "GemmaTokenizerFast"}
+                  "mistral": "LlamaTokenizerFast", "phi3": "LlamaTokenizerFast",
+                  "gemma3_text": "GemmaTokenizerFast", "gemma2": "GemmaTokenizerFast",
+                  "gemma": "GemmaTokenizerFast"}
 # RobertaTokenizerFast's special tokens and their defaults
 _SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "sep_token": "</s>",
              "pad_token": "<pad>", "cls_token": "<s>", "mask_token": "<mask>"}

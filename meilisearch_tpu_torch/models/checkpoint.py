@@ -1,8 +1,8 @@
 """Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, CamemBERT,
 DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT,
 ALBERT, RoFormer, ModernBERT, DeBERTa-v2, MobileBERT, SqueezeBERT, XLM,
-FlauBERT, XLNet, Qwen3, Qwen2, Llama, Mistral or Gemma 3 checkpoint
-directory without transformers.
+FlauBERT, XLNet, Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2 or
+Gemma 3 checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -13,9 +13,9 @@ A directory as transformers' `save_pretrained` leaves it:
   which `build_model` gives to `ModernBertModel`,
   models/deberta_v2.py::CONFIG_KEYS for `deberta-v2`, which it gives to
   `DebertaV2Model`, and models/decoder.py::CONFIG_KEYS for `qwen3`,
-  `qwen2`, `llama` and `mistral`, which it gives to `DecoderModel`, and
-  models/gemma3.py::CONFIG_KEYS for `gemma3_text`, which it gives to
-  `Gemma3Model`; `mobilebert`, `squeezebert`, `xlm`, `flaubert` and
+  `qwen2`, `llama`, `mistral`, `gemma` and `phi3`, which it gives to
+  `DecoderModel`, and models/gemma3.py::CONFIG_KEYS for `gemma3_text` and
+  `gemma2`, which it gives to `Gemma3Model` and `Gemma2Model`; `mobilebert`, `squeezebert`, `xlm`, `flaubert` and
   `xlnet` configs, their config class's defaults filled in, to
   models/mobilebert.py's, models/squeezebert.py's, models/xlm.py's and
   models/xlnet.py's modules);
@@ -58,7 +58,8 @@ Checkpoint names map onto `BertModel`'s, `AlbertModel`'s,
 (BERT's, Megatron-BERT's and BertGeneration's), `roberta.` (RoBERTa's and
 CamemBERT's), `distilbert.`, `mpnet.`, `electra.`, `ernie.`, `rembert.`,
 `albert.`, `roformer.`, `deberta.`, `mobilebert.`, `model.` (ModernBERT's
-and the `*ForCausalLM` decoders', `Gemma3ForCausalLM`'s too) or
+and the `*ForCausalLM` decoders', `Gemma3ForCausalLM`'s, `Gemma2ForCausalLM`'s,
+`GemmaForCausalLM`'s and `Phi3ForCausalLM`'s too) or
 `transformer.` (SqueezeBERT's, XLM's, FlauBERT's and XLNet's; DistilBERT's
 `transformer.layer.N.` keeps it) prefix is dropped, so are the pooler,
 the pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
@@ -89,8 +90,8 @@ Megatron-BERT's `attention.ln.` and `ln.` are kept as they are.
 or `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
 `weight` (out, in), `scale` and `embedding` become `weight`. No Flax
 MPNet, CamemBERT, DeBERTa-v2, ERNIE, BertGeneration, RemBERT,
-Megatron-BERT, MobileBERT, SqueezeBERT, XLM, FlauBERT, XLNet, Qwen2, Qwen3 or
-Gemma 3 exists, and the JAX
+Megatron-BERT, MobileBERT, SqueezeBERT, XLM, FlauBERT, XLNet, Qwen2, Qwen3,
+Phi-3, Gemma 2 or Gemma 3 exists, and the JAX
 package reads ELECTRA (fault 3.16), RoFormer (fault 3.23) and Llama and
 Mistral (fault 3.17)
 through its torch branch: for those it holds a torch
@@ -113,6 +114,7 @@ from . import (
     bert,
     deberta_v2,
     decoder,
+    gemma2,
     gemma3,
     mobilebert,
     modernbert,
@@ -132,12 +134,14 @@ from .fixtures import (
     deberta_v2_tokenizer_config,
     gemma_tokenizer_config,
     llama3_tokenizer_config,
+    llama_tokenizer_config,
     modernbert_tokenizer_config,
     moses_tokenizer_config,
     mpnet_tokenizer_config,
     qwen2_tokenizer_config,
     xlnet_tokenizer_config,
 )
+from .gemma2 import Gemma2Model
 from .gemma3 import Gemma3Model
 from .mobilebert import MobileBertModel
 from .modernbert import ModernBertModel
@@ -250,7 +254,8 @@ def _to_mapping_in(name: str) -> str:
 _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
            albert.MODEL_TYPE: AlbertModel, roformer.MODEL_TYPE: RoFormerModel,
            **{kind: DecoderModel for kind in decoder.MODEL_TYPES},
-           gemma3.MODEL_TYPE: Gemma3Model, mobilebert.MODEL_TYPE: MobileBertModel,
+           gemma3.MODEL_TYPE: Gemma3Model, gemma2.MODEL_TYPE: Gemma2Model,
+           mobilebert.MODEL_TYPE: MobileBertModel,
            squeezebert.MODEL_TYPE: SqueezeBertModel, xlm.MODEL_TYPE: XLMModel,
            xlm.FLAUBERT_TYPE: XLMModel, xlnet.MODEL_TYPE: XLNetModel}
 # (`gemma3`, the multimodal model, is refused by models/gemma3.py by name)
@@ -258,6 +263,7 @@ _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check
            albert.MODEL_TYPE: albert.check_config, roformer.MODEL_TYPE: roformer.check_config,
            **{kind: decoder.check_config for kind in decoder.MODEL_TYPES},
            gemma3.MODEL_TYPE: gemma3.check_config, "gemma3": gemma3.check_config,
+           gemma2.MODEL_TYPE: gemma2.check_config,
            mobilebert.MODEL_TYPE: mobilebert.check_config,
            squeezebert.MODEL_TYPE: squeezebert.check_config, xlm.MODEL_TYPE: xlm.check_config,
            xlm.FLAUBERT_TYPE: xlm.check_config, xlnet.MODEL_TYPE: xlnet.check_config}
@@ -267,16 +273,18 @@ _OWN_DEFAULTS = (mobilebert.MODEL_TYPE, squeezebert.MODEL_TYPE, xlm.MODEL_TYPE,
 # model types whose checkpoints the port writes as model.safetensors: those
 # published so, and those that have no Flax class (the JAX package's
 # encoder reads either file through its torch branch)
-_SAFETENSORS = ("modernbert", *decoder.MODEL_TYPES, gemma3.MODEL_TYPE, *_OWN_DEFAULTS)
+_SAFETENSORS = ("modernbert", *decoder.MODEL_TYPES, gemma3.MODEL_TYPE, gemma2.MODEL_TYPE,
+                *_OWN_DEFAULTS)
 
 
 def check_config(config: dict) -> dict:
     """Raise ValueError unless the port runs `config`'s model: a
     `modernbert` config checked by models/modernbert.py, a `deberta-v2`
     one by models/deberta_v2.py, an `albert` one by models/albert.py, a
-    `roformer` one by models/roformer.py, a `qwen3`, `qwen2`, `llama` or
-    `mistral` one by models/decoder.py, a `gemma3_text` (or `gemma3`) one by
-    models/gemma3.py, any other by models/bert.py."""
+    `roformer` one by models/roformer.py, a `qwen3`, `qwen2`, `llama`,
+    `mistral`, `gemma` or `phi3` one by models/decoder.py, a `gemma3_text`
+    (or `gemma3`) one by models/gemma3.py, a `gemma2` one by
+    models/gemma2.py, any other by models/bert.py."""
     return _CHECKS.get(config.get("model_type"), bert.check_config)(config)
 
 
@@ -284,8 +292,8 @@ def new_model(config: dict):
     """The module that runs `config`'s model: `ModernBertModel` for
     `modernbert`, `DebertaV2Model` for `deberta-v2`, `AlbertModel` for
     `albert`, `RoFormerModel` for `roformer`, `DecoderModel` for
-    the decoders, `Gemma3Model` for `gemma3_text`, `BertModel` for the
-    other families."""
+    the decoders, `Gemma3Model` for `gemma3_text`, `Gemma2Model` for
+    `gemma2`, `BertModel` for the other families."""
     return _MODELS.get(config.get("model_type"), BertModel)(config)
 
 
@@ -544,9 +552,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     DebertaV2Model's for `albert`, `roformer` and `deberta-v2`; ELECTRA's
     there too, the one file the JAX package reads it from, fault 3.16),
     or for `modernbert`, the
-    decoders and `gemma3_text` as model.safetensors, the file their
-    checkpoints are published in (ModernBertModel's, DecoderModel's and
-    Gemma3Model's names), as for `mobilebert`, `squeezebert`, `xlm`,
+    decoders, `gemma3_text` and `gemma2` as model.safetensors, the file their
+    checkpoints are published in (ModernBertModel's, DecoderModel's,
+    Gemma3Model's and Gemma2Model's names), as for `mobilebert`, `squeezebert`, `xlm`,
     `flaubert` and `xlnet`, which have no Flax class (their modules' names, no prefix),
     and
     tokenizer_config.json (`tokenizer_config` as given, else:), with either
@@ -561,8 +569,10 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     config, a BPE one with its own specials and `PreTrainedTokenizerFast`'s
     config, fixtures.modernbert_tokenizer_config; for `qwen3` and `qwen2`
     Qwen2Tokenizer's, fixtures.qwen2_tokenizer_config, for `llama` and
-    `mistral` Llama-3's, fixtures.llama3_tokenizer_config, and for
-    `gemma3_text` GemmaTokenizer's, fixtures.gemma_tokenizer_config), or
+    `mistral` Llama-3's, fixtures.llama3_tokenizer_config, for `phi3`
+    LlamaTokenizer's, fixtures.llama_tokenizer_config, and for
+    `gemma3_text`, `gemma2` and `gemma` GemmaTokenizer's,
+    fixtures.gemma_tokenizer_config), or
     `moses`, (vocab.json's dict, merges.txt's text), with XLMTokenizer's
     tokenizer_config.json (FlaubertTokenizer's for `flaubert`,
     fixtures.moses_tokenizer_config)."""
@@ -574,7 +584,7 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     if rename is not None:
         state_dict = {rename(k): v for k, v in state_dict.items()}
     if model_type not in ("distilbert", "modernbert", albert.MODEL_TYPE, *decoder.MODEL_TYPES,
-                          gemma3.MODEL_TYPE, *_OWN_DEFAULTS):
+                          gemma3.MODEL_TYPE, gemma2.MODEL_TYPE, *_OWN_DEFAULTS):
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
@@ -601,7 +611,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                "deberta-v2": deberta_v2_tokenizer_config, "qwen3": qwen2_tokenizer_config,
                "qwen2": qwen2_tokenizer_config, "llama": llama3_tokenizer_config,
                "mistral": llama3_tokenizer_config,
+               "phi3": llama_tokenizer_config, "gemma": gemma_tokenizer_config,
                gemma3.MODEL_TYPE: gemma_tokenizer_config,
+               gemma2.MODEL_TYPE: gemma_tokenizer_config,
                xlnet.MODEL_TYPE: xlnet_tokenizer_config}.get(model_type)
         if own is not None:
             tok_config = own(tokenizer_json)

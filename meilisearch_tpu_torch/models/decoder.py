@@ -1,34 +1,43 @@
 """The decoder embedders' forward as one torch module (the port's K8 for
-`model_type` `qwen3`, `qwen2`, `llama` and `mistral`: Qwen3-Embedding,
-gte-Qwen2, Llama and e5-mistral).
+`model_type` `qwen3`, `qwen2`, `llama`, `mistral`, `gemma` and `phi3`:
+Qwen3-Embedding, gte-Qwen2, Llama, e5-mistral, Gemma and Phi-3).
 
 It computes what transformers' torch `Qwen3Model`, `Qwen2Model`,
-`LlamaModel` and `MistralModel` compute under their default attention
-(`sdpa`) on a padded batch with no cache, the models the JAX package's
-encoder (`models/hf_encoder.py` there) runs through its torch branch. It
-returns the last hidden state (pooling stays in models/hf_encoder.py):
+`LlamaModel`, `MistralModel`, `GemmaModel` and `Phi3Model` compute under
+their default attention (`sdpa`) on a padded batch with no cache, the
+models the JAX package's encoder (`models/hf_encoder.py` there) runs
+through its torch branch. It returns the last hidden state (pooling
+stays in models/hf_encoder.py):
 
-- `embed_tokens`; no position embedding;
+- `embed_tokens`; no position embedding; for `gemma` times
+  `hidden_size ** 0.5` rounded to float32 (`GemmaModel`'s normalizer);
 - each layer, pre-norm: `input_layernorm`, an RMSNorm (the mean square in
-  float32, `x * rsqrt(ms + eps)`, then the weight times that); `q_proj`,
-  `k_proj`, `v_proj` to `num_attention_heads` and `num_key_value_heads`
-  heads of `head_dim` (the config's, else hidden_size / heads: Qwen3-0.6B
-  has 16 heads of 128 on a 1024-wide model); biases on Q, K and V for
-  `qwen2` always, for `qwen3` and `llama` under `attention_bias` (on
-  `o_proj` too), for `mistral` never; for `qwen3` a per-head RMSNorm
-  (`q_norm`, `k_norm`) over head_dim before the rotary; rotary positions
-  on Q and K (models/rope.py's tables for the config's `rope_scaling`:
-  `default`, `linear`, `dynamic`, `yarn`, `llama3` or `longrope`, at
-  `rope_theta`, positions 0..L-1 in every row as transformers gives them
-  when no position ids are passed, left-padded rows included); K and V
-  repeated over `num_attention_heads // num_key_value_heads` (each KV
-  head serves its group of consecutive query heads, transformers'
-  `repeat_kv`); scores (Q K^T) times `head_dim ** -0.5` as a float32
-  tensor on the device (fault 3.4), softmax, times V; `o_proj`; the
-  residual; `post_attention_layernorm`,
+  float32, `x * rsqrt(ms + eps)`, then the weight times that; Gemma's
+  times `1 + w`, its weights starting at 0); `q_proj`, `k_proj`,
+  `v_proj` to `num_attention_heads` and `num_key_value_heads` heads of
+  `head_dim` (the config's, else hidden_size / heads: Qwen3-0.6B has 16
+  heads of 128 on a 1024-wide model, gemma-7b 16 of 256 on 3,072); for
+  `phi3` one fused `qkv_proj`, split as `Phi3Attention` splits it (Q's
+  heads x head_dim, then K's, then V's); biases on Q, K and V for `qwen2`
+  always, for `qwen3`, `llama` and `gemma` under `attention_bias` (on
+  `o_proj` too), for `mistral` and `phi3` never; for `qwen3` a per-head
+  RMSNorm (`q_norm`, `k_norm`) over head_dim before the rotary; rotary
+  positions on Q and K (models/rope.py's tables for the config's
+  `rope_scaling`: `default`, `linear`, `dynamic`, `yarn`, `llama3` or
+  `longrope`, at `rope_theta`, positions 0..L-1 in every row as
+  transformers gives them when no position ids are passed, left-padded
+  rows included; for `phi3` over the first `int(head_dim *
+  partial_rotary_factor)` channels of each head, the rest passed
+  through); K and V repeated over `num_attention_heads //
+  num_key_value_heads` (each KV head serves its group of consecutive
+  query heads, transformers' `repeat_kv`); scores (Q K^T) times
+  `head_dim ** -0.5` as a float32 tensor on the device (fault 3.4),
+  softmax, times V; `o_proj`; the residual; `post_attention_layernorm`,
   `down_proj(act(gate_proj(x)) * up_proj(x))` (`hidden_act`, one of
-  models/activations.py's; biases on the three under Llama's `mlp_bias`,
-  which Qwen2's, Qwen3's and Mistral's MLPs do not read), the residual;
+  models/activations.py's, for `gemma` too, whose `hidden_activation`
+  nothing reads; biases on the three under Llama's `mlp_bias`, which the
+  other families' MLPs do not read; for `phi3` one fused `gate_up_proj`,
+  its first half the gate, `Phi3MLP`'s `chunk(2)`), the residual;
 - the final `norm`.
 
 Key j is visible to query i iff j <= i and j is a real token; in a
@@ -38,12 +47,12 @@ family's:
   `use_sliding_window`; `layer_types` is the config's, or, as
   `Qwen2Config`/`Qwen3Config` derive it, layer i sliding iff there is a
   window and i >= `max_window_layers`;
-- `mistral`: every layer slides when `sliding_window` is set (of any
-  size), none when it is null;
-- `llama`: no layer slides.
+- `mistral`, `phi3`: every layer slides when `sliding_window` is set (of
+  any size), none when it is null;
+- `llama`, `gemma`: no layer slides.
 Where a `sliding_attention` layer has no window, transformers raises
-(Qwen's mask, Llama's and Mistral's cache), and the port refuses the
-config by name.
+(Qwen's mask, the others' cache), and the port refuses the config by
+name.
 
 The mask replaces the scores of the keys a query does not see with
 float32's lowest, never adds to them; a query with no visible key (a
@@ -56,7 +65,14 @@ softmax, not `scaled_dot_product_attention`, which picks its own kernels
 and rounding.
 
 Refused by name, as transformers raises on each: `partial_rotary_factor`
-(its rotary tables do not fit the head), Mistral's `dynamic`, `yarn` and
+for every family but `phi3` (their rotary tables do not fit the head),
+and for `phi3` one whose tables are wider than the head (an odd rotated
+width w runs as transformers runs it: w's frequencies, over w + 1
+channels; a width of 0 rotates nothing);
+Phi-3's `rope_scaling` other than the three fields `Phi3Config`
+validates (`type` `longrope`, or `su` or `yarn`, which it renames so,
+`short_factor` and `long_factor` of `int(hidden_size / heads *
+partial_rotary_factor) // 2` numbers); Mistral's `dynamic`, `yarn` and
 `longrope` without a `head_dim` (those tables read the None its config
 stores), a `rope_scaling` models/rope.py refuses, and an activation
 models/activations.py does not run.
@@ -64,10 +80,13 @@ models/activations.py does not run.
 Parameter names are transformers' (`embed_tokens.weight`,
 `layers.{i}.input_layernorm.weight`,
 `layers.{i}.self_attn.{q,k,v,o}_proj.{weight,bias}`,
+`layers.{i}.self_attn.qkv_proj.weight`,
 `layers.{i}.self_attn.{q,k}_norm.weight`,
 `layers.{i}.post_attention_layernorm.weight`,
-`layers.{i}.mlp.{gate,up,down}_proj.{weight,bias}`, `norm.weight`), so a
-checkpoint's tensors load by name (models/checkpoint.py).
+`layers.{i}.mlp.{gate,up,down}_proj.{weight,bias}`,
+`layers.{i}.mlp.gate_up_proj.weight`, `norm.weight`), so a checkpoint's
+tensors load by name (models/checkpoint.py; Phi-3's fused projections
+stay fused, at the reference's product shapes).
 
 Everything runs in float32. On a CUDA device the forward raises when
 `torch.backends.cuda.matmul.allow_tf32` is set, as models/bert.py does.
@@ -83,7 +102,7 @@ from torch import nn
 from .activations import activation
 from .rope import READS_STORED_HEAD_DIM, Rope, rope_type, rotate_half
 
-MODEL_TYPES = ("qwen3", "qwen2", "llama", "mistral")
+MODEL_TYPES = ("qwen3", "qwen2", "llama", "mistral", "gemma", "phi3")
 LAYER_TYPES = ("full_attention", "sliding_attention")
 # the widths a config must give (transformers' config names)
 CONFIG_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
@@ -100,7 +119,16 @@ DEFAULTS = {
     "llama": {**_COMMON, "max_position_embeddings": 2048},
     "mistral": {**_COMMON, "num_key_value_heads": 8, "max_position_embeddings": 131_072,
                 "sliding_window": 4096},
+    "gemma": {**_COMMON, "hidden_act": "gelu_pytorch_tanh", "num_key_value_heads": 16,
+              "head_dim": 256, "max_position_embeddings": 8192},
+    "phi3": {**_COMMON, "rms_norm_eps": 1e-5, "max_position_embeddings": 4096,
+             "original_max_position_embeddings": 4096, "partial_rotary_factor": 1.0,
+             "sliding_window": None},
 }
+# families whose every layer slides when the config has a window
+_ALWAYS_SLIDING = ("mistral", "phi3")
+# the rope types Phi3Config renames to `longrope`
+_PHI3_LONGROPE = ("longrope", "su", "yarn")
 
 
 def layer_types(kind: str, config: dict) -> tuple:
@@ -121,13 +149,13 @@ def layer_types(kind: str, config: dict) -> tuple:
                              " sliding_window only under use_sliding_window, and transformers"
                              " raises on such a config")
         return types, window
-    # Llama's and Mistral's attention reads no layer_types (a Mistral window
-    # slides in every layer), but transformers' cache does, and raises on a
-    # sliding entry with no sliding_window
+    # the other families' attention reads no layer_types (a Mistral or
+    # Phi-3 window slides in every layer), but transformers' cache does,
+    # and raises on a sliding entry with no sliding_window
     if "sliding_attention" in (given or ()) and config.get("sliding_window") is None:
         raise ValueError(f"layer_types {given} slide with no sliding_window: transformers raises"
                          f" on such a {kind} config")
-    window = config["sliding_window"] if kind == "mistral" else None
+    window = config["sliding_window"] if kind in _ALWAYS_SLIDING else None
     return [LAYER_TYPES[window is not None]] * n, window
 
 
@@ -144,9 +172,11 @@ def check_config(config: dict) -> dict:
     if missing:
         raise ValueError(f"the {kind} config lacks {missing}")
     activation(config["hidden_act"])
-    if config.get("partial_rotary_factor", 1.0) != 1.0:
-        raise ValueError("partial_rotary_factor is not supported: the port rotates the whole"
-                         " head, and transformers' rotary for these families raises on it")
+    factor = config.get("partial_rotary_factor", 1.0)
+    if kind != "phi3" and factor != 1.0:
+        raise ValueError(f"partial_rotary_factor is not supported for {kind}: the port rotates"
+                         " the whole head, and transformers' rotary for this family raises on"
+                         " it")
     heads = config["num_attention_heads"]
     kv = config["num_key_value_heads"] or heads
     if heads % kv:
@@ -160,12 +190,53 @@ def check_config(config: dict) -> dict:
                          " config without head_dim: transformers' tables read the None"
                          " MistralConfig stores, and raise")
     head_dim = config["head_dim"] or config["hidden_size"] // heads
-    if head_dim % 2:
-        raise ValueError(f"head_dim {head_dim} is odd: the rotary embedding needs pairs")
-    Rope.from_config(config, float(config["rope_theta"]), head_dim)
+    # the tables hold the rotated width's frequencies twice over, so an odd
+    # width rotates one channel more (Phi-3 runs that); a whole odd head
+    # has no channel to spare
+    rotary_dim = int(head_dim * factor)
+    if rotary_dim + rotary_dim % 2 > head_dim:
+        raise ValueError(f"head_dim {head_dim} does not hold the rotary tables' "
+                         f"{rotary_dim + rotary_dim % 2} channels (partial_rotary_factor"
+                         f" {factor}): transformers' rotary raises on it")
+    if kind == "phi3":
+        config = {**config, "rope_scaling": phi3_rope_scaling(config)}
+    Rope.from_config(config, float(config["rope_theta"]), rotary_dim)
     types, window = layer_types(kind, config)
-    return {**config, "num_key_value_heads": kv, "head_dim": head_dim, "layer_types": types,
-            "window": window}
+    return {**config, "num_key_value_heads": kv, "head_dim": head_dim,
+            "rotary_dim": rotary_dim, "layer_types": types, "window": window}
+
+
+def phi3_rope_scaling(config: dict) -> Optional[dict]:
+    """A Phi-3 config's `rope_scaling` as models/rope.py reads it (None, or
+    `longrope` with its two factor lists), after `Phi3Config`'s own
+    checks: None, or exactly `type`, `short_factor` and `long_factor`,
+    `type` `longrope` (`su` and `yarn` renamed so), each list
+    `int(hidden_size // heads * partial_rotary_factor) // 2` numbers long.
+    Anything else raises ValueError, as `Phi3Config` does."""
+    scaling = config["rope_scaling"]
+    if scaling is None:
+        return None
+    if not isinstance(scaling, dict) or len(scaling) != 3 \
+            or scaling.get("type") not in _PHI3_LONGROPE:
+        raise ValueError(f"rope_scaling {scaling} is not supported for phi3: Phi3Config takes"
+                         " only the three fields `type` (longrope), `short_factor` and"
+                         " `long_factor`, and raises")
+    rotated = int(config["hidden_size"] // config["num_attention_heads"]
+                  * config["partial_rotary_factor"])
+    for key in ("short_factor", "long_factor"):
+        value = scaling.get(key)
+        if not (isinstance(value, list) and all(isinstance(x, (int, float)) for x in value)
+                and len(value) == rotated // 2):
+            raise ValueError(f"rope_scaling's {key} is not a list of {rotated // 2} numbers:"
+                             " Phi3Config raises")
+    return {"rope_type": "longrope", "short_factor": scaling["short_factor"],
+            "long_factor": scaling["long_factor"]}
+
+
+def embed_scale(hidden: int, device: torch.device) -> torch.Tensor:
+    """hidden ** 0.5 rounded to float32 on `device`: Gemma's normalizer, as
+    `GemmaModel` computes it and Gemma3TextScaledWordEmbedding stores it."""
+    return torch.full((), hidden ** 0.5, dtype=torch.float32, device=device)
 
 
 def attention_scale(head_dim: float, device: torch.device) -> torch.Tensor:
@@ -207,19 +278,48 @@ class RMSNorm(nn.Module):
         return self.weight * (x * torch.rsqrt(variance + self.eps))
 
 
+class GemmaRMSNorm(nn.Module):
+    """Gemma's RMSNorm: x * rsqrt(mean(x^2) + eps) * (1 + w), w from 0."""
+
+    def __init__(self, width: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(width))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        normed = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps)
+        return normed * (1.0 + self.weight)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotary positions on the first cos.shape[-1] channels of x, the rest
+    passed through (transformers' `apply_rotary_pos_emb`; Phi-3's partial
+    rotary)."""
+    rotated = cos.shape[-1]
+    if rotated == x.shape[-1]:
+        return x * cos + rotate_half(x) * sin
+    x_rot, x_pass = x[..., :rotated], x[..., rotated:]
+    return torch.cat((x_rot * cos + rotate_half(x_rot) * sin, x_pass), dim=-1)
+
+
 class Attention(nn.Module):
     """Grouped-query attention with rotary positions under a replacing
     mask (biases on Q/K/V and on O as given; `norm`: the class of the
-    per-head Q/K norm, None for none). Gemma 3's stack uses it too."""
+    per-head Q/K norm, None for none; `fused`: Phi-3's one `qkv_proj`).
+    Gemma 3's and Gemma 2's stacks use it too."""
 
-    def __init__(self, c: dict, qkv_bias: bool, o_bias: bool, norm=None):
+    def __init__(self, c: dict, qkv_bias: bool, o_bias: bool, norm=None, fused: bool = False):
         super().__init__()
         h, d = c["hidden_size"], c["head_dim"]
         self.heads, self.kv_heads, self.head_dim = (c["num_attention_heads"],
                                                     c["num_key_value_heads"], d)
-        self.q_proj = nn.Linear(h, self.heads * d, bias=qkv_bias)
-        self.k_proj = nn.Linear(h, self.kv_heads * d, bias=qkv_bias)
-        self.v_proj = nn.Linear(h, self.kv_heads * d, bias=qkv_bias)
+        self.fused = fused
+        if fused:
+            self.qkv_proj = nn.Linear(h, (self.heads + 2 * self.kv_heads) * d, bias=qkv_bias)
+        else:
+            self.q_proj = nn.Linear(h, self.heads * d, bias=qkv_bias)
+            self.k_proj = nn.Linear(h, self.kv_heads * d, bias=qkv_bias)
+            self.v_proj = nn.Linear(h, self.kv_heads * d, bias=qkv_bias)
         self.o_proj = nn.Linear(self.heads * d, h, bias=o_bias)
         self.qk_norm = norm is not None
         if self.qk_norm:
@@ -229,14 +329,19 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         B, L, _ = x.shape
-        q = self.q_proj(x).view(B, L, self.heads, self.head_dim)
-        k = self.k_proj(x).view(B, L, self.kv_heads, self.head_dim)
-        v = self.v_proj(x).view(B, L, self.kv_heads, self.head_dim).transpose(1, 2)
+        d = self.head_dim
+        if self.fused:
+            q, k, v = self.qkv_proj(x).split(
+                (self.heads * d, self.kv_heads * d, self.kv_heads * d), dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = q.view(B, L, self.heads, d)
+        k = k.view(B, L, self.kv_heads, d)
+        v = v.view(B, L, self.kv_heads, d).transpose(1, 2)
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         q, k = q.transpose(1, 2), k.transpose(1, 2)  # (B, heads, L, d)
-        q = q * cos + rotate_half(q) * sin
-        k = k * cos + rotate_half(k) * sin
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         groups = self.heads // self.kv_heads
         if groups > 1:
             k = k.repeat_interleave(groups, dim=1)
@@ -264,17 +369,35 @@ class GatedMLP(nn.Module):
         return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
 
 
+class FusedGatedMLP(nn.Module):
+    """Phi-3's MLP: gate, up = gate_up_proj(x).chunk(2), then
+    down(up * act(gate)), no biases."""
+
+    def __init__(self, c: dict, act):
+        super().__init__()
+        h, i = c["hidden_size"], c["intermediate_size"]
+        self.gate_up_proj = nn.Linear(h, 2 * i, bias=False)
+        self.down_proj = nn.Linear(i, h, bias=False)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
+        return self.down_proj(up * self.act(gate))
+
+
 class _Layer(nn.Module):
     def __init__(self, c: dict):
         super().__init__()
         h, eps, kind = c["hidden_size"], c["rms_norm_eps"], c["model_type"]
-        qkv_bias = kind == "qwen2" or (kind in ("qwen3", "llama") and c["attention_bias"])
-        o_bias = kind in ("qwen3", "llama") and c["attention_bias"]
-        self.input_layernorm = RMSNorm(h, eps)
-        self.self_attn = Attention(c, qkv_bias, o_bias, RMSNorm if kind == "qwen3" else None)
-        self.post_attention_layernorm = RMSNorm(h, eps)
-        self.mlp = GatedMLP(c, activation(c["hidden_act"]),
-                            bias=kind == "llama" and c["mlp_bias"])
+        biased = kind in ("qwen3", "llama", "gemma") and c["attention_bias"]
+        norm = GemmaRMSNorm if kind == "gemma" else RMSNorm
+        act = activation(c["hidden_act"])
+        self.input_layernorm = norm(h, eps)
+        self.self_attn = Attention(c, kind == "qwen2" or biased, biased,
+                                   RMSNorm if kind == "qwen3" else None, fused=kind == "phi3")
+        self.post_attention_layernorm = norm(h, eps)
+        self.mlp = (FusedGatedMLP(c, act) if kind == "phi3" else
+                    GatedMLP(c, act, bias=kind == "llama" and c["mlp_bias"]))
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -283,18 +406,19 @@ class _Layer(nn.Module):
 
 
 class DecoderModel(nn.Module):
-    """A Qwen3, Qwen2, Llama or Mistral decoder stack, widths from a
-    transformers-style config dict (`config` holds its config's names,
-    defaults filled in; `rope`, its rotary embedding)."""
+    """A Qwen3, Qwen2, Llama, Mistral, Gemma or Phi-3 decoder stack, widths
+    from a transformers-style config dict (`config` holds its config's
+    names, defaults filled in; `rope`, its rotary embedding)."""
 
     def __init__(self, config: dict):
         super().__init__()
         config = check_config(config)
         self.config = config
-        self.rope = Rope.from_config(config, float(config["rope_theta"]), config["head_dim"])
+        self.rope = Rope.from_config(config, float(config["rope_theta"]), config["rotary_dim"])
         self.embed_tokens = nn.Embedding(config["vocab_size"], config["hidden_size"])
         self.layers = nn.ModuleList(_Layer(config) for _ in range(config["num_hidden_layers"]))
-        self.norm = RMSNorm(config["hidden_size"], config["rms_norm_eps"])
+        norm = GemmaRMSNorm if config["model_type"] == "gemma" else RMSNorm
+        self.norm = norm(config["hidden_size"], config["rms_norm_eps"])
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """(B, L) int64 ids and 0/1 mask -> (B, L, hidden) float32, the
@@ -306,6 +430,8 @@ class DecoderModel(nn.Module):
             )
         c = self.config
         x = self.embed_tokens(input_ids)
+        if c["model_type"] == "gemma":
+            x = x * embed_scale(c["hidden_size"], x.device)
         cos, sin = self.rope.tables(input_ids.shape[1], x.device)
         blocked = {"full_attention": blocked_keys(attention_mask, causal=True)}
         if c["window"] is not None:

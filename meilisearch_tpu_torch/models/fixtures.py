@@ -19,7 +19,9 @@ and Llama-3's layouts (their Split pre-tokenizers) with
 `llama_tokenizer_json` and `gemma_tokenizer_json` seeded sentencepiece
 BPEs with byte fallback as transformers' Llama converter (legacy or
 Metaspace) and Gemma converter write them, with `llama_tokenizer_config`
-and `gemma_tokenizer_config`, and `mpnet_vocab`
+and `gemma_tokenizer_config` (`phi3_tokenizer_json` and
+`phi3_tokenizer_config` add Phi-3's chat tokens after Llama-2's
+pieces), and `mpnet_vocab`
 and `mpnet_tokenizer_config` an MPNet WordPiece vocabulary and the
 tokenizer_config.json `MPNetTokenizerFast.save_pretrained` writes beside
 it. No serving path calls them.
@@ -781,6 +783,38 @@ def llama_tokenizer_config(spec: dict, pad_token: Optional[str] = "</s>",
         if value is not None:
             config[key] = value
     return config
+
+
+# Phi-3's added tokens after Llama-2's 32,000 pieces, from id 32,000 (its
+# config's vocab_size, 32,064, leaves the rest of the embedding unused);
+# the chat markers take the whitespace after them
+PHI3_ADDED = ("<|endoftext|>", "<|assistant|>", "<|placeholder1|>", "<|placeholder2|>",
+              "<|placeholder3|>", "<|placeholder4|>", "<|system|>", "<|end|>",
+              "<|placeholder5|>", "<|placeholder6|>", "<|user|>")
+
+
+def phi3_tokenizer_json(texts: list, vocab_size: int, seed: int,
+                        n_trained: int = 4096) -> dict:
+    """`llama_tokenizer_json`'s legacy layout (`vocab_size` pieces) with
+    PHI3_ADDED appended as special added tokens from id `vocab_size` on,
+    all but `<|endoftext|>` with `rstrip`, outside the model's
+    vocabulary, as Phi-3's tokenizer.json holds them (texts that would
+    train one of them into the vocabulary raise ValueError: `tokenizers`
+    would give it the vocabulary's id)."""
+    spec = llama_tokenizer_json(texts, vocab_size, seed, n_trained=n_trained)
+    inside = [t for t in PHI3_ADDED if t in spec["model"]["vocab"]]
+    if inside:
+        raise ValueError(f"the training texts made {inside} pieces of the vocabulary")
+    spec["added_tokens"] += [{**tok, "rstrip": tok["content"] != PHI3_ADDED[0]}
+                             for tok in _added(enumerate(PHI3_ADDED, vocab_size))]
+    return spec
+
+
+def phi3_tokenizer_config(spec: dict, padding_side: Optional[str] = None) -> dict:
+    """`llama_tokenizer_config` for such a tokenizer.json with Phi-3's eos
+    and pad, `<|endoftext|>`, and `padding_side` where given."""
+    return {**llama_tokenizer_config(spec, pad_token=PHI3_ADDED[0], padding_side=padding_side),
+            "eos_token": PHI3_ADDED[0]}
 
 
 # Gemma's sentencepiece pieces open with these (unk at 3); then its

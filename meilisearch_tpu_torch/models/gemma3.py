@@ -78,7 +78,8 @@ import torch
 from torch import nn
 
 from .activations import activation
-from .decoder import Attention, GatedMLP, attention_scale, blocked_keys
+from .decoder import Attention, GatedMLP, attention_scale, blocked_keys, embed_scale
+from .decoder import GemmaRMSNorm as RMSNorm
 from .rope import Rope
 
 MODEL_TYPE = "gemma3_text"
@@ -95,42 +96,34 @@ DEFAULTS = {"num_key_value_heads": 4, "head_dim": 256, "hidden_activation": "gel
             "sliding_window_pattern": 6, "max_position_embeddings": 131_072}
 
 
-def check_config(config: dict) -> dict:
-    """Raise ValueError unless `config` describes a Gemma 3 text stack this
-    module runs; return it with Gemma3TextConfig's defaults filled in,
-    `layer_types` derived where it is missing, and `window`, the sliding
-    layers' reach as transformers' config object holds it."""
-    kind = config.get("model_type")
-    if kind == "gemma3":
-        raise ValueError("model_type `gemma3` (Gemma3ForConditionalGeneration, text and vision)"
-                         " is not supported: the port runs `gemma3_text`")
-    if kind != MODEL_TYPE:
-        raise ValueError(f"model_type `{kind}` is not {MODEL_TYPE}")
-    config = {**DEFAULTS, **config}
+def check_stack(config: dict, defaults: dict, derived_types) -> dict:
+    """The checks Gemma 3's and Gemma 2's stacks share (ValueError on a
+    failed one): `config` with `defaults` filled in has the widths, a
+    `hidden_activation` models/activations.py runs, no
+    `partial_rotary_factor` (transformers' rotary raises on it), layer
+    types of LAYER_TYPES (`derived_types(config)` where it names none), a
+    window for sliding layers, whole KV groups, an even head_dim and a
+    rotary models/rope.py computes. Returns it with `num_key_value_heads`
+    resolved and `layer_types` and `window` set."""
+    kind = config["model_type"]
+    config = {**defaults, **config}
     missing = [k for k in CONFIG_KEYS if k not in config]
     if missing:
         raise ValueError(f"the {kind} config lacks {missing}")
     activation(config["hidden_activation"], "hidden_activation")
-    scaling = config["rope_scaling"]
-    if scaling is not None and "type" in scaling and "rope_type" not in scaling:
-        raise ValueError(f"rope_scaling {scaling} names its type under `type` only:"
-                         " Gemma3TextConfig's validation requires `rope_type`, and raises")
     if config.get("partial_rotary_factor", 1.0) != 1.0:
         raise ValueError("partial_rotary_factor is not supported: the port rotates the whole"
-                         " head, and transformers' rotary for gemma3_text raises on it")
+                         f" head, and transformers' rotary for {kind} raises on it")
     layers = config["num_hidden_layers"]
     types = config["layer_types"]
     if types is None:
-        pattern = config["sliding_window_pattern"]
-        types = [LAYER_TYPES[(i + 1) % pattern == 0] for i in range(layers)]
+        types = derived_types(config)
     if len(types) != layers or any(t not in LAYER_TYPES for t in types):
         raise ValueError(f"layer_types {types} are not supported: the port runs {layers} of"
                          f" {LAYER_TYPES}")
     window = config["sliding_window"]
     if "sliding_attention" in types and not isinstance(window, int):
         raise ValueError(f"sliding_window {window!r} is not a number of tokens")
-    if window is not None and config["use_bidirectional_attention"]:
-        window = window // 2 + 1  # as Gemma3TextConfig builds it
     heads = config["num_attention_heads"]
     kv = config["num_key_value_heads"] or heads
     if heads % kv:
@@ -143,32 +136,38 @@ def check_config(config: dict) -> dict:
     return {**config, "num_key_value_heads": kv, "layer_types": list(types), "window": window}
 
 
-def embed_scale(hidden: int, device: torch.device) -> torch.Tensor:
-    """hidden ** 0.5 rounded to float32, as Gemma3TextScaledWordEmbedding
-    stores it, on `device`."""
-    return torch.full((), hidden ** 0.5, dtype=torch.float32, device=device)
-
-
-class RMSNorm(nn.Module):
-    """Gemma's RMSNorm: x * rsqrt(mean(x^2) + eps) * (1 + w), w from 0."""
-
-    def __init__(self, width: int, eps: float):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros(width))
-        self.eps = eps
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        normed = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps)
-        return normed * (1.0 + self.weight)
+def check_config(config: dict) -> dict:
+    """Raise ValueError unless `config` describes a Gemma 3 text stack this
+    module runs; return it with Gemma3TextConfig's defaults filled in,
+    `layer_types` derived where it is missing, `window`, the sliding
+    layers' reach as transformers' config object holds it, and `causal`."""
+    kind = config.get("model_type")
+    if kind == "gemma3":
+        raise ValueError("model_type `gemma3` (Gemma3ForConditionalGeneration, text and vision)"
+                         " is not supported: the port runs `gemma3_text`")
+    if kind != MODEL_TYPE:
+        raise ValueError(f"model_type `{kind}` is not {MODEL_TYPE}")
+    scaling = config.get("rope_scaling")
+    if scaling is not None and "type" in scaling and "rope_type" not in scaling:
+        raise ValueError(f"rope_scaling {scaling} names its type under `type` only:"
+                         " Gemma3TextConfig's validation requires `rope_type`, and raises")
+    config = check_stack(config, DEFAULTS, lambda c: [
+        LAYER_TYPES[(i + 1) % c["sliding_window_pattern"] == 0]
+        for i in range(c["num_hidden_layers"])])
+    window = config["window"]
+    if window is not None and config["use_bidirectional_attention"]:
+        window = window // 2 + 1  # as Gemma3TextConfig builds it
+    return {**config, "window": window, "causal": not config["use_bidirectional_attention"]}
 
 
 class _Layer(nn.Module):
-    def __init__(self, c: dict, layer: int):
+    def __init__(self, c: dict, layer: int, qk_norm: bool):
         super().__init__()
         h, eps = c["hidden_size"], c["rms_norm_eps"]
         self.sliding = c["layer_types"][layer] == "sliding_attention"
         self.input_layernorm = RMSNorm(h, eps)
-        self.self_attn = Attention(c, c["attention_bias"], c["attention_bias"], RMSNorm)
+        self.self_attn = Attention(c, c["attention_bias"], c["attention_bias"],
+                                   RMSNorm if qk_norm else None)
         self.post_attention_layernorm = RMSNorm(h, eps)
         self.pre_feedforward_layernorm = RMSNorm(h, eps)
         self.mlp = GatedMLP(c, activation(c["hidden_activation"]))
@@ -181,21 +180,19 @@ class _Layer(nn.Module):
         return x + self.post_feedforward_layernorm(self.mlp(self.pre_feedforward_layernorm(x)))
 
 
-class Gemma3Model(nn.Module):
-    """A Gemma 3 text stack, widths from a transformers-style config dict
-    (`config` holds Gemma3TextConfig's names, defaults filled in;
-    `rope` and `local_rope`, the full and sliding layers' rotary
-    embeddings)."""
+class GemmaStack(nn.Module):
+    """The Gemma 3 and Gemma 2 text stacks' shared module, from a checked
+    config (`qk_norm`: whether Q and K are normed per head; `local_rope`:
+    the sliding layers' rotary embedding, None for `rope`)."""
 
-    def __init__(self, config: dict):
+    def __init__(self, config: dict, qk_norm: bool, local_rope=None):
         super().__init__()
-        config = check_config(config)
         self.config = config
-        d = config["head_dim"]
-        self.rope = Rope.from_config(config, float(config["rope_theta"]), d)
-        self.local_rope = Rope("default", float(config["rope_local_base_freq"]), d)
+        self.rope = Rope.from_config(config, float(config["rope_theta"]), config["head_dim"])
+        self.local_rope = self.rope if local_rope is None else local_rope
         self.embed_tokens = nn.Embedding(config["vocab_size"], config["hidden_size"])
-        self.layers = nn.ModuleList(_Layer(config, i) for i in range(config["num_hidden_layers"]))
+        self.layers = nn.ModuleList(_Layer(config, i, qk_norm)
+                                    for i in range(config["num_hidden_layers"]))
         self.norm = RMSNorm(config["hidden_size"], config["rms_norm_eps"])
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
@@ -209,11 +206,22 @@ class Gemma3Model(nn.Module):
         c = self.config
         L, device = input_ids.shape[1], input_ids.device
         x = self.embed_tokens(input_ids) * embed_scale(c["hidden_size"], device)
-        causal = not c["use_bidirectional_attention"]
-        full = (blocked_keys(attention_mask, causal=causal), *self.rope.tables(L, device))
-        sliding = (blocked_keys(attention_mask, causal=causal, window=c["window"]),
+        full = (blocked_keys(attention_mask, causal=c["causal"]), *self.rope.tables(L, device))
+        sliding = (blocked_keys(attention_mask, causal=c["causal"], window=c["window"]),
                    *self.local_rope.tables(L, device))
         scale = attention_scale(c["query_pre_attn_scalar"], device)
         for layer in self.layers:
             x = layer(x, *(sliding if layer.sliding else full), scale)
         return self.norm(x)
+
+
+class Gemma3Model(GemmaStack):
+    """A Gemma 3 text stack, widths from a transformers-style config dict
+    (`config` holds Gemma3TextConfig's names, defaults filled in;
+    `rope` and `local_rope`, the full and sliding layers' rotary
+    embeddings)."""
+
+    def __init__(self, config: dict):
+        config = check_config(config)
+        super().__init__(config, qk_norm=True, local_rope=Rope(
+            "default", float(config["rope_local_base_freq"]), config["head_dim"]))

@@ -3,7 +3,8 @@
 Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
 families, ALBERT, RoFormer, ModernBERT, DeBERTa-v2, MobileBERT,
 SqueezeBERT, XLM, FlauBERT, XLNet) or decoder (Qwen3,
-Qwen2, Llama, Mistral, Gemma 3) checkpoint pulled from the hub, tokenized,
+Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2, Gemma 3) checkpoint pulled
+from the hub, tokenized,
 mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
 embeddings (LRU-cached upstream). Zero-egress deployments point `model`
@@ -20,7 +21,7 @@ BPE), or, for a Unigram tokenizer.json (XLM-R's, CamemBERT's,
 DeBERTa-v3's, ALBERT's, RemBERT's and XLNet's vocabularies),
 models/unigram.py, or, for
 a BPE (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level one;
-Llama-2's, Mistral's and Gemma's with byte fallback), models/bpe.py
+Llama-2's, Mistral's, Phi-3's and Gemma's with byte fallback), models/bpe.py
 (WordPiece, Unigram and BPE with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
 XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE,
@@ -31,14 +32,18 @@ models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
 models/squeezebert.py's `SqueezeBertModel`, models/xlm.py's `XLMModel`
 (XLM and FlauBERT),
 models/xlnet.py's `XLNetModel`, models/decoder.py's `DecoderModel`
-(Qwen3, Qwen2, Llama and Mistral) or models/gemma3.py's `Gemma3Model` (Gemma 3's text
-stack, EmbeddingGemma) runs on the device
+(Qwen3, Qwen2, Llama, Mistral, Gemma and Phi-3), models/gemma2.py's
+`Gemma2Model` (bge-multilingual-gemma2) or models/gemma3.py's
+`Gemma3Model` (Gemma 3's text stack, EmbeddingGemma) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state, a pad's under left padding, as there; otherwise
 the mean over the attention mask), and the result is L2-normalized in
-numpy exactly as there (under `forceCls` with left padding, every chunk
-of a call is padded to the call's longest text, as the JAX package pads
-its one batch: a pad's state can depend on how far it pads). The JAX
+numpy exactly as there (under `forceCls` with left padding, and under a
+`longrope` or `dynamic` rotary, every chunk of a call is padded to the
+call's longest text, as the JAX package pads its one batch: a pad's
+state can depend on how far it pads, and those rotaries' frequencies on
+the padded length; the Llama and Gemma tokenizer classes pad on the left
+by default). The JAX
 package passes every output of its
 tokenizer to the torch model (`**tok`), token types included; the port
 passes them to the models that read them (XLNet, XLM, FlauBERT), as `tokenize`
@@ -65,7 +70,9 @@ from .bert import RELATIVE_KEYS
 from .checkpoint import build_model, build_tokenizer, gives_token_types, load_checkpoint
 from .deberta_v2 import attention_span
 from .decoder import MODEL_TYPES as DECODER_TYPES
+from .gemma2 import MODEL_TYPE as GEMMA2_TYPE
 from .gemma3 import MODEL_TYPE as GEMMA3_TYPE
+from .rope import BATCH_LENGTH_ROPES
 
 # Texts per forward pass. 256 texts of 128 tokens give each linear layer
 # 32,768 rows, enough to fill the card; at the 512-token limit, the largest
@@ -113,10 +120,10 @@ class TextEncoder:
             return CHUNK_TEXTS
         c = self._model.config
         L, heads = self.max_len, c["num_attention_heads"]
-        gated = c.get("model_type") in ("modernbert", *DECODER_TYPES, GEMMA3_TYPE)
+        gated = c.get("model_type") in ("modernbert", *DECODER_TYPES, GEMMA3_TYPE, GEMMA2_TYPE)
         # the feed-forward's widest activation: ModernBERT's GeGLU and the
-        # decoders' and Gemma 3's gated MLPs project to two halves,
-        # 2 x intermediate_size
+        # decoders' and Gemma 2's and 3's gated MLPs project to two halves,
+        # 2 x intermediate_size (Phi-3's fused gate_up_proj in one tensor)
         ffn = c["intermediate_size"] * (2 if gated else 1)
         # the widest of the hidden width and Q's heads x head_dim (a
         # decoder's head_dim need not be hidden_size / heads)
@@ -194,12 +201,18 @@ class TextEncoder:
         tokens = 0
         tokenize_s = 0.0
         whole = None
-        if (self.pooling == "forceCls" and len(texts) > step
-                and getattr(self._tokenizer, "padding_side", "right") == "left"):
+        rope = getattr(self._model, "rope", None)
+        if len(texts) > step and (
+                (self.pooling == "forceCls"
+                 and getattr(self._tokenizer, "padding_side", "right") == "left")
+                or (rope is not None and rope.kind in BATCH_LENGTH_ROPES)):
             # forceCls pools position 0, a pad for every text shorter than
             # its batch's longest under left padding, and a pad's state can
-            # read the text (XLNet, a bidirectional Gemma 3): each chunk is
-            # cut from the call's one padded batch, as the JAX package pads
+            # read the text (XLNet, a bidirectional Gemma 3); a `longrope` or
+            # `dynamic` rotary takes its frequencies from the batch's padded
+            # length (Phi-3's long factors past
+            # original_max_position_embeddings): each chunk is cut from the
+            # call's one padded batch, as the JAX package pads
             t = time.perf_counter()
             whole = self.tokenize(texts)
             tokenize_s += time.perf_counter() - t

@@ -39,7 +39,7 @@ device, so every device rotates by the same bits:
 unknown type or none at all, a type without its required keys, and
 `longrope` with neither `factor` nor the config's
 `original_max_position_embeddings`; also a `longrope` factor list that is
-not dim / 2 long.
+not dim / 2 long, or over an odd dim.
 """
 
 from __future__ import annotations
@@ -57,6 +57,8 @@ REQUIRED = {"default": (), "linear": ("factor",), "dynamic": ("factor",), "yarn"
             "llama3": ("factor", "low_freq_factor", "high_freq_factor",
                        "original_max_position_embeddings"),
             "longrope": ("short_factor", "long_factor")}
+# the types whose tables depend on the batch's padded length n
+BATCH_LENGTH_ROPES = ("dynamic", "longrope")
 # the types whose transformers function reads `getattr(config, "head_dim",
 # hidden // heads)`, so a config that stores head_dim None raises there
 READS_STORED_HEAD_DIM = ("dynamic", "yarn", "longrope")
@@ -128,6 +130,10 @@ def check(rope_scaling: Optional[dict], dim: int, original: Optional[int] = None
         if rope_scaling.get("factor") is None and original is None:
             raise ValueError(f"rope_scaling {rope_scaling} is not supported: longrope needs a"
                              " factor or the config's original_max_position_embeddings")
+        if dim % 2:
+            raise ValueError(f"rope_scaling {rope_scaling} is not supported over an odd rotated"
+                             f" width {dim}: its factor lists cannot match the (dim + 1) / 2"
+                             " frequencies, and transformers raises")
         for key in ("short_factor", "long_factor"):
             if len(rope_scaling[key]) != dim // 2:
                 raise ValueError(f"rope_scaling's {key} has {len(rope_scaling[key])} entries,"

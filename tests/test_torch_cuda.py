@@ -17,8 +17,8 @@ DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA, DeBERTa-v2, ERNIE,
 BertGeneration, RemBERT, Megatron-BERT, RoFormer, ALBERT, BERT's relative
 keys, the decoders (with scaled rotaries, sliding windows, MLP biases and
 other activations too), Gemma 3 and Llama from byte-fallback
-tokenizers, and XLM and FlauBERT from their Moses tokenizers, on the card
-as the same checkpoint on the CPU."""
+tokenizers, XLM and FlauBERT from their Moses tokenizers, and Gemma 2,
+Gemma and Phi-3, on the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -1055,6 +1055,74 @@ def test_moses_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, name, p
     want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)
     assert bool(np.isfinite(got).all())
     assert float(np.abs(got - want).max()) <= 1e-5
+
+
+# Gemma 2, Gemma and Phi-3, 2 layers each at published widths over a
+# seeded sentencepiece BPE (Gemma's layout, or Llama-2's with Phi-3's chat
+# tokens), left padding by class default: (kind, config, what the module
+# must read: its rotary's type and width, the window)
+P21_FAMILIES = {
+    "gemma2-2b-window-softcap": ("gemma2", {
+        "hidden_size": 2304, "intermediate_size": 9216, "num_attention_heads": 8,
+        "num_key_value_heads": 4, "head_dim": 256, "query_pre_attn_scalar": 256,
+        "sliding_window": 16, "attn_logit_softcapping": 0.5}, ("default", 256, 16)),
+    "gemma-2b-gelu": ("gemma", {
+        "hidden_size": 2048, "intermediate_size": 16_384, "num_attention_heads": 8,
+        "num_key_value_heads": 1, "head_dim": 256, "hidden_act": "gelu",
+        "hidden_activation": "gelu_pytorch_tanh"}, ("default", 256, None)),
+    "phi3-mini-partial-longrope": ("phi3", {
+        "hidden_size": 3072, "intermediate_size": 8192, "num_attention_heads": 32,
+        "num_key_value_heads": 32, "sliding_window": 16, "partial_rotary_factor": 0.75,
+        "max_position_embeddings": 256, "original_max_position_embeddings": 64,
+        "rope_scaling": {"type": "longrope", "short_factor": [1.0 + i / 40 for i in range(36)],
+                         "long_factor": [1.0 + i for i in range(36)]}},
+        ("longrope", 72, 16)),
+}
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("name", P21_FAMILIES)
+def test_gemma2_gemma_phi3_on_the_card_match_the_cpu(cuda_device, tmp_path, name, pooling):
+    """Gemma 2's sliding layers (its softcap ignored), Gemma's single KV head
+    and erf GELU, Phi-3's fused projections, partial rotary and longrope
+    (past 64 positions, its long factors) on the card: a left-padded batch
+    of short texts beside ones of 200 to 512 tokens, against the CPU within
+    ENC_TOL (1e-4)."""
+    from meilisearch_tpu_torch.models import fixtures, hf_encoder
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind, widths, (rope_kind, rotated, window) = P21_FAMILIES[name]
+    texts = _enc_texts(200, 24)
+    if kind == "phi3":
+        spec = fixtures.phi3_tokenizer_json(texts, 1500, seed=24)
+        tok_config = fixtures.phi3_tokenizer_config(spec)
+        vocab = 1564
+    else:
+        spec = fixtures.gemma_tokenizer_json(texts, 1500, seed=24)
+        tok_config = fixtures.gemma_tokenizer_config(spec)
+        vocab = len(spec["model"]["vocab"])
+    config = {"model_type": kind, "vocab_size": vocab, "num_hidden_layers": 2, **widths}
+    torch.manual_seed(25)
+    model = new_model(config)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if "norm" in pname:
+                p.add_(torch.randn(p.shape) * 0.1)
+    write_checkpoint(str(tmp_path), config, model.state_dict(), tokenizer_json=spec,
+                     tokenizer_config=tok_config)
+    texts = _enc_texts(15, seed=26) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80), "",
+                                       "<|user|> hi<|end|> 中文 \U0001F680"]
+    card = hf_encoder.TextEncoder(str(tmp_path), pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert (card._model.rope.kind, card._model.rope.dim, card._model.config["window"]) == (
+        rope_kind, rotated, window)
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask[:, 0].min()) == 0  # left padding
+    want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-4
 
 
 def test_encoder_chunks_on_the_card(cuda_device, tmp_path, monkeypatch):
