@@ -115,7 +115,7 @@ Phases, each fatal on failure:
      here; the port's encoder on the card must agree with the CPU within
      ENC_TOL on 80 texts (accents, Cyrillic, CJK, Arabic, combining marks,
      runs of spaces, unknown characters, the empty string); a fifth App
-     ingests 25,000 synthetic hackernews documents over HTTP with a
+     ingests 10,000 synthetic hackernews documents over HTTP with a
      huggingFace embedder on that checkpoint, every document embedded at
      indexing on the card (host tokenization apart from the forwards, wall
      time, tokens, tokens/s, peak device memory); 8 hybrid searches with a
@@ -142,7 +142,7 @@ Phases, each fatal on failure:
      30,522, dim 768, 6 layers, 12 heads, hidden_dim 3,072, 512 positions)
      with bge_vocab()'s WordPiece file; for each, the encoder on the card
      against the CPU within ENC_TOL on 80 texts (fault 3.11's characters,
-     contractions, runs of whitespace, <mask>), 25,000 documents embedded
+     contractions, runs of whitespace, <mask>), 10,000 documents embedded
      at indexing on the card through the BPE tokenizer or the DistilBERT
      module (tokens/s, host tokenization, peak device memory), 8 hybrid
      searches with a text q against the same store's host pass, one at a
@@ -154,7 +154,7 @@ Phases, each fatal on failure:
      MPNet's vocabulary layout around bge_vocab() and MPNetTokenizerFast's
      special tokens (models/fixtures.py), through its own App as phase 11:
      the encoder on the card against the CPU within ENC_TOL (phase 11's
-     texts and MPNet's specials written in other cases), 25,000 documents
+     texts and MPNet's specials written in other cases), 10,000 documents
      embedded at indexing on the card, 8 hybrid searches against the same
      store's host pass, and the forward's timing;
   13. ModernBERT path (hn25k-modernbert-hf): a checkpoint at
@@ -170,7 +170,7 @@ Phases, each fatal on failure:
      the card against the CPU within ENC_TOL on phase 11's texts and, in
      one batch, short texts beside texts of 150 to 512 tokens and one that
      truncation cuts at 512 (so the window bites and padding runs fill
-     whole windows), 25,000 documents embedded at indexing on the card, 8
+     whole windows), 10,000 documents embedded at indexing on the card, 8
      hybrid searches against the same store's host pass, and the forward's
      timing;
   14. the last refused families, each at its published config.json
@@ -190,7 +190,7 @@ Phases, each fatal on failure:
      forward and launches, and one chunk against its float32 bound;
   15. decoder embedder path (hn10k-qwen3emb-hf): a checkpoint at
      Qwen/Qwen3-Embedding-0.6B's published config.json widths and depth
-     (qwen3: vocab 151,669, hidden 1,024, 14 of its 28 layers, 16 heads of 128 over
+     (qwen3: vocab 151,669, hidden 1,024, 7 of its 28 layers, 16 heads of 128 over
      8 KV heads, intermediate 3,072, rope_theta 1,000,000; seeded random
      weights at initializer_range 0.02, written as model.safetensors) with
      a seeded 151,643-entry byte-level BPE in Qwen2's layout (NFC, the
@@ -328,7 +328,7 @@ Phases, each fatal on failure:
      window, partial_rotary_factor 0.75, a seeded three-field longrope over
      131,072 positions from 4,096); then a checkpoint at
      BAAI/bge-multilingual-gemma2's published config.json widths (gemma2:
-     gemma-2-9b's, vocab 256,000, hidden 3,584, 4 of its 42 layers, 16
+     gemma-2-9b's, vocab 256,000, hidden 3,584, 2 of its 42 layers, 16
      heads of 256 over 8 KV heads, query_pre_attn_scalar 256, intermediate
      14,336, a 4,096-token window on every other layer, layer types
      derived; seeded random weights at 0.02, written as model.safetensors)
@@ -339,7 +339,29 @@ Phases, each fatal on failure:
      tokens/s and the host share, peak device memory, 256 hybrid
      responses against the host pass, a query's forward and launches
      against its weight-read bound, and one chunk against its float32
-     bound.
+     bound;
+  22. Longformer path (hn10k-longformerbase-hf), after the earlier
+     phases' encoders are let go: a checkpoint at
+     allenai/longformer-base-4096's published config.json (longformer: 12
+     layers of 768, 12 heads, intermediate 3,072, a 512-token window on
+     every layer, 4,098 positions from pad id 1; seeded random weights at
+     0.02, its unread `*_global` projections among them, written as
+     pytorch_model.bin) with a seeded 50,265-entry byte-level BPE in
+     RoBERTa's layout and LongformerTokenizerFast's tokenizer_config.json,
+     through its own App as phase 11 over 10,000 documents: the encoder on
+     the card against the CPU within ENC_TOL on 83 texts and on phase 13's
+     long texts (the pairs the 256-token reach cuts counted), then four
+     2-layer checkpoints at published widths on the long texts, card
+     against CPU: Longformer with windows [16, 32], data2vec-text at
+     data2vec-text-base's widths, xlm-roberta-xl at xlm-roberta-xl's (2,560
+     wide, pre-norms) over a seeded 32,000-piece Unigram, and big_bird at
+     bigbird-roberta-base's (block_sparse at block 64 and 3 random blocks,
+     which the reference runs full at 512 tokens) over a seeded
+     50,358-piece Unigram in BigBirdConverter's layout; tokens/s and the
+     host share, peak device memory, 256 hybrid responses against the host
+     pass, a query's forward and launches against its weight-read bound
+     (the `*_global` weights not counted), and one chunk against its
+     float32 bound.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -460,17 +482,17 @@ ENC_TIMED_TOKENS = 128  # tokens per text of the timed indexing chunk
 # published config.json (xlm-roberta-base's widths) with seeded random
 # weights, a seeded 250,002-piece SentencePiece-Unigram tokenizer.json
 # written as transformers' XLM-R converter writes it (NFKC and NMT's
-# character map, Strip, Replace, Metaspace, <s> $A </s>), and 25,000 of
+# character map, Strip, Replace, Metaspace, <s> $A </s>), and 10,000 of
 # its 50,000 hackernews documents embedded at indexing on the card (the
-# depth cut, 50,000 until phase 18 came, that keeps the whole script under
-# 1,000 s)
+# depth cut, 50,000 until phase 18 came and 25,000 until phase 22, that
+# keeps the whole script under 1,080 s)
 E5_CONFIG = {
     "model_type": "xlm-roberta", "vocab_size": 250_002, "hidden_size": 768,
     "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
     "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5,
     "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "hidden_act": "gelu",
 }
-E5_DOCS, E5_SEED = 25_000, 2026
+E5_DOCS, E5_SEED = 10_000, 2026
 E5_TEXT = ["rust compiler", "machine learning database", "поиск cloud security",
            "python web 検索"]
 # multilingual texts of the card-against-CPU check (accents, Cyrillic, CJK,
@@ -490,9 +512,10 @@ E5_CHECK_TEXT = [
 ]
 # phase 11, the BPE and DistilBERT path: two checkpoints at their published
 # config.json widths and depth (6 layers) with seeded random weights, each
-# embedding 25,000 of its configuration's 150,000 hackernews documents at
-# indexing on the card. hn25k-distilroberta-hf: sentence-transformers/
-# all-distilroberta-v1 (RoBERTa) with a 50,265-token byte-level BPE
+# embedding 10,000 of its configuration's 150,000 hackernews documents at
+# indexing on the card (25,000 until phase 22 came).
+# hn25k-distilroberta-hf: sentence-transformers/all-distilroberta-v1
+# (RoBERTa) with a 50,265-token byte-level BPE
 # tokenizer.json (models/fixtures.py: merges trained on BPE_TRAIN_DOCS of
 # the phase's documents, then seeded merges); hn25k-mqadistilbert-hf:
 # sentence-transformers/multi-qa-distilbert-cos-v1 (DistilBERT) with
@@ -508,12 +531,13 @@ DISTILBERT_CONFIG = {
     "n_heads": 12, "hidden_dim": 3072, "max_position_embeddings": 512, "activation": "gelu",
     "sinusoidal_pos_embds": False, "pad_token_id": 0,
 }
-P11_DOCS, P11_SEED, BPE_TRAIN_DOCS = 25_000, 2027, 5_000
+P11_DOCS, P11_SEED, BPE_TRAIN_DOCS = 10_000, 2027, 5_000
 # phase 12, hn25k-mpnet-hf: sentence-transformers/all-mpnet-base-v2's
 # published config.json with seeded random weights and MPNet's vocabulary
-# around bge_vocab()'s WordPiece entries. 25,000 of the configuration's
-# 150,000 hackernews documents: the depth cut to keep the whole script
-# under 700 s; widths, depth and vocabulary size are the published ones
+# around bge_vocab()'s WordPiece entries. 10,000 of the configuration's
+# 150,000 hackernews documents: the depth cut (25,000 until phase 22 came)
+# to keep the whole script under 1,080 s; widths, depth and vocabulary
+# size are the published ones
 MPNET_CONFIG = {
     "model_type": "mpnet", "vocab_size": 30_527, "hidden_size": 768,
     "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
@@ -521,10 +545,10 @@ MPNET_CONFIG = {
     "layer_norm_eps": 1e-5, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
     "hidden_act": "gelu", "initializer_range": 0.02,
 }
-P12_DOCS, P12_SEED = 25_000, 2028
+P12_DOCS, P12_SEED = 10_000, 2028
 # phase 13, hn25k-modernbert-hf: answerdotai/ModernBERT-base's published
 # config.json (transformers' ModernBertConfig defaults) with seeded random
-# weights and a seeded 50,368-entry tokenizer in ModernBERT's layout. 25,000
+# weights and a seeded 50,368-entry tokenizer in ModernBERT's layout. 10,000
 # of the configuration's 150,000 hackernews documents: phases 11 and 12's
 # depth cut; widths, depth and vocabulary size are the published ones
 MODERNBERT_CONFIG = {
@@ -536,7 +560,7 @@ MODERNBERT_CONFIG = {
     "local_rope_theta": 10000.0, "pad_token_id": 50283, "bos_token_id": 50281,
     "eos_token_id": 50282, "cls_token_id": 50281, "sep_token_id": 50282,
 }
-P13_DOCS, P13_SEED = 25_000, 2029
+P13_DOCS, P13_SEED = 10_000, 2029
 # phase 14, the last refused families, each at its published config.json
 # widths and depth with seeded random weights, 10,000 of its
 # configuration's 150,000 hackernews documents (the depth cut that keeps
@@ -574,12 +598,12 @@ P14_DOCS, P14_SEED = 10_000, 2030
 # byte-level BPE in Qwen2's layout with its 26 specials (151,669 ids) and
 # Qwen3-Embedding's `$A <|endoftext|>` template, and its tokenizer_config's
 # padding_side left. 10,000 of the configuration's 150,000 hackernews
-# documents: phase 14's depth cut; 14 of its 28 layers, the cut that keeps
-# the whole script under 1,000 s with phase 19; widths and vocabulary
+# documents: phase 14's depth cut; 7 of its 28 layers, the cut that keeps
+# the whole script under 1,080 s with phase 22 (14 from phase 19 on); widths and vocabulary
 # size are the published ones
 QWEN3_EMBEDDING_CONFIG = {
     "model_type": "qwen3", "vocab_size": 151_669, "hidden_size": 1024,
-    "num_hidden_layers": 14, "num_attention_heads": 16, "num_key_value_heads": 8,
+    "num_hidden_layers": 7, "num_attention_heads": 16, "num_key_value_heads": 8,
     "head_dim": 128, "intermediate_size": 3072, "rope_theta": 1_000_000,
     "rms_norm_eps": 1e-6, "max_position_embeddings": 32_768, "tie_word_embeddings": True,
     "hidden_act": "silu", "attention_bias": False, "attention_dropout": 0.0,
@@ -828,14 +852,14 @@ P20_VARIANTS = {
 # 4,096-token window on every other layer from the first, softcaps 50 and
 # 30, which the reference's sdpa and its missing LM head leave unread;
 # no layer_types, so the module derives them) with seeded random weights
-# at its initializer_range 0.02, 4 of its 42 layers (the float32 file of
-# all 42 is 37 GB), a seeded 256,000-piece sentencepiece BPE in
+# at its initializer_range 0.02, 2 of its 42 layers (the float32 file of
+# all 42 is 37 GB; 4 until phase 22 came), a seeded 256,000-piece sentencepiece BPE in
 # GemmaConverter's layout and GemmaTokenizer's tokenizer_config.json
 # (left padding, the class's default). 10,000 of the configuration's
 # 150,000 hackernews documents: phase 20's depth cut
 BGE_GEMMA2_CONFIG = {
     "model_type": "gemma2", "architectures": ["Gemma2Model"], "vocab_size": 256_000,
-    "hidden_size": 3584, "intermediate_size": 14_336, "num_hidden_layers": 4,
+    "hidden_size": 3584, "intermediate_size": 14_336, "num_hidden_layers": 2,
     "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256,
     "query_pre_attn_scalar": 256, "sliding_window": 4096, "attn_logit_softcapping": 50.0,
     "final_logit_softcapping": 30.0, "rope_theta": 10_000.0, "rms_norm_eps": 1e-6,
@@ -885,6 +909,57 @@ P21_VARIANTS = {
         "pad_token_id": 32_000, "eos_token_id": 32_000, "bos_token_id": 1},
 }
 P21_TEXT = ["<start_of_turn>user hi<end_of_turn>", "x<table>y  z\ttab", "中文 café 😀 naïve"]
+# phase 22 (after phase 21's encoders are let go), hn10k-longformerbase-hf:
+# allenai/longformer-base-4096's published config.json (longformer: 12
+# layers of 768, 12 heads, intermediate 3,072, a 512-token window on every
+# layer, so each query reaches 256 tokens each way, 4,098 positions from
+# pad id 1, one token type) with seeded random weights at its
+# initializer_range 0.02 (its `*_global` projections among them, read and
+# never used) and a seeded 50,265-entry byte-level BPE in RoBERTa's layout
+# under LongformerTokenizerFast's tokenizer_config.json. 10,000 of the
+# configuration's 150,000 hackernews documents, as every phase from 14 on
+LONGFORMER_BASE_CONFIG = {
+    "model_type": "longformer", "architectures": ["LongformerForMaskedLM"], "vocab_size": 50_265,
+    "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+    "intermediate_size": 3072, "hidden_act": "gelu", "max_position_embeddings": 4098,
+    "type_vocab_size": 1, "layer_norm_eps": 1e-5, "attention_window": [512] * 12,
+    "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "sep_token_id": 2,
+    "initializer_range": 0.02}
+P22_DOCS, P22_SEED = 10_000, 2038
+# RoBERTa's other relatives beside it, 2 layers each at a published
+# checkpoint's widths, on phase 13's long texts: (a) Longformer with
+# windows [16, 32] (reaches of 8 and 16 tokens, which bite) over the
+# path's BPE; (b) data2vec-text at facebook/data2vec-text-base's widths
+# over the same BPE (RobertaTokenizer, the type's default class); (c)
+# xlm-roberta-xl at facebook/xlm-roberta-xl's widths (2,560 wide, 32
+# heads, intermediate 10,240, its pre-norms) over a seeded 32,000-piece
+# Unigram in XLM-R's layout (the published 250,880 rows would be 2.57 GB of
+# float32 for one check); (d) big_bird at google/bigbird-roberta-base's
+# widths (block_sparse at block 64 and 3 random blocks: a threshold of 704
+# tokens, so the reference runs full attention at 512) over a seeded
+# 50,358-piece Unigram in BigBirdConverter's layout
+P22_VARIANTS = {
+    "(a) longformer with windows [16, 32]": {
+        **LONGFORMER_BASE_CONFIG, "num_hidden_layers": 2, "attention_window": [16, 32]},
+    "(b) data2vec-text at data2vec-text-base's widths": {
+        "model_type": "data2vec-text", "vocab_size": 50_265, "hidden_size": 768,
+        "num_hidden_layers": 2, "num_attention_heads": 12, "intermediate_size": 3072,
+        "hidden_act": "gelu", "max_position_embeddings": 514, "type_vocab_size": 1,
+        "layer_norm_eps": 1e-5, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2},
+    "(c) xlm-roberta-xl at xlm-roberta-xl's widths": {
+        "model_type": "xlm-roberta-xl", "vocab_size": 32_000, "hidden_size": 2560,
+        "num_hidden_layers": 2, "num_attention_heads": 32, "intermediate_size": 10_240,
+        "hidden_act": "gelu", "max_position_embeddings": 514, "type_vocab_size": 1,
+        "layer_norm_eps": 1e-5, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2},
+    "(d) big_bird at bigbird-roberta-base's widths, block_sparse run full": {
+        "model_type": "big_bird", "vocab_size": 50_358, "hidden_size": 768,
+        "num_hidden_layers": 2, "num_attention_heads": 12, "intermediate_size": 3072,
+        "hidden_act": "gelu_new", "max_position_embeddings": 4096, "type_vocab_size": 2,
+        "layer_norm_eps": 1e-12, "pad_token_id": 0, "bos_token_id": 1, "eos_token_id": 2,
+        "sep_token_id": 66, "attention_type": "block_sparse", "block_size": 64,
+        "num_random_blocks": 3, "rescale_embeddings": False, "use_bias": True},
+}
+P22_TEXT = ["[CLS] x [SEP] y [MASK] z", "x[MASK]y  [MASK]  z", "a <mask> b </s> c"]
 # what Moses does to the encoder's texts: newlines and tabs dropped (two
 # words become one), French quotes and non-breaking spaces, elisions,
 # `No.` before a number, numbers with commas, multi-dots, a literal
@@ -2319,7 +2394,7 @@ def families_phase(device, card: str, n_docs: int) -> dict:
 
 
 def write_qwen3_embedding_checkpoint(path: str) -> None:
-    """A checkpoint of Qwen3-Embedding-0.6B's width (14 of its 28 layers,
+    """A checkpoint of Qwen3-Embedding-0.6B's width (7 of its 28 layers,
     DecoderModel's names), written as model.safetensors with a
     151,643-entry byte-level BPE tokenizer.json in Qwen2's layout, its
     merges trained through Qwen2's Split pattern on the phase's own texts,
@@ -3159,6 +3234,172 @@ def bge_gemma2_phase(device, card: str, n_docs: int) -> dict:
     return out
 
 
+def longformer_spec() -> dict:
+    """Phase 22's 50,265-entry byte-level BPE in RoBERTa's layout, its
+    merges trained on BPE_TRAIN_DOCS of the phase's own texts (as phase 11
+    builds its)."""
+    from meilisearch_tpu_torch.models.fixtures import roberta_tokenizer_json
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(BPE_TRAIN_DOCS, seed=P22_SEED)]
+    return roberta_tokenizer_json(texts + P11_TEXT + P11_CHECK_TEXT,
+                                  LONGFORMER_BASE_CONFIG["vocab_size"], seed=P22_SEED)
+
+
+def write_p22_checkpoint(path: str, config: dict, seed: int, spec: dict) -> None:
+    """A checkpoint of `config` (seeded weights), written as
+    pytorch_model.bin beside `spec` and its model type's
+    tokenizer_config.json (LongformerTokenizer's, RobertaTokenizer's,
+    XLMRobertaTokenizer's or BigBirdTokenizerFast's; `write_checkpoint`)."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    write_checkpoint(path, config, random_state_dict(config, seed), tokenizer_json=spec)
+
+
+def band_cut(counts: list, reach: int) -> tuple:
+    """(pairs outside the band, all pairs): the (query, key) pairs of
+    texts of `counts` real tokens that lie more than `reach` apart."""
+    cut = sum(max(n - reach - 1, 0) * max(n - reach, 0) for n in counts)
+    return cut, sum(n * n for n in counts)
+
+
+def longformer_long_check(path: str, device, label: str) -> float:
+    """The phase's checkpoint on phase 13's long texts in one batch
+    (`long_check`), after checking that the module is Longformer's with
+    the published windows and counting the (query, key) pairs its band
+    cuts from them."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+    from meilisearch_tpu_torch.models.longformer import LongformerModel
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    model, c = enc._model, enc._model.config
+    if not isinstance(model, LongformerModel) \
+            or c["attention_window"] != LONGFORMER_BASE_CONFIG["attention_window"]:
+        raise AssertionError(f"{label}: the module is not Longformer's: {type(model).__name__}")
+    texts = long_check_texts(P22_SEED)
+    _ids, mask, _types = enc.tokenize(list(texts))
+    counts = mask.sum(1).tolist()
+    reach = c["attention_window"][0] // 2
+    cut, total = band_cut(counts, reach)
+    say(f"{label}: the band (each query reaches {reach} tokens each way) cuts {cut} of the"
+        f" {total} (query, key) pairs of the long texts ({100 * cut / total:.2f}%; texts of"
+        f" {counts} tokens)")
+    if cut == 0:
+        raise AssertionError(f"{label}: the window does not bite on the long texts")
+    return long_check(path, device, f"{label} {len(model.encoder.layer)} layers", texts=texts)
+
+
+def p22_variants_check(path: str, device, label: str, spec: dict) -> float:
+    """P22_VARIANTS' 2-layer checkpoints on phase 13's long texts in one
+    batch (`long_check`) each, after checking that each module and
+    tokenizer read the variant (Longformer's windows and the pairs they
+    cut, data2vec-text's RoBERTa embeddings, XLM-RoBERTa-XL's pre-norms,
+    BigBird's positions from 0 and its threshold); returns the largest
+    error. (a) and (b) read the path's BPE `spec`; (c) and (d) their own
+    seeded Unigram tokenizer.json. The earlier encoders are let go after
+    each, and `path`'s is loaded again for hf_path."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from meilisearch_tpu_torch.models import bert, fixtures
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    texts = long_check_texts(P22_SEED)
+    err = 0.0
+    for i, (what, config) in enumerate(P22_VARIANTS.items()):
+        t = time.perf_counter()
+        kind = config["model_type"]
+        n = config["vocab_size"]
+        if kind == "xlm-roberta-xl":  # XLM-R's five specials around the pieces
+            tok = fixtures.xlmr_tokenizer_json(e5_pieces(n - 5, P22_SEED))
+        elif kind == "big_bird":  # BigBird's seven
+            tok = fixtures.bigbird_tokenizer_json(e5_pieces(n - 7, P22_SEED))
+        else:
+            tok = spec
+        if len(tok["model"]["vocab"]) != n:
+            raise AssertionError(f"{what}: the tokenizer does not fill the vocabulary")
+        with tempfile.TemporaryDirectory() as small:
+            write_p22_checkpoint(small, config, P22_SEED + 1 + i, tok)
+            enc = encoder(small, "useModel", device)
+            enc._load()
+            model, c = enc._model, enc._model.config
+            emb = model.embeddings
+            read = (c["model_type"], type(enc._tokenizer).__name__, emb.padding_idx)
+            want = (kind, "Unigram" if kind in ("xlm-roberta-xl", "big_bird") else "BPE",
+                    None if kind == "big_bird" else 1)
+            if kind == "longformer":
+                read += (c["attention_window"],)
+                want += (config["attention_window"],)
+                _ids, mask, _types = enc.tokenize(list(texts))
+                for w in sorted(set(c["attention_window"])):
+                    cut, total = band_cut(mask.sum(1).tolist(), w // 2)
+                    say(f"{label} variant {what}: window {w} cuts {cut} of {total} pairs"
+                        f" ({100 * cut / total:.2f}%)")
+            elif kind == "xlm-roberta-xl":
+                read += (emb.LayerNorm, model.encoder.layer[0].attention.ln is not None,
+                         model.encoder.ln is not None, c["hidden_size"])
+                want += (None, True, True, config["hidden_size"])
+            elif kind == "big_bird":
+                read += (model.max_batch_len, emb.scale, c["hidden_act"])
+                want += (bert.sparse_threshold(config), None, "gelu_new")
+            if read != want:
+                raise AssertionError(f"{what}: the encoder reads {read}, not {want}")
+            err = max(err, long_check(small, device, f"{label} variant {what}", texts=texts))
+            encoder.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        say(f"{label} variant {what}: {time.perf_counter() - t:.3f} s")
+    say(f"{label} variants: largest error {err:.3e} (bound {ENC_TOL:g})")
+    encoder(path, "useModel", device)._load()  # hf_path goes on with `path`'s, cached
+    return err
+
+
+def longformer_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 22, hn10k-longformerbase-hf through its own App (`hf_path`)
+    with the long check and P22_VARIANTS inside its checks, once the
+    earlier phases' encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 22 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    label = "longformer-base-4096"
+    reach = LONGFORMER_BASE_CONFIG["attention_window"][0] // 2
+    t0 = time.perf_counter()
+    spec = longformer_spec()
+    say(f"{label} tokenizer ({len(spec['model']['vocab'])} entries,"
+        f" {len(spec['model']['merges'])} merges) built in {time.perf_counter() - t0:.3f} s;"
+        f" at the timed chunk's {ENC_TIMED_TOKENS} tokens the band ({reach} each way) holds"
+        f" {100 * (1 - band_cut([ENC_TIMED_TOKENS], reach)[0] / ENC_TIMED_TOKENS ** 2):.1f}% of"
+        " the scores the port computes")
+    out = hf_path(device, card, n_docs, label=label, index="lf",
+                  write=lambda path: write_p22_checkpoint(path, LONGFORMER_BASE_CONFIG, P22_SEED,
+                                                          spec),
+                  seed=P22_SEED, queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P22_TEXT,
+                  tokenizer="BPE", model_type="longformer",
+                  checks=(longformer_long_check, partial(p22_variants_check, spec=spec)))
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 22 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
     Linear and Conv1d layers and XLNet's token projections (ALBERT's
@@ -3205,12 +3446,18 @@ def encoder_flops(model, n: int, L: int) -> float:
 
 def projection_weights(module) -> int:
     """The weights of `module`'s Linear and Conv1d layers and XLNet's
-    einsum projections (`q`, `k`, `v`, `o`, `r`)."""
+    einsum projections (`q`, `k`, `v`, `o`, `r`); Longformer's `*_global`
+    projections are not counted: no token is global, so no forward reads
+    them."""
     from torch import nn
 
+    from meilisearch_tpu_torch.models.longformer import LongformerModel
     from meilisearch_tpu_torch.models.xlnet import XLNetModel
 
     n = sum(m.weight.numel() for m in module.modules() if isinstance(m, (nn.Linear, nn.Conv1d)))
+    if isinstance(module, LongformerModel):
+        n -= sum(getattr(layer.attention.self, f"{w}_global").weight.numel()
+                 for layer in module.encoder.layer for w in ("query", "key", "value"))
     if isinstance(module, XLNetModel):
         n += sum(getattr(layer.rel_attn, w).numel() for layer in module.layer
                  for w in ("q", "k", "v", "o", "r"))
@@ -4166,6 +4413,7 @@ def main() -> int:
     more_families_phase(device, card, P19_DOCS)
     moses_families_phase(device, card, P20_DOCS)
     bge_gemma2_phase(device, card, P21_DOCS)
+    longformer_phase(device, card, P22_DOCS)
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

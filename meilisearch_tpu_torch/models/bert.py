@@ -1,30 +1,36 @@
 """BERT's encoder forward as a torch module (the port's K8), for the
-BERT, RoBERTa, XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE,
-BertGeneration, RemBERT and Megatron-BERT checkpoints (`model_type`
-`bert`, `roberta`, `xlm-roberta`, `camembert`, `distilbert`, `mpnet`,
-`electra`, `ernie`, `bert-generation`, `rembert`, `megatron-bert`), which
-share one architecture (MPNet adds a relative position bias, ELECTRA and
-RemBERT an embedding projection, ERNIE a task-type embedding,
-Megatron-BERT moves its LayerNorms before each block).
+BERT, RoBERTa, XLM-RoBERTa, CamemBERT, data2vec-text, XLM-RoBERTa-XL,
+DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT
+and BigBird checkpoints (`model_type` `bert`, `roberta`, `xlm-roberta`,
+`camembert`, `data2vec-text`, `xlm-roberta-xl`, `distilbert`, `mpnet`,
+`electra`, `ernie`, `bert-generation`, `rembert`, `megatron-bert`,
+`big_bird`), which share one architecture (MPNet adds a relative position
+bias, ELECTRA and RemBERT an embedding projection, ERNIE a task-type
+embedding, Megatron-BERT and XLM-RoBERTa-XL move their LayerNorms before
+each block, BigBird may scale its word embeddings).
 
 For BERT it computes what transformers' `FlaxBertModel` computes when the
 JAX package's encoder (`models/hf_encoder.py` there) applies it under
 `jax.jit`; for the RoBERTa family, what transformers' torch
 `XLMRobertaModel` computes (the JAX package's branch for torch weights;
-`CamembertModel` is the same model under another name);
+`CamembertModel` and `Data2VecTextModel` are the same model under other
+names);
 for DistilBERT, what `FlaxDistilBertModel` and the torch
 `DistilBertModel` compute (a DistilBERT config's `dim`, `n_layers`,
 `n_heads` and `hidden_dim` are read as BERT's widths, and its weights
 load under BERT's names, models/checkpoint.py); for MPNet, ELECTRA,
-ERNIE, BertGeneration, RemBERT and Megatron-BERT, what the torch
-`MPNetModel`, `ElectraModel`, `ErnieModel`, `BertGenerationEncoder`,
-`RemBertModel` and `MegatronBertModel` compute (the JAX package's torch
-branch: transformers has no Flax model of these, and its Flax ELECTRA
-raises, fault 3.16). It returns the last hidden state (the encoder reads
-no pooler):
+ERNIE, BertGeneration, RemBERT, Megatron-BERT, XLM-RoBERTa-XL and
+BigBird, what the torch `MPNetModel`, `ElectraModel`, `ErnieModel`,
+`BertGenerationEncoder`, `RemBertModel`, `MegatronBertModel`,
+`XLMRobertaXLModel` and `BigBirdModel` compute (the JAX package's torch
+branch: transformers has no Flax model of most of these, its Flax ELECTRA
+raises, fault 3.16, and a BigBird reference is read from
+pytorch_model.bin, fault 3.27). It returns the last hidden state (the
+encoder reads no pooler):
 
 - embeddings: word + token type (all zeros) + position, then LayerNorm
-  (`layer_norm_eps`); dropout is off. BERT's positions are 0..L-1. The
+  (`layer_norm_eps`); dropout is off. BERT's positions are 0..L-1, and so
+  are BigBird's. The
   RoBERTa family's count from `pad_token_id` + 1 over the tokens that are
   not the pad id, and a pad token takes position `pad_token_id`
   (transformers' `create_position_ids_from_input_ids`). DistilBERT has no
@@ -38,7 +44,10 @@ no pooler):
   `pad_token_id` says; another pad id is refused); nor has BertGeneration
   (word + position). ERNIE adds, after the positions, row 0 of
   `task_type_embeddings` when `use_task_id` (transformers' default
-  task_type_ids are zeros). Megatron-BERT's embeddings have no LayerNorm.
+  task_type_ids are zeros). Megatron-BERT's and XLM-RoBERTa-XL's
+  embeddings have no LayerNorm. BigBird with `rescale_embeddings`
+  multiplies the word embeddings by sqrt(hidden_size) before the token
+  type is added.
   ELECTRA's embeddings and their LayerNorm are `embedding_size` wide
   (default `hidden_size`), RemBERT's `input_embedding_size` wide; when
   that differs from `hidden_size`, `embeddings_project` (a Linear with
@@ -71,12 +80,21 @@ no pooler):
   by finfo(float32).min (`masked_fill_`, never added), softmax, times V,
   the output projection, residual and LayerNorm; then the intermediate
   projection, the activation (`hidden_act` through models/activations.py:
-  exact (erf) GELU by default, `gelu_new` and the rest of its list;
-  another name is refused), the output projection, residual and
-  LayerNorm. Megatron-BERT's layer is pre-LayerNorm: `attention.ln`
-  before self-attention and the residual added with no norm after, `ln`
-  before the intermediate and again no norm after, and `encoder.ln` after
-  the last layer.
+  exact (erf) GELU by default, BigBird's `gelu_new` by its default, and
+  the rest of its list; another name is refused), the output projection,
+  residual and LayerNorm. Megatron-BERT's and XLM-RoBERTa-XL's layers are
+  pre-LayerNorm: `attention.ln` before self-attention and the residual
+  added with no norm after, `ln` before the intermediate and again no
+  norm after, and `encoder.ln` after the last layer (XLM-RoBERTa-XL's
+  `attention.self_attn_layer_norm`, its layer's `LayerNorm` and
+  `encoder.LayerNorm`, renamed by position in models/checkpoint.py).
+- BigBird: `attention_type` `original_full` runs BERT's full attention.
+  `block_sparse` runs it too wherever transformers falls back to it: a
+  batch of at most (5 + 2 num_random_blocks) block_size tokens switches
+  the model to full attention (`BigBirdModel.forward`). A config whose
+  threshold is under 512, the encoder's max_len, would reach the sparse
+  path on long batches, and is refused by name (ROADMAP queues it); a
+  longer batch than the threshold raises. `use_bias` false is refused.
 
 Attention is written as explicit products and a softmax, the same math
 as `FlaxBertSelfAttention`, not `scaled_dot_product_attention`, which
@@ -120,9 +138,13 @@ CONFIG_KEYS = (
     "layer_norm_eps",
 )
 # model types whose positions count from the padding id
-ROBERTA_TYPES = ("roberta", "xlm-roberta", "camembert")
+ROBERTA_TYPES = ("roberta", "xlm-roberta", "camembert", "data2vec-text", "xlm-roberta-xl")
+BIG_BIRD = "big_bird"
 MODEL_TYPES = ("bert", *ROBERTA_TYPES, "distilbert", "mpnet", "electra", "ernie",
-               "bert-generation", "rembert", "megatron-bert")
+               "bert-generation", "rembert", "megatron-bert", BIG_BIRD)
+# model types whose layers norm before each block, not after, and whose
+# embeddings have no LayerNorm
+PRE_NORM_TYPES = ("megatron-bert", "xlm-roberta-xl")
 # model types whose transformers modules read `relative_key` and
 # `relative_key_query` (RemBERT's, DistilBERT's and MPNet's do not)
 RELATIVE_TYPES = ("bert", *ROBERTA_TYPES, "electra", "ernie", "bert-generation",
@@ -132,6 +154,13 @@ RELATIVE_KEYS = ("relative_key", "relative_key_query")
 # (MPNetEncoder.compute_position_bias passes num_buckets=32 and the
 # default max_distance=128 whatever the config says)
 MPNET_PAD_ID, MPNET_BUCKETS, MPNET_MAX_DISTANCE = 1, 32, 128
+# BigBirdConfig's defaults for its own keys
+BIG_BIRD_DEFAULTS = {"hidden_act": "gelu_new", "attention_type": "block_sparse", "use_bias": True,
+                     "rescale_embeddings": False, "block_size": 64, "num_random_blocks": 3}
+# the encoder's longest batch (hf_encoder.TextEncoder's max_len, the JAX
+# package's): a BigBird whose fallback threshold reaches it never runs
+# its block-sparse path there
+BIG_BIRD_MAX_LEN = 512
 # a DistilBERT config's widths (transformers' DistilBertConfig names)
 DISTILBERT_KEYS = ("vocab_size", "dim", "n_layers", "n_heads", "hidden_dim", "activation",
                    "max_position_embeddings")
@@ -163,6 +192,32 @@ def _mpnet_config(config: dict) -> dict:
             "relative_attention_num_buckets": buckets}
 
 
+def sparse_threshold(config: dict) -> int:
+    """The longest batch a BigBird config runs with full attention:
+    (5 + 2 num_random_blocks) block_size (`BigBirdModel.forward`'s
+    `max_tokens_to_attend`)."""
+    return (5 + 2 * config["num_random_blocks"]) * config["block_size"]
+
+
+def _big_bird_config(config: dict) -> dict:
+    config = {**BIG_BIRD_DEFAULTS, **config}
+    kind = config["attention_type"]
+    if kind not in ("original_full", "block_sparse"):
+        raise ValueError(f"a big_bird attention_type `{kind}` is not supported: transformers"
+                         " reads original_full and block_sparse")
+    if kind == "block_sparse" and sparse_threshold(config) < BIG_BIRD_MAX_LEN:
+        raise ValueError(
+            f"a big_bird config with block_sparse attention whose threshold (5 + 2 x"
+            f" num_random_blocks {config['num_random_blocks']}) x block_size"
+            f" {config['block_size']} = {sparse_threshold(config)} is under"
+            f" {BIG_BIRD_MAX_LEN} tokens is not supported: transformers runs its block-sparse"
+            " path on longer batches, which the port does not run yet (ROADMAP queue 1)")
+    if not config["use_bias"]:
+        raise ValueError("a big_bird config with use_bias false is not supported: the port's"
+                         " attention projections have biases")
+    return config
+
+
 def check_config(config: dict) -> dict:
     """Raise ValueError unless `config` describes a model this module runs;
     return it with BERT's width names (CONFIG_KEYS; a DistilBERT config's
@@ -170,13 +225,16 @@ def check_config(config: dict) -> dict:
     MPNet and BertGeneration; `embedding_size`, the embeddings' width,
     `hidden_size` unless an ELECTRA config gives another or a RemBERT
     config its `input_embedding_size`; `hidden_act` and
-    `position_embedding_type` with their defaults)."""
+    `position_embedding_type` with their defaults; a BigBird config's
+    own keys with BigBirdConfig's)."""
     model_type = config.get("model_type", "bert")
     if model_type not in MODEL_TYPES:
         raise ValueError(
             f"model_type `{model_type}` is not supported: the port runs BERT, RoBERTa,"
-            " XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration,"
-            " RemBERT and Megatron-BERT checkpoints here, ALBERT ones in models/albert.py,"
+            " XLM-RoBERTa, CamemBERT, data2vec-text, XLM-RoBERTa-XL, DistilBERT, MPNet,"
+            " ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT and BigBird (full"
+            " attention) checkpoints here, Longformer ones in models/longformer.py,"
+            " ALBERT ones in models/albert.py,"
             " RoFormer ones in models/roformer.py, ModernBERT ones in models/modernbert.py,"
             " DeBERTa-v2 ones in models/deberta_v2.py, MobileBERT ones in"
             " models/mobilebert.py, SqueezeBERT ones in models/squeezebert.py, XLM ones in"
@@ -188,6 +246,8 @@ def check_config(config: dict) -> dict:
         config = _mpnet_config(config)
     elif model_type == "bert-generation":
         config = {**config, "type_vocab_size": 0}
+    elif model_type == BIG_BIRD:
+        config = _big_bird_config(config)
     if model_type in ROBERTA_TYPES and config.get("pad_token_id") is None:
         raise ValueError(f"a `{model_type}` config must give pad_token_id")
     act = config.get("hidden_act", "gelu")
@@ -274,12 +334,16 @@ class _Embeddings(nn.Module):
             self.task_type_embeddings = nn.Embedding(c["task_type_vocab_size"], h)
         else:
             self.task_type_embeddings = None
-        if model_type == "megatron-bert":
+        if model_type in PRE_NORM_TYPES:
             self.LayerNorm = None
         else:
             self.LayerNorm = nn.LayerNorm(h, eps=c["layer_norm_eps"])
-        from_pad = model_type in (*ROBERTA_TYPES, "mpnet")
+        # models/longformer.py's embeddings are RoBERTa's
+        from_pad = model_type in (*ROBERTA_TYPES, "mpnet", "longformer")
         self.padding_idx = c["pad_token_id"] if from_pad else None
+        # BigBird's `rescale_embeddings`: the word embeddings times sqrt(hidden_size)
+        self.scale = (c["hidden_size"] ** 0.5 if model_type == BIG_BIRD
+                      and c["rescale_embeddings"] else None)
         # transformers adds absolute positions unless the keys are relative;
         # BertGenerationEmbeddings adds them whatever the config says
         self.absolute = (c.get("position_embedding_type", "absolute") == "absolute"
@@ -289,6 +353,8 @@ class _Embeddings(nn.Module):
         L = input_ids.shape[1]
         # Flax's order: (words + token types) + positions (+ ERNIE's task type)
         x = self.word_embeddings(input_ids)
+        if self.scale is not None:
+            x = x * self.scale
         if self.token_type_embeddings is not None:
             x = x + self.token_type_embeddings.weight[0]
         if self.absolute and self.padding_idx is None:
@@ -360,8 +426,9 @@ class _Output(nn.Module):
 
 
 def _pre_norm(c: dict) -> bool:
-    """Megatron-BERT's layers norm before each block, not after."""
-    return c.get("model_type") == "megatron-bert"
+    """Megatron-BERT's and XLM-RoBERTa-XL's layers norm before each block,
+    not after."""
+    return c.get("model_type") in PRE_NORM_TYPES
 
 
 class _Attention(nn.Module):
@@ -419,7 +486,7 @@ class _Encoder(nn.Module):
                 c["relative_attention_num_buckets"], c["num_attention_heads"])
         else:
             self.relative_attention_bias = None
-        if _pre_norm(c):  # Megatron-BERT's final LayerNorm
+        if _pre_norm(c):  # Megatron-BERT's and XLM-RoBERTa-XL's final LayerNorm
             self.ln = nn.LayerNorm(c["hidden_size"], eps=c["layer_norm_eps"])
         else:
             self.ln = None
@@ -437,9 +504,9 @@ class BertModel(nn.Module):
     (the RoBERTa family's positions, DistilBERT's layout, MPNet's
     positions and relative position bias, ELECTRA's or RemBERT's
     embedding projection, ERNIE's task type, BertGeneration's missing
-    token type, Megatron-BERT's pre-LayerNorm layers, or the relative
-    keys, when the config names them); `config` holds BERT's width
-    names."""
+    token type, Megatron-BERT's and XLM-RoBERTa-XL's pre-LayerNorm layers,
+    BigBird's scaled word embeddings, or the relative keys, when the config
+    names them); `config` holds BERT's width names."""
 
     def __init__(self, config: dict):
         super().__init__()
@@ -451,6 +518,10 @@ class BertModel(nn.Module):
         else:
             self.embeddings_project = None
         self.encoder = _Encoder(config)
+        # the longest batch a BigBird runs as transformers runs it: full
+        # attention up to its block-sparse threshold
+        self.max_batch_len = (sparse_threshold(config) if config.get("model_type") == BIG_BIRD
+                              and config["attention_type"] == "block_sparse" else None)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """(B, L) int64 ids and 0/1 mask -> (B, L, hidden) float32, the
@@ -460,11 +531,14 @@ class BertModel(nn.Module):
                 "the text encoder needs full float32 matmuls:"
                 " torch.backends.cuda.matmul.allow_tf32 is True"
             )
+        L = input_ids.shape[1]
+        if self.max_batch_len is not None and L > self.max_batch_len:
+            raise ValueError(f"a batch of {L} tokens would run BigBird's block-sparse attention"
+                             f" (threshold {self.max_batch_len}), which the port does not run")
         x = self.embeddings(input_ids)
         if self.embeddings_project is not None:
             x = self.embeddings_project(x)
         blocked = (attention_mask == 0)[:, None, None, :]  # (B, 1, 1, L): padded keys
-        L = input_ids.shape[1]
         position_bias = self.encoder.position_bias(L, x.device)
         distance = None
         if self.config["position_embedding_type"] in RELATIVE_KEYS:

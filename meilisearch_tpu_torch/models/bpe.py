@@ -1,6 +1,8 @@
 """BPE tokenization, as the `tokenizers` library runs it: byte-level
-(what `AutoTokenizer` gives a RoBERTa checkpoint, `RobertaTokenizerFast`,
-a ModernBERT or Llama-3 one, `PreTrainedTokenizerFast`, and a Qwen2 or
+(what `AutoTokenizer` gives a RoBERTa or data2vec-text checkpoint,
+`RobertaTokenizerFast`, a Longformer one, `LongformerTokenizerFast`, the
+same class under another name, a ModernBERT or Llama-3 one,
+`PreTrainedTokenizerFast`, and a Qwen2 or
 Qwen3 one, `Qwen2TokenizerFast`) and sentencepiece's with byte fallback
 (what transformers' `LlamaConverter` and `GemmaConverter` write: Llama-2's,
 Mistral's, e5-mistral's and Phi-3's files, `LlamaTokenizerFast`, and
@@ -21,7 +23,8 @@ and gives the same input ids and attention masks, on the host:
    `added_tokens`, the special tokens of tokenizer_config.json count, as
    the class it names adds them: a token given as a dict keeps its flags,
    and `added_tokens_decoder` overrides the file's flags. A RoBERTa class
-   (`RobertaTokenizer`, the default of every family without one below)
+   (`RobertaTokenizer`, the default of every family without one below;
+   `LongformerTokenizer`, the default of `longformer`, reads the same)
    also gives `RobertaTokenizerFast`'s defaults (`<s>`, `</s>`, `<unk>`,
    `<pad>`, `<mask>`) to the keys the config leaves out, and makes
    `<mask>` given as a string `lstrip`; a Qwen2 class (`Qwen2Tokenizer`,
@@ -115,7 +118,8 @@ _WORD_CACHE_MAX = 1 << 20  # cached words before the cache is emptied
 # the tokenizer classes read (when tokenizer_config.json names none, the
 # model type decides, as AutoTokenizer does: _DEFAULT_CLASS, else
 # RobertaTokenizer)
-ROBERTA_CLASSES = ("RobertaTokenizer", "RobertaTokenizerFast")
+ROBERTA_CLASSES = ("RobertaTokenizer", "RobertaTokenizerFast", "LongformerTokenizer",
+                   "LongformerTokenizerFast")
 QWEN2_CLASSES = ("Qwen2Tokenizer", "Qwen2TokenizerFast")
 PLAIN_CLASSES = ("PreTrainedTokenizerFast",)
 LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
@@ -124,7 +128,7 @@ _DEFAULT_CLASS = {"modernbert": "PreTrainedTokenizerFast", "qwen2": "Qwen2Tokeni
                   "qwen3": "Qwen2TokenizerFast", "llama": "LlamaTokenizerFast",
                   "mistral": "LlamaTokenizerFast", "phi3": "LlamaTokenizerFast",
                   "gemma3_text": "GemmaTokenizerFast", "gemma2": "GemmaTokenizerFast",
-                  "gemma": "GemmaTokenizerFast"}
+                  "gemma": "GemmaTokenizerFast", "longformer": "LongformerTokenizerFast"}
 # RobertaTokenizerFast's special tokens and their defaults
 _SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "sep_token": "</s>",
              "pad_token": "<pad>", "cls_token": "<s>", "mask_token": "<mask>"}

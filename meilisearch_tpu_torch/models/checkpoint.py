@@ -1,8 +1,9 @@
 """Read (and write) a local BERT, RoBERTa, XLM-RoBERTa, CamemBERT,
-DistilBERT, MPNet, ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT,
-ALBERT, RoFormer, ModernBERT, DeBERTa-v2, MobileBERT, SqueezeBERT, XLM,
-FlauBERT, XLNet, Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2 or
-Gemma 3 checkpoint directory without transformers.
+data2vec-text, XLM-RoBERTa-XL, DistilBERT, MPNet, ELECTRA, ERNIE,
+BertGeneration, RemBERT, Megatron-BERT, BigBird, Longformer, ALBERT,
+RoFormer, ModernBERT, DeBERTa-v2, MobileBERT, SqueezeBERT, XLM, FlauBERT,
+XLNet, Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2 or Gemma 3
+checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -26,7 +27,9 @@ A directory as transformers' `save_pretrained` leaves it:
 - the tokenizer: first its class, chosen as `AutoTokenizer` chooses it
   (tokenizer_config.json's `tokenizer_class`, else config.json's, else
   the model type's: `XLMTokenizer` for `xlm`, `FlaubertTokenizer` for
-  `flaubert`); those two read `vocab.json` and `merges.txt` through
+  `flaubert`, `LongformerTokenizerFast` for `longformer`,
+  `BigBirdTokenizerFast` for `big_bird`); XLM's and FlauBERT's read
+  `vocab.json` and `merges.txt` through
   Moses and a `</w>` BPE (models/xlm_bpe.py), never as RoBERTa's
   byte-level BPE. Otherwise the tokenizer is chosen by what the directory
   holds, whatever the model type: a `tokenizer.json` whose model is Unigram (XLM-R's, CamemBERT's
@@ -42,7 +45,9 @@ A directory as transformers' `save_pretrained` leaves it:
   template). A `tokenizer.json` of any other model (WordLevel, ...) is
   refused; so is a directory whose only tokenizer is a sentencepiece
   model file (`spm.model`, `sentencepiece.bpe.model`), which the port
-  does not parse. Beside it, `tokenizer_config.json` (`do_lower_case`,
+  does not parse, and a `LongformerTokenizer(Fast)` directory whose
+  tokenizer is not a BPE one or a `BigBirdTokenizer(Fast)` one whose
+  tokenizer is not a Unigram tokenizer.json. Beside it, `tokenizer_config.json` (`do_lower_case`,
   default true; `strip_accents`; `tokenize_chinese_chars`;
   `add_prefix_space`; the special tokens and `added_tokens_decoder`;
   `tokenizer_class`, where `RoFormerTokenizer(Fast)`, whose jieba
@@ -54,9 +59,11 @@ A directory as transformers' `save_pretrained` leaves it:
 Checkpoint names map onto `BertModel`'s, `AlbertModel`'s,
 `RoFormerModel`'s, `ModernBertModel`'s, `DebertaV2Model`'s,
 `MobileBertModel`'s, `SqueezeBertModel`'s, `XLMModel`'s, `XLNetModel`'s,
-`DecoderModel`'s and `Gemma3Model`'s (`hf_to_state_dict`): a `bert.`
-(BERT's, Megatron-BERT's and BertGeneration's), `roberta.` (RoBERTa's and
-CamemBERT's), `distilbert.`, `mpnet.`, `electra.`, `ernie.`, `rembert.`,
+`DecoderModel`'s, `Gemma3Model`'s and `LongformerModel`'s
+(`hf_to_state_dict`): a `bert.` (BERT's, Megatron-BERT's, BertGeneration's
+and BigBird's), `roberta.` (RoBERTa's, CamemBERT's and XLM-RoBERTa-XL's),
+`data2vec_text.`, `longformer.`, `distilbert.`, `mpnet.`, `electra.`,
+`ernie.`, `rembert.`,
 `albert.`, `roformer.`, `deberta.`, `mobilebert.`, `model.` (ModernBERT's
 and the `*ForCausalLM` decoders', `Gemma3ForCausalLM`'s, `Gemma2ForCausalLM`'s,
 `GemmaForCausalLM`'s and `Phi3ForCausalLM`'s too) or
@@ -84,7 +91,12 @@ layers keep `encoder.layer.N` and BERT's names but for the attention
 kept, and so is ELECTRA's `embeddings_project`; RemBERT's and ALBERT's
 `encoder.embedding_hidden_mapping_in` is that projection under another
 name and becomes `embeddings_project` (`write_checkpoint` names it back).
-Megatron-BERT's `attention.ln.` and `ln.` are kept as they are.
+Megatron-BERT's `attention.ln.` and `ln.` are kept as they are;
+XLM-RoBERTa-XL's pre-norms take those names by where they run, never by
+what `LayerNorm` means in BERT: `attention.self_attn_layer_norm.` (before
+self-attention) becomes `attention.ln.`, the layer's own `LayerNorm.`
+(before the intermediate) `ln.`, and `encoder.LayerNorm.` (after the
+last layer) `encoder.ln.` (`hf_to_state_dict` given the model type).
 `flax_to_state_dict` does the same for a Flax parameter tree given as numpy arrays (transformers'
 `FlaxBertModel.params`, or `FlaxXLMRobertaModel.params`, the same tree,
 or `FlaxDistilBertModel.params`): a dense `kernel` (in, out) becomes
@@ -116,6 +128,7 @@ from . import (
     decoder,
     gemma2,
     gemma3,
+    longformer,
     mobilebert,
     modernbert,
     roformer,
@@ -130,11 +143,13 @@ from .deberta_v2 import DebertaV2Model
 from .decoder import DecoderModel
 from .fixtures import (
     albert_tokenizer_config,
+    bigbird_tokenizer_config,
     camembert_tokenizer_config,
     deberta_v2_tokenizer_config,
     gemma_tokenizer_config,
     llama3_tokenizer_config,
     llama_tokenizer_config,
+    longformer_tokenizer_config,
     modernbert_tokenizer_config,
     moses_tokenizer_config,
     mpnet_tokenizer_config,
@@ -143,6 +158,7 @@ from .fixtures import (
 )
 from .gemma2 import Gemma2Model
 from .gemma3 import Gemma3Model
+from .longformer import LongformerModel
 from .mobilebert import MobileBertModel
 from .modernbert import ModernBertModel
 from .roformer import RoFormerModel
@@ -163,7 +179,8 @@ _ST_DTYPES = {
 _ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.int64: "I64",
              torch.int32: "I32"}
 _PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "electra.", "ernie.", "rembert.",
-             "albert.", "roformer.", "deberta.", "model.", "mobilebert.")
+             "albert.", "roformer.", "deberta.", "model.", "mobilebert.", "longformer.",
+             "data2vec_text.")
 # SqueezeBERT's, XLM's and XLNet's base-model prefix; DistilBERT's layers
 # (`transformer.layer.N.` over DistilBERT's leaves) keep it
 _TRANSFORMER = "transformer."
@@ -179,12 +196,18 @@ _REFUSED_TOKENIZERS = {"RoFormerTokenizer": "its jieba pre-tokenizer",
                        "RoFormerTokenizerFast": "its jieba pre-tokenizer"}
 # AutoTokenizer's class for a model type, where the port reads it from the
 # type alone (a directory that names no class)
-_TYPE_TOKENIZERS = {xlm.MODEL_TYPE: "XLMTokenizer", xlm.FLAUBERT_TYPE: "FlaubertTokenizer"}
+_TYPE_TOKENIZERS = {xlm.MODEL_TYPE: "XLMTokenizer", xlm.FLAUBERT_TYPE: "FlaubertTokenizer",
+                    longformer.MODEL_TYPE: "LongformerTokenizerFast",
+                    bert.BIG_BIRD: "BigBirdTokenizerFast"}
+# tokenizer classes (without `Fast`) the port reads from one tokenizer
+# model only: Longformer's byte-level BPE, BigBird's Unigram tokenizer.json
+_CLASS_MODELS = {"LongformerTokenizer": "BPE", "BigBirdTokenizer": "Unigram"}
 # tokenizer classes whose `model_input_names` leave out token_type_ids
 # (the others give them, PreTrainedTokenizerBase's default)
 _UNTYPED_TOKENIZERS = ("RobertaTokenizer", "XLMRobertaTokenizer", "CamembertTokenizer",
                        "DistilBertTokenizer", "MPNetTokenizer", "LlamaTokenizer",
-                       "GemmaTokenizer", "Qwen2Tokenizer", "GPT2Tokenizer", "BartTokenizer")
+                       "GemmaTokenizer", "Qwen2Tokenizer", "GPT2Tokenizer", "BartTokenizer",
+                       "LongformerTokenizer", "BigBirdTokenizer")
 # sentencepiece model files, which the port does not parse
 _SPM_FILES = ("spm.model", "sentencepiece.bpe.model", "sentencepiece.model")
 # DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
@@ -207,6 +230,11 @@ _MPNET_NAMES = (
     ("attention.LayerNorm.", "attention.output.LayerNorm."),
 )
 _LAYER = "encoder.layer."
+# XLM-RoBERTa-XL's pre-norms -> BertModel's by where they run, inside
+# `encoder.layer.N.` (before self-attention, before the intermediate), and
+# its final norm
+_XLMR_XL_NAMES = (("attention.self_attn_layer_norm.", "attention.ln."), ("LayerNorm.", "ln."))
+_XLMR_XL_FINAL = ("encoder.LayerNorm.", "encoder.ln.")
 
 
 def _rename_layer(name: str, src: str, dst: str, table) -> str:
@@ -243,6 +271,23 @@ def _distilbert_layer(name: str) -> bool:
     return leaf.startswith(tuple(old for old, _new in _DISTILBERT_NAMES))
 
 
+def _to_xlmr_xl(name: str) -> str:
+    """BertModel's parameter name under XLM-RoBERTa-XL's."""
+    if name.startswith(_LAYER):
+        return _rename_layer(name, _LAYER, _LAYER,
+                             [(ours, theirs) for theirs, ours in _XLMR_XL_NAMES])
+    theirs, ours = _XLMR_XL_FINAL
+    return theirs + name[len(ours):] if name.startswith(ours) else name
+
+
+def _from_xlmr_xl(name: str) -> str:
+    """XLM-RoBERTa-XL's parameter name under BertModel's."""
+    if name.startswith(_LAYER):
+        return _rename_layer(name, _LAYER, _LAYER, _XLMR_XL_NAMES)
+    theirs, ours = _XLMR_XL_FINAL
+    return ours + name[len(theirs):] if name.startswith(theirs) else name
+
+
 def _to_mapping_in(name: str) -> str:
     """The module's projection under RemBERT's and ALBERT's name."""
     if name.startswith(_PROJECT):
@@ -252,6 +297,7 @@ def _to_mapping_in(name: str) -> str:
 
 # model types with a module of their own, and its checks
 _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
+           longformer.MODEL_TYPE: LongformerModel,
            albert.MODEL_TYPE: AlbertModel, roformer.MODEL_TYPE: RoFormerModel,
            **{kind: DecoderModel for kind in decoder.MODEL_TYPES},
            gemma3.MODEL_TYPE: Gemma3Model, gemma2.MODEL_TYPE: Gemma2Model,
@@ -260,6 +306,7 @@ _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
            xlm.FLAUBERT_TYPE: XLMModel, xlnet.MODEL_TYPE: XLNetModel}
 # (`gemma3`, the multimodal model, is refused by models/gemma3.py by name)
 _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config,
+           longformer.MODEL_TYPE: longformer.check_config,
            albert.MODEL_TYPE: albert.check_config, roformer.MODEL_TYPE: roformer.check_config,
            **{kind: decoder.check_config for kind in decoder.MODEL_TYPES},
            gemma3.MODEL_TYPE: gemma3.check_config, "gemma3": gemma3.check_config,
@@ -284,7 +331,8 @@ def check_config(config: dict) -> dict:
     `roformer` one by models/roformer.py, a `qwen3`, `qwen2`, `llama`,
     `mistral`, `gemma` or `phi3` one by models/decoder.py, a `gemma3_text`
     (or `gemma3`) one by models/gemma3.py, a `gemma2` one by
-    models/gemma2.py, any other by models/bert.py."""
+    models/gemma2.py, a `longformer` one by models/longformer.py, any
+    other by models/bert.py."""
     return _CHECKS.get(config.get("model_type"), bert.check_config)(config)
 
 
@@ -293,7 +341,8 @@ def new_model(config: dict):
     `modernbert`, `DebertaV2Model` for `deberta-v2`, `AlbertModel` for
     `albert`, `RoFormerModel` for `roformer`, `DecoderModel` for
     the decoders, `Gemma3Model` for `gemma3_text`, `Gemma2Model` for
-    `gemma2`, `BertModel` for the other families."""
+    `gemma2`, `LongformerModel` for `longformer`, `BertModel` for the
+    other families."""
     return _MODELS.get(config.get("model_type"), BertModel)(config)
 
 
@@ -334,10 +383,11 @@ def read_safetensors(path: str) -> dict:
     return out
 
 
-def hf_to_state_dict(named: dict) -> dict:
+def hf_to_state_dict(named: dict, model_type: Optional[str] = None) -> dict:
     """A checkpoint's tensors (torch or numpy) under BertModel's (or
     AlbertModel's, RoFormerModel's, ModernBertModel's, DebertaV2Model's,
-    ...) names, as float32 CPU tensors."""
+    ...) names, as float32 CPU tensors; `model_type` `xlm-roberta-xl`
+    renames its pre-norms by where they run."""
     out = {}
     for name, value in named.items():
         for prefix in _PREFIXES:
@@ -353,6 +403,8 @@ def hf_to_state_dict(named: dict) -> dict:
             name = _rename_layer(name, "transformer.layer.", _LAYER, _DISTILBERT_NAMES)
         elif name.startswith(_LAYER):
             name = _rename_layer(name, _LAYER, _LAYER, _MPNET_NAMES)
+        if model_type == "xlm-roberta-xl":
+            name = _from_xlmr_xl(name)
         if name.endswith(".gamma"):
             name = name[: -len("gamma")] + "weight"
         elif name.endswith(".beta"):
@@ -393,14 +445,16 @@ def flax_to_state_dict(params: dict) -> dict:
     return hf_to_state_dict(named)
 
 
-def read_weights(path: str) -> dict:
-    """The module's state_dict from a checkpoint directory's weights."""
+def read_weights(path: str, model_type: Optional[str] = None) -> dict:
+    """The module's state_dict from a checkpoint directory's weights (of
+    `model_type`, config.json's, for `hf_to_state_dict`)."""
     st = os.path.join(path, "model.safetensors")
     if os.path.exists(st):
-        return hf_to_state_dict(read_safetensors(st))
+        return hf_to_state_dict(read_safetensors(st), model_type)
     pt = os.path.join(path, "pytorch_model.bin")
     if os.path.exists(pt):
-        return hf_to_state_dict(torch.load(pt, map_location="cpu", weights_only=True))
+        return hf_to_state_dict(torch.load(pt, map_location="cpu", weights_only=True),
+                                model_type)
     raise FileNotFoundError(
         f"`{path}` holds neither model.safetensors nor pytorch_model.bin"
     )
@@ -436,7 +490,7 @@ def load_checkpoint(path: str) -> Checkpoint:
             f"tokenizer_class `{tok_class}` is not supported: {_REFUSED_TOKENIZERS[tok_class]}"
             " is not in the port (a checkpoint saved with a WordPiece, Unigram or BPE tokenizer"
             " class the port reads loads)")
-    state = read_weights(path)
+    state = read_weights(path, config.get("model_type"))
     if config.get("model_type") == roformer.MODEL_TYPE:
         state = roformer.with_positions(config, state)
     if tok_class in MOSES_CLASSES:
@@ -471,6 +525,12 @@ def load_checkpoint(path: str) -> Checkpoint:
                 " sentencepiece model files; save the tokenizer with transformers to write its"
                 " tokenizer.json"
             )
+    kind = spec["model"]["type"] if spec is not None else "WordPiece"
+    want = _CLASS_MODELS.get((tok_class or "").removesuffix("Fast"))
+    if want is not None and kind != want:
+        raise ValueError(f"tokenizer_class `{tok_class}` over a {kind} tokenizer is not"
+                         f" supported: the port reads that class from a {want} tokenizer"
+                         " only")
     vocab = []
     if spec is None or spec["model"]["type"] == "WordPiece":
         with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
@@ -546,11 +606,13 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                      moses: Optional[tuple] = None) -> None:
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
     bert unless `config` names one), the weights as pytorch_model.bin
-    (BertModel's names, DistilBERT's or MPNet's for such a config,
-    RemBERT's and ALBERT's `encoder.embedding_hidden_mapping_in` for their
-    `embeddings_project`, AlbertModel's, RoFormerModel's and
+    (BertModel's names, DistilBERT's, MPNet's or XLM-RoBERTa-XL's for such
+    a config, RemBERT's and ALBERT's `encoder.embedding_hidden_mapping_in`
+    for their `embeddings_project`, LongformerModel's, AlbertModel's,
+    RoFormerModel's and
     DebertaV2Model's for `albert`, `roformer` and `deberta-v2`; ELECTRA's
-    there too, the one file the JAX package reads it from, fault 3.16),
+    and BigBird's there too, the one file from which the JAX package reads
+    each through its torch branch, faults 3.16 and 3.27),
     or for `modernbert`, the
     decoders, `gemma3_text` and `gemma2` as model.safetensors, the file their
     checkpoints are published in (ModernBertModel's, DecoderModel's,
@@ -562,10 +624,12 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     `mpnet` config, ElectraTokenizer's class for `electra`) or
     `tokenizer_json` (a Unigram tokenizer.json with XLM-R's special tokens,
     CamemBERT's config for `camembert`, DeBERTa-v2's for `deberta-v2`,
-    ALBERT's for `albert` and XLNet's for `xlnet`,
-    fixtures.camembert_tokenizer_config, deberta_v2_tokenizer_config,
-    albert_tokenizer_config and xlnet_tokenizer_config; a
-    BPE one with RoBERTa's, add_prefix_space false, or, for a `modernbert`
+    ALBERT's for `albert`, XLNet's for `xlnet` and BigBird's for
+    `big_bird`, fixtures.camembert_tokenizer_config,
+    deberta_v2_tokenizer_config, albert_tokenizer_config,
+    xlnet_tokenizer_config and bigbird_tokenizer_config; a
+    BPE one with RoBERTa's, add_prefix_space false, Longformer's for a
+    `longformer` config, fixtures.longformer_tokenizer_config, or, for a `modernbert`
     config, a BPE one with its own specials and `PreTrainedTokenizerFast`'s
     config, fixtures.modernbert_tokenizer_config; for `qwen3` and `qwen2`
     Qwen2Tokenizer's, fixtures.qwen2_tokenizer_config, for `llama` and
@@ -580,7 +644,7 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     config = {"model_type": "bert", **config}
     model_type = config["model_type"]
     rename = {"distilbert": _to_distilbert, "mpnet": _to_mpnet, "rembert": _to_mapping_in,
-              albert.MODEL_TYPE: _to_mapping_in}.get(model_type)
+              albert.MODEL_TYPE: _to_mapping_in, "xlm-roberta-xl": _to_xlmr_xl}.get(model_type)
     if rename is not None:
         state_dict = {rename(k): v for k, v in state_dict.items()}
     if model_type not in ("distilbert", "modernbert", albert.MODEL_TYPE, *decoder.MODEL_TYPES,
@@ -614,7 +678,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                "phi3": llama_tokenizer_config, "gemma": gemma_tokenizer_config,
                gemma3.MODEL_TYPE: gemma_tokenizer_config,
                gemma2.MODEL_TYPE: gemma_tokenizer_config,
-               xlnet.MODEL_TYPE: xlnet_tokenizer_config}.get(model_type)
+               xlnet.MODEL_TYPE: xlnet_tokenizer_config,
+               longformer.MODEL_TYPE: longformer_tokenizer_config,
+               bert.BIG_BIRD: bigbird_tokenizer_config}.get(model_type)
         if own is not None:
             tok_config = own(tokenizer_json)
         elif bpe:

@@ -7,10 +7,14 @@ XLM-RoBERTa converter writes it, `camembert_tokenizer_json` and
 do (with `camembert_tokenizer_config` and `deberta_v2_tokenizer_config`,
 what the fast tokenizers' `save_pretrained` writes beside them),
 `albert_tokenizer_json` and `albert_tokenizer_config` as its ALBERT
-converter and `AlbertTokenizerFast` write them, `ernie_vocab` a WordPiece
+converter and `AlbertTokenizerFast` write them, `bigbird_tokenizer_json`
+and `bigbird_tokenizer_config` as its BigBird converter and
+`BigBirdTokenizerFast` write them, `ernie_vocab` a WordPiece
 vocabulary laid out as ERNIE 3.0's (CJK characters first),
 `roberta_tokenizer_json` a seeded
-byte-level BPE one as its RoBERTa converter writes it,
+byte-level BPE one as its RoBERTa converter writes it (with
+`longformer_tokenizer_config`, what `LongformerTokenizerFast` writes
+beside it),
 `modernbert_tokenizer_json` and `modernbert_tokenizer_config` a seeded one
 in ModernBERT's layout and the config published beside it,
 `qwen2_tokenizer_json` and `llama3_tokenizer_json` seeded ones in Qwen2's
@@ -291,6 +295,47 @@ def albert_tokenizer_config(spec: dict) -> dict:
             "unk_token": "<unk>"}
 
 
+# BigBird's specials: the sentencepiece model's first four pieces, and
+# its [CLS], [SEP] and [MASK] at 65-67 (google/bigbird-roberta-base's
+# config.json: pad 0, bos 1, eos 2, sep 66)
+BIGBIRD_HEAD = ("<pad>", "<s>", "</s>", "<unk>")
+BIGBIRD_MARKS = ("[CLS]", "[SEP]", "[MASK]")
+BIGBIRD_MARKS_AT = 65
+
+
+def bigbird_tokenizer_json(vocab: list, charsmap: Optional[bytes] = None) -> dict:
+    """A tokenizer.json as transformers' BigBird converter and
+    `BigBirdTokenizerFast` write it for a sentencepiece model whose pieces
+    are BIGBIRD_HEAD (control pieces, `<unk>` the unknown one), then
+    `vocab` [(piece, score)] with BIGBIRD_MARKS (control pieces) placed at
+    ids 65-67 (after the vocabulary's first 61 pieces, or after all of a
+    shorter one): unk_id 3; the seven specials as added tokens, `[MASK]`
+    with lstrip; SpmConverter's normalizer Sequence[Precompiled (when
+    `charsmap` is given), Strip(right), Replace(" {2,}", U+2581)], Metaspace
+    (always, split); `[CLS] $A [SEP]`."""
+    cut = min(BIGBIRD_MARKS_AT - len(BIGBIRD_HEAD), len(vocab))
+    body = [[p, float(s)] for p, s in vocab]
+    pieces = ([[p, 0.0] for p in BIGBIRD_HEAD] + body[:cut] + [[p, 0.0] for p in BIGBIRD_MARKS]
+              + body[cut:])
+    ids = {p: i for i, (p, _s) in enumerate(pieces)}
+    added = _added(sorted((ids[t], t) for t in BIGBIRD_HEAD + BIGBIRD_MARKS), lstrip=("[MASK]",))
+    return _unigram_spec(pieces, 3, added,
+                         {"type": "Sequence", "normalizers": _spm_normalizers(charsmap)},
+                         METASPACE, _template(("[CLS]", ids["[CLS]"]), ("[SEP]", ids["[SEP]"]),
+                                              False, 1))
+
+
+def bigbird_tokenizer_config(spec: dict) -> dict:
+    """The tokenizer_config.json `BigBirdTokenizerFast.save_pretrained`
+    writes beside such a tokenizer.json (model_max_length
+    google/bigbird-roberta-base's 4096)."""
+    return {"added_tokens_decoder": _added_decoder(spec), "bos_token": "<s>",
+            "clean_up_tokenization_spaces": False, "cls_token": "[CLS]", "eos_token": "</s>",
+            "extra_special_tokens": {}, "mask_token": "[MASK]", "model_max_length": 4096,
+            "pad_token": "<pad>", "sep_token": "[SEP]", "tokenizer_class": "BigBirdTokenizerFast",
+            "unk_token": "<unk>"}
+
+
 # XLNet's sentencepiece model opens with these nine pieces, `<eod>` and
 # `<eop>` user-defined, the others control symbols
 XLNET_HEAD = ("<unk>", "<s>", "</s>", "<cls>", "<sep>", "<pad>", "<mask>", "<eod>", "<eop>")
@@ -479,6 +524,18 @@ def roberta_tokenizer_json(texts: list, vocab_size: int, seed: int,
         "decoder": BYTE_LEVEL,
         "model": _bpe_model(vocab, merges),
     }
+
+
+def longformer_tokenizer_config(spec: dict) -> dict:
+    """The tokenizer_config.json `LongformerTokenizerFast.save_pretrained`
+    writes beside a `roberta_tokenizer_json` file (model_max_length
+    allenai/longformer-base-4096's 4096)."""
+    return {"add_prefix_space": False, "added_tokens_decoder": _added_decoder(spec),
+            "bos_token": "<s>", "clean_up_tokenization_spaces": False, "cls_token": "<s>",
+            "eos_token": "</s>", "errors": "replace", "extra_special_tokens": {},
+            "mask_token": "<mask>", "model_max_length": 4096, "pad_token": "<pad>",
+            "sep_token": "</s>", "tokenizer_class": "LongformerTokenizer", "trim_offsets": True,
+            "unk_token": "<unk>"}
 
 
 # ModernBERT's vocabulary extends GPT-NeoX's: two specials first, its
@@ -970,3 +1027,4 @@ def moses_tokenizer_config(tokenizer_class: str = "XLMTokenizer", **flags) -> di
             "bos_token": "<s>", "cls_token": "</s>", "id2lang": None, "lang2id": None,
             "mask_token": "<special1>", "pad_token": "<pad>", "sep_token": "</s>",
             "unk_token": "<unk>", **own, **flags, "tokenizer_class": tokenizer_class}
+

@@ -1,8 +1,8 @@
 """In-process text embedding on the store's device (K8).
 
 Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
-families, ALBERT, RoFormer, ModernBERT, DeBERTa-v2, MobileBERT,
-SqueezeBERT, XLM, FlauBERT, XLNet) or decoder (Qwen3,
+families, Longformer, ALBERT, RoFormer, ModernBERT, DeBERTa-v2,
+MobileBERT, SqueezeBERT, XLM, FlauBERT, XLNet) or decoder (Qwen3,
 Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2, Gemma 3) checkpoint pulled
 from the hub, tokenized,
 mean/CLS-pooled, optionally L2-normalized;
@@ -18,14 +18,16 @@ models/checkpoint.py, texts are tokenized on the host by
 models/wordpiece.py, or, for XLM's and FlauBERT's vocab.json +
 merges.txt, models/xlm_bpe.py (Moses, models/moses.py, then a `</w>`
 BPE), or, for a Unigram tokenizer.json (XLM-R's, CamemBERT's,
-DeBERTa-v3's, ALBERT's, RemBERT's and XLNet's vocabularies),
+DeBERTa-v3's, ALBERT's, RemBERT's, XLNet's and BigBird's vocabularies),
 models/unigram.py, or, for
-a BPE (RoBERTa's, ModernBERT's, Qwen2's and Llama-3's byte-level one;
+a BPE (RoBERTa's and Longformer's, ModernBERT's, Qwen2's and Llama-3's byte-level one;
 Llama-2's, Mistral's, Phi-3's and Gemma's with byte fallback), models/bpe.py
 (WordPiece, Unigram and BPE with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
-XLM-RoBERTa, CamemBERT, DistilBERT, MPNet, ELECTRA, ERNIE,
-BertGeneration, RemBERT and Megatron-BERT), models/albert.py's
+XLM-RoBERTa, CamemBERT, data2vec-text, XLM-RoBERTa-XL, DistilBERT,
+MPNet, ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT and
+BigBird's full attention), models/longformer.py's `LongformerModel`,
+models/albert.py's
 `AlbertModel`, models/roformer.py's `RoFormerModel`,
 models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
 `DebertaV2Model`, models/mobilebert.py's `MobileBertModel`,
@@ -65,7 +67,7 @@ import numpy as np
 import torch
 
 from ..ops.chain_keys import LaunchCounter
-from . import squeezebert, xlnet
+from . import longformer, squeezebert, xlnet
 from .bert import RELATIVE_KEYS
 from .checkpoint import build_model, build_tokenizer, gives_token_types, load_checkpoint
 from .deberta_v2 import attention_span
@@ -148,11 +150,18 @@ class TextEncoder:
             # XLNet's (heads, L, 2L) position scores and their shifted copy,
             # and the segment term (heads, L, L)
             per_text += 4 * heads * L * 5 * L
+        elif kind == longformer.MODEL_TYPE:
+            # Longformer's (L, L) scores run under a (B, 1, L, L) bool band
+            # mask, one for each distinct window, built once a forward
+            per_text += L * L * len(set(c["attention_window"]))
         elif kind == squeezebert.MODEL_TYPE:
             # SqueezeBERT's channel-last copies around each LayerNorm and the
             # grouped products' copies of their inputs
             per_text += 4 * L * (2 * width + ffn)
-        # (MobileBERT's widest activations are its 512-wide hidden state and
+        # (XLM-RoBERTa-XL's 2,560-wide hidden state and 10,240-wide
+        # intermediate are the widths above; its pre-norms' outputs are
+        # among the 6 hidden-wide activations;
+        # MobileBERT's widest activations are its 512-wide hidden state and
         # intermediate_size, each FFN of the stack run after the other, and
         # its 3 x 128 trigram embedding: counted above)
         free, _total = torch.cuda.mem_get_info(self.device)

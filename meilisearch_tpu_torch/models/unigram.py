@@ -1,7 +1,7 @@
 """SentencePiece-Unigram tokenization from a `tokenizer.json`, as the
 `tokenizers` library runs it (what `AutoTokenizer` gives an XLM-RoBERTa,
-CamemBERT, DeBERTa-v2, ALBERT, RemBERT or XLNet checkpoint, and BERT
-checkpoints that carry XLM-R's vocabulary).
+XLM-RoBERTa-XL, CamemBERT, DeBERTa-v2, ALBERT, RemBERT, XLNet or BigBird
+checkpoint, and BERT checkpoints that carry XLM-R's vocabulary).
 
 The JAX package tokenizes through `AutoTokenizer(texts, padding=True,
 truncation=True, max_length=max_len)`. This module reads the same file
@@ -9,7 +9,14 @@ and gives the same input ids and attention masks, on the host:
 
 1. added tokens (`added_tokens`, matched on the raw text, leftmost and
    longest first; `lstrip`/`rstrip` take the whitespace beside them) are
-   cut out and kept whole; the rest is split around them;
+   cut out and kept whole; the rest is split around them. Under
+   `BigBirdTokenizer(Fast)` (the class of a `tokenizer_class`-less
+   `big_bird` checkpoint) the class adds what the file lacks, as
+   transformers does: first tokenizer_config.json's
+   `added_tokens_decoder` entries with their flags, then its seven
+   special tokens (`<s>`, `</s>`, `<unk>`, `<pad>`, `[SEP]`, `[CLS]`,
+   `[MASK]` by default; a string `mask_token` with lstrip), each the
+   vocabulary's piece;
 2. the normalizer, on each piece between added tokens: `Sequence`,
    `Precompiled` (sentencepiece's compiled character map, below), `Strip`,
    `Replace` (a string or a `Regex`), `NFKC`, `NFKD`, `StripAccents`
@@ -83,10 +90,14 @@ _DEFAULT_PAD = {"deberta-v2": "[PAD]"}
 # the tokenizer class AutoTokenizer picks for a model type when
 # tokenizer_config.json names none, where it pads otherwise than on the
 # right with type 0
-_CLASS_OF_TYPE = {"xlnet": "XLNetTokenizer"}
+_CLASS_OF_TYPE = {"xlnet": "XLNetTokenizer", "big_bird": "BigBirdTokenizer"}
 # a class's padding side and the token type of its pad (XLNetTokenizer's
 # `padding_side` and `_pad_token_type_id`)
 _CLASS_PADDING = {"XLNetTokenizer": ("left", 3)}
+# BigBirdTokenizerFast's special tokens and their defaults
+_BIGBIRD_SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+                     "pad_token": "<pad>", "sep_token": "[SEP]", "mask_token": "[MASK]",
+                     "cls_token": "[CLS]"}
 
 # char::is_whitespace (Unicode White_Space), which Strip and lstrip/rstrip use
 _WHITESPACE = frozenset(map(chr, [*range(0x09, 0x0E), 0x20, 0x85, 0xA0, 0x1680,
@@ -529,6 +540,8 @@ class Unigram:
                                  " port does not support")
             added[tok["content"]] = (tok["id"], tok.get("lstrip", False),
                                      tok.get("rstrip", False))
+        if _tokenizer_class(config or {}, model_type) == "BigBirdTokenizer":
+            self._class_specials(added, config or {})
         self.added = AddedTokens(added)
 
         pad = (_token_content((config or {}).get("pad_token"))
@@ -543,6 +556,26 @@ class Unigram:
             raise ValueError(f"padding_side `{self.padding_side}` is not right or left")
         self._words: dict = {}
         self._lock = threading.Lock()
+
+    def _class_specials(self, added: dict, config: dict) -> None:
+        """BigBirdTokenizerFast's added tokens that `added` (the file's)
+        lacks: `added_tokens_decoder`'s, then the special tokens."""
+        flagged = list((config.get("added_tokens_decoder") or {}).values())
+        for key, default in _BIGBIRD_SPECIALS.items():
+            value = config.get(key, default)
+            if isinstance(value, str):
+                value = {"content": value, "lstrip": key == "mask_token"}
+            if isinstance(value, dict):
+                flagged.append(value)
+        for tok in flagged:
+            content = tok["content"]
+            if content in added:
+                continue
+            if content not in self.pieces:
+                raise ValueError(f"the special token `{content}` (BigBirdTokenizer's) is not in"
+                                 " the vocabulary")
+            added[content] = (self.pieces[content], tok.get("lstrip", False),
+                              tok.get("rstrip", False))
 
     def token_to_id(self, token: str) -> Optional[int]:
         if token in self.added.tokens:

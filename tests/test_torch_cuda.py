@@ -17,8 +17,9 @@ DistilBERT, MPNet, ModernBERT, CamemBERT, ELECTRA, DeBERTa-v2, ERNIE,
 BertGeneration, RemBERT, Megatron-BERT, RoFormer, ALBERT, BERT's relative
 keys, the decoders (with scaled rotaries, sliding windows, MLP biases and
 other activations too), Gemma 3 and Llama from byte-fallback
-tokenizers, XLM and FlauBERT from their Moses tokenizers, and Gemma 2,
-Gemma and Phi-3, on the card as the same checkpoint on the CPU."""
+tokenizers, XLM and FlauBERT from their Moses tokenizers, Gemma 2,
+Gemma and Phi-3, and Longformer, data2vec-text, XLM-RoBERTa-XL and
+BigBird, on the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -1372,3 +1373,63 @@ def test_device_scorer_path_on_the_card_matches_host(cuda_device, monkeypatch):
         store.device = None
         assert page == host, query
         assert (ds.LAUNCHES.value > before) == (not query.startswith('"')), query
+
+
+# RoBERTa's relatives at a published checkpoint's widths, cut to 2 layers:
+# allenai/longformer-base-4096 with windows [16, 32] (so they bite),
+# facebook/data2vec-text-base, facebook/xlm-roberta-xl and
+# google/bigbird-roberta-base (block_sparse, run full)
+P22_FAMILIES = {
+    "longformer": {"model_type": "longformer", "hidden_size": 768, "num_attention_heads": 12,
+                   "intermediate_size": 3072, "max_position_embeddings": 4098,
+                   "type_vocab_size": 1, "layer_norm_eps": 1e-5, "pad_token_id": 1,
+                   "attention_window": [16, 32]},
+    "data2vec-text": {"model_type": "data2vec-text", "hidden_size": 768,
+                      "num_attention_heads": 12, "intermediate_size": 3072,
+                      "max_position_embeddings": 514, "type_vocab_size": 1,
+                      "layer_norm_eps": 1e-5, "pad_token_id": 1},
+    "xlm-roberta-xl": {"model_type": "xlm-roberta-xl", "hidden_size": 2560,
+                       "num_attention_heads": 32, "intermediate_size": 10240,
+                       "max_position_embeddings": 514, "type_vocab_size": 1,
+                       "layer_norm_eps": 1e-5, "pad_token_id": 1},
+    "big_bird": {"model_type": "big_bird", "hidden_size": 768, "num_attention_heads": 12,
+                 "intermediate_size": 3072, "max_position_embeddings": 4096,
+                 "type_vocab_size": 2, "layer_norm_eps": 1e-12, "pad_token_id": 0,
+                 "hidden_act": "gelu_new", "attention_type": "block_sparse", "block_size": 64,
+                 "num_random_blocks": 3, "rescale_embeddings": True},
+}
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("kind", list(P22_FAMILIES))
+def test_roberta_relatives_on_the_card_match_the_cpu(cuda_device, tmp_path, kind, pooling):
+    """Longformer's band (windows 16 and 32 under texts of 200 to 512
+    tokens; its padded queries zeroed), data2vec-text's RoBERTa layers,
+    XLM-RoBERTa-XL's pre-norms at 2,560 wide and BigBird's full attention
+    with scaled word embeddings on the card: a padded batch of short texts
+    beside long ones, against the CPU within 1e-5."""
+    from meilisearch_tpu_torch.models import fixtures, hf_encoder
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = dict(P22_FAMILIES[kind], num_hidden_layers=2)
+    if kind in ("longformer", "data2vec-text"):
+        spec = fixtures.roberta_tokenizer_json(_enc_texts(200, 27), 1500, seed=27)
+    elif kind == "xlm-roberta-xl":
+        spec = fixtures.xlmr_tokenizer_json(_spm_pieces(27))
+    else:
+        spec = fixtures.bigbird_tokenizer_json(_spm_pieces(27))
+    config["vocab_size"] = len(spec["model"]["vocab"])
+    torch.manual_seed(28)
+    write_checkpoint(str(tmp_path), config, new_model(config).state_dict(), tokenizer_json=spec)
+    texts = _enc_texts(15, seed=29) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80), "",
+                                       "x <mask> y [MASK] z"]
+    card = hf_encoder.TextEncoder(str(tmp_path), pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert card._model.config["model_type"] == kind
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-5
