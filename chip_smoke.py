@@ -77,7 +77,7 @@ Phases, each fatal on failure:
      nothing downloaded) is written to a temporary directory; the port's
      encoder on the card must agree with the same checkpoint on the CPU
      within ENC_TOL on 80 texts; a fourth App ingests ENC_DOCS synthetic
-     hackernews documents (25,000 of the configuration's 150,000) over HTTP
+     hackernews documents (10,000 of the configuration's 150,000) over HTTP
      with a huggingFace embedder on that
      checkpoint and Meilisearch's default documentTemplate, every document
      embedded at indexing on the card (wall time, tokens, tokens/s, peak
@@ -205,7 +205,7 @@ Phases, each fatal on failure:
      chunk against its float32 bound;
   16. EmbeddingGemma path (hn10k-embeddinggemma-hf): a checkpoint at
      google/embeddinggemma-300m's published config.json widths
-     (gemma3_text: vocab 262,144, hidden 768, 12 of its 24 layers, 3 heads
+     (gemma3_text: vocab 262,144, hidden 768, 6 of its 24 layers, 3 heads
      of 256 over 1 KV head, intermediate 1,152, five sliding layers then
      one full, bidirectional; seeded random weights at initializer_range 0.02,
      written as model.safetensors) with a seeded 262,144-piece
@@ -227,7 +227,7 @@ Phases, each fatal on failure:
   17. Llama-3.2-1B path (hn10k-llama32-1b-hf), after the earlier phases'
      encoders are let go: a checkpoint at meta-llama/Llama-3.2-1B's
      published config.json widths (llama: vocab 128,256, hidden
-     2,048, 8 of its 16 layers, 32 heads of 64 over 8 KV heads, intermediate
+     2,048, 4 of its 16 layers, 32 heads of 64 over 8 KV heads, intermediate
      8,192, rope_theta 500,000 under rope_scaling llama3, factor 32 over
      8,192 positions; seeded random weights at initializer_range 0.02,
      written as model.safetensors) with a seeded byte-level BPE in
@@ -295,7 +295,7 @@ Phases, each fatal on failure:
   20. XLM and FlauBERT paths (hn10k-xlmen2048-hf,
      hn10k-flaubertbase-hf), after the earlier phases' encoders are let
      go: checkpoints at FacebookAI/xlm-mlm-en-2048's published config.json
-     (xlm: 6 of its 12 layers of 2,048, 16 heads, GELU, vocab 30,145) and at
+     (xlm: 3 of its 12 layers of 2,048, 16 heads, GELU, vocab 30,145) and at
      flaubert/flaubert_base_cased's (flaubert: 12 layers of 768, 12
      heads, post-norm, vocab 68,729), seeded random weights at 0.02,
      written as model.safetensors, each beside its own tokenizer: a seeded
@@ -361,7 +361,29 @@ Phases, each fatal on failure:
      host share, peak device memory, 256 hybrid responses against the host
      pass, a query's forward and launches against its weight-read bound
      (the `*_global` weights not counted), and one chunk against its
-     float32 bound.
+     float32 bound;
+  23. BigBird block-sparse path (hn2k-bigbirdsparse-hf), after the earlier
+     phases' encoders are let go: a checkpoint at
+     google/bigbird-roberta-base's published config.json (big_bird: 12
+     layers of 768, 12 heads, intermediate 3,072, gelu_new, 4,096
+     positions, pad id 0) under its model card's block_size 16 and
+     num_random_blocks 2, so a call past 144 tokens runs block-sparse
+     (seeded random weights at 0.02, written as pytorch_model.bin) with
+     phase 22's seeded 50,358-piece Unigram, through its own App over
+     2,000 documents whose `text` field is a seeded run of 150-900 of the
+     corpus's words (200 of them short), rendered with
+     documentTemplateMaxBytes 8,000 (the vector store's DEVICE_MIN_ROWS
+     lowered to 1, so 2,000 rows take the float leg): the encoder on the
+     card against the CPU within ENC_TOL on 83 texts (full attention) and
+     on phase 13's long texts (block-sparse, counted), one block-sparse
+     chunk of 512 tokens against its float32 bound over the pattern's
+     pairs (the (L, L) count printed beside it), the write's forwards
+     (fails unless one ran block-sparse), tokens/s and the host share,
+     peak device memory, 256 hybrid responses against the host pass, and
+     a query's forward (full attention) and launches against its
+     weight-read bound.
+Every phase prints its wall as it ends, and the walls are printed
+together after phase 23.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -466,15 +488,16 @@ VEC_SERVED_PER_CLIENT = 8
 # huggingFace embedder at BAAI/bge-base-en-v1.5's published width (random
 # weights from a seed, nothing downloaded) and Meilisearch's default
 # documentTemplate; every document is embedded at indexing on the card.
-# 25,000 of its 150,000 documents: the depth cut (50,000 until phase 17
-# came) that keeps the whole script near 900 s with phase 17
+# 10,000 of its 150,000 documents: the depth cut (50,000 until phase 17
+# came, 25,000 until phase 23) that keeps the whole script under its
+# limit with phase 23
 BGE_CONFIG = {
     "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
     "num_attention_heads": 12, "intermediate_size": 3072,
     "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
 }
 BGE_INIT_STD = 0.02  # BERT's initializer_range
-ENC_DOCS, ENC_WRITE, ENC_SEED = 25_000, 1_000, 2025
+ENC_DOCS, ENC_WRITE, ENC_SEED = 10_000, 1_000, 2025
 ENC_TOL = 1e-4  # max abs error of normalized embeddings, card against the CPU
 ENC_TEXT = ["rust compiler", "machine learning database", "cloud security", "python web"]
 ENC_TIMED_TOKENS = 128  # tokens per text of the timed indexing chunk
@@ -621,14 +644,13 @@ P15_DOCS, P15_SEED = 10_000, 2031
 # bos 2, unk 3, the 256 <0xNN> byte pieces) and GemmaTokenizer's
 # tokenizer_config.json with add_bos_token and add_eos_token both true.
 # 10,000 of the configuration's 150,000 hackernews documents: phase 15's
-# depth cut; widths and vocabulary size are the published ones, and 12 of
-# its 24 layers (two runs of five sliding and one full: the second of the
-# cuts before phase 21)
+# depth cut; widths and vocabulary size are the published ones, and 6 of
+# its 24 layers (a run of five sliding and one full; 12 until phase 23)
 EMBEDDINGGEMMA_CONFIG = {
     "model_type": "gemma3_text", "vocab_size": 262_144, "hidden_size": 768,
-    "intermediate_size": 1152, "num_hidden_layers": 12, "num_attention_heads": 3,
+    "intermediate_size": 1152, "num_hidden_layers": 6, "num_attention_heads": 3,
     "num_key_value_heads": 1, "head_dim": 256, "query_pre_attn_scalar": 256,
-    "sliding_window": 512, "layer_types": (["sliding_attention"] * 5 + ["full_attention"]) * 2,
+    "sliding_window": 512, "layer_types": ["sliding_attention"] * 5 + ["full_attention"],
     "rope_theta": 1_000_000.0, "rope_local_base_freq": 10_000.0, "rope_scaling": None,
     "rms_norm_eps": 1e-6, "hidden_activation": "gelu_pytorch_tanh", "attention_bias": False,
     "attention_dropout": 0.0, "attn_logit_softcapping": None, "final_logit_softcapping": None,
@@ -657,11 +679,10 @@ P16_DOCS, P16_SEED = 10_000, 2032
 # PreTrainedTokenizerFast's tokenizer_config.json with pad
 # <|finetune_right_pad_id|>. 10,000 of the configuration's 150,000
 # hackernews documents: phase 16's depth cut; widths and vocabulary size
-# are the published ones, and 8 of its 16 layers (the third of the cuts
-# before phase 21)
+# are the published ones, and 4 of its 16 layers (8 until phase 23)
 LLAMA32_1B_CONFIG = {
     "model_type": "llama", "vocab_size": 128_256, "hidden_size": 2048,
-    "intermediate_size": 8192, "num_hidden_layers": 8, "num_attention_heads": 32,
+    "intermediate_size": 8192, "num_hidden_layers": 4, "num_attention_heads": 32,
     "num_key_value_heads": 8, "head_dim": 64, "rms_norm_eps": 1e-5, "rope_theta": 500_000.0,
     "rope_scaling": {"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
                      "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
@@ -777,10 +798,10 @@ XLNET_BASE_CONFIG = {
 }
 P19_DOCS, P19_SEED = 10_000, 2035
 # FacebookAI/xlm-mlm-en-2048's config.json (XLMConfig's names): 2,048
-# wide, 16 heads, GELU, one language, 30,145 words; 6 of its 12 layers
-# (the fourth of the cuts before phase 21)
+# wide, 16 heads, GELU, one language, 30,145 words; 3 of its 12 layers
+# (6 until phase 23)
 XLM_EN_2048_CONFIG = {
-    "model_type": "xlm", "vocab_size": 30_145, "emb_dim": 2048, "n_layers": 6,
+    "model_type": "xlm", "vocab_size": 30_145, "emb_dim": 2048, "n_layers": 3,
     "n_heads": 16, "gelu_activation": True, "sinusoidal_embeddings": False,
     "causal": False, "n_langs": 1, "use_lang_emb": True, "max_position_embeddings": 512,
     "layer_norm_eps": 1e-12, "pad_index": 2, "pad_token_id": 2, "is_encoder": True}
@@ -960,6 +981,24 @@ P22_VARIANTS = {
         "num_random_blocks": 3, "rescale_embeddings": False, "use_bias": True},
 }
 P22_TEXT = ["[CLS] x [SEP] y [MASK] z", "x[MASK]y  [MASK]  z", "a <mask> b </s> c"]
+# phase 23 (hn2k-bigbirdsparse-hf): google/bigbird-roberta-base's published
+# config.json (12 layers of 768, 12 heads, intermediate 3,072, gelu_new,
+# 4,096 positions, 2 token types, pad id 0) under its model card's
+# block_size 16 and num_random_blocks 2, so any call whose longest text
+# passes (5 + 2 x 2) x 16 = 144 tokens runs block-sparse; seeded weights at
+# its initializer_range 0.02, written as pytorch_model.bin, beside phase
+# 22's seeded 50,358-piece Unigram in BigBirdConverter's layout
+BIGBIRD_SPARSE_CONFIG = {
+    **P22_VARIANTS["(d) big_bird at bigbird-roberta-base's widths, block_sparse run full"],
+    "architectures": ["BigBirdForPreTraining"], "num_hidden_layers": 12, "block_size": 16,
+    "num_random_blocks": 2, "initializer_range": 0.02}
+# 2,000 documents, each with a `text` field of a seeded run of 150-900 of
+# the corpus's words (200 of them short, 2-12 words, so that one write
+# mixes both lengths), rendered with documentTemplateMaxBytes 8,000 (the
+# default 400 bytes stop near 100 tokens) so that documents reach 150-512
+# tokens
+P23_DOCS, P23_SHORT, P23_SEED, P23_MAX_BYTES = 2_000, 200, 2039, 8_000
+P23_WORDS = (150, 900)
 # what Moses does to the encoder's texts: newlines and tabs dropped (two
 # words become one), French quotes and non-breaking spaces, elisions,
 # `No.` before a number, numbers with commas, multi-dots, a literal
@@ -2032,20 +2071,24 @@ def encoder_path_phase(device, card: str, n_docs: int) -> dict:
 
 def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, seed: int,
             queries: list, check_texts: list, tokenizer: str, model_type: str,
-            checks: tuple = ()) -> dict:
+            checks: tuple = (), docs: list | None = None, settings: dict | None = None,
+            embedder: dict | None = None) -> dict:
     """One checkpoint through its own App: (a) `write(path)` writes it; (b)
     the encoder on the card against the CPU on 80 texts (and each of
     `checks(path, device, label)`, its error); (c) n_docs
-    documents embedded at indexing on the card, through the tokenizer
-    class and model type named; (d) hybrid searches with a text q (the
-    `queries`) against the same store's host pass; (e) the forward's
-    timing. Returns the check's error, the forwards and the timings."""
+    documents (`docs`, else seeded hackernews ones) embedded at indexing on
+    the card, through the tokenizer class and model type named, the index's
+    settings VEC_SETTINGS with `settings` over them and the embedder's keys
+    `embedder`; (d) hybrid searches with a text q (the `queries`) against
+    the same store's host pass; (e) the forward's timing. Returns the
+    check's error, the forwards (those that ran block-sparse among them)
+    and the timings."""
     import tempfile
 
     import torch
 
     from meilisearch_tpu_torch.api.app import App, TestClient
-    from meilisearch_tpu_torch.models import hf_encoder
+    from meilisearch_tpu_torch.models import big_bird, hf_encoder
     from meilisearch_tpu_torch.search.device_batch import serving_stats
     from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
     from meilisearch_tpu_torch.vector import embedders
@@ -2057,7 +2100,8 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
         write(path)
         say(f"{label} checkpoint (seeded random weights) written in"
             f" {time.perf_counter() - t0:.3f} s")
-        docs = generate_hackernews_like(n_docs, seed=seed)
+        if docs is None:
+            docs = generate_hackernews_like(n_docs, seed=seed)
         searchable = set(VEC_SETTINGS["searchableAttributes"])
         texts = [render_document_template(None, d, searchable) for d in docs[:48]]
         texts += list(queries) * 2 + check_texts
@@ -2069,9 +2113,8 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
         app = App(device=device)
         try:
             client = TestClient(app)
-            settings = {**VEC_SETTINGS, "embedders": {"default": {
-                "source": "huggingFace", "model": path}}}
-            client.update_settings(index, settings)
+            client.update_settings(index, {**VEC_SETTINGS, **(settings or {}), "embedders": {
+                "default": {"source": "huggingFace", "model": path, **(embedder or {})}}})
             enc = hf_encoder.encoder(path, "useModel", device)
             enc._load()
             chosen = (type(enc._tokenizer).__name__, enc._model.config["model_type"])
@@ -2080,6 +2123,7 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
                                      f" {(tokenizer, model_type)}")
             before = (enc.texts, enc.tokens, enc.seconds, enc.tokenize_seconds)
             hf_encoder.FORWARDS.reset()
+            big_bird.FORWARDS.reset()
             torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
             res = client.post(f"/indexes/{index}/documents", body=docs)
@@ -2089,7 +2133,7 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
             if task.to_json()["status"] != "succeeded":
                 raise AssertionError(f"ingest failed: {task.to_json()}")
             ingest_s = time.perf_counter() - t0
-            forwards = hf_encoder.FORWARDS.value
+            forwards, sparse = hf_encoder.FORWARDS.value, big_bird.FORWARDS.value
             n_texts, tokens = enc.texts - before[0], enc.tokens - before[1]
             embed_s, tok_s = enc.seconds - before[2], enc.tokenize_seconds - before[3]
             peak = torch.cuda.max_memory_allocated(device) / 2**30
@@ -2100,7 +2144,8 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
                 f" ({tokens / embed_s:.1f} tokens/s), of which host tokenization ({tokenizer})"
                 f" {tok_s:.3f} s ({100 * tok_s / embed_s:.1f}%) and the rest"
                 f" {embed_s - tok_s:.3f} s; {forwards} forwards of up"
-                f" to {enc.chunk_texts()} texts; peak device memory {peak:.3f} GiB")
+                f" to {enc.chunk_texts()} texts ({sparse} of them block-sparse); peak device"
+                f" memory {peak:.3f} GiB")
             if n_texts != n_docs or forwards <= 0 or len(store.vectors["default"]) != n_docs:
                 raise AssertionError("the documents were not all embedded on the card")
             if next(enc._model.parameters()).device != device:
@@ -2125,8 +2170,8 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
         finally:
             app.search_batcher.stop()
             app.scheduler.stop()
-    return {"err": err, "forwards": forwards, "tokens_s": tokens / embed_s,
-            "tokenize_s": tok_s, **timing}
+    return {"err": err, "forwards": forwards, "sparse_forwards": sparse,
+            "tokens_s": tokens / embed_s, "tokenize_s": tok_s, **timing}
 
 
 def xlmr_path_phase(device, card: str, n_docs: int) -> dict:
@@ -3346,7 +3391,7 @@ def p22_variants_check(path: str, device, label: str, spec: dict) -> float:
                          model.encoder.ln is not None, c["hidden_size"])
                 want += (None, True, True, config["hidden_size"])
             elif kind == "big_bird":
-                read += (model.max_batch_len, emb.scale, c["hidden_act"])
+                read += (model.sparse_threshold, emb.scale, c["hidden_act"])
                 want += (bert.sparse_threshold(config), None, "gelu_new")
             if read != want:
                 raise AssertionError(f"{what}: the encoder reads {read}, not {want}")
@@ -3399,6 +3444,149 @@ def longformer_phase(device, card: str, n_docs: int) -> dict:
     say(f"phase 22 wall: {time.perf_counter() - t_phase:.3f} s")
     return out
 
+
+
+def p23_documents(n_docs: int) -> list:
+    """Phase 23's documents: seeded hackernews ones, each with a `text`
+    field, a seeded run of P23_WORDS of the corpus's words
+    (`long_check_texts`' generator), but P23_SHORT spread among them whose
+    text is 2-12 words."""
+    import numpy as np
+
+    from meilisearch_tpu_torch.utils.synthetic import WORDS, generate_hackernews_like
+
+    rng = np.random.default_rng(P23_SEED)
+    short = set(rng.choice(n_docs, P23_SHORT, replace=False).tolist())
+    docs = generate_hackernews_like(n_docs, seed=P23_SEED)
+    for i, doc in enumerate(docs):
+        n = int(rng.integers(2, 13) if i in short else rng.integers(P23_WORDS[0], P23_WORDS[1] + 1))
+        doc["text"] = " ".join(rng.choice(WORDS, size=n))
+    return docs
+
+
+def pattern_pairs(L: int, block: int, r: int) -> int:
+    """The (query, key) pairs a batch row of L tokens (a multiple of
+    `block`) scores under BigBird's block-sparse pattern, each key once."""
+    from meilisearch_tpu_torch.models.big_bird import block_counts
+
+    return int((block_counts(L // block, r) > 0).sum()) * block * block
+
+
+def sparse_chunk_timing(enc, card: str, label: str) -> dict:
+    """One indexing chunk at 512 tokens (chunk_texts() texts, every token
+    real), which runs block-sparse: device time by CUDA events, median of
+    REPEATS, against its float32 bound counted over the pattern's pairs
+    (the port computes every (L, L) score and masks the rest; both counts
+    printed)."""
+    import torch
+
+    from meilisearch_tpu_torch.models import big_bird
+
+    c = enc._model.config
+    n, L = enc.chunk_texts(), enc.max_len
+    g = torch.Generator().manual_seed(P23_SEED)
+    ids = torch.randint(1000, c["vocab_size"], (n, L), generator=g)
+    mask = torch.ones((n, L), dtype=torch.int64)
+    big_bird.FORWARDS.reset()
+    ms = _median_ms(lambda: enc.forward(ids, mask), reps=REPEATS)
+    if big_bird.FORWARDS.value == 0:
+        raise AssertionError(f"{label}: the 512-token chunk did not run block-sparse")
+    pairs = pattern_pairs(L, c["block_size"], c["num_random_blocks"])
+    layers, width = c["num_hidden_layers"], c["hidden_size"]
+    linear = 2 * projection_weights(enc._model) * n * L
+    flops = linear + 4 * pairs * width * layers * n
+    dense = encoder_flops(enc._model, n, L)
+    bound_ms = flops / FP32_FLOP_S * 1e3
+    say(f"timing {label} on {card}: one block-sparse chunk ({n} texts x {L} tokens) {ms:.4f} ms"
+        f" (CUDA events, median of {REPEATS}); the pattern scores {pairs} of the {L * L}"
+        f" (query, key) pairs a row ({100 * pairs / (L * L):.2f}%): {flops / 1e12:.3f} TFLOP with"
+        f" the pattern ({linear / 1e12:.3f} of it Linear), {dense / 1e12:.3f} TFLOP with the"
+        f" (L, L) product the port computes; {flops / ms / 1e9:.2f} TFLOP/s of the pattern's"
+        f" work, bound {bound_ms:.4f} ms ({FP32_FLOP_S / 1e12:.0f} TFLOP/s float32),"
+        f" {bound_ms / ms:.2f} of the bound")
+    return {"sparse_chunk_ms": ms, "sparse_chunk_bound_ms": bound_ms}
+
+
+def bigbird_sparse_check(path: str, device, label: str, *, card: str, timing: dict) -> float:
+    """The phase's checkpoint: the module reads the model card's blocks
+    (threshold 144); the path's 83 check texts ran full attention on both
+    devices; phase 13's long texts in one batch (`long_check`) run
+    block-sparse, card against CPU; then one 512-token chunk timed
+    (`sparse_chunk_timing`, into `timing`)."""
+    from meilisearch_tpu_torch.models import big_bird
+    from meilisearch_tpu_torch.models.bert import BertModel
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    model = enc._model
+    if not isinstance(model, BertModel) or model.sparse_threshold != 144:
+        raise AssertionError(f"{label}: the module does not run the model card's blocks:"
+                             f" {type(model).__name__}, threshold"
+                             f" {getattr(model, 'sparse_threshold', None)}")
+    if big_bird.FORWARDS.value:
+        raise AssertionError(f"{label}: the check texts ran block-sparse")
+    err = long_check(path, device, label, texts=long_check_texts(P23_SEED))
+    sparse = big_bird.FORWARDS.value
+    say(f"{label}: {sparse} block-sparse forwards on the long texts (card and CPU)")
+    if sparse < 2:
+        raise AssertionError(f"{label}: the long texts did not run block-sparse on both devices")
+    timing.update(sparse_chunk_timing(enc, card, label))
+    return err
+
+
+def bigbird_sparse_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 23, hn2k-bigbirdsparse-hf through its own App (`hf_path`),
+    its documents P23_WORDS long with documentTemplateMaxBytes
+    P23_MAX_BYTES, the long check and the sparse chunk's timing inside its
+    checks, once the earlier phases' encoders are let go. Fails unless the
+    write ran block-sparse."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import big_bird, fixtures, hf_encoder
+    from meilisearch_tpu_torch.vector import store as vstore
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 23 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    label = "bigbird-roberta-base (block 16, 2 random blocks)"
+    config = BIGBIRD_SPARSE_CONFIG
+    t0 = time.perf_counter()
+    spec = fixtures.bigbird_tokenizer_json(e5_pieces(config["vocab_size"] - 7, P22_SEED))
+    docs = p23_documents(n_docs)
+    say(f"{label} tokenizer ({len(spec['model']['vocab'])} pieces) and {n_docs} documents"
+        f" ({P23_SHORT} short) built in {time.perf_counter() - t0:.3f} s")
+    big_bird.FORWARDS.reset()
+    timing = {}
+    # 2,000 rows are under the device legs' DEVICE_MIN_ROWS: the matrix is
+    # sent to the card all the same, so the hybrid round takes the float leg
+    min_rows, vstore.DEVICE_MIN_ROWS = vstore.DEVICE_MIN_ROWS, 1
+    try:
+        out = hf_path(device, card, n_docs, label=label, index="bb",
+                      write=lambda path: write_p22_checkpoint(path, config, P23_SEED, spec),
+                      seed=P23_SEED, queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P22_TEXT,
+                      tokenizer="Unigram", model_type="big_bird",
+                      checks=(partial(bigbird_sparse_check, card=card, timing=timing),),
+                      docs=docs,
+                      settings={"searchableAttributes": [*VEC_SETTINGS["searchableAttributes"],
+                                                         "text"]},
+                      embedder={"documentTemplateMaxBytes": P23_MAX_BYTES})
+    finally:
+        vstore.DEVICE_MIN_ROWS = min_rows
+    if out["sparse_forwards"] <= 0:
+        raise AssertionError(f"{label}: no forward of the write ran block-sparse")
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 23 wall: {time.perf_counter() - t_phase:.3f} s")
+    return {**out, **timing}
 
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
@@ -4382,38 +4570,47 @@ def main() -> int:
 
     card = card_line()
     say(card)
-    build_phase()
-    k1_err = kernel_phase(device)
-    k3_err = osa_kernel_phase(device)
-    k4_err = hamming_kernel_phase(device)
-    k6_err = chain_dp_kernel_phase(device)
-    keyword = main_path_phase(device, opts.docs)
+    t_start = time.perf_counter()
+    walls = {}
+
+    def run(name, fn, *args):
+        """fn(*args), its wall printed and kept under `name`."""
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t, 3)
+        say(f"phase {name} ended after {walls[name]:.3f} s")
+        return out
+
+    run("1", build_phase)
+    k1_err, k3_err, k4_err, k6_err = run("2", lambda: (
+        kernel_phase(device), osa_kernel_phase(device), hamming_kernel_phase(device),
+        chain_dp_kernel_phase(device)))
+    keyword = run("3", main_path_phase, device, opts.docs)
     # phase 8 runs on the keyword phase's store, which goes before phase 4
-    chain = chain_scorer_phase(device, card, keyword)
+    chain = run("8", chain_scorer_phase, device, card, keyword)
     select = chain["select"]
     chain = chain["chain_dp"]
     k6_err = max(k6_err, chain.pop("max_abs_err"))
     del keyword["store"]
-    typo = typo_path_phase(device, TYPO_VOCAB_WORDS)
-    vector = vector_path_phase(device)
-    timing = timing_phase(device, card, typo, vector)
+    typo = run("4", typo_path_phase, device, TYPO_VOCAB_WORDS)
+    vector = run("5", vector_path_phase, device)
+    timing = run("6", timing_phase, device, card, typo, vector)
     launches = {"osa": typo["launches"], "hamming": vector["launches"]}
     del typo, vector  # the earlier paths' stores go before the encoder path's
-    encoder_path_phase(device, card, opts.enc_docs)
-    xlmr_path_phase(device, card, E5_DOCS)
-    workloads_phase(device)
-    bpe_distilbert_phase(device, card, P11_DOCS)
-    mpnet_phase(device, card, P12_DOCS)
-    modernbert_phase(device, card, P13_DOCS)
-    families_phase(device, card, P14_DOCS)
-    qwen3_embedding_phase(device, card, P15_DOCS)
-    embeddinggemma_phase(device, card, P16_DOCS)
-    llama32_phase(device, card, P17_DOCS)
-    bert_families_phase(device, card, P18_DOCS)
-    more_families_phase(device, card, P19_DOCS)
-    moses_families_phase(device, card, P20_DOCS)
-    bge_gemma2_phase(device, card, P21_DOCS)
-    longformer_phase(device, card, P22_DOCS)
+    run("7", encoder_path_phase, device, card, opts.enc_docs)
+    run("9", xlmr_path_phase, device, card, E5_DOCS)
+    run("10", workloads_phase, device)
+    for name, fn, n_docs in (
+            ("11", bpe_distilbert_phase, P11_DOCS), ("12", mpnet_phase, P12_DOCS),
+            ("13", modernbert_phase, P13_DOCS), ("14", families_phase, P14_DOCS),
+            ("15", qwen3_embedding_phase, P15_DOCS), ("16", embeddinggemma_phase, P16_DOCS),
+            ("17", llama32_phase, P17_DOCS), ("18", bert_families_phase, P18_DOCS),
+            ("19", more_families_phase, P19_DOCS), ("20", moses_families_phase, P20_DOCS),
+            ("21", bge_gemma2_phase, P21_DOCS), ("22", longformer_phase, P22_DOCS),
+            ("23", bigbird_sparse_phase, P23_DOCS)):
+        run(name, fn, device, card, n_docs)
+    say(f"phase walls (s): {json.dumps(walls)}; the script from the first phase:"
+        f" {time.perf_counter() - t_start:.3f} s")
     k3_err = max(k3_err, timing["osa"].pop("max_abs_err"))
     k4_err = max(k4_err, timing["hamming"].pop("max_abs_err"))
     leaked = [

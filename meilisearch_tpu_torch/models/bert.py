@@ -89,12 +89,14 @@ encoder reads no pooler):
   `attention.self_attn_layer_norm`, its layer's `LayerNorm` and
   `encoder.LayerNorm`, renamed by position in models/checkpoint.py).
 - BigBird: `attention_type` `original_full` runs BERT's full attention.
-  `block_sparse` runs it too wherever transformers falls back to it: a
-  batch of at most (5 + 2 num_random_blocks) block_size tokens switches
-  the model to full attention (`BigBirdModel.forward`). A config whose
-  threshold is under 512, the encoder's max_len, would reach the sparse
-  path on long batches, and is refused by name (ROADMAP queues it); a
-  longer batch than the threshold raises. `use_bias` false is refused.
+  `block_sparse` runs it too wherever transformers falls back to it, on a
+  batch of at most (5 + 2 num_random_blocks) block_size tokens
+  (`BigBirdModel.forward`), and on a longer batch pads it to a multiple
+  of block_size and runs models/big_bird.py's block-sparse attention in
+  every layer, then cuts the padding off. The choice is made for each
+  forward by the batch's padded length alone: the model keeps no
+  attention type (transformers' switch to full attention persists, fault
+  3.28). `use_bias` false is refused.
 
 Attention is written as explicit products and a softmax, the same math
 as `FlaxBertSelfAttention`, not `scaled_dot_product_attention`, which
@@ -124,7 +126,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+from . import big_bird
 from .activations import activation
+from .big_bird import sparse_threshold
 
 # the widths a config must give (transformers' BertConfig names)
 CONFIG_KEYS = (
@@ -156,11 +160,8 @@ RELATIVE_KEYS = ("relative_key", "relative_key_query")
 MPNET_PAD_ID, MPNET_BUCKETS, MPNET_MAX_DISTANCE = 1, 32, 128
 # BigBirdConfig's defaults for its own keys
 BIG_BIRD_DEFAULTS = {"hidden_act": "gelu_new", "attention_type": "block_sparse", "use_bias": True,
-                     "rescale_embeddings": False, "block_size": 64, "num_random_blocks": 3}
-# the encoder's longest batch (hf_encoder.TextEncoder's max_len, the JAX
-# package's): a BigBird whose fallback threshold reaches it never runs
-# its block-sparse path there
-BIG_BIRD_MAX_LEN = 512
+                     "rescale_embeddings": False, "block_size": 64, "num_random_blocks": 3,
+                     "pad_token_id": 0}
 # a DistilBERT config's widths (transformers' DistilBertConfig names)
 DISTILBERT_KEYS = ("vocab_size", "dim", "n_layers", "n_heads", "hidden_dim", "activation",
                    "max_position_embeddings")
@@ -192,26 +193,12 @@ def _mpnet_config(config: dict) -> dict:
             "relative_attention_num_buckets": buckets}
 
 
-def sparse_threshold(config: dict) -> int:
-    """The longest batch a BigBird config runs with full attention:
-    (5 + 2 num_random_blocks) block_size (`BigBirdModel.forward`'s
-    `max_tokens_to_attend`)."""
-    return (5 + 2 * config["num_random_blocks"]) * config["block_size"]
-
-
 def _big_bird_config(config: dict) -> dict:
     config = {**BIG_BIRD_DEFAULTS, **config}
     kind = config["attention_type"]
     if kind not in ("original_full", "block_sparse"):
         raise ValueError(f"a big_bird attention_type `{kind}` is not supported: transformers"
                          " reads original_full and block_sparse")
-    if kind == "block_sparse" and sparse_threshold(config) < BIG_BIRD_MAX_LEN:
-        raise ValueError(
-            f"a big_bird config with block_sparse attention whose threshold (5 + 2 x"
-            f" num_random_blocks {config['num_random_blocks']}) x block_size"
-            f" {config['block_size']} = {sparse_threshold(config)} is under"
-            f" {BIG_BIRD_MAX_LEN} tokens is not supported: transformers runs its block-sparse"
-            " path on longer batches, which the port does not run yet (ROADMAP queue 1)")
     if not config["use_bias"]:
         raise ValueError("a big_bird config with use_bias false is not supported: the port's"
                          " attention projections have biases")
@@ -232,8 +219,8 @@ def check_config(config: dict) -> dict:
         raise ValueError(
             f"model_type `{model_type}` is not supported: the port runs BERT, RoBERTa,"
             " XLM-RoBERTa, CamemBERT, data2vec-text, XLM-RoBERTa-XL, DistilBERT, MPNet,"
-            " ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT and BigBird (full"
-            " attention) checkpoints here, Longformer ones in models/longformer.py,"
+            " ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT and BigBird"
+            " checkpoints here, Longformer ones in models/longformer.py,"
             " ALBERT ones in models/albert.py,"
             " RoFormer ones in models/roformer.py, ModernBERT ones in models/modernbert.py,"
             " DeBERTa-v2 ones in models/deberta_v2.py, MobileBERT ones in"
@@ -385,7 +372,8 @@ class _SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor,
                 position_bias: Optional[torch.Tensor] = None,
-                distance: Optional[torch.Tensor] = None) -> torch.Tensor:
+                distance: Optional[torch.Tensor] = None,
+                sparse: Optional[big_bird.Layout] = None) -> torch.Tensor:
         B, L, h = x.shape
         d = h // self.heads
 
@@ -393,6 +381,9 @@ class _SelfAttention(nn.Module):
             return t.view(B, L, self.heads, d).transpose(1, 2)
 
         k, v = split(self.key(x)), split(self.value(x))
+        if sparse is not None:  # BigBird's block-sparse attention
+            out = big_bird.attention(split(self.query(x)), k, v, sparse)
+            return out.transpose(1, 2).reshape(B, L, h)
         if self.distance_embedding is not None:  # BertSelfAttention's order
             q = split(self.query(x))
             scores = torch.matmul(q, k.transpose(-1, -2))
@@ -443,9 +434,10 @@ class _Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor,
                 position_bias: Optional[torch.Tensor],
-                distance: Optional[torch.Tensor]) -> torch.Tensor:
+                distance: Optional[torch.Tensor],
+                sparse: Optional[big_bird.Layout] = None) -> torch.Tensor:
         h = x if self.ln is None else self.ln(x)
-        return self.output(self.self(h, blocked, position_bias, distance), x)
+        return self.output(self.self(h, blocked, position_bias, distance, sparse), x)
 
 
 class _Intermediate(nn.Module):
@@ -471,8 +463,9 @@ class _Layer(nn.Module):
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor,
                 position_bias: Optional[torch.Tensor],
-                distance: Optional[torch.Tensor]) -> torch.Tensor:
-        a = self.attention(x, blocked, position_bias, distance)
+                distance: Optional[torch.Tensor],
+                sparse: Optional[big_bird.Layout] = None) -> torch.Tensor:
+        a = self.attention(x, blocked, position_bias, distance, sparse)
         h = a if self.ln is None else self.ln(a)
         return self.output(self.intermediate(h), a)
 
@@ -518,10 +511,9 @@ class BertModel(nn.Module):
         else:
             self.embeddings_project = None
         self.encoder = _Encoder(config)
-        # the longest batch a BigBird runs as transformers runs it: full
-        # attention up to its block-sparse threshold
-        self.max_batch_len = (sparse_threshold(config) if config.get("model_type") == BIG_BIRD
-                              and config["attention_type"] == "block_sparse" else None)
+        # a block-sparse BigBird's threshold: a longer batch runs sparse
+        self.sparse_threshold = (sparse_threshold(config) if config.get("model_type") == BIG_BIRD
+                                 and config["attention_type"] == "block_sparse" else None)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """(B, L) int64 ids and 0/1 mask -> (B, L, hidden) float32, the
@@ -532,9 +524,14 @@ class BertModel(nn.Module):
                 " torch.backends.cuda.matmul.allow_tf32 is True"
             )
         L = input_ids.shape[1]
-        if self.max_batch_len is not None and L > self.max_batch_len:
-            raise ValueError(f"a batch of {L} tokens would run BigBird's block-sparse attention"
-                             f" (threshold {self.max_batch_len}), which the port does not run")
+        sparse = None
+        if self.sparse_threshold is not None and L > self.sparse_threshold:
+            c = self.config
+            input_ids, attention_mask = big_bird.pad_to_block(
+                input_ids, attention_mask, c["block_size"], c["pad_token_id"],
+                c["max_position_embeddings"])
+            sparse = big_bird.layout(attention_mask, c["block_size"], c["num_random_blocks"])
+            big_bird.FORWARDS.add()
         x = self.embeddings(input_ids)
         if self.embeddings_project is not None:
             x = self.embeddings_project(x)
@@ -544,5 +541,6 @@ class BertModel(nn.Module):
         if self.config["position_embedding_type"] in RELATIVE_KEYS:
             distance = distance_index(L, self.config["max_position_embeddings"]).to(x.device)
         for layer in self.encoder.layer:
-            x = layer(x, blocked, position_bias, distance)
-        return x if self.encoder.ln is None else self.encoder.ln(x)
+            x = layer(x, blocked, position_bias, distance, sparse)
+        x = x if self.encoder.ln is None else self.encoder.ln(x)
+        return x[:, :L]

@@ -26,7 +26,8 @@ Llama-2's, Mistral's, Phi-3's and Gemma's with byte fallback), models/bpe.py
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
 XLM-RoBERTa, CamemBERT, data2vec-text, XLM-RoBERTa-XL, DistilBERT,
 MPNet, ELECTRA, ERNIE, BertGeneration, RemBERT, Megatron-BERT and
-BigBird's full attention), models/longformer.py's `LongformerModel`,
+BigBird, its block-sparse attention in models/big_bird.py),
+models/longformer.py's `LongformerModel`,
 models/albert.py's
 `AlbertModel`, models/roformer.py's `RoFormerModel`,
 models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
@@ -40,12 +41,13 @@ models/xlnet.py's `XLNetModel`, models/decoder.py's `DecoderModel`
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state, a pad's under left padding, as there; otherwise
 the mean over the attention mask), and the result is L2-normalized in
-numpy exactly as there (under `forceCls` with left padding, and under a
-`longrope` or `dynamic` rotary, every chunk of a call is padded to the
-call's longest text, as the JAX package pads its one batch: a pad's
-state can depend on how far it pads, and those rotaries' frequencies on
-the padded length; the Llama and Gemma tokenizer classes pad on the left
-by default). The JAX
+numpy exactly as there (under `forceCls` with left padding, under a
+`longrope` or `dynamic` rotary, and for a block-sparse BigBird, every
+chunk of a call is padded to the call's longest text, as the JAX package
+pads its one batch: a pad's state can depend on how far it pads, those
+rotaries' frequencies on the padded length, and BigBird's choice of
+sparse attention and its blocks' layout too; the Llama and Gemma
+tokenizer classes pad on the left by default). The JAX
 package passes every output of its
 tokenizer to the torch model (`**tok`), token types included; the port
 passes them to the models that read them (XLNet, XLM, FlauBERT), as `tokenize`
@@ -158,7 +160,11 @@ class TextEncoder:
             # SqueezeBERT's channel-last copies around each LayerNorm and the
             # grouped products' copies of their inputs
             per_text += 4 * L * (2 * width + ffn)
-        # (XLM-RoBERTa-XL's 2,560-wide hidden state and 10,240-wide
+        # (BigBird's block-sparse attention computes the same (L, L)
+        # scores and softmax as the full path, its pattern's log weights
+        # added in place: counted above; its (B, 1, L, L) bool pattern
+        # mask, L^2 bytes a text, is under 1% of the scores' count;
+        # XLM-RoBERTa-XL's 2,560-wide hidden state and 10,240-wide
         # intermediate are the widths above; its pre-norms' outputs are
         # among the 6 hidden-wide activations;
         # MobileBERT's widest activations are its 512-wide hidden state and
@@ -214,14 +220,18 @@ class TextEncoder:
         if len(texts) > step and (
                 (self.pooling == "forceCls"
                  and getattr(self._tokenizer, "padding_side", "right") == "left")
-                or (rope is not None and rope.kind in BATCH_LENGTH_ROPES)):
+                or (rope is not None and rope.kind in BATCH_LENGTH_ROPES)
+                or getattr(self._model, "sparse_threshold", None) is not None):
             # forceCls pools position 0, a pad for every text shorter than
             # its batch's longest under left padding, and a pad's state can
             # read the text (XLNet, a bidirectional Gemma 3); a `longrope` or
             # `dynamic` rotary takes its frequencies from the batch's padded
             # length (Phi-3's long factors past
-            # original_max_position_embeddings): each chunk is cut from the
-            # call's one padded batch, as the JAX package pads
+            # original_max_position_embeddings); a block-sparse BigBird runs
+            # sparse past its threshold, and its blocks' layout (which block
+            # is last, which blocks a row slides over) follows the padded
+            # length: each chunk is cut from the call's one padded batch, as
+            # the JAX package pads
             t = time.perf_counter()
             whole = self.tokenize(texts)
             tokenize_s += time.perf_counter() - t

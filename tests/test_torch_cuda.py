@@ -1433,3 +1433,46 @@ def test_roberta_relatives_on_the_card_match_the_cpu(cuda_device, tmp_path, kind
     want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)
     assert bool(np.isfinite(got).all())
     assert float(np.abs(got - want).max()) <= 1e-5
+
+
+# google/bigbird-roberta-base's widths at 2 layers, under its model card's
+# block_size 16 and num_random_blocks 2: a threshold of 144 tokens
+P23_BIGBIRD = {**P22_FAMILIES["big_bird"], "num_hidden_layers": 2, "block_size": 16,
+               "num_random_blocks": 2, "rescale_embeddings": False}
+
+
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+def test_bigbird_block_sparse_on_the_card_matches_the_cpu(cuda_device, tmp_path, pooling,
+                                                          monkeypatch):
+    """BigBird's block-sparse attention on the card: the forward on a
+    right-padded batch of 150 to 512 tokens beside short texts, on every
+    row (padded ones zeroed by the sparse path), and a call of more texts
+    than a chunk (chunks of 4, the first all under the threshold), cut
+    from its one padded batch, against the CPU within 1e-5."""
+    from meilisearch_tpu_torch.models import fixtures, hf_encoder
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = fixtures.bigbird_tokenizer_json(_spm_pieces(31))
+    config = dict(P23_BIGBIRD, vocab_size=len(spec["model"]["vocab"]))
+    torch.manual_seed(32)
+    write_checkpoint(str(tmp_path), config, new_model(config).state_dict(), tokenizer_json=spec)
+    rng = np.random.default_rng(33)
+    texts = ["rust", " ".join(rng.choice(ENC_WORDS, size=40)), " ".join(rng.choice(ENC_WORDS, 90)),
+             "", " ".join(rng.choice(ENC_WORDS, size=170)), " ".join(ENC_WORDS * 80), "gpu"]
+    card = hf_encoder.TextEncoder(str(tmp_path), pooling, device=cuda_device)
+    host = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None)
+    card._load()
+    host._load()
+    assert card._model.sparse_threshold == 144
+    ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    with torch.inference_mode():
+        got = card._model(ids.to(cuda_device), mask.to(cuda_device)).cpu()
+        want = host._model(ids, mask)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5
+    monkeypatch.setattr(hf_encoder, "CHUNK_TEXTS", 4)
+    got = card.encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - host.encode(texts)).max()) <= 1e-5

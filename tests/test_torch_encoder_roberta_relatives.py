@@ -18,7 +18,9 @@ standard deviation of 0.15, so attention is peaked):
   `original_full` with `rescale_embeddings`, `block_sparse` at the
   published block 64 and 3 random blocks (a threshold of 704 tokens), and
   block 32 with 6 random blocks (544), each of which transformers runs
-  with full attention at the encoder's 512 tokens, beside a seeded Unigram
+  with full attention at the encoder's 512 tokens (thresholds under 512,
+  which run sparse, are tests/test_torch_encoder_bigbird_sparse.py's),
+  beside a seeded Unigram
   tokenizer.json in `BigBirdConverter`'s layout (held here against the
   converter on a sentencepiece `ModelProto` built with transformers' own
   protobuf module). BigBird references are written as pytorch_model.bin:
@@ -290,36 +292,28 @@ def test_the_port_writes_checkpoints_transformers_reads(ckpt, kind):
 
 @pytest.mark.parametrize("block, blocks, threshold", [(64, 3, 704), (32, 6, 544), (64, 2, 576)])
 def test_a_threshold_of_512_or_more_runs_full_attention(block, blocks, threshold):
-    """Above 512 the reference falls back to full attention on every
-    batch the encoder gives it, and stays there; the port accepts the
-    config and raises on a longer batch than the threshold."""
+    """At or above 512 the reference falls back to full attention on every
+    batch the encoder gives it, and stays there; the port runs the same
+    full attention at 512 tokens, and a longer batch than the threshold
+    (the module alone: the encoder stops at 512) sparse, as a fresh
+    reference does (tests/test_torch_encoder_bigbird_sparse.py holds
+    thresholds under 512)."""
     config = {**BIGBIRD_ROBERTA_BASE, **TINY, "vocab_size": 100, "max_position_embeddings": 1024,
               "block_size": block, "num_random_blocks": blocks}
     assert bert.sparse_threshold(bert.check_config(config)) == threshold
-    ref = transformers.BigBirdModel(transformers.BigBirdConfig(**config)).eval()
-    with torch.no_grad():
-        ref(input_ids=torch.full((1, 512), 5), attention_mask=torch.ones(1, 512, dtype=torch.long))
-    assert ref.attention_type == "original_full"
     model = bert.BertModel(config)
-    with pytest.raises(ValueError, match=f"threshold {threshold}"):
-        model(torch.full((1, threshold + 1), 5), torch.ones(1, threshold + 1, dtype=torch.long))
-
-
-@pytest.mark.parametrize("block, blocks, threshold", [(32, 5, 480), (64, 1, 448), (16, 3, 176)])
-def test_a_threshold_under_512_is_refused_by_name(block, blocks, threshold):
-    """Under 512 the reference runs its block-sparse path on a batch longer
-    than the threshold (and keeps it for the next batch), which the port
-    does not run."""
-    config = {**BIGBIRD_ROBERTA_BASE, **TINY, "vocab_size": 100,
-              "block_size": block, "num_random_blocks": blocks}
-    with pytest.raises(ValueError, match=f"= {threshold} is under 512 tokens.*ROADMAP"):
-        bert.BertModel(config)
-    ref = transformers.BigBirdModel(transformers.BigBirdConfig(**config)).eval()
-    n = threshold + block
-    with torch.no_grad():
-        ref(input_ids=torch.full((1, n), 5), attention_mask=torch.ones(1, n, dtype=torch.long))
-    assert ref.attention_type == "block_sparse"
-    assert bert.BertModel({**config, "attention_type": "original_full"}) is not None
+    for n, kind in ((512, "original_full"), (threshold + 1, "block_sparse")):
+        ref = transformers.BigBirdModel(transformers.BigBirdConfig(**config)).eval()
+        _draw_weights(ref, 47)
+        state = checkpoint.hf_to_state_dict(ref.state_dict(), "big_bird")
+        model.load_state_dict({k: v for k, v in state.items() if not k.startswith("pooler.")})
+        ids, mask = torch.full((2, n), 5), torch.ones(2, n, dtype=torch.long)
+        mask[1, n // 3:] = 0
+        with torch.no_grad():
+            want = ref(input_ids=ids, attention_mask=mask).last_hidden_state
+            got = model(ids, mask)
+        assert ref.attention_type == kind
+        assert float((got - want).abs().max()) <= ATOL
 
 
 @pytest.mark.parametrize("change, match", [
