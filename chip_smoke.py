@@ -115,7 +115,7 @@ Phases, each fatal on failure:
      here; the port's encoder on the card must agree with the CPU within
      ENC_TOL on 80 texts (accents, Cyrillic, CJK, Arabic, combining marks,
      runs of spaces, unknown characters, the empty string); a fifth App
-     ingests 10,000 synthetic hackernews documents over HTTP with a
+     ingests 5,000 synthetic hackernews documents over HTTP with a
      huggingFace embedder on that checkpoint, every document embedded at
      indexing on the card (host tokenization apart from the forwards, wall
      time, tokens, tokens/s, peak device memory); 8 hybrid searches with a
@@ -142,7 +142,7 @@ Phases, each fatal on failure:
      30,522, dim 768, 6 layers, 12 heads, hidden_dim 3,072, 512 positions)
      with bge_vocab()'s WordPiece file; for each, the encoder on the card
      against the CPU within ENC_TOL on 80 texts (fault 3.11's characters,
-     contractions, runs of whitespace, <mask>), 10,000 documents embedded
+     contractions, runs of whitespace, <mask>), 5,000 documents embedded
      at indexing on the card through the BPE tokenizer or the DistilBERT
      module (tokens/s, host tokenization, peak device memory), 8 hybrid
      searches with a text q against the same store's host pass, one at a
@@ -154,7 +154,7 @@ Phases, each fatal on failure:
      MPNet's vocabulary layout around bge_vocab() and MPNetTokenizerFast's
      special tokens (models/fixtures.py), through its own App as phase 11:
      the encoder on the card against the CPU within ENC_TOL (phase 11's
-     texts and MPNet's specials written in other cases), 10,000 documents
+     texts and MPNet's specials written in other cases), 5,000 documents
      embedded at indexing on the card, 8 hybrid searches against the same
      store's host pass, and the forward's timing;
   13. ModernBERT path (hn25k-modernbert-hf): a checkpoint at
@@ -170,12 +170,12 @@ Phases, each fatal on failure:
      the card against the CPU within ENC_TOL on phase 11's texts and, in
      one batch, short texts beside texts of 150 to 512 tokens and one that
      truncation cuts at 512 (so the window bites and padding runs fill
-     whole windows), 10,000 documents embedded at indexing on the card, 8
+     whole windows), 5,000 documents embedded at indexing on the card, 8
      hybrid searches against the same store's host pass, and the forward's
      timing;
   14. the last refused families, each at its published config.json
      widths and depth (seeded random weights) through its own App as
-     phase 11, over 10,000 documents: hn10k-camembert-hf (camembert-base:
+     phase 11, over 5,000 documents: hn10k-camembert-hf (camembert-base:
      XLM-R's layout, vocab 32,005, 12 layers, pad id 1) with a seeded
      32,005-entry Unigram tokenizer.json in CamembertConverter's layout;
      hn10k-electrasmall-hf (google/electra-small-discriminator: 128-wide
@@ -197,7 +197,7 @@ Phases, each fatal on failure:
      Split pattern, its specials from <|endoftext|> at 151,643, $A
      <|endoftext|>) and Qwen2Tokenizer's tokenizer_config.json with
      padding_side left (models/fixtures.py), through its own App as phase
-     11 over 10,000 documents: the encoder on the card against the CPU
+     11 over 5,000 documents: the encoder on the card against the CPU
      within ENC_TOL on 85 texts, a left-padded batch under forceCls and
      under mean pooling, card against CPU, tokens/s and the host share,
      peak device memory, 256 hybrid responses against the host pass, a
@@ -212,7 +212,7 @@ Phases, each fatal on failure:
      sentencepiece BPE in GemmaConverter's layout (byte fallback to the
      256 <0xNN> pieces, unk at 3) and GemmaTokenizer's
      tokenizer_config.json with add_bos_token and add_eos_token
-     (models/fixtures.py), through its own App as phase 11 over 10,000
+     (models/fixtures.py), through its own App as phase 11 over 5,000
      documents: the encoder on the card against the CPU within ENC_TOL on
      texts that fall back to bytes (emoji, CJK, accents, runs of unknown
      symbols), a left-padded batch under forceCls and under mean pooling,
@@ -233,7 +233,7 @@ Phases, each fatal on failure:
      written as model.safetensors) with a seeded byte-level BPE in
      Llama-3's layout (128,000 pieces, 256 specials) and its
      tokenizer_config.json (models/fixtures.py), through its own App as
-     phase 11 over 10,000 documents: the encoder on the card against the
+     phase 11 over 5,000 documents: the encoder on the card against the
      CPU within ENC_TOL on 85 texts and on phase 13's long texts, and
      three 2-layer checkpoints at its widths on the long texts (qwen3 with
      yarn, a 16-token window from layer 1 and the erf GELU; mistral with
@@ -255,7 +255,7 @@ Phases, each fatal on failure:
      40,000-entry WordPiece vocabulary laid out as ERNIE 3.0's (CJK
      characters first); seeded random weights at initializer_range 0.02,
      written as pytorch_model.bin; each through its own App as phase 11
-     over 10,000 documents: the encoder on the card against the CPU
+     over 5,000 documents: the encoder on the card against the CPU
      within ENC_TOL on 85 texts and on phase 13's long texts, tokens/s and
      the host share, peak device memory, 256 hybrid responses against the
      host pass, a query's forward and launches against its weight-read
@@ -279,7 +279,7 @@ Phases, each fatal on failure:
      (left padding, `$A <sep> <cls>`, `<cls>` of type 2, the pad of type
      3, the token types passed to the model); seeded random weights at
      initializer_range 0.02, written as model.safetensors; each through
-     its own App as phase 11 over 10,000 documents: the encoder on the
+     its own App as phase 11 over 5,000 documents: the encoder on the
      card against the CPU within ENC_TOL on 85 texts and on phase 13's
      long texts (XLNet's also left-padded under forceCls and under mean
      pooling), tokens/s and the host share, peak device memory, 256
@@ -303,7 +303,7 @@ Phases, each fatal on failure:
      merges.txt with counts, models/fixtures.py::moses_bpe_files) and
      XLMTokenizer's tokenizer_config.json (lowercasing and accent
      stripping around Moses) or FlaubertTokenizer's (cased, French
-     Moses); each through its own App as phase 11 over 10,000 documents:
+     Moses); each through its own App as phase 11 over 5,000 documents:
      the encoder on the card against the CPU within ENC_TOL on 86 texts
      and on a long batch of Moses texts (newlines, tabs, French quotes,
      non-breaking spaces, elisions, No. 5, 1,000.5, multi-dots and a
@@ -333,7 +333,7 @@ Phases, each fatal on failure:
      14,336, a 4,096-token window on every other layer, layer types
      derived; seeded random weights at 0.02, written as model.safetensors)
      with a seeded 256,000-piece sentencepiece BPE in GemmaConverter's
-     layout, through its own App as phase 11 over 10,000 documents: the
+     layout, through its own App as phase 11 over 5,000 documents: the
      encoder on the card against the CPU within ENC_TOL on 83 texts, on
      the long texts and on the left-padded batch under both poolings,
      tokens/s and the host share, peak device memory, 256 hybrid
@@ -348,7 +348,7 @@ Phases, each fatal on failure:
      0.02, its unread `*_global` projections among them, written as
      pytorch_model.bin) with a seeded 50,265-entry byte-level BPE in
      RoBERTa's layout and LongformerTokenizerFast's tokenizer_config.json,
-     through its own App as phase 11 over 10,000 documents: the encoder on
+     through its own App as phase 11 over 5,000 documents: the encoder on
      the card against the CPU within ENC_TOL on 83 texts and on phase 13's
      long texts (the pairs the 256-token reach cuts counted), then four
      2-layer checkpoints at published widths on the long texts, card
@@ -382,8 +382,29 @@ Phases, each fatal on failure:
      peak device memory, 256 hybrid responses against the host pass, and
      a query's forward (full attention) and launches against its
      weight-read bound.
+  24. SGPT path (hn5k-sgpt125m-hf), after the earlier phases' encoders
+     are let go: a checkpoint at
+     Muennighoff/SGPT-125M-weightedmean-nli-bitfit's published config.json
+     at its full depth (gpt_neo: 12 layers of 768, 12 heads, global and
+     local layers alternating with a 256-token window, unscaled scores,
+     gelu_new, 2,048 learned positions; seeded random weights and biases
+     at 0.02, written as pytorch_model.bin) with a seeded 50,257-entry
+     byte-level BPE in GPT-2's layout (`<|endoftext|>` its pad), through
+     its own App as phase 11 over 5,000 documents: the encoder on the card
+     against the CPU within ENC_TOL on 83 texts, on phase 13's long texts
+     (the causal pairs the window cuts counted) and on a batch padded right
+     and then left under forceCls and mean pooling; then two 2-layer
+     checkpoints at published widths, each padded right and left under
+     both poolings, card against CPU: gptj at SGPT-5.8B's widths (4,096
+     wide, 16 heads of 256, rotary_dim 64, vocabulary 50,400) over the
+     path's BPE, and bloom at udever-bloom-560m's (1,024 wide, 16 heads, a
+     250,880-row embedding, ALiBi) over a seeded 32,000-piece BPE in
+     BLOOM's layout (its Split pattern, left padding); tokens/s and the
+     host share, peak device memory, 256 hybrid responses against the host
+     pass, a query's forward and launches against its weight-read bound,
+     and one chunk against its float32 bound.
 Every phase prints its wall as it ends, and the walls are printed
-together after phase 23.
+together after phase 24.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -505,17 +526,18 @@ ENC_TIMED_TOKENS = 128  # tokens per text of the timed indexing chunk
 # published config.json (xlm-roberta-base's widths) with seeded random
 # weights, a seeded 250,002-piece SentencePiece-Unigram tokenizer.json
 # written as transformers' XLM-R converter writes it (NFKC and NMT's
-# character map, Strip, Replace, Metaspace, <s> $A </s>), and 10,000 of
+# character map, Strip, Replace, Metaspace, <s> $A </s>), and 5,000 of
 # its 50,000 hackernews documents embedded at indexing on the card (the
-# depth cut, 50,000 until phase 18 came and 25,000 until phase 22, that
-# keeps the whole script under 1,080 s)
+# depth cut, 50,000 until phase 18 came, 25,000 until phase 22 and 10,000
+# until phase 24 came, that keeps the whole script under its limit; every
+# encoder phase from 9 to 22 runs 5,000)
 E5_CONFIG = {
     "model_type": "xlm-roberta", "vocab_size": 250_002, "hidden_size": 768,
     "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
     "max_position_embeddings": 514, "type_vocab_size": 1, "layer_norm_eps": 1e-5,
     "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "hidden_act": "gelu",
 }
-E5_DOCS, E5_SEED = 10_000, 2026
+E5_DOCS, E5_SEED = 5_000, 2026
 E5_TEXT = ["rust compiler", "machine learning database", "поиск cloud security",
            "python web 検索"]
 # multilingual texts of the card-against-CPU check (accents, Cyrillic, CJK,
@@ -535,7 +557,7 @@ E5_CHECK_TEXT = [
 ]
 # phase 11, the BPE and DistilBERT path: two checkpoints at their published
 # config.json widths and depth (6 layers) with seeded random weights, each
-# embedding 10,000 of its configuration's 150,000 hackernews documents at
+# embedding 5,000 of its configuration's 150,000 hackernews documents at
 # indexing on the card (25,000 until phase 22 came).
 # hn25k-distilroberta-hf: sentence-transformers/all-distilroberta-v1
 # (RoBERTa) with a 50,265-token byte-level BPE
@@ -554,10 +576,10 @@ DISTILBERT_CONFIG = {
     "n_heads": 12, "hidden_dim": 3072, "max_position_embeddings": 512, "activation": "gelu",
     "sinusoidal_pos_embds": False, "pad_token_id": 0,
 }
-P11_DOCS, P11_SEED, BPE_TRAIN_DOCS = 10_000, 2027, 5_000
+P11_DOCS, P11_SEED, BPE_TRAIN_DOCS = 5_000, 2027, 5_000
 # phase 12, hn25k-mpnet-hf: sentence-transformers/all-mpnet-base-v2's
 # published config.json with seeded random weights and MPNet's vocabulary
-# around bge_vocab()'s WordPiece entries. 10,000 of the configuration's
+# around bge_vocab()'s WordPiece entries. 5,000 of the configuration's
 # 150,000 hackernews documents: the depth cut (25,000 until phase 22 came)
 # to keep the whole script under 1,080 s; widths, depth and vocabulary
 # size are the published ones
@@ -568,10 +590,10 @@ MPNET_CONFIG = {
     "layer_norm_eps": 1e-5, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
     "hidden_act": "gelu", "initializer_range": 0.02,
 }
-P12_DOCS, P12_SEED = 10_000, 2028
+P12_DOCS, P12_SEED = 5_000, 2028
 # phase 13, hn25k-modernbert-hf: answerdotai/ModernBERT-base's published
 # config.json (transformers' ModernBertConfig defaults) with seeded random
-# weights and a seeded 50,368-entry tokenizer in ModernBERT's layout. 10,000
+# weights and a seeded 50,368-entry tokenizer in ModernBERT's layout. 5,000
 # of the configuration's 150,000 hackernews documents: phases 11 and 12's
 # depth cut; widths, depth and vocabulary size are the published ones
 MODERNBERT_CONFIG = {
@@ -583,9 +605,9 @@ MODERNBERT_CONFIG = {
     "local_rope_theta": 10000.0, "pad_token_id": 50283, "bos_token_id": 50281,
     "eos_token_id": 50282, "cls_token_id": 50281, "sep_token_id": 50282,
 }
-P13_DOCS, P13_SEED = 10_000, 2029
+P13_DOCS, P13_SEED = 5_000, 2029
 # phase 14, the last refused families, each at its published config.json
-# widths and depth with seeded random weights, 10,000 of its
+# widths and depth with seeded random weights, 5,000 of its
 # configuration's 150,000 hackernews documents (the depth cut that keeps
 # the whole script near 700 s): hn10k-camembert-hf, camembert-base with a
 # seeded 32,005-entry Unigram tokenizer.json in CamembertConverter's layout;
@@ -614,13 +636,13 @@ DEBERTA_V3_CONFIG = {
     "share_att_key": True, "position_biased_input": False, "type_vocab_size": 0,
     "layer_norm_eps": 1e-7, "pad_token_id": 0, "hidden_act": "gelu",
 }
-P14_DOCS, P14_SEED = 10_000, 2030
+P14_DOCS, P14_SEED = 5_000, 2030
 # phase 15, hn10k-qwen3emb-hf: Qwen/Qwen3-Embedding-0.6B's published
 # config.json with seeded random weights (transformers' initializer_range
 # 0.02, so the random layers stay finite), a seeded 151,643-entry
 # byte-level BPE in Qwen2's layout with its 26 specials (151,669 ids) and
 # Qwen3-Embedding's `$A <|endoftext|>` template, and its tokenizer_config's
-# padding_side left. 10,000 of the configuration's 150,000 hackernews
+# padding_side left. 5,000 of the configuration's 150,000 hackernews
 # documents: phase 14's depth cut; 7 of its 28 layers, the cut that keeps
 # the whole script under 1,080 s with phase 22 (14 from phase 19 on); widths and vocabulary
 # size are the published ones
@@ -635,7 +657,7 @@ QWEN3_EMBEDDING_CONFIG = {
     "eos_token_id": 151_643,
 }
 QWEN3_BPE_SIZE = 151_643
-P15_DOCS, P15_SEED = 10_000, 2031
+P15_DOCS, P15_SEED = 5_000, 2031
 # phase 16, hn10k-embeddinggemma-hf: google/embeddinggemma-300m's
 # published config.json (gemma3_text, bidirectional: its sliding_window 512
 # reaches 512 // 2 + 1 = 257 tokens each way once transformers' config is
@@ -643,7 +665,7 @@ P15_DOCS, P15_SEED = 10_000, 2031
 # 262,144-piece sentencepiece BPE in GemmaConverter's layout (pad 0, eos 1,
 # bos 2, unk 3, the 256 <0xNN> byte pieces) and GemmaTokenizer's
 # tokenizer_config.json with add_bos_token and add_eos_token both true.
-# 10,000 of the configuration's 150,000 hackernews documents: phase 15's
+# 5,000 of the configuration's 150,000 hackernews documents: phase 15's
 # depth cut; widths and vocabulary size are the published ones, and 6 of
 # its 24 layers (a run of five sliding and one full; 12 until phase 23)
 EMBEDDINGGEMMA_CONFIG = {
@@ -670,14 +692,14 @@ GEMMA_VARIANT_CONFIG = {
     "use_bidirectional_attention": False, "sliding_window_pattern": 2,
     "rope_scaling": {"rope_type": "linear", "factor": 8.0}, "attn_logit_softcapping": 50.0,
     "hidden_activation": "gelu"}
-P16_DOCS, P16_SEED = 10_000, 2032
+P16_DOCS, P16_SEED = 5_000, 2032
 # phase 17, hn10k-llama32-1b-hf: meta-llama/Llama-3.2-1B's published
 # config.json (llama, rope_scaling llama3 factor 32 over 8,192 positions,
 # tied embeddings) with seeded random weights at its initializer_range
 # 0.02, a seeded byte-level BPE in Llama-3's layout (128,000 pieces, then
 # its 256 specials from <|begin_of_text|> at 128,000) and
 # PreTrainedTokenizerFast's tokenizer_config.json with pad
-# <|finetune_right_pad_id|>. 10,000 of the configuration's 150,000
+# <|finetune_right_pad_id|>. 5,000 of the configuration's 150,000
 # hackernews documents: phase 16's depth cut; widths and vocabulary size
 # are the published ones, and 4 of its 16 layers (8 until phase 23)
 LLAMA32_1B_CONFIG = {
@@ -691,7 +713,7 @@ LLAMA32_1B_CONFIG = {
     "initializer_range": 0.02, "bos_token_id": 128_000, "eos_token_id": 128_001,
 }
 LLAMA3_BPE_SIZE, LLAMA3_RESERVED = 128_000, 248
-P17_DOCS, P17_SEED = 10_000, 2033
+P17_DOCS, P17_SEED = 5_000, 2033
 # the decoder variants, 2 layers each at the phase's widths on its
 # tokenizer, on phase 13's long texts: (a) Qwen3's documented long-context
 # yarn (factor 4 over 32,768) with a 16-token window from layer 1 and the
@@ -717,7 +739,7 @@ DECODER_VARIANTS = {
 # phase 18, hn10k-albertsmall-hf: sentence-transformers/
 # paraphrase-albert-small-v2's published config.json, and
 # hn10k-ernie3base-hf: nghuyong/ernie-3.0-base-zh's; seeded random weights
-# at initializer_range 0.02, 10,000 of the configurations' 150,000
+# at initializer_range 0.02, 5,000 of the configurations' 150,000
 # hackernews documents (phase 17's depth cut; widths, depth and vocabulary
 # sizes are the published ones)
 ALBERT_SMALL_CONFIG = {
@@ -734,7 +756,7 @@ ERNIE3_BASE_CONFIG = {
     "type_vocab_size": 4, "task_type_vocab_size": 3, "use_task_id": True,
     "layer_norm_eps": 1e-5, "hidden_act": "gelu", "pad_token_id": 0,
 }
-P18_DOCS, P18_SEED = 10_000, 2034
+P18_DOCS, P18_SEED = 5_000, 2034
 # the BERT-shaped variants, 2 layers each at a published checkpoint's widths
 # (ALBERT: 4 passes, the fewest that 2 groups of 2 allow), on phase 13's
 # long texts
@@ -776,7 +798,7 @@ BERT_VARIANTS = {
 # initializer_range 0.02 (NoNorm's scales 1 and MobileBERT's pad row 0, as
 # transformers starts them), a seeded 30,522-entry WordPiece and a seeded
 # 32,000-piece Unigram in XLNetConverter's layout (left padding, `<cls>`
-# last with type 2). 10,000 of the configurations' 150,000 hackernews
+# last with type 2). 5,000 of the configurations' 150,000 hackernews
 # documents: phase 18's depth cut; widths, depth and vocabulary sizes are
 # the published ones
 MOBILEBERT_UNCASED_CONFIG = {
@@ -796,7 +818,7 @@ XLNET_BASE_CONFIG = {
     "mem_len": None, "reuse_len": None, "layer_norm_eps": 1e-12, "pad_token_id": 5,
     "bos_token_id": 1, "eos_token_id": 2,
 }
-P19_DOCS, P19_SEED = 10_000, 2035
+P19_DOCS, P19_SEED = 5_000, 2035
 # FacebookAI/xlm-mlm-en-2048's config.json (XLMConfig's names): 2,048
 # wide, 16 heads, GELU, one language, 30,145 words; 3 of its 12 layers
 # (6 until phase 23)
@@ -837,7 +859,7 @@ P19_VARIANTS = {
 # (models/fixtures.py::moses_bpe_files: the specials at ids 0-13, merges
 # trained on the corpus's Moses tokens) and each class's
 # tokenizer_config.json (XLM: `do_lowercase_and_remove_accent`; FlauBERT:
-# cased). 10,000 of the configurations' 150,000 hackernews documents:
+# cased). 5,000 of the configurations' 150,000 hackernews documents:
 # phase 18's depth cut; widths, depth and vocabulary sizes are the
 # published ones
 FLAUBERT_BASE_CASED_CONFIG = {
@@ -846,7 +868,7 @@ FLAUBERT_BASE_CASED_CONFIG = {
     "causal": False, "n_langs": 1, "use_lang_emb": True, "max_position_embeddings": 512,
     "layer_norm_eps": 1e-12, "pad_index": 2, "pad_token_id": 2, "is_encoder": True,
     "pre_norm": False, "layerdrop": 0.0}
-P20_DOCS, P20_SEED = 10_000, 2036
+P20_DOCS, P20_SEED = 5_000, 2036
 P20_TRAINING_DOCS = 2_000  # documents whose Moses tokens the seeded merges learn from
 # 2 layers each at a published checkpoint's widths, on the long Moses texts:
 # (a) flaubert_large_cased's pre-norm layers (1,024 wide, 16 heads,
@@ -876,7 +898,7 @@ P20_VARIANTS = {
 # at its initializer_range 0.02, 2 of its 42 layers (the float32 file of
 # all 42 is 37 GB; 4 until phase 22 came), a seeded 256,000-piece sentencepiece BPE in
 # GemmaConverter's layout and GemmaTokenizer's tokenizer_config.json
-# (left padding, the class's default). 10,000 of the configuration's
+# (left padding, the class's default). 5,000 of the configuration's
 # 150,000 hackernews documents: phase 20's depth cut
 BGE_GEMMA2_CONFIG = {
     "model_type": "gemma2", "architectures": ["Gemma2Model"], "vocab_size": 256_000,
@@ -889,7 +911,7 @@ BGE_GEMMA2_CONFIG = {
     "initializer_range": 0.02, "tie_word_embeddings": True, "pad_token_id": 0,
     "eos_token_id": 1, "bos_token_id": 2}
 BGE_GEMMA2_PUBLISHED_LAYERS = 42
-P21_DOCS, P21_SEED = 10_000, 2037
+P21_DOCS, P21_SEED = 5_000, 2037
 P21_VARIANT_VOCAB = 32_000  # the variants' seeded pieces (256,000 published for Gemma)
 P21_VARIANT_TRAIN_DOCS = 1_000  # documents the variants' trained merges learn from
 # the decoder families beside it, 2 layers each at a published
@@ -937,7 +959,7 @@ P21_TEXT = ["<start_of_turn>user hi<end_of_turn>", "x<table>y  z\ttab", "中文 
 # pad id 1, one token type) with seeded random weights at its
 # initializer_range 0.02 (its `*_global` projections among them, read and
 # never used) and a seeded 50,265-entry byte-level BPE in RoBERTa's layout
-# under LongformerTokenizerFast's tokenizer_config.json. 10,000 of the
+# under LongformerTokenizerFast's tokenizer_config.json. 5,000 of the
 # configuration's 150,000 hackernews documents, as every phase from 14 on
 LONGFORMER_BASE_CONFIG = {
     "model_type": "longformer", "architectures": ["LongformerForMaskedLM"], "vocab_size": 50_265,
@@ -946,7 +968,7 @@ LONGFORMER_BASE_CONFIG = {
     "type_vocab_size": 1, "layer_norm_eps": 1e-5, "attention_window": [512] * 12,
     "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "sep_token_id": 2,
     "initializer_range": 0.02}
-P22_DOCS, P22_SEED = 10_000, 2038
+P22_DOCS, P22_SEED = 5_000, 2038
 # RoBERTa's other relatives beside it, 2 layers each at a published
 # checkpoint's widths, on phase 13's long texts: (a) Longformer with
 # windows [16, 32] (reaches of 8 and 16 tokens, which bite) over the
@@ -999,6 +1021,42 @@ BIGBIRD_SPARSE_CONFIG = {
 # tokens
 P23_DOCS, P23_SHORT, P23_SEED, P23_MAX_BYTES = 2_000, 200, 2039, 8_000
 P23_WORDS = (150, 900)
+# phase 24 (hn5k-sgpt125m-hf): Muennighoff/SGPT-125M-weightedmean-nli-bitfit's
+# config.json (gpt_neo, EleutherAI's gpt-neo-125M widths) at its full depth:
+# 12 layers of 768, 12 heads, global and local layers alternating with a
+# 256-token window, intermediate 4 x 768, gelu_new, 2,048 positions; seeded
+# weights at its initializer_range 0.02 (biases at 0.02 too, so the checks
+# see them), written as pytorch_model.bin, beside a seeded 50,257-entry
+# byte-level BPE in GPT-2's layout (`<|endoftext|>` also the pad)
+SGPT_125M_CONFIG = {
+    "model_type": "gpt_neo", "architectures": ["GPTNeoModel"], "vocab_size": 50_257,
+    "hidden_size": 768, "num_layers": 12, "num_heads": 12,
+    "attention_types": [[["global", "local"], 6]], "intermediate_size": None,
+    "window_size": 256, "max_position_embeddings": 2048, "activation_function": "gelu_new",
+    "layer_norm_epsilon": 1e-5, "bos_token_id": 50_256, "eos_token_id": 50_256,
+    "initializer_range": 0.02}
+P24_DOCS, P24_SEED, P24_BIAS_STD = 5_000, 2040, 0.02
+# the other SGPT types, 2 layers each at a published embedder's widths, card
+# against CPU under both poolings on both padding sides: (a) gptj at
+# Muennighoff/SGPT-5.8B-weightedmean-msmarco-specb-bitfit's (gpt-j-6b: 4,096
+# wide, 16 heads of 256, a rotary over 64 of them, intermediate 16,384,
+# vocabulary 50,400) over the path's GPT-2 BPE; (b) bloom at
+# izhx/udever-bloom-560m's (bloom-560m: 1,024 wide, 16 heads, a 250,880-row
+# embedding) over a seeded 32,000-piece BPE in BLOOM's layout (its Split
+# pattern; 250,680 pieces published)
+P24_VARIANTS = {
+    "(a) gptj at SGPT-5.8B's widths": {
+        "model_type": "gptj", "vocab_size": 50_400, "n_embd": 4096, "n_layer": 2, "n_head": 16,
+        "rotary_dim": 64, "n_inner": None, "n_positions": 2048,
+        "activation_function": "gelu_new", "layer_norm_epsilon": 1e-5},
+    "(b) bloom at udever-bloom-560m's widths": {
+        "model_type": "bloom", "vocab_size": 250_880, "hidden_size": 1024, "n_layer": 2,
+        "n_head": 16, "layer_norm_epsilon": 1e-5,
+        "apply_residual_connection_post_layernorm": False, "pretraining_tp": 1},
+}
+P24_BLOOM_PIECES, P24_BLOOM_TRAIN_DOCS = 32_000, 1_000
+P24_TEXT = ["<|endoftext|> inside <|endoftext|>", "Hello, world! (a|b) x.y 你好。ok",
+            "中文 café 😀 naïve — it's DON'T"]
 # what Moses does to the encoder's texts: newlines and tabs dropped (two
 # words become one), French quotes and non-breaking spaces, elisions,
 # `No.` before a number, numbers with commas, multi-dots, a literal
@@ -1760,7 +1818,11 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
     them), RoFormer's position table its sinusoids (and DistilBERT's and
     XLM's where the config asks for them), MobileBERT's NoNorm scales 1
     and its pad row 0 (as transformers starts them). The module is built
-    on the meta device for its names and shapes."""
+    on the meta device for its names and shapes. The normal draws are made
+    on the card where there is one (a seeded CUDA generator: a billion
+    weights in well under a second, where the host's generator took most
+    of a 5 GB checkpoint's write) and copied to the host, one tensor at a
+    time, for the checkpoint's writer."""
     import torch
 
     from meilisearch_tpu_torch.models import gemma3, mobilebert, roformer
@@ -1777,7 +1839,12 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
     zero_rows = {f"{m}.weight": mod.padding_idx for m, mod in model.named_modules()
                  if isinstance(mod, torch.nn.Embedding) and mod.padding_idx is not None}
     sinusoidal = config.get("sinusoidal_pos_embds") or config.get("sinusoidal_embeddings")
-    g = torch.Generator().manual_seed(seed)
+    on = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    g = torch.Generator(on).manual_seed(seed)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=g, device=on) * std).cpu()
+
     state = {}
     for name, p in model.named_parameters():
         if name in norms:
@@ -1787,10 +1854,9 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
         elif sinusoidal and name.endswith("position_embeddings.weight"):
             state[name] = sinusoidal_positions(*p.shape)
         elif name.endswith("bias"):
-            state[name] = (torch.randn(p.shape, generator=g) * bias_std if bias_std
-                           else torch.zeros(p.shape))
+            state[name] = normal(p.shape, bias_std) if bias_std else torch.zeros(p.shape)
         else:
-            state[name] = torch.randn(p.shape, generator=g) * BGE_INIT_STD
+            state[name] = normal(p.shape, BGE_INIT_STD)
         if name in zero_rows:
             state[name][zero_rows[name]] = 0.0
     return state
@@ -3588,6 +3654,225 @@ def bigbird_sparse_phase(device, card: str, n_docs: int) -> dict:
     say(f"phase 23 wall: {time.perf_counter() - t_phase:.3f} s")
     return {**out, **timing}
 
+
+def sgpt_spec() -> dict:
+    """Phase 24's 50,257-entry byte-level BPE in GPT-2's layout, its merges
+    trained on BPE_TRAIN_DOCS of the phase's own texts (as phase 22 builds
+    its), `<|endoftext|>` last."""
+    from meilisearch_tpu_torch.models.fixtures import GPT2_EOS, gpt2_tokenizer_json
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(BPE_TRAIN_DOCS, seed=P24_SEED)]
+    n = SGPT_125M_CONFIG["vocab_size"]
+    spec = gpt2_tokenizer_json(texts + P11_TEXT + P11_CHECK_TEXT + P24_TEXT, n, seed=P24_SEED)
+    if len(spec["model"]["vocab"]) != n or spec["model"]["vocab"][GPT2_EOS] != n - 1:
+        raise AssertionError("the tokenizer is not laid out as GPT-2's")
+    return spec
+
+
+def bloom_spec() -> dict:
+    """The BLOOM variant's seeded P24_BLOOM_PIECES-piece BPE in BLOOM's
+    layout (its specials at 0-3, its Split pattern), merges trained on
+    P24_BLOOM_TRAIN_DOCS of the phase's texts."""
+    from meilisearch_tpu_torch.models.fixtures import BLOOM_HEAD, bloom_tokenizer_json
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(P24_BLOOM_TRAIN_DOCS, seed=P24_SEED)]
+    spec = bloom_tokenizer_json(texts + P11_TEXT + P24_TEXT, P24_BLOOM_PIECES, seed=P24_SEED)
+    vocab = spec["model"]["vocab"]
+    if len(vocab) != P24_BLOOM_PIECES or [vocab[t] for t in BLOOM_HEAD] != [0, 1, 2, 3]:
+        raise AssertionError("the tokenizer is not laid out as BLOOM's")
+    return spec
+
+
+def write_p24_checkpoint(path: str, config: dict, seed: int, spec: dict) -> None:
+    """A checkpoint of `config` (seeded weights, biases at P24_BIAS_STD),
+    written as pytorch_model.bin beside `spec` and its class's
+    tokenizer_config.json (GPT2Tokenizer's with `<|endoftext|>` as pad,
+    right padding; BloomTokenizerFast's, left; `write_checkpoint`)."""
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    write_checkpoint(path, config, random_state_dict(config, seed, P24_BIAS_STD),
+                     tokenizer_json=spec)
+
+
+def window_cut(counts: list, window: int) -> tuple:
+    """(causal pairs outside a local layer's window, all causal pairs) of
+    texts of `counts` real tokens, query i seeing keys i - window + 1 .. i."""
+    cut = sum(max(n - window, 0) * (max(n - window, 0) + 1) // 2 for n in counts)
+    return cut, sum(n * (n + 1) // 2 for n in counts)
+
+
+def sgpt_long_check(path: str, device, label: str) -> float:
+    """The phase's checkpoint on phase 13's long texts in one batch
+    (`long_check`), after checking that the module is GPT-Neo's with the
+    published layer types and window and counting the causal (query, key)
+    pairs its local layers cut from them."""
+    from meilisearch_tpu_torch.models.gpt_neo import GPTNeoModel, check_config
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    model, c = enc._model, enc._model.config
+    types = check_config(SGPT_125M_CONFIG)["layer_types"]  # global, local, ...
+    if not isinstance(model, GPTNeoModel) or c["window"] != SGPT_125M_CONFIG["window_size"] \
+            or c["layer_types"] != types or types[:2] != ["global", "local"]:
+        raise AssertionError(f"{label}: the module is not GPT-Neo's: {type(model).__name__}")
+    texts = long_check_texts(P24_SEED)
+    _ids, mask, _types = enc.tokenize(list(texts))
+    counts = mask.sum(1).tolist()
+    cut, total = window_cut(counts, c["window"])
+    say(f"{label}: the local layers' window (each query sees itself and the {c['window'] - 1}"
+        f" keys before it) cuts {cut} of the {total} causal (query, key) pairs of the long"
+        f" texts ({100 * cut / total:.2f}%; texts of {counts} tokens)")
+    if cut == 0:
+        raise AssertionError(f"{label}: the window does not bite on the long texts")
+    return long_check(path, device, f"{label} {len(model.h)} layers", texts=texts)
+
+
+@contextlib.contextmanager
+def padded(enc, side: str):
+    """`enc` padding on `side` inside the block (its tokenizer's
+    `padding_side`, which tokenizer_config.json sets at load)."""
+    before = enc._tokenizer.padding_side
+    enc._tokenizer.padding_side = side
+    try:
+        yield enc
+    finally:
+        enc._tokenizer.padding_side = before
+
+
+def sides_check(path: str, device, label: str, texts: tuple = (*LEFT_PAD_TEXT, *P24_TEXT)) -> float:
+    """`texts` in one batch padded right and then left, each under forceCls
+    and mean pooling, card against CPU (`encoder_check`'s bound); returns
+    the largest error. Under left padding GPT-Neo's and GPT-J's positions
+    count from the padded start, and forceCls pools a pad's state."""
+    import numpy as np
+
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc, cpu = encoder(path, "useModel", device), cpu_encoder(path)
+    enc._load()
+    cpu._load()
+    errs = {}
+    for side in ("right", "left"):
+        with padded(enc, side), padded(cpu, side):
+            _ids, mask = enc._tokenizer(list(texts), enc.max_len)
+            at, real = (-1 if side == "left" else 0), mask.sum(1) > 0  # GPT-2 gives "" no token
+            if int(mask[real, at].min()) != 1 or int(mask[:, -1 - at].min()) != 0:
+                raise AssertionError(f"{label}: the check batch is not padded {side}")
+            for pooling in ("forceCls", "useModel"):
+                with pooled(enc, pooling), pooled(cpu, pooling):
+                    got, want = enc.encode(list(texts)), cpu.encode(list(texts))
+                if not np.isfinite(got).all():
+                    raise AssertionError(f"{label}: non-finite {pooling} vectors on the card")
+                errs[side, pooling] = float(np.abs(got - want).max())
+    say(f"{label} padded right and left ({mask.sum(1).tolist()} tokens in a row of"
+        f" {mask.shape[1]}), card against CPU: "
+        + ", ".join(f"{side} {pooling} {e:.3e}" for (side, pooling), e in errs.items())
+        + f" (bound {ENC_TOL:g})")
+    if not max(errs.values()) <= ENC_TOL:
+        raise AssertionError(f"{label}: a padded batch is {errs} off the CPU")
+    return max(errs.values())
+
+
+def p24_variants_check(path: str, device, label: str, spec: dict) -> float:
+    """P24_VARIANTS' 2-layer checkpoints, each padded right and left under
+    both poolings (`sides_check`), card against CPU, after checking that
+    each module reads the variant (GPT-J's rotary width and heads, BLOOM's
+    heads, width and Split pattern); returns the largest error. The
+    earlier encoders are let go after each, and `path`'s is loaded again
+    for hf_path."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from meilisearch_tpu_torch.models import bpe
+    from meilisearch_tpu_torch.models.bloom import BloomModel
+    from meilisearch_tpu_torch.models.gptj import GPTJModel
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    t0 = time.perf_counter()
+    specs = {"gptj": spec, "bloom": bloom_spec()}
+    say(f"{label} variants: BLOOM's tokenizer ({P24_BLOOM_PIECES} pieces) built in"
+        f" {time.perf_counter() - t0:.3f} s")
+    err = 0.0
+    for i, (what, config) in enumerate(P24_VARIANTS.items()):
+        t = time.perf_counter()
+        kind = config["model_type"]
+        with tempfile.TemporaryDirectory() as small:
+            write_p24_checkpoint(small, config, P24_SEED + 1 + i, specs[kind])
+            enc = encoder(small, "useModel", device)
+            enc._load()
+            model, c, tok = enc._model, enc._model.config, enc._tokenizer
+            read = (type(model), c["hidden_size"], c["num_attention_heads"], tok.padding_side)
+            if kind == "gptj":
+                read += (c["rotary_dim"], model.h[0].attn.rotary)
+                want = (GPTJModel, config["n_embd"], config["n_head"], "right",
+                        config["rotary_dim"], config["rotary_dim"])
+            else:
+                read += (tok.split is bpe.split_pattern(bpe.BLOOM_SPLIT),
+                         model.word_embeddings.weight.shape[0])
+                want = (BloomModel, config["hidden_size"], config["n_head"], "left", True,
+                        config["vocab_size"])
+            if read != want:
+                raise AssertionError(f"{what}: the encoder reads {read}, not {want}")
+            err = max(err, sides_check(small, device, f"{label} variant {what}"))
+            encoder.cache_clear()
+            cpu_encoder.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        say(f"{label} variant {what}: {time.perf_counter() - t:.3f} s")
+    say(f"{label} variants: largest error {err:.3e} (bound {ENC_TOL:g})")
+    encoder(path, "useModel", device)._load()  # hf_path goes on with `path`'s, cached
+    return err
+
+
+def sgpt_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 24, hn5k-sgpt125m-hf through its own App (`hf_path`) with the
+    long check, both padding sides and P24_VARIANTS inside its checks,
+    once the earlier phases' encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 24 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    label = "SGPT-125M-weightedmean-nli-bitfit"
+    window = SGPT_125M_CONFIG["window_size"]
+    t0 = time.perf_counter()
+    spec = sgpt_spec()
+    say(f"{label} tokenizer ({len(spec['model']['vocab'])} entries,"
+        f" {len(spec['model']['merges'])} merges) built in {time.perf_counter() - t0:.3f} s;"
+        f" all {SGPT_125M_CONFIG['num_layers']} layers; at the timed chunk's {ENC_TIMED_TOKENS}"
+        f" tokens the {window}-token window cuts"
+        f" {window_cut([ENC_TIMED_TOKENS], window)[0]} causal pairs")
+    out = hf_path(device, card, n_docs, label=label, index="sgpt",
+                  write=lambda path: write_p24_checkpoint(path, SGPT_125M_CONFIG, P24_SEED, spec),
+                  seed=P24_SEED, queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P24_TEXT,
+                  tokenizer="BPE", model_type="gpt_neo",
+                  checks=(sgpt_long_check, sides_check, partial(p24_variants_check, spec=spec)))
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 24 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
     Linear and Conv1d layers and XLNet's token projections (ALBERT's
@@ -4607,7 +4892,7 @@ def main() -> int:
             ("17", llama32_phase, P17_DOCS), ("18", bert_families_phase, P18_DOCS),
             ("19", more_families_phase, P19_DOCS), ("20", moses_families_phase, P20_DOCS),
             ("21", bge_gemma2_phase, P21_DOCS), ("22", longformer_phase, P22_DOCS),
-            ("23", bigbird_sparse_phase, P23_DOCS)):
+            ("23", bigbird_sparse_phase, P23_DOCS), ("24", sgpt_phase, P24_DOCS)):
         run(name, fn, device, card, n_docs)
     say(f"phase walls (s): {json.dumps(walls)}; the script from the first phase:"
         f" {time.perf_counter() - t_start:.3f} s")

@@ -1,9 +1,10 @@
 """The MLP activations of the port's encoders and decoders
 (models/bert.py, models/albert.py, models/roformer.py, models/decoder.py,
 models/gemma3.py, models/mobilebert.py, models/squeezebert.py, models/xlnet.py,
-and DeBERTa-v2's `conv_act`): its own copy of the transformers `ACT2FN` names it
-runs, each written in torch as transformers writes it, so each gives the
-same bits:
+models/gpt_neo.py, models/gptj.py, models/bloom.py and DeBERTa-v2's
+`conv_act`): its own copy of the transformers `ACT2FN` names it runs,
+each written in torch as transformers writes it, so each gives the same
+bits:
 
 - `silu`, `swish`: `F.silu`;
 - `gelu`: the exact (erf) `F.gelu`;
@@ -16,7 +17,11 @@ same bits:
 - `relu`: `F.relu`;
 - `tanh`: `torch.tanh` (DeBERTa-v2's ConvLayer default).
 
-Any other name is refused by name.
+Any other name is refused by name. BLOOM's MLP names no activation: it
+runs `bloom_gelu` (`bloom_gelu_forward`, `x 0.5 (1 + tanh(0.79788456 x (1
++ 0.044715 x x)))`, a constant rounded otherwise than `gelu_new`'s
+sqrt(2 / pi)), which models/bloom.py calls directly; no config name
+reaches it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,10 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_fast(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(x * 0.7978845608 * (1.0 + 0.044715 * x * x)))
+
+
+def bloom_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * 0.5 * (1.0 + torch.tanh(0.79788456 * x * (1 + 0.044715 * x * x)))
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

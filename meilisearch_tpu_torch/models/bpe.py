@@ -2,8 +2,9 @@
 (what `AutoTokenizer` gives a RoBERTa or data2vec-text checkpoint,
 `RobertaTokenizerFast`, a Longformer one, `LongformerTokenizerFast`, the
 same class under another name, a ModernBERT or Llama-3 one,
-`PreTrainedTokenizerFast`, and a Qwen2 or
-Qwen3 one, `Qwen2TokenizerFast`) and sentencepiece's with byte fallback
+`PreTrainedTokenizerFast`, a Qwen2 or Qwen3 one, `Qwen2TokenizerFast`, a
+GPT-Neo or GPT-J one, `GPT2TokenizerFast`, and a BLOOM one,
+`BloomTokenizerFast`) and sentencepiece's with byte fallback
 (what transformers' `LlamaConverter` and `GemmaConverter` write: Llama-2's,
 Mistral's, e5-mistral's and Phi-3's files, `LlamaTokenizerFast`, and
 Gemma's, bge-multilingual-gemma2's and EmbeddingGemma's,
@@ -27,7 +28,12 @@ and gives the same input ids and attention masks, on the host:
    `LongformerTokenizer`, the default of `longformer`, reads the same)
    also gives `RobertaTokenizerFast`'s defaults (`<s>`, `</s>`, `<unk>`,
    `<pad>`, `<mask>`) to the keys the config leaves out, and makes
-   `<mask>` given as a string `lstrip`; a Qwen2 class (`Qwen2Tokenizer`,
+   `<mask>` given as a string `lstrip`; a GPT-2 class (`GPT2Tokenizer`,
+   the default of `gpt_neo` and `gptj`) gives `GPT2TokenizerFast`'s
+   (`<|endoftext|>` as unk, bos and eos, no pad: the reference refuses to
+   pad, and so does the port, unless tokenizer_config.json names one); a
+   BLOOM class (`BloomTokenizerFast`, the default of `bloom`) gives its
+   (`<unk>`, `<s>`, `</s>`, `<pad>`); a Qwen2 class (`Qwen2Tokenizer`,
    the default of `qwen2` and `qwen3`) gives `Qwen2TokenizerFast`'s
    (`<|endoftext|>` as unk, eos and pad, no bos); a Llama class
    (`LlamaTokenizer`, the default of `llama`, `mistral` and `phi3`) gives
@@ -47,9 +53,15 @@ and gives the same input ids and attention masks, on the host:
    the classes of `tokenizers`' own regex engine (models/unicode.py's
    frozen tables; Python's `re` knows no `\\p` class); or, for Qwen2's
    and Llama-3's files, `Sequence[Split(Regex, Isolated), ByteLevel
-   (use_regex false, no prefix space)]` with one of the two published
-   Split patterns (SPLIT_PATTERNS: Qwen2's, and Llama-3's, the same with
-   `\\p{N}{1,3}` for `\\p{N}`), built from the same tables. Each word's
+   (use_regex false, no prefix space)]` with one of the three published
+   Split patterns (SPLIT_PATTERNS: Qwen2's, Llama-3's, the same with
+   `\\p{N}{1,3}` for `\\p{N}`, and BLOOM's, ` ?[^(\\s|[.,!?…。，、।۔،])]+`),
+   built from the same tables. BLOOM's nests a class inside a negated
+   class, which Oniguruma reads as their union and Python's `re` cannot
+   parse: the port builds it as one flat negated class (`\\s` and the
+   marks), and, since its matches leave runs of other characters between
+   them (`! (` in `world! (a`), keeps each such run as a piece of its own,
+   as the Isolated behavior does (`isolated`). Each word's
    UTF-8 bytes become GPT-2's printable byte symbols (`bytes_to_unicode`).
    A sentencepiece-style file has none (Llama-2's legacy layout: each
    piece is one word), `Metaspace` (Llama-2's non-legacy layout: spaces
@@ -80,12 +92,15 @@ and gives the same input ids and attention masks, on the host:
    Gemma classes replace it, whatever the file says, with
    `update_post_processor`'s template: bos before the text when
    `add_bos_token` (default true), eos after it when `add_eos_token`
-   (default false).
+   (default false). `GPT2TokenizerFast` keeps the file's (it reads
+   `add_bos_token` and does nothing with it).
 
 `legacy_spec` reads the older layout, `vocab.json` and `merges.txt` with
-no tokenizer.json, as transformers' `RobertaConverter` converts it (the
-first line of merges.txt and the text after its last newline are
-skipped, as `RobertaTokenizer` reads it).
+no tokenizer.json, as transformers' `RobertaConverter` converts it, or,
+for a GPT-2 class, its `GPT2Converter` (the class's specials; bos before
+the text under tokenizer_config.json's `add_bos_token`, default false)
+(the first line of merges.txt and the text after its last newline are
+skipped, as `RobertaTokenizer` and `GPT2Tokenizer` read it).
 
 Anything else raises `ValueError` naming it: another model, `dropout`, a
 `continuing_subword_prefix` or `end_of_word_suffix`, `byte_fallback` or
@@ -95,8 +110,12 @@ byte symbols, an `unk_token` the vocabulary lacks, another normalizer
 Metaspace with `split`, another Split pattern, ...), a `single_word`
 added token, another tokenizer class, a Llama class given
 `add_prefix_space` (transformers then rebuilds the tokenizer from the
-sentencepiece model), a padding or truncation side other than `right`
-and `left`, or a special token the vocabulary lacks.
+sentencepiece model), a BLOOM class given `add_prefix_space` (its
+pickled rewrite sets the flag of the ByteLevel after Split; the port's
+choice: no published file sets it), a padding or truncation side other
+than `right` and `left`, no pad token (transformers raises "Asking to
+pad but the tokenizer does not have a padding token"), or a special token
+the vocabulary lacks.
 """
 
 from __future__ import annotations
@@ -124,11 +143,15 @@ QWEN2_CLASSES = ("Qwen2Tokenizer", "Qwen2TokenizerFast")
 PLAIN_CLASSES = ("PreTrainedTokenizerFast",)
 LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
 GEMMA_CLASSES = ("GemmaTokenizer", "GemmaTokenizerFast")
+GPT2_CLASSES = ("GPT2Tokenizer", "GPT2TokenizerFast")
+BLOOM_CLASSES = ("BloomTokenizerFast",)
 _DEFAULT_CLASS = {"modernbert": "PreTrainedTokenizerFast", "qwen2": "Qwen2TokenizerFast",
                   "qwen3": "Qwen2TokenizerFast", "llama": "LlamaTokenizerFast",
                   "mistral": "LlamaTokenizerFast", "phi3": "LlamaTokenizerFast",
                   "gemma3_text": "GemmaTokenizerFast", "gemma2": "GemmaTokenizerFast",
-                  "gemma": "GemmaTokenizerFast", "longformer": "LongformerTokenizerFast"}
+                  "gemma": "GemmaTokenizerFast", "longformer": "LongformerTokenizerFast",
+                  "gpt_neo": "GPT2TokenizerFast", "gptj": "GPT2TokenizerFast",
+                  "bloom": "BloomTokenizerFast"}
 # RobertaTokenizerFast's special tokens and their defaults
 _SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "sep_token": "</s>",
              "pad_token": "<pad>", "cls_token": "<s>", "mask_token": "<mask>"}
@@ -139,12 +162,21 @@ _QWEN2_SPECIALS = {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
 _LLAMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"}
 _GEMMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<bos>", "eos_token": "<eos>",
                    "pad_token": "<pad>"}
+# GPT2TokenizerFast's defaults (no pad) and BloomTokenizerFast's
+_GPT2_SPECIALS = {"unk_token": "<|endoftext|>", "bos_token": "<|endoftext|>",
+                  "eos_token": "<|endoftext|>"}
+_BLOOM_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
+                   "pad_token": "<pad>"}
 # the Split pre-tokenizer patterns read, as tokenizer.json writes them
-# (Qwen2's and Llama-3's), and the repeat of their number class
+# (Qwen2's, Llama-3's and BLOOM's)
 QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
                r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
 LLAMA3_SPLIT = QWEN2_SPLIT.replace(r"|\p{N}|", r"|\p{N}{1,3}|")
-SPLIT_PATTERNS = {QWEN2_SPLIT: "", LLAMA3_SPLIT: "{1,3}"}
+BLOOM_SPLIT = " ?[^(\\s|[.,!?…。，、।۔،])]+"
+SPLIT_PATTERNS = (QWEN2_SPLIT, LLAMA3_SPLIT, BLOOM_SPLIT)
+# the characters BLOOM's nested classes hold besides `\s`: the outer
+# class's `(`, `|` and `)`, the inner one's marks
+BLOOM_MARKS = "(|).,!?…。，、।۔،"
 # Gemma's pre-tokenizer: a word ends after each space
 _SPACE_WORDS = re.compile("[^ ]* |[^ ]+")
 
@@ -175,22 +207,42 @@ def bytes_to_unicode() -> dict:
 def split_pattern(file_pattern: Optional[str] = None) -> re.Pattern:
     """GPT-2's split regex (ByteLevel's own, `file_pattern` None) or one of
     SPLIT_PATTERNS, over `tokenizers`' letter, number and space classes.
-    Each matches every character, so `findall` gives `tokenizers`'
-    Isolated split."""
+    All but BLOOM's match every character, so `findall` gives
+    `tokenizers`' Isolated split; BLOOM's is one flat negated class, and
+    `isolated` keeps the runs between its matches."""
     letter = unicode.ranges("BYTE_LEVEL_LETTER").char_class()
     number = unicode.ranges("BYTE_LEVEL_NUMBER").char_class()
     space = unicode.ranges("BYTE_LEVEL_SPACE").char_class()
+    if file_pattern == BLOOM_SPLIT:
+        return re.compile(f" ?[^{space}{re.escape(BLOOM_MARKS)}]+")
     if file_pattern is None:
         return re.compile(
             f"'s|'t|'re|'ve|'m|'ll|'d| ?[{letter}]+| ?[{number}]+| ?[^{space}{letter}{number}]+"
             f"|[{space}]+(?![^{space}])|[{space}]+"
         )
-    digits = SPLIT_PATTERNS[file_pattern]
+    digits = "{1,3}" if file_pattern == LLAMA3_SPLIT else ""
     return re.compile(
         f"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\\r\\n{letter}{number}]?[{letter}]+|[{number}]{digits}"
         f"| ?[^{space}{letter}{number}]+[\\r\\n]*|[{space}]*[\\r\\n]+|[{space}]+(?![^{space}])"
         f"|[{space}]+"
     )
+
+
+def isolated(split: re.Pattern, text: str) -> list:
+    """`tokenizers`' Isolated split of `text` by `split`: each match a
+    piece, and each run of text between two matches a piece too."""
+    pieces = split.findall(text)
+    if sum(map(len, pieces)) == len(text):
+        return pieces  # every character matched: no run between
+    pieces, at = [], 0
+    for m in split.finditer(text):
+        if m.start() > at:
+            pieces.append(text[at:m.start()])
+        pieces.append(m.group())
+        at = m.end()
+    if at < len(text):
+        pieces.append(text[at:])
+    return pieces
 
 
 def byte_level_words(text: str, add_prefix_space: bool = False, use_regex: bool = True,
@@ -202,7 +254,7 @@ def byte_level_words(text: str, add_prefix_space: bool = False, use_regex: bool 
         text = " " + text
     if split is None and use_regex:
         split = split_pattern()
-    pieces = split.findall(text) if split is not None else [text]
+    pieces = isolated(split, text) if split is not None else [text]
     table = bytes_to_unicode()
     return [piece.encode("utf-8").decode("latin-1").translate(table) for piece in pieces if piece]
 
@@ -219,8 +271,8 @@ def _pre_tokenizer(spec: Optional[dict]) -> tuple:
         split, level = steps
         regex = (split.get("pattern") or {}).get("Regex")
         if regex not in SPLIT_PATTERNS:
-            raise ValueError(f"Split pattern {regex!r} is not supported: the port reads Qwen2's"
-                             " and Llama-3's")
+            raise ValueError(f"Split pattern {regex!r} is not supported: the port reads Qwen2's,"
+                             " Llama-3's and BLOOM's")
         if split.get("behavior") != "Isolated" or split.get("invert"):
             raise ValueError(f"Split behavior `{split.get('behavior')}` (invert"
                              f" {split.get('invert')}) is not supported: the port reads Isolated")
@@ -303,30 +355,45 @@ def _post_processor(spec: Optional[dict]) -> tuple:
     return _template(spec)
 
 
-def legacy_spec(path: str, config: Optional[dict] = None) -> dict:
+def legacy_spec(path: str, config: Optional[dict] = None,
+                tok_class: Optional[str] = None) -> dict:
     """A directory's vocab.json and merges.txt laid out as the tokenizer.json
-    transformers' RobertaConverter makes of them (`config`: the
-    tokenizer_config.json, for the special tokens)."""
+    transformers' RobertaConverter makes of them, or its GPT2Converter for
+    a GPT-2 `tok_class` (`config`: the tokenizer_config.json, for the
+    special tokens and GPT-2's `add_bos_token`)."""
     config = config or {}
     with open(os.path.join(path, "vocab.json"), encoding="utf-8") as f:
         vocab = json.load(f)
     with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
         lines = f.read().split("\n")[1:-1]
     merges = list(dict.fromkeys(tuple(line.split()) for line in lines))
-    tokens = {key: _token_content(config.get(key, default)) for key, default in _SPECIALS.items()}
+    gpt2 = tok_class in GPT2_CLASSES
+    defaults = _GPT2_SPECIALS if gpt2 else _SPECIALS
+    keys = [*defaults, *(["pad_token"] if gpt2 and config.get("pad_token") else [])]
+    tokens = {key: _token_content(config.get(key, defaults.get(key))) for key in keys}
     for token in tokens.values():
         if token not in vocab:
             raise ValueError(f"the special token `{token}` is not in vocab.json")
     added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": key == "mask_token",
               "rstrip": False, "normalized": key != "mask_token", "special": True}
              for key, t in tokens.items()]
+    if not gpt2:
+        post = {"type": "RobertaProcessing",
+                "sep": [tokens["sep_token"], vocab[tokens["sep_token"]]],
+                "cls": [tokens["cls_token"], vocab[tokens["cls_token"]]]}
+    elif config.get("add_bos_token", False):
+        bos = tokens["bos_token"]
+        post = {"type": "TemplateProcessing", "single": [{"SpecialToken": {"id": bos}},
+                                                         {"Sequence": {"id": "A"}}],
+                "special_tokens": {bos: {"id": bos, "ids": [vocab[bos]], "tokens": [bos]}}}
+    else:
+        post = {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+                "use_regex": True}
     return {
         "added_tokens": list({tok["content"]: tok for tok in added}.values()),
         "normalizer": None,
         "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "use_regex": True},
-        "post_processor": {"type": "RobertaProcessing",
-                           "sep": [tokens["sep_token"], vocab[tokens["sep_token"]]],
-                           "cls": [tokens["cls_token"], vocab[tokens["cls_token"]]]},
+        "post_processor": post,
         "model": {"type": "BPE", "vocab": vocab, "merges": [list(m) for m in merges]},
     }
 
@@ -334,9 +401,10 @@ def legacy_spec(path: str, config: Optional[dict] = None) -> dict:
 def _class_specials(config: dict, model_type: Optional[str]) -> tuple:
     """(class name, its default special tokens) of the tokenizer class
     (tokenizer_config.json's, else the model type's); refuses a class that
-    is not a RoBERTa, Qwen2, Llama, Gemma or plain one."""
+    is not a RoBERTa, Qwen2, Llama, Gemma, GPT-2, BLOOM or plain one."""
     name = config.get("tokenizer_class") or _DEFAULT_CLASS.get(model_type, ROBERTA_CLASSES[0])
-    read = ROBERTA_CLASSES + QWEN2_CLASSES + LLAMA_CLASSES + GEMMA_CLASSES + PLAIN_CLASSES
+    read = (ROBERTA_CLASSES + QWEN2_CLASSES + LLAMA_CLASSES + GEMMA_CLASSES + GPT2_CLASSES
+            + BLOOM_CLASSES + PLAIN_CLASSES)
     if name not in read:
         raise ValueError(f"tokenizer class `{name}` is not supported by the port's BPE tokenizer"
                          f" (it reads {', '.join(read)})")
@@ -346,6 +414,10 @@ def _class_specials(config: dict, model_type: Optional[str]) -> tuple:
         return name, _LLAMA_SPECIALS
     if name in GEMMA_CLASSES:
         return name, _GEMMA_SPECIALS
+    if name in GPT2_CLASSES:
+        return name, _GPT2_SPECIALS
+    if name in BLOOM_CLASSES:
+        return name, _BLOOM_SPECIALS
     return name, (_QWEN2_SPECIALS if name in QWEN2_CLASSES else {})
 
 
@@ -406,6 +478,10 @@ class BPE:
         if name in LLAMA_CLASSES and config.get("add_prefix_space") is not None:
             raise ValueError(f"{name} with add_prefix_space is not supported: transformers then"
                              " rebuilds the tokenizer from the sentencepiece model")
+        if name in BLOOM_CLASSES and config.get("add_prefix_space"):
+            raise ValueError(f"{name} with add_prefix_space true is not supported: the class"
+                             " then sets the flag of the ByteLevel after its Split, which the"
+                             " port does not run")
         # transformers sets a ByteLevel pre-tokenizer's flag from the config;
         # a Sequence keeps its own (false)
         self.add_prefix_space = (self.byte_level and self.split is None
@@ -462,7 +538,9 @@ class BPE:
 
         pad = _token_content(config.get("pad_token", None if roberta else defaults.get("pad_token")))
         if pad is None and not roberta:
-            raise ValueError("tokenizer_config.json names no pad token")
+            raise ValueError(f"tokenizer_config.json names no pad token, and {name} has none:"
+                             " transformers raises \"Asking to pad but the tokenizer does not have"
+                             " a padding token\" on a padded call")
         pad = pad or _SPECIALS["pad_token"]
         self.pad = self.token_to_id(pad)
         if self.pad is None:

@@ -2,8 +2,8 @@
 data2vec-text, XLM-RoBERTa-XL, DistilBERT, MPNet, ELECTRA, ERNIE,
 BertGeneration, RemBERT, Megatron-BERT, BigBird, Longformer, ALBERT,
 RoFormer, ModernBERT, DeBERTa-v2, MobileBERT, SqueezeBERT, XLM, FlauBERT,
-XLNet, Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2 or Gemma 3
-checkpoint directory without transformers.
+XLNet, Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2, Gemma 3,
+GPT-Neo, GPT-J or BLOOM checkpoint directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -19,7 +19,9 @@ A directory as transformers' `save_pretrained` leaves it:
   `gemma2`, which it gives to `Gemma3Model` and `Gemma2Model`; `mobilebert`, `squeezebert`, `xlm`, `flaubert` and
   `xlnet` configs, their config class's defaults filled in, to
   models/mobilebert.py's, models/squeezebert.py's, models/xlm.py's and
-  models/xlnet.py's modules);
+  models/xlnet.py's modules, and `gpt_neo`, `gptj` and `bloom` ones,
+  under their own config names and attribute_map aliases, to
+  models/gpt_neo.py's, models/gptj.py's and models/bloom.py's);
 - the weights: `model.safetensors`, parsed here (an 8-byte little-endian
   header length, a JSON header of dtype, shape and `data_offsets` per
   tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
@@ -28,7 +30,9 @@ A directory as transformers' `save_pretrained` leaves it:
   (tokenizer_config.json's `tokenizer_class`, else config.json's, else
   the model type's: `XLMTokenizer` for `xlm`, `FlaubertTokenizer` for
   `flaubert`, `LongformerTokenizerFast` for `longformer`,
-  `BigBirdTokenizerFast` for `big_bird`); XLM's and FlauBERT's read
+  `BigBirdTokenizerFast` for `big_bird`, `GPT2TokenizerFast` for
+  `gpt_neo` and `gptj`, `BloomTokenizerFast` for `bloom`, which reads a
+  tokenizer.json only); XLM's and FlauBERT's read
   `vocab.json` and `merges.txt` through
   Moses and a `</w>` BPE (models/xlm_bpe.py), never as RoBERTa's
   byte-level BPE. Otherwise the tokenizer is chosen by what the directory
@@ -59,15 +63,16 @@ A directory as transformers' `save_pretrained` leaves it:
 Checkpoint names map onto `BertModel`'s, `AlbertModel`'s,
 `RoFormerModel`'s, `ModernBertModel`'s, `DebertaV2Model`'s,
 `MobileBertModel`'s, `SqueezeBertModel`'s, `XLMModel`'s, `XLNetModel`'s,
-`DecoderModel`'s, `Gemma3Model`'s and `LongformerModel`'s
-(`hf_to_state_dict`): a `bert.` (BERT's, Megatron-BERT's, BertGeneration's
-and BigBird's), `roberta.` (RoBERTa's, CamemBERT's and XLM-RoBERTa-XL's),
-`data2vec_text.`, `longformer.`, `distilbert.`, `mpnet.`, `electra.`,
-`ernie.`, `rembert.`,
-`albert.`, `roformer.`, `deberta.`, `mobilebert.`, `model.` (ModernBERT's
-and the `*ForCausalLM` decoders', `Gemma3ForCausalLM`'s, `Gemma2ForCausalLM`'s,
+`DecoderModel`'s, `Gemma3Model`'s, `LongformerModel`'s, `GPTNeoModel`'s,
+`GPTJModel`'s and `BloomModel`'s (`hf_to_state_dict`): a `bert.` (BERT's,
+Megatron-BERT's, BertGeneration's and BigBird's), `roberta.` (RoBERTa's,
+CamemBERT's and XLM-RoBERTa-XL's), `data2vec_text.`, `longformer.`,
+`distilbert.`, `mpnet.`, `electra.`, `ernie.`, `rembert.`, `albert.`,
+`roformer.`, `deberta.`, `mobilebert.`, `model.` (ModernBERT's and the
+`*ForCausalLM` decoders', `Gemma3ForCausalLM`'s, `Gemma2ForCausalLM`'s,
 `GemmaForCausalLM`'s and `Phi3ForCausalLM`'s too) or
-`transformer.` (SqueezeBERT's, XLM's, FlauBERT's and XLNet's; DistilBERT's
+`transformer.` (SqueezeBERT's, XLM's, FlauBERT's, XLNet's and the
+`*ForCausalLM` of GPT-Neo, GPT-J and BLOOM; DistilBERT's
 `transformer.layer.N.` keeps it) prefix is dropped, so are the pooler,
 the pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
 `ModernBertForMaskedLM`'s `head.` and `decoder.`; ELECTRA's
@@ -77,7 +82,9 @@ the pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
 `sop_classifier.`; XLM's and FlauBERT's `pred_layer.` and
 `sequence_summary.`; XLNet's
 `lm_loss.`, `sequence_summary.` and `logits_proj.`) and the
-`position_ids`, `token_type_ids` and `rotary_emb.inv_freq` buffers, and old
+`position_ids`, `token_type_ids` and `rotary_emb.inv_freq` buffers (and
+the causal `attn.bias` / `attn.masked_bias` buffers older GPT-J files
+hold, `attn.attention.bias` / `.masked_bias` in GPT-Neo's), and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
 (`transformer.layer.N`: `attention.{q,k,v,out}_lin`, `sa_layer_norm`,
 `ffn.lin1`, `ffn.lin2`, `output_layer_norm`) take BERT's names
@@ -124,10 +131,13 @@ import torch
 from . import (
     albert,
     bert,
+    bloom,
     deberta_v2,
     decoder,
     gemma2,
     gemma3,
+    gpt_neo,
+    gptj,
     longformer,
     mobilebert,
     modernbert,
@@ -138,15 +148,18 @@ from . import (
 )
 from .albert import AlbertModel
 from .bert import BertModel
+from .bloom import BloomModel
 from .bpe import BPE, legacy_spec
 from .deberta_v2 import DebertaV2Model
 from .decoder import DecoderModel
 from .fixtures import (
     albert_tokenizer_config,
     bigbird_tokenizer_config,
+    bloom_tokenizer_config,
     camembert_tokenizer_config,
     deberta_v2_tokenizer_config,
     gemma_tokenizer_config,
+    gpt2_tokenizer_config,
     llama3_tokenizer_config,
     llama_tokenizer_config,
     longformer_tokenizer_config,
@@ -158,6 +171,8 @@ from .fixtures import (
 )
 from .gemma2 import Gemma2Model
 from .gemma3 import Gemma3Model
+from .gpt_neo import GPTNeoModel
+from .gptj import GPTJModel
 from .longformer import LongformerModel
 from .mobilebert import MobileBertModel
 from .modernbert import ModernBertModel
@@ -198,16 +213,19 @@ _REFUSED_TOKENIZERS = {"RoFormerTokenizer": "its jieba pre-tokenizer",
 # type alone (a directory that names no class)
 _TYPE_TOKENIZERS = {xlm.MODEL_TYPE: "XLMTokenizer", xlm.FLAUBERT_TYPE: "FlaubertTokenizer",
                     longformer.MODEL_TYPE: "LongformerTokenizerFast",
-                    bert.BIG_BIRD: "BigBirdTokenizerFast"}
+                    bert.BIG_BIRD: "BigBirdTokenizerFast", gpt_neo.MODEL_TYPE: "GPT2TokenizerFast",
+                    gptj.MODEL_TYPE: "GPT2TokenizerFast", bloom.MODEL_TYPE: "BloomTokenizerFast"}
 # tokenizer classes (without `Fast`) the port reads from one tokenizer
-# model only: Longformer's byte-level BPE, BigBird's Unigram tokenizer.json
-_CLASS_MODELS = {"LongformerTokenizer": "BPE", "BigBirdTokenizer": "Unigram"}
+# model only: Longformer's, GPT-2's and BLOOM's byte-level BPE, BigBird's
+# Unigram tokenizer.json
+_CLASS_MODELS = {"LongformerTokenizer": "BPE", "BigBirdTokenizer": "Unigram",
+                 "GPT2Tokenizer": "BPE", "BloomTokenizer": "BPE"}
 # tokenizer classes whose `model_input_names` leave out token_type_ids
 # (the others give them, PreTrainedTokenizerBase's default)
 _UNTYPED_TOKENIZERS = ("RobertaTokenizer", "XLMRobertaTokenizer", "CamembertTokenizer",
                        "DistilBertTokenizer", "MPNetTokenizer", "LlamaTokenizer",
                        "GemmaTokenizer", "Qwen2Tokenizer", "GPT2Tokenizer", "BartTokenizer",
-                       "LongformerTokenizer", "BigBirdTokenizer")
+                       "LongformerTokenizer", "BigBirdTokenizer", "BloomTokenizer")
 # sentencepiece model files, which the port does not parse
 _SPM_FILES = ("spm.model", "sentencepiece.bpe.model", "sentencepiece.model")
 # DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
@@ -303,7 +321,9 @@ _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
            gemma3.MODEL_TYPE: Gemma3Model, gemma2.MODEL_TYPE: Gemma2Model,
            mobilebert.MODEL_TYPE: MobileBertModel,
            squeezebert.MODEL_TYPE: SqueezeBertModel, xlm.MODEL_TYPE: XLMModel,
-           xlm.FLAUBERT_TYPE: XLMModel, xlnet.MODEL_TYPE: XLNetModel}
+           xlm.FLAUBERT_TYPE: XLMModel, xlnet.MODEL_TYPE: XLNetModel,
+           gpt_neo.MODEL_TYPE: GPTNeoModel, gptj.MODEL_TYPE: GPTJModel,
+           bloom.MODEL_TYPE: BloomModel}
 # (`gemma3`, the multimodal model, is refused by models/gemma3.py by name)
 _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config,
            longformer.MODEL_TYPE: longformer.check_config,
@@ -313,10 +333,18 @@ _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check
            gemma2.MODEL_TYPE: gemma2.check_config,
            mobilebert.MODEL_TYPE: mobilebert.check_config,
            squeezebert.MODEL_TYPE: squeezebert.check_config, xlm.MODEL_TYPE: xlm.check_config,
-           xlm.FLAUBERT_TYPE: xlm.check_config, xlnet.MODEL_TYPE: xlnet.check_config}
+           xlm.FLAUBERT_TYPE: xlm.check_config, xlnet.MODEL_TYPE: xlnet.check_config,
+           gpt_neo.MODEL_TYPE: gpt_neo.check_config, gptj.MODEL_TYPE: gptj.check_config,
+           bloom.MODEL_TYPE: bloom.check_config}
 # model types whose modules fill in their config class's defaults
 _OWN_DEFAULTS = (mobilebert.MODEL_TYPE, squeezebert.MODEL_TYPE, xlm.MODEL_TYPE,
                  xlm.FLAUBERT_TYPE, xlnet.MODEL_TYPE)
+# the GPT families: their own defaults too, written as pytorch_model.bin
+# (the JAX package converts a model.safetensors to its Flax classes)
+_GPT_TYPES = (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE, bloom.MODEL_TYPE)
+# the stale causal buffers older GPT-Neo and GPT-J files hold
+_STALE = (".attn.attention.bias", ".attn.attention.masked_bias", ".attn.bias",
+          ".attn.masked_bias")
 # model types whose checkpoints the port writes as model.safetensors: those
 # published so, and those that have no Flax class (the JAX package's
 # encoder reads either file through its torch branch)
@@ -331,8 +359,9 @@ def check_config(config: dict) -> dict:
     `roformer` one by models/roformer.py, a `qwen3`, `qwen2`, `llama`,
     `mistral`, `gemma` or `phi3` one by models/decoder.py, a `gemma3_text`
     (or `gemma3`) one by models/gemma3.py, a `gemma2` one by
-    models/gemma2.py, a `longformer` one by models/longformer.py, any
-    other by models/bert.py."""
+    models/gemma2.py, a `longformer` one by models/longformer.py, a
+    `gpt_neo`, `gptj` or `bloom` one by models/gpt_neo.py, models/gptj.py
+    or models/bloom.py, any other by models/bert.py."""
     return _CHECKS.get(config.get("model_type"), bert.check_config)(config)
 
 
@@ -341,8 +370,9 @@ def new_model(config: dict):
     `modernbert`, `DebertaV2Model` for `deberta-v2`, `AlbertModel` for
     `albert`, `RoFormerModel` for `roformer`, `DecoderModel` for
     the decoders, `Gemma3Model` for `gemma3_text`, `Gemma2Model` for
-    `gemma2`, `LongformerModel` for `longformer`, `BertModel` for the
-    other families."""
+    `gemma2`, `LongformerModel` for `longformer`, `GPTNeoModel`,
+    `GPTJModel` and `BloomModel` for `gpt_neo`, `gptj` and `bloom`,
+    `BertModel` for the other families."""
     return _MODELS.get(config.get("model_type"), BertModel)(config)
 
 
@@ -387,7 +417,8 @@ def hf_to_state_dict(named: dict, model_type: Optional[str] = None) -> dict:
     """A checkpoint's tensors (torch or numpy) under BertModel's (or
     AlbertModel's, RoFormerModel's, ModernBertModel's, DebertaV2Model's,
     ...) names, as float32 CPU tensors; `model_type` `xlm-roberta-xl`
-    renames its pre-norms by where they run."""
+    renames its pre-norms by where they run, and `gpt_neo` and `gptj`
+    drop the stale causal buffers."""
     out = {}
     for name, value in named.items():
         for prefix in _PREFIXES:
@@ -396,6 +427,8 @@ def hf_to_state_dict(named: dict, model_type: Optional[str] = None) -> dict:
         if name.startswith(_TRANSFORMER) and not _distilbert_layer(name):
             name = name[len(_TRANSFORMER):]
         if name.startswith(_DROPPED) or name.endswith("rotary_emb.inv_freq"):
+            continue
+        if model_type in (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE) and name.endswith(_STALE):
             continue
         if name.startswith(_MAPPING_IN):
             name = _PROJECT + name[len(_MAPPING_IN):]
@@ -493,6 +526,10 @@ def load_checkpoint(path: str) -> Checkpoint:
     state = read_weights(path, config.get("model_type"))
     if config.get("model_type") == roformer.MODEL_TYPE:
         state = roformer.with_positions(config, state)
+    if tok_class == "BloomTokenizerFast" and not os.path.exists(
+            os.path.join(path, "tokenizer.json")):
+        raise ValueError(f"`{path}`'s tokenizer is BloomTokenizerFast, which reads a"
+                         " tokenizer.json only, and the directory has none")
     if tok_class in MOSES_CLASSES:
         files = [os.path.join(path, f) for f in ("vocab.json", "merges.txt")]
         if not all(map(os.path.exists, files)):
@@ -516,7 +553,7 @@ def load_checkpoint(path: str) -> Checkpoint:
                 " vocab.txt only"
             )
     elif os.path.exists(os.path.join(path, "merges.txt")):
-        spec = legacy_spec(path, tokenizer)
+        spec = legacy_spec(path, tokenizer, tok_class)
     elif not os.path.exists(os.path.join(path, "vocab.txt")):
         spm = [f for f in _SPM_FILES if os.path.exists(os.path.join(path, f))]
         if spm:
@@ -559,12 +596,12 @@ def build_tokenizer(ckpt: Checkpoint):
 def gives_token_types(ckpt: Checkpoint) -> bool:
     """Whether transformers' tokenizer for the checkpoint returns
     `token_type_ids` (which the JAX package's encoder passes to the model):
-    tokenizer_config.json's `model_input_names`, else its class's
-    (`_UNTYPED_TOKENIZERS` leave them out)."""
+    tokenizer_config.json's `model_input_names`, else its class's, as
+    `tokenizer_class` picks it (`_UNTYPED_TOKENIZERS` leave them out)."""
     names = ckpt.tokenizer.get("model_input_names")
     if names is not None:
         return "token_type_ids" in names
-    tok_class = ckpt.tokenizer.get("tokenizer_class") or ""
+    tok_class = tokenizer_class(ckpt.config, ckpt.tokenizer) or ""
     return tok_class.removesuffix("Fast") not in _UNTYPED_TOKENIZERS
 
 
@@ -636,7 +673,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     `mistral` Llama-3's, fixtures.llama3_tokenizer_config, for `phi3`
     LlamaTokenizer's, fixtures.llama_tokenizer_config, and for
     `gemma3_text`, `gemma2` and `gemma` GemmaTokenizer's,
-    fixtures.gemma_tokenizer_config), or
+    fixtures.gemma_tokenizer_config, for `gpt_neo` and `gptj`
+    GPT2Tokenizer's, fixtures.gpt2_tokenizer_config, and for `bloom`
+    BloomTokenizerFast's, fixtures.bloom_tokenizer_config), or
     `moses`, (vocab.json's dict, merges.txt's text), with XLMTokenizer's
     tokenizer_config.json (FlaubertTokenizer's for `flaubert`,
     fixtures.moses_tokenizer_config)."""
@@ -648,7 +687,7 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     if rename is not None:
         state_dict = {rename(k): v for k, v in state_dict.items()}
     if model_type not in ("distilbert", "modernbert", albert.MODEL_TYPE, *decoder.MODEL_TYPES,
-                          gemma3.MODEL_TYPE, gemma2.MODEL_TYPE, *_OWN_DEFAULTS):
+                          gemma3.MODEL_TYPE, gemma2.MODEL_TYPE, *_OWN_DEFAULTS, *_GPT_TYPES):
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
@@ -680,7 +719,10 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                gemma2.MODEL_TYPE: gemma_tokenizer_config,
                xlnet.MODEL_TYPE: xlnet_tokenizer_config,
                longformer.MODEL_TYPE: longformer_tokenizer_config,
-               bert.BIG_BIRD: bigbird_tokenizer_config}.get(model_type)
+               bert.BIG_BIRD: bigbird_tokenizer_config,
+               gpt_neo.MODEL_TYPE: gpt2_tokenizer_config,
+               gptj.MODEL_TYPE: gpt2_tokenizer_config,
+               bloom.MODEL_TYPE: bloom_tokenizer_config}.get(model_type)
         if own is not None:
             tok_config = own(tokenizer_json)
         elif bpe:

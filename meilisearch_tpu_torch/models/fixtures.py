@@ -20,6 +20,9 @@ in ModernBERT's layout and the config published beside it,
 `qwen2_tokenizer_json` and `llama3_tokenizer_json` seeded ones in Qwen2's
 and Llama-3's layouts (their Split pre-tokenizers) with
 `qwen2_tokenizer_config` and `llama3_tokenizer_config`,
+`gpt2_tokenizer_json` and `bloom_tokenizer_json` seeded ones in GPT-2's
+and BLOOM's layouts (BLOOM's Split) with `gpt2_tokenizer_config` and
+`bloom_tokenizer_config`,
 `llama_tokenizer_json` and `gemma_tokenizer_json` seeded sentencepiece
 BPEs with byte fallback as transformers' Llama converter (legacy or
 Metaspace) and Gemma converter write them, with `llama_tokenizer_config`
@@ -42,6 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from .bpe import (
+    BLOOM_SPLIT,
     LLAMA3_SPLIT,
     QWEN2_SPLIT,
     byte_level_words,
@@ -536,6 +540,84 @@ def longformer_tokenizer_config(spec: dict) -> dict:
             "mask_token": "<mask>", "model_max_length": 4096, "pad_token": "<pad>",
             "sep_token": "</s>", "tokenizer_class": "LongformerTokenizer", "trim_offsets": True,
             "unk_token": "<unk>"}
+
+
+GPT2_EOS = "<|endoftext|>"
+
+
+def gpt2_tokenizer_json(texts: list, vocab_size: int, seed: int, n_trained: int = 4096) -> dict:
+    """A byte-level BPE tokenizer.json in GPT-2's layout (GPT-Neo's, GPT-J's
+    and SGPT's): the 256 byte symbols at ids 0-255, the merges of
+    `train_merges` over `texts`, then seeded merges up to `vocab_size` - 1
+    tokens (50,257 published), and `<|endoftext|>` last; ByteLevel (no
+    prefix space), a ByteLevel post-processor, which adds nothing."""
+    vocab: dict = {}
+    for sym in bytes_to_unicode().values():
+        vocab[sym] = len(vocab)
+    merges = _grow_vocab(vocab, 0, texts, vocab_size - 1, seed, n_trained)
+    vocab[GPT2_EOS] = len(vocab)
+    added = [{"id": vocab[GPT2_EOS], "content": GPT2_EOS, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": True, "special": True}]
+    post = {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+            "use_regex": True}
+    return {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": None, "pre_tokenizer": BYTE_LEVEL, "post_processor": post,
+            "decoder": BYTE_LEVEL, "model": _bpe_model(vocab, merges)}
+
+
+def gpt2_tokenizer_config(spec: dict, pad_token: Optional[str] = GPT2_EOS,
+                          padding_side: Optional[str] = None) -> dict:
+    """The tokenizer_config.json `GPT2TokenizerFast.save_pretrained` writes
+    beside such a file (class `GPT2Tokenizer`, `<|endoftext|>` as unk, bos
+    and eos, `add_bos_token` false), with `pad_token` (GPT-2 publishes none,
+    batched embedding needs one; None leaves it out) and `padding_side`
+    where given."""
+    config = {"add_bos_token": False, "add_prefix_space": False,
+              "added_tokens_decoder": _added_decoder(spec), "bos_token": GPT2_EOS,
+              "clean_up_tokenization_spaces": False, "eos_token": GPT2_EOS, "errors": "replace",
+              "extra_special_tokens": {}, "model_max_length": 2048,
+              "tokenizer_class": "GPT2Tokenizer", "unk_token": GPT2_EOS}
+    if pad_token is not None:
+        config["pad_token"] = pad_token
+    if padding_side is not None:
+        config["padding_side"] = padding_side
+    return config
+
+
+BLOOM_HEAD = ("<unk>", "<s>", "</s>", "<pad>")
+
+
+def bloom_tokenizer_json(texts: list, vocab_size: int, seed: int, n_trained: int = 4096) -> dict:
+    """A byte-level BPE tokenizer.json in BLOOM's layout: `<unk> <s> </s>
+    <pad>` at ids 0-3 (special, not normalized), the 256 byte symbols, the
+    merges of `train_merges` over `texts` through BLOOM's Split pattern,
+    then seeded merges, `vocab_size` tokens in all (250,680 published,
+    under the model's 250,880 rows); no normalizer,
+    Sequence[Split(BLOOM_SPLIT, Isolated), ByteLevel (use_regex false)], a
+    ByteLevel post-processor."""
+    vocab = {t: i for i, t in enumerate(BLOOM_HEAD)}
+    for sym in bytes_to_unicode().values():
+        vocab[sym] = len(vocab)
+    merges = _grow_vocab(vocab, len(BLOOM_HEAD), texts, vocab_size, seed, n_trained, BLOOM_SPLIT)
+    added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True} for t in BLOOM_HEAD]
+    post = {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+            "use_regex": False}
+    return _bpe_spec(vocab, merges, added, None, _split_sequence(BLOOM_SPLIT, trim_offsets=True),
+                     post)
+
+
+def bloom_tokenizer_config(spec: dict, padding_side: Optional[str] = "left") -> dict:
+    """The tokenizer_config.json BLOOM's checkpoints publish beside such a
+    file (class `BloomTokenizerFast`, its four specials, `padding_side`
+    left; None leaves it out, the class's right)."""
+    config = {"added_tokens_decoder": _added_decoder(spec), "bos_token": "<s>",
+              "clean_up_tokenization_spaces": False, "eos_token": "</s>",
+              "model_max_length": 1_000_000_000_000_000_019_884_624_838_656,
+              "pad_token": "<pad>", "tokenizer_class": "BloomTokenizerFast", "unk_token": "<unk>"}
+    if padding_side is not None:
+        config["padding_side"] = padding_side
+    return config
 
 
 # ModernBERT's vocabulary extends GPT-NeoX's: two specials first, its

@@ -3,8 +3,8 @@
 Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
 families, Longformer, ALBERT, RoFormer, ModernBERT, DeBERTa-v2,
 MobileBERT, SqueezeBERT, XLM, FlauBERT, XLNet) or decoder (Qwen3,
-Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2, Gemma 3) checkpoint pulled
-from the hub, tokenized,
+Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2, Gemma 3, GPT-Neo, GPT-J,
+BLOOM) checkpoint pulled from the hub, tokenized,
 mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
 embeddings (LRU-cached upstream). Zero-egress deployments point `model`
@@ -20,7 +20,8 @@ merges.txt, models/xlm_bpe.py (Moses, models/moses.py, then a `</w>`
 BPE), or, for a Unigram tokenizer.json (XLM-R's, CamemBERT's,
 DeBERTa-v3's, ALBERT's, RemBERT's, XLNet's and BigBird's vocabularies),
 models/unigram.py, or, for
-a BPE (RoBERTa's and Longformer's, ModernBERT's, Qwen2's and Llama-3's byte-level one;
+a BPE (RoBERTa's and Longformer's, ModernBERT's, Qwen2's, Llama-3's, GPT-2's and
+BLOOM's byte-level one;
 Llama-2's, Mistral's, Phi-3's and Gemma's with byte fallback), models/bpe.py
 (WordPiece, Unigram and BPE with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
@@ -36,22 +37,27 @@ models/squeezebert.py's `SqueezeBertModel`, models/xlm.py's `XLMModel`
 (XLM and FlauBERT),
 models/xlnet.py's `XLNetModel`, models/decoder.py's `DecoderModel`
 (Qwen3, Qwen2, Llama, Mistral, Gemma and Phi-3), models/gemma2.py's
-`Gemma2Model` (bge-multilingual-gemma2) or models/gemma3.py's
-`Gemma3Model` (Gemma 3's text stack, EmbeddingGemma) runs on the device
+`Gemma2Model` (bge-multilingual-gemma2), models/gemma3.py's
+`Gemma3Model` (Gemma 3's text stack, EmbeddingGemma), models/gpt_neo.py's
+`GPTNeoModel` and models/gptj.py's `GPTJModel` (the SGPT embedders) or
+models/bloom.py's `BloomModel` (sgpt-bloom, udever-bloom) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state, a pad's under left padding, as there; otherwise
 the mean over the attention mask), and the result is L2-normalized in
 numpy exactly as there (under `forceCls` with left padding, under a
-`longrope` or `dynamic` rotary, and for a block-sparse BigBird, every
-chunk of a call is padded to the call's longest text, as the JAX package
-pads its one batch: a pad's state can depend on how far it pads, those
-rotaries' frequencies on the padded length, and BigBird's choice of
-sparse attention and its blocks' layout too; the Llama and Gemma
-tokenizer classes pad on the left by default). The JAX
+`longrope` or `dynamic` rotary, for a block-sparse BigBird, and for
+GPT-Neo and GPT-J under left padding, every chunk of a call is padded to
+the call's longest text, as the JAX package pads its one batch: a pad's
+state can depend on how far it pads, those rotaries' frequencies on the
+padded length, BigBird's choice of sparse attention and its blocks'
+layout too, and GPT-Neo's and GPT-J's positions count from the padded
+start; the Llama and Gemma tokenizer classes pad on the left by
+default, BLOOM's published files ask for it). The JAX
 package passes every output of its
 tokenizer to the torch model (`**tok`), token types included; the port
-passes them to the models that read them (XLNet, XLM, FlauBERT), as `tokenize`
-gives them. Only a local
+passes them to the models that read them (XLNet, XLM, FlauBERT; GPT-Neo
+and GPT-J add their `wte` rows, BLOOM refuses them), as `tokenize` gives
+them. Only a local
 checkpoint directory is read: nothing is downloaded.
 
 `device=None` is the CPU, the host pass. On a CUDA device a failure
@@ -69,7 +75,7 @@ import numpy as np
 import torch
 
 from ..ops.chain_keys import LaunchCounter
-from . import longformer, squeezebert, xlnet
+from . import bloom, gpt_neo, gptj, longformer, squeezebert, xlnet
 from .bert import RELATIVE_KEYS
 from .checkpoint import build_model, build_tokenizer, gives_token_types, load_checkpoint
 from .deberta_v2 import attention_span
@@ -85,6 +91,8 @@ from .rope import BATCH_LENGTH_ROPES
 # until its worst case fits a quarter of the free memory.
 CHUNK_TEXTS = 256
 FORWARDS = LaunchCounter()  # encoder forward passes, any device
+# model types whose positions count from the padded start of the batch
+PADDED_POSITIONS = (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE)
 
 
 class TextEncoder:
@@ -156,6 +164,13 @@ class TextEncoder:
             # Longformer's (L, L) scores run under a (B, 1, L, L) bool band
             # mask, one for each distinct window, built once a forward
             per_text += L * L * len(set(c["attention_window"]))
+        elif kind in (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE, bloom.MODEL_TYPE):
+            # the (B, 1, L, L) float32 additive mask; GPT-Neo's `where` and
+            # GPT-J's division make one more score-sized tensor before the
+            # mask is added (BLOOM's baddbmm adds its ALiBi in the product)
+            per_text += 4 * L * L
+            if kind != bloom.MODEL_TYPE:
+                per_text += 4 * heads * L * L
         elif kind == squeezebert.MODEL_TYPE:
             # SqueezeBERT's channel-last copies around each LayerNorm and the
             # grouped products' copies of their inputs
@@ -217,16 +232,19 @@ class TextEncoder:
         tokenize_s = 0.0
         whole = None
         rope = getattr(self._model, "rope", None)
+        left = getattr(self._tokenizer, "padding_side", "right") == "left"
         if len(texts) > step and (
-                (self.pooling == "forceCls"
-                 and getattr(self._tokenizer, "padding_side", "right") == "left")
+                (self.pooling == "forceCls" and left)
+                or (left and self._model.config.get("model_type") in PADDED_POSITIONS)
                 or (rope is not None and rope.kind in BATCH_LENGTH_ROPES)
                 or getattr(self._model, "sparse_threshold", None) is not None):
             # forceCls pools position 0, a pad for every text shorter than
             # its batch's longest under left padding, and a pad's state can
-            # read the text (XLNet, a bidirectional Gemma 3); a `longrope` or
-            # `dynamic` rotary takes its frequencies from the batch's padded
-            # length (Phi-3's long factors past
+            # read the text (XLNet, a bidirectional Gemma 3); GPT-Neo's and
+            # GPT-J's positions count from the padded start, so a
+            # left-padded text's shift with its batch's longest; a
+            # `longrope` or `dynamic` rotary takes its frequencies from the
+            # batch's padded length (Phi-3's long factors past
             # original_max_position_embeddings); a block-sparse BigBird runs
             # sparse past its threshold, and its blocks' layout (which block
             # is last, which blocks a row slides over) follows the padded

@@ -18,8 +18,9 @@ BertGeneration, RemBERT, Megatron-BERT, RoFormer, ALBERT, BERT's relative
 keys, the decoders (with scaled rotaries, sliding windows, MLP biases and
 other activations too), Gemma 3 and Llama from byte-fallback
 tokenizers, XLM and FlauBERT from their Moses tokenizers, Gemma 2,
-Gemma and Phi-3, and Longformer, data2vec-text, XLM-RoBERTa-XL and
-BigBird, on the card as the same checkpoint on the CPU."""
+Gemma and Phi-3, Longformer, data2vec-text, XLM-RoBERTa-XL and BigBird,
+and GPT-Neo, GPT-J and BLOOM from GPT-2's and BLOOM's byte-level BPEs, on
+the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -1476,3 +1477,58 @@ def test_bigbird_block_sparse_on_the_card_matches_the_cpu(cuda_device, tmp_path,
     got = card.encode(texts)
     assert bool(np.isfinite(got).all())
     assert float(np.abs(got - host.encode(texts)).max()) <= 1e-5
+
+
+# the SGPT types at published widths, cut to 2 layers: gpt_neo at
+# gpt-neo-125M's (a 16-token window, so it bites), gptj at gpt-j-6b's head
+# width over a narrower model (rotary_dim 32 of 64: the rest of each head
+# passed through), bloom at bloom-560m's (16 heads of 64, ALiBi), each over
+# a seeded byte-level BPE in GPT-2's or BLOOM's layout: (config, module)
+P24_FAMILIES = {
+    "gpt_neo": ({"model_type": "gpt_neo", "hidden_size": 768, "num_layers": 2, "num_heads": 12,
+                 "attention_types": [[["global", "local"], 1]], "window_size": 16,
+                 "max_position_embeddings": 2048}, "GPTNeoModel"),
+    "gptj": ({"model_type": "gptj", "n_embd": 1024, "n_layer": 2, "n_head": 16,
+              "rotary_dim": 32, "n_positions": 2048}, "GPTJModel"),
+    "bloom": ({"model_type": "bloom", "hidden_size": 1024, "n_layer": 2, "n_head": 16},
+              "BloomModel"),
+}
+
+
+@pytest.mark.parametrize("side", ["right", "left"])
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("kind", list(P24_FAMILIES))
+def test_gpt_neo_gptj_bloom_on_the_card_match_the_cpu(cuda_device, tmp_path, kind, pooling,
+                                                      side, monkeypatch):
+    """GPT-Neo's unscaled global and local layers, GPT-J's partial rotary and
+    BLOOM's ALiBi on the card: a batch of short texts beside ones of 200 to
+    512 tokens, padded right and left, in chunks of 8 cut from the call's
+    one batch where left padding shifts the positions, against the CPU
+    within 1e-4 (ENC_TOL)."""
+    from meilisearch_tpu_torch.models import fixtures, hf_encoder
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config, module = P24_FAMILIES[kind]
+    if kind == "bloom":
+        spec = fixtures.bloom_tokenizer_json(_enc_texts(200, 34), 1500, seed=34)
+        tok_config = fixtures.bloom_tokenizer_config(spec, padding_side=side)
+    else:
+        spec = fixtures.gpt2_tokenizer_json(_enc_texts(200, 34), 1500, seed=34)
+        tok_config = fixtures.gpt2_tokenizer_config(spec, padding_side=side)
+    config = {**config, "vocab_size": len(spec["model"]["vocab"])}
+    torch.manual_seed(35)
+    write_checkpoint(str(tmp_path), config, new_model(config).state_dict(), tokenizer_json=spec,
+                     tokenizer_config=tok_config)
+    texts = _enc_texts(15, seed=36) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80), "",
+                                       "<|endoftext|> Hello, world! (a|b) 中文 \U0001F680"]
+    monkeypatch.setattr(hf_encoder, "CHUNK_TEXTS", 8)
+    card = hf_encoder.TextEncoder(str(tmp_path), pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert type(card._model).__name__ == module and card._tokenizer.padding_side == side
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-4

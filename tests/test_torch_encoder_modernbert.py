@@ -372,8 +372,8 @@ def test_roberta_defaults_stay_with_roberta_classes(ckpt):
         bpe.BPE(c.tokenizer_json, {**c.tokenizer, "tokenizer_class": "RobertaTokenizer"})
     with pytest.raises(ValueError, match="<s>"):
         bpe.BPE(c.tokenizer_json, no_class, "roberta")
-    with pytest.raises(ValueError, match="GPT2TokenizerFast"):
-        bpe.BPE(c.tokenizer_json, {**c.tokenizer, "tokenizer_class": "GPT2TokenizerFast"})
+    with pytest.raises(ValueError, match="CodeGenTokenizerFast"):
+        bpe.BPE(c.tokenizer_json, {**c.tokenizer, "tokenizer_class": "CodeGenTokenizerFast"})
 
 
 def test_the_fixture_layout_is_modernbert_base(ckpt):

@@ -8,7 +8,11 @@ For each model type (by default the candidates ROADMAP queue 1 lists), a
 defaults) is built from transformers' config class, its weights drawn
 from a seeded torch generator, and saved with `save_pretrained` as
 pytorch_model.bin beside a WordPiece vocab.txt saved by
-`BertTokenizerFast` (every type meets the same neutral tokenizer). The
+`BertTokenizerFast` (every type meets the same neutral vocabulary). Its
+tokenizer_config.json names the inputs the type's own tokenizer class
+gives (`model_input_names`, from AutoTokenizer's mapping: GPT-2's,
+BLOOM's, BART's and most decoders' classes give no token types, and a
+model that takes none raises when handed BERT's). The
 JAX package's `FlaxTextEncoder` then encodes a padded batch of four texts
 from the directory, under mean pooling and under forceCls: the type
 embeds if both give finite vectors. Prints one line a type: which branch
@@ -30,7 +34,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CANDIDATES = ("gemma2", "gemma", "phi3", "longformer", "big_bird", "data2vec-text",
-              "xlm-roberta-xl")
+              "xlm-roberta-xl", "gpt_neo", "gptj", "bloom")
 SMALL = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
          "intermediate_size": 96, "max_position_embeddings": 512}
 # per type: what a 64-wide, 2-layer model needs besides SMALL
@@ -40,7 +44,13 @@ EXTRA = {
     "phi3": {"num_key_value_heads": 2, "pad_token_id": 0},
     "longformer": {"attention_window": 8},
     "big_bird": {"block_size": 4, "num_random_blocks": 2},
+    "gpt_neo": {"num_layers": 2, "attention_types": [[["global", "local"], 1]]},
+    "gptj": {"rotary_dim": 8},
 }
+# the inputs a type's published tokenizer_config.json names where its class
+# is the generic PreTrainedTokenizerFast (whose default gives token types):
+# tiiuae/falcon-7b's
+INPUTS = {"falcon": ["input_ids", "attention_mask"]}
 TEXTS = ["hello world", "search engine for the cloud " * 12, "", "rust python database"]
 
 
@@ -52,7 +62,26 @@ def _vocab() -> list:
                                *string.punctuation]))
 
 
+def model_input_names(model_type: str):
+    """The `model_input_names` of the type's own tokenizer class (its fast
+    class where AutoTokenizer maps one; INPUTS' where the class is the
+    generic one), or None for a type it maps none for."""
+    import transformers
+    from transformers.models.auto.tokenization_auto import TOKENIZER_MAPPING_NAMES
+
+    if model_type in INPUTS:
+        return INPUTS[model_type]
+    names = [n for n in TOKENIZER_MAPPING_NAMES.get(model_type) or () if n]
+    for name in reversed(names):  # the fast class first
+        cls = getattr(transformers, name, None)
+        if cls is not None:
+            return list(cls.model_input_names)
+    return None
+
+
 def probe(model_type: str, root: str) -> str:
+    import json
+
     import torch
     import transformers
 
@@ -64,6 +93,12 @@ def probe(model_type: str, root: str) -> str:
     with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
         f.write("".join(t + "\n" for t in vocab))
     transformers.BertTokenizerFast(os.path.join(path, "vocab.txt")).save_pretrained(path)
+    inputs = model_input_names(model_type)
+    if inputs is not None:
+        with open(os.path.join(path, "tokenizer_config.json")) as f:
+            tok_config = json.load(f)
+        with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+            json.dump({**tok_config, "model_input_names": inputs}, f)
     config = transformers.AutoConfig.for_model(
         model_type, vocab_size=len(vocab) + 8, **SMALL, **EXTRA.get(model_type, {}))
     torch.manual_seed(0)
