@@ -40,14 +40,15 @@ Phases, each fatal on failure:
      queries to POST /indexes/typo/search; every response must equal the
      same store's answer with the host OSA pass, K3 must have launched,
      and no device error may occur;
-  5. vector path (hn150k-bge768): a third App ingests 150,000 synthetic
+  5. vector path (hn150k-bge768): a third App ingests 120,000 of the
+     configuration's 150,000 synthetic
      hackernews documents with a 768-dimension userProvided embedder
-     (every 7th document two vectors: 171,429 rows, padded to 2^18 on the
+     (every 7th document two vectors: 137,143 rows, padded to 2^18 on the
      card) over POST /indexes/vec/documents, uploads the matrix
      (App.warm_devices), then the 24 requests (20 hybrid searches,
      semanticRatio 1.0 and 0.5, with and without a filter, and 4
      /similar requests) one at a time, and 32 client threads each send
-     8 of them in a rotated order (256, each request 8 to 16 times).
+     4 of them in a rotated order (128, each request 4 to 8 times).
      Against the same store's numpy host pass: the
      float round must give the same hits (a group whose host scores lie
      within 1e-6 compared as a set), scores within 1e-5 and the same
@@ -77,7 +78,7 @@ Phases, each fatal on failure:
      nothing downloaded) is written to a temporary directory; the port's
      encoder on the card must agree with the same checkpoint on the CPU
      within ENC_TOL on 80 texts; a fourth App ingests ENC_DOCS synthetic
-     hackernews documents (10,000 of the configuration's 150,000) over HTTP
+     hackernews documents (5,000 of the configuration's 150,000) over HTTP
      with a huggingFace embedder on that
      checkpoint and Meilisearch's default documentTemplate, every document
      embedded at indexing on the card (wall time, tokens, tokens/s, peak
@@ -370,10 +371,10 @@ Phases, each fatal on failure:
      num_random_blocks 2, so a call past 144 tokens runs block-sparse
      (seeded random weights at 0.02, written as pytorch_model.bin) with
      phase 22's seeded 50,358-piece Unigram, through its own App over
-     2,000 documents whose `text` field is a seeded run of 150-900 of the
-     corpus's words (200 of them short), rendered with
+     1,024 documents whose `text` field is a seeded run of 150-900 of the
+     corpus's words (100 of them short), rendered with
      documentTemplateMaxBytes 8,000 (the vector store's DEVICE_MIN_ROWS
-     lowered to 1, so 2,000 rows take the float leg): the encoder on the
+     lowered to 1, so 1,024 rows take the float leg): the encoder on the
      card against the CPU within ENC_TOL on 83 texts (full attention) and
      on phase 13's long texts (block-sparse, counted), one block-sparse
      chunk of 512 tokens against its float32 bound over the pattern's
@@ -403,8 +404,32 @@ Phases, each fatal on failure:
      host share, peak device memory, 256 hybrid responses against the host
      pass, a query's forward and launches against its weight-read bound,
      and one chunk against its float32 bound.
+  25. MoE path (hn5k-gritlm8x7b-hf), after the earlier phases' encoders
+     are let go: first two 2-layer checkpoints at published widths, each
+     one BF16 model.safetensors over a seeded 32,000-piece BPE in Qwen2's
+     layout, padded right and left under both poolings, card against CPU:
+     qwen2_moe at Qwen1.5-MoE-A2.7B's (60 experts of 1,408, top 4
+     unnormalized, a shared expert) and qwen3_moe at Qwen3-30B-A3B's (128
+     experts of 768, top 8 renormalized, Q/K norms); then a checkpoint at
+     GritLM/GritLM-8x7B's published config.json (mixtral: 4,096 wide, 32
+     heads over 8 KV heads, 8 experts of 14,336, top 2, no window) cut to
+     2 of its 32 layers, seeded weights drawn on the card and written as
+     BF16 shards with their index (MixtralForCausalLM's names) beside a
+     seeded 32,000-piece Llama byte-fallback BPE padded left, through its
+     own App as phase 11 over 5,000 documents, both encoders reading the
+     shards: the encoder on the card against the CPU on 83 texts, phase
+     13's long texts and a batch padded right and left under both
+     poolings, each under the routing rule (the gates' logits captured by
+     forward hooks on both devices: a token whose experts differ where the
+     CPU's margin between its k-th and (k+1)-th routing weight is at least
+     ROUTE_MARGIN fails the phase; a text with a difference at a smaller
+     margin is printed and kept out of the ENC_TOL maximum); the shards'
+     read time, tokens/s and the host share, peak device memory, 256
+     hybrid responses against the host pass, a query's forward, launches
+     and experts hit against its weight-read bound over those experts,
+     and one chunk against its float32 bound over the routed work.
 Every phase prints its wall as it ends, and the walls are printed
-together after phase 24.
+together after phase 25.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -493,8 +518,10 @@ TYPO_VOCAB_WORDS = 1 << 20
 # the vector path's configuration, hn150k-bge768: 150,000 hackernews-like
 # documents and a userProvided embedder of 768 dimensions, the width of
 # BAAI/bge-base-en-v1.5 (Meilisearch's default huggingFace model); the
-# vectors are seeded draws around 512 centres, every 7th document two
-VEC_DOCS, VEC_DIM, VEC_CENTRES, VEC_BATCH, VEC_SEED = 150_000, 768, 512, 10_000, 2024
+# vectors are seeded draws around 512 centres, every 7th document two.
+# 120,000 of them since phase 25 came (137,143 rows: the card's matrix
+# still pads to 2^18, K4h's n)
+VEC_DOCS, VEC_DIM, VEC_CENTRES, VEC_BATCH, VEC_SEED = 120_000, 768, 512, 10_000, 2024
 VEC_SETTINGS = {
     "searchableAttributes": ["title", "url", "author"],
     "filterableAttributes": ["points"],
@@ -502,23 +529,23 @@ VEC_SETTINGS = {
 }
 VEC_TEXT = ["rust", "database", "machine learning", "cloud", "python web"]
 # requests a client sends in each of the vector path's two served rounds:
-# a third of its 24 in its rotation, 256 a round, every request 8 to 16
-# times (the cut that keeps the whole script under 700 s)
-VEC_SERVED_PER_CLIENT = 8
+# a sixth of its 24 in its rotation, 128 a round, every request 4 to 8
+# times (8 and 256 until phase 25 came)
+VEC_SERVED_PER_CLIENT = 4
 # the encoder path, hn150k-bgebase-hf: the vector path's corpus with a
 # huggingFace embedder at BAAI/bge-base-en-v1.5's published width (random
 # weights from a seed, nothing downloaded) and Meilisearch's default
 # documentTemplate; every document is embedded at indexing on the card.
-# 10,000 of its 150,000 documents: the depth cut (50,000 until phase 17
-# came, 25,000 until phase 23) that keeps the whole script under its
-# limit with phase 23
+# 5,000 of its 150,000 documents: the depth cut (50,000 until phase 17
+# came, 25,000 until phase 23, 10,000 until phase 25) that keeps the
+# whole script under its limit
 BGE_CONFIG = {
     "vocab_size": 30522, "hidden_size": 768, "num_hidden_layers": 12,
     "num_attention_heads": 12, "intermediate_size": 3072,
     "max_position_embeddings": 512, "type_vocab_size": 2, "layer_norm_eps": 1e-12,
 }
 BGE_INIT_STD = 0.02  # BERT's initializer_range
-ENC_DOCS, ENC_WRITE, ENC_SEED = 10_000, 1_000, 2025
+ENC_DOCS, ENC_WRITE, ENC_SEED = 5_000, 1_000, 2025
 ENC_TOL = 1e-4  # max abs error of normalized embeddings, card against the CPU
 ENC_TEXT = ["rust compiler", "machine learning database", "cloud security", "python web"]
 ENC_TIMED_TOKENS = 128  # tokens per text of the timed indexing chunk
@@ -1014,12 +1041,12 @@ BIGBIRD_SPARSE_CONFIG = {
     **P22_VARIANTS["(d) big_bird at bigbird-roberta-base's widths, block_sparse run full"],
     "architectures": ["BigBirdForPreTraining"], "num_hidden_layers": 12, "block_size": 16,
     "num_random_blocks": 2, "initializer_range": 0.02}
-# 2,000 documents, each with a `text` field of a seeded run of 150-900 of
-# the corpus's words (200 of them short, 2-12 words, so that one write
-# mixes both lengths), rendered with documentTemplateMaxBytes 8,000 (the
-# default 400 bytes stop near 100 tokens) so that documents reach 150-512
-# tokens
-P23_DOCS, P23_SHORT, P23_SEED, P23_MAX_BYTES = 2_000, 200, 2039, 8_000
+# 1,024 documents (2,000 until phase 25 came), each with a `text` field
+# of a seeded run of 150-900 of the corpus's words (100 of them short,
+# 2-12 words, so that one write mixes both lengths), rendered with
+# documentTemplateMaxBytes 8,000 (the default 400 bytes stop near 100
+# tokens) so that documents reach 150-512 tokens
+P23_DOCS, P23_SHORT, P23_SEED, P23_MAX_BYTES = 1_024, 100, 2039, 8_000
 P23_WORDS = (150, 900)
 # phase 24 (hn5k-sgpt125m-hf): Muennighoff/SGPT-125M-weightedmean-nli-bitfit's
 # config.json (gpt_neo, EleutherAI's gpt-neo-125M widths) at its full depth:
@@ -1057,6 +1084,69 @@ P24_VARIANTS = {
 P24_BLOOM_PIECES, P24_BLOOM_TRAIN_DOCS = 32_000, 1_000
 P24_TEXT = ["<|endoftext|> inside <|endoftext|>", "Hello, world! (a|b) x.y 你好。ok",
             "中文 café 😀 naïve — it's DON'T"]
+# phase 25: GritLM/GritLM-8x7B's published config.json (MixtralForCausalLM at
+# Mixtral-8x7B's widths: 4,096 wide, 32 heads over 8 KV heads, 8 experts of
+# 14,336 a layer, top 2, rms_norm_eps 1e-5, rope_theta 1e6, no window,
+# vocabulary 32,000), cut to 2 of its 32 layers; seeded weights at 0.02,
+# drawn on the card and written as BF16 shards of at most 5 GB with
+# model.safetensors.index.json (`model.` names, an untied `lm_head`), as
+# the published files hold them, beside a seeded 32,000-piece Llama
+# byte-fallback BPE padded on the left with `</s>` as its pad (GritLM's own
+# tokenizer_config.json is not on this machine: Llama-2's layout)
+GRITLM_8X7B_CONFIG = {
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"], "vocab_size": 32_000,
+    "hidden_size": 4096, "intermediate_size": 14_336, "num_hidden_layers": 2,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "hidden_act": "silu", "rms_norm_eps": 1e-5, "rope_theta": 1e6,
+    "sliding_window": None, "max_position_embeddings": 32_768, "router_aux_loss_coef": 0.02,
+    "output_router_logits": False, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "bos_token_id": 1, "eos_token_id": 2}
+GRITLM_PUBLISHED_LAYERS = 32
+P25_DOCS, P25_SEED, P25_BIAS_STD = 5_000, 2050, 0.02
+P25_SHARD_BYTES = 5 * 10**9  # save_pretrained's default max_shard_size, "5GB"
+P25_PIECES, P25_TRAIN_DOCS = 32_000, 1_000
+# the routing rule of card against CPU: a token whose experts differ where
+# the CPU's margin between its k-th and (k+1)-th routing weight is at least
+# this fails the phase (a hundred times the rounding the card's gate
+# product is expected to differ by); its text, where the margin is
+# smaller, is printed and kept out of the ENC_TOL maximum
+ROUTE_MARGIN = 1e-5
+# texts a chunk of the CPU's reference encodes in phase 25's checks: each
+# chunk pads to its own longest text, and every pad runs its experts, so
+# the 83 check texts in one batch padded to the longest would cost the CPU
+# several times their real tokens' work (a chunk cut from a call's one
+# padded batch, forceCls over left padding, keeps that batch's length)
+P25_CPU_CHUNK = 4
+# the other MoE types, 2 layers each at a published model's widths, as BF16
+# model.safetensors, card against CPU under both poolings on both padding
+# sides over a seeded 32,000-piece BPE in Qwen2's layout (151,643 pieces
+# published; the embeddings keep their 151,936 rows): (a) qwen2_moe at
+# Qwen/Qwen1.5-MoE-A2.7B's (2,048 wide, 16 heads, 60 experts of 1,408, top
+# 4 unnormalized, a shared expert of 5,632, biases on Q, K and V at 0.02);
+# (b) qwen3_moe at Qwen/Qwen3-30B-A3B's (2,048 wide, 32 heads of 128 over 4
+# KV heads, Q/K norms, 128 experts of 768, top 8 renormalized)
+P25_VARIANTS = {
+    "(a) qwen2_moe at Qwen1.5-MoE-A2.7B's widths": {
+        "model_type": "qwen2_moe", "vocab_size": 151_936, "hidden_size": 2048,
+        "intermediate_size": 5632, "num_hidden_layers": 2, "num_attention_heads": 16,
+        "num_key_value_heads": 16, "num_experts": 60, "num_experts_per_tok": 4,
+        "moe_intermediate_size": 1408, "shared_expert_intermediate_size": 5632,
+        "decoder_sparse_step": 1, "norm_topk_prob": False, "qkv_bias": True,
+        "hidden_act": "silu", "rms_norm_eps": 1e-6, "rope_theta": 1e6,
+        "max_position_embeddings": 8192, "use_sliding_window": False, "sliding_window": 32_768,
+        "max_window_layers": 21, "torch_dtype": "bfloat16"},
+    "(b) qwen3_moe at Qwen3-30B-A3B's widths": {
+        "model_type": "qwen3_moe", "vocab_size": 151_936, "hidden_size": 2048,
+        "intermediate_size": 6144, "num_hidden_layers": 2, "num_attention_heads": 32,
+        "num_key_value_heads": 4, "head_dim": 128, "num_experts": 128, "num_experts_per_tok": 8,
+        "moe_intermediate_size": 768, "norm_topk_prob": True, "decoder_sparse_step": 1,
+        "mlp_only_layers": [], "attention_bias": False, "hidden_act": "silu",
+        "rms_norm_eps": 1e-6, "rope_theta": 1e6, "max_position_embeddings": 40_960,
+        "use_sliding_window": False, "sliding_window": None, "max_window_layers": 48,
+        "torch_dtype": "bfloat16"},
+}
+P25_TEXT = ["<s> inside </s> <unk>", "Hello, world! x.y 你好。ok \U0001F680",
+            "  two  spaces\ttab"]
 # what Moses does to the encoder's texts: newlines and tabs dropped (two
 # words become one), French quotes and non-breaking spaces, elisions,
 # `No.` before a number, numbers with commas, multi-dots, a literal
@@ -1808,7 +1898,7 @@ def bge_vocab() -> list:
     return vocab + [f"filler{i}" for i in range(n - len(vocab))]
 
 
-def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
+def random_state_dict(config: dict, seed: int, bias_std: float = 0.0, dtype=None) -> dict:
     """BERT's initialization of a model of `config` (XLM-R's, DistilBERT's,
     MPNet's, ModernBERT's, the decoders' and Gemma 3's too): weights,
     MPNet's relative attention bias table among them, normal(0,
@@ -1822,7 +1912,8 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
     on the card where there is one (a seeded CUDA generator: a billion
     weights in well under a second, where the host's generator took most
     of a 5 GB checkpoint's write) and copied to the host, one tensor at a
-    time, for the checkpoint's writer."""
+    time, for the checkpoint's writer; in `dtype` where given (BF16 rounded
+    on the card)."""
     import torch
 
     from meilisearch_tpu_torch.models import gemma3, mobilebert, roformer
@@ -1842,19 +1933,22 @@ def random_state_dict(config: dict, seed: int, bias_std: float = 0.0) -> dict:
     on = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
     g = torch.Generator(on).manual_seed(seed)
 
+    dtype = dtype or torch.float32
+
     def normal(shape, std):
-        return (torch.randn(shape, generator=g, device=on) * std).cpu()
+        return (torch.randn(shape, generator=g, device=on) * std).to(dtype).cpu()
 
     state = {}
     for name, p in model.named_parameters():
         if name in norms:
-            state[name] = torch.full(p.shape, norms[name])
+            state[name] = torch.full(p.shape, norms[name], dtype=dtype)
         elif name == roformer.POSITIONS:
             state[name] = roformer.sinusoidal_table(*p.shape).clone()
         elif sinusoidal and name.endswith("position_embeddings.weight"):
             state[name] = sinusoidal_positions(*p.shape)
         elif name.endswith("bias"):
-            state[name] = normal(p.shape, bias_std) if bias_std else torch.zeros(p.shape)
+            state[name] = normal(p.shape, bias_std) if bias_std else torch.zeros(p.shape,
+                                                                                  dtype=dtype)
         else:
             state[name] = normal(p.shape, BGE_INIT_STD)
         if name in zero_rows:
@@ -2138,9 +2232,9 @@ def encoder_path_phase(device, card: str, n_docs: int) -> dict:
 def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, seed: int,
             queries: list, check_texts: list, tokenizer: str, model_type: str,
             checks: tuple = (), docs: list | None = None, settings: dict | None = None,
-            embedder: dict | None = None) -> dict:
+            embedder: dict | None = None, check=encoder_check) -> dict:
     """One checkpoint through its own App: (a) `write(path)` writes it; (b)
-    the encoder on the card against the CPU on 80 texts (and each of
+    the encoder on the card against the CPU on 80 texts (`check`; and each of
     `checks(path, device, label)`, its error); (c) n_docs
     documents (`docs`, else seeded hackernews ones) embedded at indexing on
     the card, through the tokenizer class and model type named, the index's
@@ -2171,9 +2265,9 @@ def hf_path(device, card: str, n_docs: int, *, label: str, index: str, write, se
         searchable = set(VEC_SETTINGS["searchableAttributes"])
         texts = [render_document_template(None, d, searchable) for d in docs[:48]]
         texts += list(queries) * 2 + check_texts
-        err = encoder_check(path, device, texts, label)
-        for check in checks:
-            err = max(err, check(path, device, label))
+        err = check(path, device, texts, label)
+        for more in checks:
+            err = max(err, more(path, device, label))
 
         serving_stats(reset=True)
         app = App(device=device)
@@ -3630,7 +3724,7 @@ def bigbird_sparse_phase(device, card: str, n_docs: int) -> dict:
         f" ({P23_SHORT} short) built in {time.perf_counter() - t0:.3f} s")
     big_bird.FORWARDS.reset()
     timing = {}
-    # 2,000 rows are under the device legs' DEVICE_MIN_ROWS: the matrix is
+    # 1,024 rows are under the device legs' DEVICE_MIN_ROWS: the matrix is
     # sent to the card all the same, so the hybrid round takes the float leg
     min_rows, vstore.DEVICE_MIN_ROWS = vstore.DEVICE_MIN_ROWS, 1
     try:
@@ -3873,6 +3967,355 @@ def sgpt_phase(device, card: str, n_docs: int) -> dict:
     say(f"phase 24 wall: {time.perf_counter() - t_phase:.3f} s")
     return out
 
+
+def p25_spec(qwen: bool = False) -> dict:
+    """A seeded 32,000-piece BPE, its merges trained on P25_TRAIN_DOCS of
+    the phase's own texts: Llama-2's sentencepiece layout with byte
+    fallback (GritLM-8x7B's `LlamaTokenizer`), or Qwen2's byte-level one."""
+    from meilisearch_tpu_torch.models import fixtures
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(P25_TRAIN_DOCS, seed=P25_SEED)] + P11_TEXT
+    if qwen:
+        return fixtures.qwen2_tokenizer_json(texts, P25_PIECES, seed=P25_SEED)
+    return fixtures.llama_tokenizer_json(texts, P25_PIECES, seed=P25_SEED)
+
+
+def write_p25_checkpoint(path: str, config: dict, seed: int, spec: dict) -> None:
+    """A checkpoint of `config` with seeded weights (biases at
+    P25_BIAS_STD) rounded to BF16 on the card, as the published files hold
+    them: GritLM-8x7B's (`MixtralForCausalLM`: `model.` names and an
+    untied `lm_head.weight`) as shards of at most P25_SHARD_BYTES and their
+    index, the variants' as one model.safetensors; beside `spec` and its
+    class's tokenizer_config.json (LlamaTokenizer's, padding left with
+    `</s>`; Qwen2Tokenizer's, padding right)."""
+    import torch
+
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+
+    state = random_state_dict(config, seed, P25_BIAS_STD, dtype=torch.bfloat16)
+    sharded = config.get("architectures") == ["MixtralForCausalLM"]
+    if sharded:
+        state = {**{f"model.{k}": v for k, v in state.items()},
+                 "lm_head.weight": state["embed_tokens.weight"]}
+    write_checkpoint(path, config, state, tokenizer_json=spec,
+                     shard_bytes=P25_SHARD_BYTES if sharded else None)
+
+
+@contextlib.contextmanager
+def gate_log(model):
+    """Inside the block, each forward of `model` appends (attention mask,
+    [gate logits of each sparse block, in layer order]) to the list it
+    yields, both as float32 CPU tensors (forward hooks on the gates: the
+    module runs as it always does)."""
+    from meilisearch_tpu_torch.models.moe import SparseMoeBlock
+
+    records = []
+    hooks = [model.register_forward_pre_hook(
+        lambda _m, args: records.append((args[1].detach().cpu(), [])))]
+    for block in (m for m in model.modules() if isinstance(m, SparseMoeBlock)):
+        hooks.append(block.gate.register_forward_hook(
+            lambda _m, _args, out: records[-1][1].append(out.detach().float().cpu())))
+    try:
+        yield records
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _per_text(records: list) -> list:
+    """[(mask row, [its (L, experts) logits a sparse layer])], one a text in
+    the order encoded."""
+    out = []
+    for mask, layers in records:
+        B, L = mask.shape
+        rows = [lg.view(B, L, -1) for lg in layers]
+        out.extend((mask[b], [r[b] for r in rows]) for b in range(B))
+    return out
+
+
+def routing_rule(card: list, cpu: list, k: int, label: str) -> dict:
+    """The routing rule over one encode's gate logits (`gate_log` records)
+    on the card and the CPU: for each text, the positions both devices
+    computed (every position where both padded it alike, else its real
+    tokens), the sparse layers in order, up to the first where the card's
+    top-k experts differ from the CPU's at any position. A difference
+    where the CPU's margin between its k-th and (k+1)-th routing weight is
+    at least ROUTE_MARGIN raises; a smaller one marks the text (its margin
+    kept). Returns {"tokens": positions compared, "flipped": tokens whose
+    experts differ, "texts": {text index: smallest margin}}."""
+    import torch
+
+    card, cpu = _per_text(card), _per_text(cpu)
+    if len(card) != len(cpu):
+        raise AssertionError(f"{label}: {len(card)} texts routed on the card, {len(cpu)} on"
+                             " the CPU")
+    out = {"tokens": 0, "flipped": 0, "texts": {}}
+    for t, ((m_card, l_card), (m_cpu, l_cpu)) in enumerate(zip(card, cpu)):
+        same = m_card.shape == m_cpu.shape and torch.equal(m_card, m_cpu)
+        for layer, (a, b) in enumerate(zip(l_card, l_cpu)):
+            if not same:
+                a, b = a[m_card.bool()], b[m_cpu.bool()]
+            weights = torch.softmax(b, dim=-1)
+            top = weights.topk(min(k + 1, weights.shape[-1]), dim=-1)
+            want = top.indices[:, :k].sort(dim=-1).values
+            got = torch.softmax(a, dim=-1).topk(k, dim=-1).indices.sort(dim=-1).values
+            differ = (got != want).any(dim=-1)
+            out["tokens"] += int(differ.numel())
+            if not bool(differ.any()):
+                continue
+            margin = (top.values[:, k - 1] - top.values[:, k])[differ]
+            out["flipped"] += int(differ.sum())
+            if float(margin.max()) >= ROUTE_MARGIN:
+                raise AssertionError(
+                    f"{label}: text {t} takes other experts on the card in sparse layer {layer} at"
+                    f" positions {differ.nonzero().flatten().tolist()[:8]}, where the CPU's margin"
+                    f" is {float(margin.max()):.3e} (the rule's bound {ROUTE_MARGIN:g})")
+            out["texts"][t] = float(margin.min())
+            break  # later layers read the changed states
+    return out
+
+
+def routed_compare(enc, cpu, texts: list, label: str) -> float:
+    """`texts` through `enc` (the card) and `cpu` (the same checkpoint on
+    the CPU, in chunks of P25_CPU_CHUNK texts), each as its pooling asks,
+    under the routing rule: a text whose experts differ at a margin under
+    ROUTE_MARGIN is printed with its error and margin and kept out of the
+    maximum; every other text is held to ENC_TOL. Returns the maximum over
+    the texts held."""
+    import numpy as np
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    enc._load()
+    cpu._load()
+    t0 = time.perf_counter()
+    with gate_log(enc._model) as on_card:
+        got = enc.encode(texts)
+    t1 = time.perf_counter()
+    chunk, hf_encoder.CHUNK_TEXTS = hf_encoder.CHUNK_TEXTS, P25_CPU_CHUNK
+    try:
+        with gate_log(cpu._model) as on_cpu:
+            want = cpu.encode(texts)
+    finally:
+        hf_encoder.CHUNK_TEXTS = chunk
+    t2 = time.perf_counter()
+    rule = routing_rule(on_card, on_cpu, enc._model.config["num_experts_per_tok"], label)
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite vectors on the card")
+    errs = np.abs(got - want).max(axis=1)
+    held = [e for t, e in enumerate(errs) if t not in rule["texts"]]
+    for t, margin in rule["texts"].items():
+        say(f"{label}: text {t} ({len(texts[t])} characters) takes other experts on the card at"
+            f" a CPU margin of {margin:.3e} (< {ROUTE_MARGIN:g}); its error {errs[t]:.3e} is not"
+            " held to ENC_TOL")
+    err = float(max(held)) if held else 0.0
+    say(f"{label} routing: {rule['tokens']} (token, sparse layer) pairs compared, {rule['flipped']}"
+        f" with other experts on the card, {len(rule['texts'])} of {len(texts)} texts left out;"
+        f" max abs error {err:.3e} over the {len(held)} held (bound {ENC_TOL:g}); card"
+        f" {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+    if not err <= ENC_TOL:
+        raise AssertionError(f"{label}: the encoder on the card is {err:.3e} off the CPU")
+    return err
+
+
+def routed_check(path: str, device, texts: list, width: str) -> float:
+    """`encoder_check` under the routing rule (`routed_compare`), mean
+    pooling."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    t0 = time.perf_counter()
+    enc, cpu = encoder(path, "useModel", device), cpu_encoder(path)
+    enc._load()
+    cpu._load()
+    say(f"encoder check: {len(texts)} texts at {width} width (both encoders loaded in"
+        f" {time.perf_counter() - t0:.3f} s)")
+    return routed_compare(enc, cpu, texts, f"{width}, card against CPU")
+
+
+def routed_sides_check(path: str, device, label: str,
+                       texts: tuple = (*LEFT_PAD_TEXT, *P25_TEXT)) -> float:
+    """`texts` in one batch padded right and then left, each under forceCls
+    and mean pooling, card against CPU under the routing rule; returns the
+    largest error held. Under left padding forceCls pools a pad's state
+    (Qwen2-MoE's: the uniform average its additive mask gives)."""
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc, cpu = encoder(path, "useModel", device), cpu_encoder(path)
+    enc._load()
+    cpu._load()
+    err = 0.0
+    for side in ("right", "left"):
+        with padded(enc, side), padded(cpu, side):
+            _ids, mask = enc._tokenizer(list(texts), enc.max_len)
+            at, real = (-1 if side == "left" else 0), mask.sum(1) > 0  # Qwen2 gives "" no token
+            if int(mask[real, at].min()) != 1 or int(mask[:, -1 - at].min()) != 0:
+                raise AssertionError(f"{label}: the check batch is not padded {side}")
+            for pooling in ("forceCls", "useModel"):
+                with pooled(enc, pooling), pooled(cpu, pooling):
+                    err = max(err, routed_compare(
+                        enc, cpu, list(texts), f"{label} padded {side}, {pooling} ({mask.shape[1]}"
+                        " tokens a row)"))
+    return err
+
+
+def moe_long_check(path: str, device, label: str) -> float:
+    """The phase's checkpoint on phase 13's long texts in one batch under
+    the routing rule, after checking that the module runs Mixtral's sparse
+    block in every layer (8 experts, top 2, renormalized) over Mistral's
+    attention with no window, and that the shards were read."""
+    from meilisearch_tpu_torch.models.decoder import DecoderModel
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+    from meilisearch_tpu_torch.models.moe import SparseMoeBlock
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    model, c = enc._model, enc._model.config
+    blocks = [layer.block_sparse_moe for layer in model.layers]
+    read = (type(model), c["window"], enc._tokenizer.padding_side,
+            [(len(b.experts), b.top_k, b.normalize, b.shared) for b in blocks])
+    want = (DecoderModel, None, "left", [(8, 2, True, False)] * len(model.layers))
+    if read != want or not all(isinstance(b, SparseMoeBlock) for b in blocks):
+        raise AssertionError(f"{label}: the encoder reads {read}, not {want}")
+    texts = list(long_check_texts(P25_SEED))
+    _ids, mask, _types = enc.tokenize(texts)
+    say(f"{label} {len(model.layers)} layers long check texts: {mask.sum(1).tolist()} tokens"
+        f" in a row of {mask.shape[1]}")
+    return routed_compare(enc, cpu_encoder(path), texts,
+                          f"{label} {len(model.layers)} layers (long texts, one batch)")
+
+
+def p25_variants_check(device, label: str) -> float:
+    """P25_VARIANTS' 2-layer checkpoints over a seeded Qwen2 BPE, each
+    padded right and left under both poolings (`routed_sides_check`), card
+    against CPU under the routing rule, after checking that each module
+    reads the variant (experts, top-k, renormalization, the shared expert,
+    Q/K norms, biases); returns the largest error. The encoders are let go
+    after each."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    t0 = time.perf_counter()
+    spec = p25_spec(qwen=True)
+    say(f"{label} variants' tokenizer ({len(spec['model']['vocab'])} entries, Qwen2's layout)"
+        f" built in {time.perf_counter() - t0:.3f} s")
+    err = 0.0
+    for i, (what, config) in enumerate(P25_VARIANTS.items()):
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as small:
+            write_p25_checkpoint(small, config, P25_SEED + 1 + i, spec)
+            t_write = time.perf_counter() - t
+            enc = encoder(small, "useModel", device)
+            enc._load()
+            t_card = time.perf_counter() - t - t_write
+            cpu_encoder(small)._load()
+            say(f"{label} variant {what}: written in {t_write:.3f} s, loaded on the card in"
+                f" {t_card:.3f} s, on the CPU in {time.perf_counter() - t - t_write - t_card:.3f} s")
+            layer = enc._model.layers[0]
+            block, attn = layer.mlp, layer.self_attn
+            read = (len(block.experts), block.top_k, block.normalize, block.shared,
+                    attn.qk_norm, attn.q_proj.bias is not None, attn.o_proj.bias is not None,
+                    attn.zero_unseen, enc._tokenizer.padding_side)
+            qwen2 = config["model_type"] == "qwen2_moe"
+            want = (config["num_experts"], config["num_experts_per_tok"], not qwen2, qwen2,
+                    not qwen2, qwen2, False, not qwen2, "right")
+            if read != want:
+                raise AssertionError(f"{what}: the encoder reads {read}, not {want}")
+            err = max(err, routed_sides_check(small, device, f"{label} variant {what}"))
+            encoder.cache_clear()
+            cpu_encoder.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        say(f"{label} variant {what}: {time.perf_counter() - t:.3f} s")
+    say(f"{label} variants: largest error held {err:.3e} (bound {ENC_TOL:g})")
+    return err
+
+
+@contextlib.contextmanager
+def timed_reads(seconds: list):
+    """Inside the block, each checkpoint's weight read (`read_weights`:
+    every shard read and widened) appends its wall seconds to `seconds`."""
+    from meilisearch_tpu_torch.models import checkpoint
+
+    read = checkpoint.read_weights
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return read(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t)
+
+    checkpoint.read_weights = timed
+    try:
+        yield seconds
+    finally:
+        checkpoint.read_weights = read
+
+
+def moe_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 25, hn5k-gritlm8x7b-hf: P25_VARIANTS' checks first, then
+    GritLM-8x7B's 2 layers from BF16 shards through its own App
+    (`hf_path`, its checks under the routing rule: the 83 texts, the long
+    batch, both padding sides under both poolings), once the earlier
+    phases' encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 25 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    label = "GritLM-8x7B"
+    variants_err = p25_variants_check(device, label)
+    t0 = time.perf_counter()
+    spec = p25_spec()
+    say(f"{label} tokenizer ({len(spec['model']['vocab'])} pieces, Llama-2's layout) built in"
+        f" {time.perf_counter() - t0:.3f} s; {GRITLM_8X7B_CONFIG['num_hidden_layers']} of its"
+        f" {GRITLM_PUBLISHED_LAYERS} layers")
+
+    def write(path):
+        import os
+
+        write_p25_checkpoint(path, GRITLM_8X7B_CONFIG, P25_SEED, spec)
+        shards = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in shards)
+        say(f"{label} weights: {len(shards)} BF16 shards and model.safetensors.index.json,"
+            f" {size / 1e9:.3f} GB")
+        if len(shards) < 2 or not os.path.exists(os.path.join(path,
+                                                                "model.safetensors.index.json")):
+            raise AssertionError(f"{label}: the weights are not sharded: {shards}")
+
+    reads = []
+    with timed_reads(reads):
+        out = hf_path(device, card, n_docs, label=label, index="gm8", write=write, seed=P25_SEED,
+                      queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P25_TEXT, tokenizer="BPE",
+                      model_type="mixtral", check=routed_check,
+                      checks=(moe_long_check, routed_sides_check))
+    say(f"{label} shards read and widened to float32: "
+        + ", ".join(f"{x:.3f} s" for x in reads) + " (card, then CPU)")
+    out["err"] = max(out["err"], variants_err)
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 25 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
     Linear and Conv1d layers and XLNet's token projections (ALBERT's
@@ -3883,7 +4326,10 @@ def encoder_flops(model, n: int, L: int) -> float:
     (2 span)-row relative embeddings and those embeddings' projections,
     for XLNet its position keys (`r` over the 2L rows of the position
     table, once a forward) and scores (the embeddings, MPNet's bias table
-    and the bucket and distance gathers are gathers, not products)."""
+    and the bucket and distance gathers are gathers, not products); of a
+    sparse MoE block, the gate, the num_experts_per_tok experts each token
+    runs and the shared expert (`routed_weights`), never the experts it
+    is not routed to."""
     from meilisearch_tpu_torch.models.albert import AlbertModel
     from meilisearch_tpu_torch.models.bert import RELATIVE_KEYS
     from meilisearch_tpu_torch.models.deberta_v2 import DebertaV2Model, attention_span
@@ -3895,7 +4341,7 @@ def encoder_flops(model, n: int, L: int) -> float:
     width = c["num_attention_heads"] * c["head_dim"] if c.get("head_dim") else h
     if isinstance(model, MobileBertModel):
         width = c["true_hidden_size"]
-    linear = projection_weights(model)
+    linear = routed_weights(model)
     if isinstance(model, XLNetModel):  # `r` is charged below, on 2L rows
         linear -= sum(layer.rel_attn.r.numel() for layer in model.layer)
     if isinstance(model, AlbertModel):
@@ -3937,6 +4383,33 @@ def projection_weights(module) -> int:
     return n
 
 
+def routed_weights(model, hit: list | None = None) -> int:
+    """`projection_weights` as one token reads them: of each sparse MoE
+    block, the gate, the shared expert and num_experts_per_tok experts
+    (`hit`: the count of distinct experts each block's tokens ran, in
+    layer order, for a forward's weight reads)."""
+    from meilisearch_tpu_torch.models.moe import SparseMoeBlock
+
+    n = projection_weights(model)
+    blocks = [m for m in model.modules() if isinstance(m, SparseMoeBlock)]
+    for i, block in enumerate(blocks):
+        runs = block.top_k if hit is None else hit[i]
+        n -= (len(block.experts) - runs) * projection_weights(block.experts[0])
+    return n
+
+
+def experts_hit(enc, ids, mask, types) -> list:
+    """The distinct experts each sparse block of `enc`'s model runs in one
+    forward of (ids, mask), from its gates' logits (`gate_log`)."""
+    import torch
+
+    with gate_log(enc._model) as records:
+        enc.forward(ids, mask, types)
+    k = enc._model.config["num_experts_per_tok"]
+    (_mask, layers), = records
+    return [int(torch.softmax(lg, -1).topk(k, -1).indices.unique().numel()) for lg in layers]
+
+
 def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     """(f) One query's forward (1 text, about 16 tokens) and one indexing
     chunk (chunk_texts() texts of ENC_TIMED_TOKENS tokens): device time by
@@ -3949,8 +4422,14 @@ def encoder_timing(enc, device, card: str, width: str = "bge-base") -> dict:
     q_ms = _median_ms(lambda: enc.forward(ids, mask, types), reps=REPEATS)
     _kernel_ms, launches = leg_breakdown(f"one query's forward ({ids.shape[1]} tokens)",
                                          lambda: enc.forward(ids, mask, types), device)
-    # a query reads every Linear (Conv1d, XLNet projection) weight once (float32)
-    linear = projection_weights(enc._model)
+    # a query reads every Linear (Conv1d, XLNet projection) weight once
+    # (float32), of a sparse block the experts its tokens hit
+    hit = None
+    if "num_experts_per_tok" in enc._model.config:
+        hit = experts_hit(enc, ids, mask, types)
+        say(f"  one query's forward ({ids.shape[1]} tokens) runs {hit} experts of its sparse"
+            " layers")
+    linear = routed_weights(enc._model, hit) if hit is not None else projection_weights(enc._model)
     q_bound_ms = max(4 * linear / HBM_BYTES_S,
                      encoder_flops(enc._model, 1, ids.shape[1]) / FP32_FLOP_S) * 1e3
     c = enc._model.config
@@ -4110,7 +4589,11 @@ def leg_breakdown(label: str, call, device, reps: int = 10) -> tuple[float, floa
 
     call()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: the kernels' times and counts are the
+    # same as with the host's ops recorded too, at a fraction of the
+    # trace's cost (on an H100, 0.6-1.0 s against 2.6 s for ten queries of
+    # bge-base's width)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             call()
         torch.cuda.synchronize(device)
@@ -4233,7 +4716,7 @@ def launch_ms(kernel: str, runs: list, device, per_call: int = 1) -> list:
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     runs[0][0]()  # untraced warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # as leg_breakdown
         runs[0][0]()
         torch.cuda.synchronize()
         time.sleep(TRACE_SETTLE_S)
@@ -4287,7 +4770,9 @@ def osa_timing(card: str, typo: dict) -> dict:
     """K3 on the typo path's resident vocabulary (`store._device_vocab`),
     for every word the typo pass put through it, at the pass's max_dist 2:
     held byte for byte against its plain version, then timed in turns
-    (plain, kernel, plain; the plain version with CUDA events per call).
+    (plain, kernel, plain; the plain version one call each time by CUDA
+    events, the first after its byte-for-byte check: a median of 3 after a
+    warm-up each time until phase 25 came).
     The kernel is timed per launch from the trace of the pass's own call
     (`launch_ms` over `osa_distances_device`), 10 calls cold, the L2
     cache flushed before each (the kernels line's time), and 10 warm. Also
@@ -4338,7 +4823,7 @@ def osa_timing(card: str, typo: dict) -> dict:
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"K3 disagrees with osa_device_torch on {word!r}")
         err = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
-        plain = _median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qd, m, 2), 3, 1)
+        plain = _median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qd, m, 2), 1, 0)
         call = _median_ms(lambda: osa_device(dv.mat, dv.lens, q, m, 2, dv.order), reps=20)
         bound, by = k3_bound_ms(lens_all, m, 2)
         rows.append({"word": word, "m": m, "plain": [plain], "bound_ms": bound,
@@ -4354,7 +4839,7 @@ def osa_timing(card: str, typo: dict) -> dict:
         row["ms"], row["warm_ms"] = statistics.median(row["cold"]), statistics.median(row["warm"])
         q, m = query_tensor(row["word"])
         qd = q.to(dv.device)
-        row["plain"].append(_median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qd, m, 2), 3, 1))
+        row["plain"].append(_median_ms(lambda: osa_device_torch(dv.mat, dv.lens, qd, m, 2), 1, 0))
         row["plain_ms"] = statistics.median(row["plain"])
         say(f"timing K3 n={dv.n} max_dist=2 m={row['m']} ({row['word']!r}) on {card}:"
             f" per launch cold {row['ms']:.4f} ms (of {len(row['cold'])},"
@@ -4386,7 +4871,7 @@ def osa_timing(card: str, typo: dict) -> dict:
         med = {k: statistics.median(v) for k, v in parts.items()}
         K = min(MAX_LEN, len(word) + 2)  # the host pass's column trim
         host = []
-        for _ in range(2):
+        for _ in range(1):  # two runs until phase 25 came
             t0 = time.perf_counter()
             osa_distances(word, mat_np[:, :K], np.minimum(lens_np, K))
             host.append((time.perf_counter() - t0) * 1e3)
@@ -4892,7 +5377,8 @@ def main() -> int:
             ("17", llama32_phase, P17_DOCS), ("18", bert_families_phase, P18_DOCS),
             ("19", more_families_phase, P19_DOCS), ("20", moses_families_phase, P20_DOCS),
             ("21", bge_gemma2_phase, P21_DOCS), ("22", longformer_phase, P22_DOCS),
-            ("23", bigbird_sparse_phase, P23_DOCS), ("24", sgpt_phase, P24_DOCS)):
+            ("23", bigbird_sparse_phase, P23_DOCS), ("24", sgpt_phase, P24_DOCS),
+            ("25", moe_phase, P25_DOCS)):
         run(name, fn, device, card, n_docs)
     say(f"phase walls (s): {json.dumps(walls)}; the script from the first phase:"
         f" {time.perf_counter() - t_start:.3f} s")

@@ -151,7 +151,8 @@ _DEFAULT_CLASS = {"modernbert": "PreTrainedTokenizerFast", "qwen2": "Qwen2Tokeni
                   "gemma3_text": "GemmaTokenizerFast", "gemma2": "GemmaTokenizerFast",
                   "gemma": "GemmaTokenizerFast", "longformer": "LongformerTokenizerFast",
                   "gpt_neo": "GPT2TokenizerFast", "gptj": "GPT2TokenizerFast",
-                  "bloom": "BloomTokenizerFast"}
+                  "bloom": "BloomTokenizerFast", "mixtral": "LlamaTokenizerFast",
+                  "qwen2_moe": "Qwen2TokenizerFast", "qwen3_moe": "Qwen2TokenizerFast"}
 # RobertaTokenizerFast's special tokens and their defaults
 _SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "sep_token": "</s>",
              "pad_token": "<pad>", "cls_token": "<s>", "mask_token": "<mask>"}

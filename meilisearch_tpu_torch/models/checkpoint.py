@@ -2,8 +2,9 @@
 data2vec-text, XLM-RoBERTa-XL, DistilBERT, MPNet, ELECTRA, ERNIE,
 BertGeneration, RemBERT, Megatron-BERT, BigBird, Longformer, ALBERT,
 RoFormer, ModernBERT, DeBERTa-v2, MobileBERT, SqueezeBERT, XLM, FlauBERT,
-XLNet, Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2, Gemma 3,
-GPT-Neo, GPT-J or BLOOM checkpoint directory without transformers.
+XLNet, Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Mixtral, Qwen2-MoE,
+Qwen3-MoE, Gemma 2, Gemma 3, GPT-Neo, GPT-J or BLOOM checkpoint directory
+without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -14,7 +15,8 @@ A directory as transformers' `save_pretrained` leaves it:
   which `build_model` gives to `ModernBertModel`,
   models/deberta_v2.py::CONFIG_KEYS for `deberta-v2`, which it gives to
   `DebertaV2Model`, and models/decoder.py::CONFIG_KEYS for `qwen3`,
-  `qwen2`, `llama`, `mistral`, `gemma` and `phi3`, which it gives to
+  `qwen2`, `llama`, `mistral`, `gemma`, `phi3`, `mixtral`, `qwen2_moe`
+  and `qwen3_moe`, which it gives to
   `DecoderModel`, and models/gemma3.py::CONFIG_KEYS for `gemma3_text` and
   `gemma2`, which it gives to `Gemma3Model` and `Gemma2Model`; `mobilebert`, `squeezebert`, `xlm`, `flaubert` and
   `xlnet` configs, their config class's defaults filled in, to
@@ -22,17 +24,22 @@ A directory as transformers' `save_pretrained` leaves it:
   models/xlnet.py's modules, and `gpt_neo`, `gptj` and `bloom` ones,
   under their own config names and attribute_map aliases, to
   models/gpt_neo.py's, models/gptj.py's and models/bloom.py's);
-- the weights: `model.safetensors`, parsed here (an 8-byte little-endian
-  header length, a JSON header of dtype, shape and `data_offsets` per
-  tensor, then the raw little-endian bytes), or else `pytorch_model.bin`
-  through `torch.load(weights_only=True)`;
+- the weights, in the order transformers' `from_pretrained` picks them:
+  `model.safetensors`, parsed here (an 8-byte little-endian header
+  length, a JSON header of dtype, shape and `data_offsets` per tensor,
+  then the raw little-endian bytes; BF16 widened to float32), else
+  `model.safetensors.index.json` and its shards, else `pytorch_model.bin`
+  through `torch.load(weights_only=True)`, else
+  `pytorch_model.bin.index.json` and its shards (an index's `weight_map`
+  names each tensor's file; each file is read once);
 - the tokenizer: first its class, chosen as `AutoTokenizer` chooses it
   (tokenizer_config.json's `tokenizer_class`, else config.json's, else
   the model type's: `XLMTokenizer` for `xlm`, `FlaubertTokenizer` for
   `flaubert`, `LongformerTokenizerFast` for `longformer`,
   `BigBirdTokenizerFast` for `big_bird`, `GPT2TokenizerFast` for
   `gpt_neo` and `gptj`, `BloomTokenizerFast` for `bloom`, which reads a
-  tokenizer.json only); XLM's and FlauBERT's read
+  tokenizer.json only, `LlamaTokenizerFast` for `mixtral`,
+  `Qwen2TokenizerFast` for `qwen2_moe` and `qwen3_moe`); XLM's and FlauBERT's read
   `vocab.json` and `merges.txt` through
   Moses and a `</w>` BPE (models/xlm_bpe.py), never as RoBERTa's
   byte-level BPE. Otherwise the tokenizer is chosen by what the directory
@@ -191,8 +198,12 @@ _ST_DTYPES = {
     "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?",
 }
 # torch dtype -> safetensors dtype, for writing
-_ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.int64: "I64",
-             torch.int32: "I32"}
+_ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int64: "I64", torch.int32: "I32"}
+# the weight files transformers' `from_pretrained` reads from a local
+# directory, in the order it picks them: (file, is an index of shards)
+WEIGHT_FILES = (("model.safetensors", False), ("model.safetensors.index.json", True),
+                ("pytorch_model.bin", False), ("pytorch_model.bin.index.json", True))
 _PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "electra.", "ernie.", "rembert.",
              "albert.", "roformer.", "deberta.", "model.", "mobilebert.", "longformer.",
              "data2vec_text.")
@@ -214,7 +225,9 @@ _REFUSED_TOKENIZERS = {"RoFormerTokenizer": "its jieba pre-tokenizer",
 _TYPE_TOKENIZERS = {xlm.MODEL_TYPE: "XLMTokenizer", xlm.FLAUBERT_TYPE: "FlaubertTokenizer",
                     longformer.MODEL_TYPE: "LongformerTokenizerFast",
                     bert.BIG_BIRD: "BigBirdTokenizerFast", gpt_neo.MODEL_TYPE: "GPT2TokenizerFast",
-                    gptj.MODEL_TYPE: "GPT2TokenizerFast", bloom.MODEL_TYPE: "BloomTokenizerFast"}
+                    gptj.MODEL_TYPE: "GPT2TokenizerFast", bloom.MODEL_TYPE: "BloomTokenizerFast",
+                    "mixtral": "LlamaTokenizerFast", "qwen2_moe": "Qwen2TokenizerFast",
+                    "qwen3_moe": "Qwen2TokenizerFast"}
 # tokenizer classes (without `Fast`) the port reads from one tokenizer
 # model only: Longformer's, GPT-2's and BLOOM's byte-level BPE, BigBird's
 # Unigram tokenizer.json
@@ -401,9 +414,10 @@ def read_safetensors(path: str) -> dict:
             continue
         start, end = meta["data_offsets"]
         shape = tuple(meta["shape"])
-        if meta["dtype"] == "BF16":  # the high half of a float32
-            half = np.frombuffer(data, "<u2", (end - start) // 2, start)
-            arr = (half.astype(np.uint32) << 16).view(np.float32)
+        if meta["dtype"] == "BF16":  # the high half of a float32, widened by torch's copy
+            count = (end - start) // 2
+            arr = (torch.frombuffer(data, dtype=torch.bfloat16, count=count, offset=start)
+                   .float().numpy() if count else np.zeros(0, np.float32))
         elif meta["dtype"] in _ST_DTYPES:
             dt = np.dtype(_ST_DTYPES[meta["dtype"]])
             arr = np.frombuffer(data, dt, (end - start) // dt.itemsize, start)
@@ -478,18 +492,42 @@ def flax_to_state_dict(params: dict) -> dict:
     return hf_to_state_dict(named)
 
 
+def _read_file(path: str) -> dict:
+    """name -> tensor or array of one weight file (safetensors or torch)."""
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def read_shards(index_path: str) -> dict:
+    """name -> tensor or array of a sharded checkpoint, as transformers
+    reads one: the index's `weight_map` names each tensor's file, each
+    file is read once (in the index's order of first mention), and every
+    tensor the map names must be in its file."""
+    with open(index_path) as f:
+        weight_map = json.load(f)["weight_map"]
+    root = os.path.dirname(index_path)
+    named = {}
+    for shard in dict.fromkeys(weight_map.values()):
+        tensors = _read_file(os.path.join(root, shard))
+        missing = [k for k, v in weight_map.items() if v == shard and k not in tensors]
+        if missing:
+            raise ValueError(f"`{index_path}` maps {missing[:3]} to `{shard}`, which lacks them")
+        named.update(tensors)
+    return named
+
+
 def read_weights(path: str, model_type: Optional[str] = None) -> dict:
     """The module's state_dict from a checkpoint directory's weights (of
-    `model_type`, config.json's, for `hf_to_state_dict`)."""
-    st = os.path.join(path, "model.safetensors")
-    if os.path.exists(st):
-        return hf_to_state_dict(read_safetensors(st), model_type)
-    pt = os.path.join(path, "pytorch_model.bin")
-    if os.path.exists(pt):
-        return hf_to_state_dict(torch.load(pt, map_location="cpu", weights_only=True),
-                                model_type)
+    `model_type`, config.json's, for `hf_to_state_dict`): the first of
+    WEIGHT_FILES the directory holds."""
+    for name, sharded in WEIGHT_FILES:
+        file = os.path.join(path, name)
+        if os.path.exists(file):
+            named = read_shards(file) if sharded else _read_file(file)
+            return hf_to_state_dict(named, model_type)
     raise FileNotFoundError(
-        f"`{path}` holds neither model.safetensors nor pytorch_model.bin"
+        f"`{path}` holds none of {[name for name, _sharded in WEIGHT_FILES]}"
     )
 
 
@@ -624,7 +662,8 @@ def write_safetensors(path: str, state_dict: dict) -> None:
         t = t.detach().to("cpu").contiguous()
         if t.dtype not in _ST_NAMES:
             raise ValueError(f"tensor `{name}` has dtype {t.dtype}")
-        blob = t.numpy().view(np.uint8).reshape(-1) if t.numel() else np.zeros(0, np.uint8)
+        raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t  # numpy has no bfloat16
+        blob = raw.numpy().view(np.uint8).reshape(-1) if t.numel() else np.zeros(0, np.uint8)
         header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
                         "data_offsets": [offset, offset + blob.size]}
         offset += blob.size
@@ -637,10 +676,43 @@ def write_safetensors(path: str, state_dict: dict) -> None:
             f.write(memoryview(blob))
 
 
+def write_shards(path: str, state_dict: dict, shard_bytes: int, safetensors: bool = True) -> None:
+    """`state_dict` as shards of at most `shard_bytes` each (a tensor
+    larger than that alone in its shard), in the state_dict's order, named
+    as `save_pretrained` names them (`model-00001-of-00003.safetensors` or
+    `pytorch_model-00001-of-00003.bin`), and the index beside them
+    (`model.safetensors.index.json` or `pytorch_model.bin.index.json`:
+    `metadata.total_parameters` and `total_size`, and `weight_map`)."""
+    shards, size = [[]], 0
+    for name, t in state_dict.items():
+        nbytes = t.numel() * t.element_size()
+        if shards[-1] and size + nbytes > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += nbytes
+    stem, ext = ("model", "safetensors") if safetensors else ("pytorch_model", "bin")
+    weight_map, total, params = {}, 0, 0
+    for i, names in enumerate(shards):
+        file = f"{stem}-{i + 1:05d}-of-{len(shards):05d}.{ext}"
+        part = {name: state_dict[name] for name in names}
+        if safetensors:
+            write_safetensors(os.path.join(path, file), part)
+        else:
+            torch.save({k: v.detach().to("cpu").contiguous() for k, v in part.items()},
+                       os.path.join(path, file))
+        weight_map.update(dict.fromkeys(names, file))
+        total += sum(t.numel() * t.element_size() for t in part.values())
+        params += sum(t.numel() for t in part.values())
+    with open(os.path.join(path, f"{stem}.{ext}.index.json"), "w") as f:
+        json.dump({"metadata": {"total_parameters": params, "total_size": total},
+                   "weight_map": weight_map}, f, indent=2)
+
+
 def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[list] = None,
                      do_lower_case: bool = True, tokenizer_json: Optional[dict] = None,
                      tokenizer_config: Optional[dict] = None,
-                     moses: Optional[tuple] = None) -> None:
+                     moses: Optional[tuple] = None, shard_bytes: Optional[int] = None) -> None:
     """Write a directory `load_checkpoint` reads: config.json (`model_type`
     bert unless `config` names one), the weights as pytorch_model.bin
     (BertModel's names, DistilBERT's, MPNet's or XLM-RoBERTa-XL's for such
@@ -678,7 +750,10 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     BloomTokenizerFast's, fixtures.bloom_tokenizer_config), or
     `moses`, (vocab.json's dict, merges.txt's text), with XLMTokenizer's
     tokenizer_config.json (FlaubertTokenizer's for `flaubert`,
-    fixtures.moses_tokenizer_config)."""
+    fixtures.moses_tokenizer_config). With `shard_bytes`, the weights are
+    shards of at most that many bytes and their index instead of the one
+    file (`write_shards`), as `save_pretrained` writes a large model; the
+    tensors keep their dtype (BF16 ones as BF16)."""
     os.makedirs(path, exist_ok=True)
     config = {"model_type": "bert", **config}
     model_type = config["model_type"]
@@ -691,7 +766,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
         config.setdefault("hidden_act", "gelu")
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config, f)
-    if model_type in _SAFETENSORS:
+    if shard_bytes is not None:
+        write_shards(path, state_dict, shard_bytes, safetensors=model_type in _SAFETENSORS)
+    elif model_type in _SAFETENSORS:
         write_safetensors(os.path.join(path, "model.safetensors"), state_dict)
     else:
         torch.save(state_dict, os.path.join(path, "pytorch_model.bin"))
@@ -714,7 +791,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                "deberta-v2": deberta_v2_tokenizer_config, "qwen3": qwen2_tokenizer_config,
                "qwen2": qwen2_tokenizer_config, "llama": llama3_tokenizer_config,
                "mistral": llama3_tokenizer_config,
-               "phi3": llama_tokenizer_config, "gemma": gemma_tokenizer_config,
+               "phi3": llama_tokenizer_config, "mixtral": llama_tokenizer_config,
+               "qwen2_moe": qwen2_tokenizer_config, "qwen3_moe": qwen2_tokenizer_config,
+               "gemma": gemma_tokenizer_config,
                gemma3.MODEL_TYPE: gemma_tokenizer_config,
                gemma2.MODEL_TYPE: gemma_tokenizer_config,
                xlnet.MODEL_TYPE: xlnet_tokenizer_config,

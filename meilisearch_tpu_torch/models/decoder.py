@@ -1,9 +1,12 @@
 """The decoder embedders' forward as one torch module (the port's K8 for
 `model_type` `qwen3`, `qwen2`, `llama`, `mistral`, `gemma` and `phi3`:
-Qwen3-Embedding, gte-Qwen2, Llama, e5-mistral, Gemma and Phi-3).
+Qwen3-Embedding, gte-Qwen2, Llama, e5-mistral, Gemma and Phi-3; and the
+mixture-of-experts decoders `mixtral`, `qwen2_moe` and `qwen3_moe`:
+GritLM-8x7B, Qwen1.5-MoE, Qwen3-MoE).
 
 It computes what transformers' torch `Qwen3Model`, `Qwen2Model`,
-`LlamaModel`, `MistralModel`, `GemmaModel` and `Phi3Model` compute under
+`LlamaModel`, `MistralModel`, `GemmaModel`, `Phi3Model`, `MixtralModel`,
+`Qwen2MoeModel` and `Qwen3MoeModel` compute under
 their default attention (`sdpa`) on a padded batch with no cache, the
 models the JAX package's encoder (`models/hf_encoder.py` there) runs
 through its torch branch. It returns the last hidden state (pooling
@@ -37,8 +40,23 @@ stays in models/hf_encoder.py):
   models/activations.py's, for `gemma` too, whose `hidden_activation`
   nothing reads; biases on the three under Llama's `mlp_bias`, which the
   other families' MLPs do not read; for `phi3` one fused `gate_up_proj`,
-  its first half the gate, `Phi3MLP`'s `chunk(2)`), the residual;
+  its first half the gate, `Phi3MLP`'s `chunk(2)`), the residual; for
+  the MoE types models/moe.py's sparse block instead where
+  `moe.is_sparse` says so (`block_sparse_moe` in every Mixtral layer;
+  `mlp` in a Qwen MoE layer, a `GatedMLP` at `intermediate_size` in the
+  others);
 - the final `norm`.
+
+The MoE types' attention: `mixtral` Mistral's (no biases, 8 KV heads,
+`rope_theta` 1e6 and `rms_norm_eps` 1e-5 by default); `qwen3_moe`
+Qwen3's (Q/K norms, biases on Q, K, V and O under `attention_bias`);
+`qwen2_moe` Qwen2's with biases on Q, K and V under `qkv_bias` (none on
+O), a head_dim of hidden_size / heads (another raises there), and its own
+mask: `Qwen2MoeModel._update_causal_mask` adds float32's lowest for the
+hidden keys, and on the CPU, where the reference runs, leaves a row that
+sees no key (a left pad's) to the softmax, which averages all L values
+uniformly. The port computes that on every device (transformers would
+unmask such rows on a CUDA device, which the reference never is).
 
 Key j is visible to query i iff j <= i and j is a real token; in a
 sliding layer also iff i - j < `window`. Which layers slide is each
@@ -47,8 +65,11 @@ family's:
   `use_sliding_window`; `layer_types` is the config's, or, as
   `Qwen2Config`/`Qwen3Config` derive it, layer i sliding iff there is a
   window and i >= `max_window_layers`;
-- `mistral`, `phi3`: every layer slides when `sliding_window` is set (of
-  any size), none when it is null;
+- `mistral`, `phi3`, `mixtral`: every layer slides when `sliding_window`
+  is set (of any size), none when it is null;
+- `qwen2_moe`, `qwen3_moe`: every layer slides when `use_sliding_window`
+  keeps a `sliding_window` (their configs drop it otherwise), whatever
+  `layer_types` or `max_window_layers` say (their masks read neither);
 - `llama`, `gemma`: no layer slides.
 Where a `sliding_attention` layer has no window, transformers raises
 (Qwen's mask, the others' cache), and the port refuses the config by
@@ -56,7 +77,8 @@ name.
 
 The mask replaces the scores of the keys a query does not see with
 float32's lowest, never adds to them; a query with no visible key (a
-left-padded row's pad tokens) gets an attention output of exactly 0, as
+left-padded row's pad tokens) gets an attention output of exactly 0
+(but for `qwen2_moe`, above), as
 torch's `scaled_dot_product_attention` gives transformers by default
 (hazard 3.18): not the uniform average an additive mask gives
 (transformers' `eager`), and never NaN, which a zero pooling weight
@@ -74,8 +96,12 @@ validates (`type` `longrope`, or `su` or `yarn`, which it renames so,
 `short_factor` and `long_factor` of `int(hidden_size / heads *
 partial_rotary_factor) // 2` numbers); Mistral's `dynamic`, `yarn` and
 `longrope` without a `head_dim` (those tables read the None its config
-stores), a `rope_scaling` models/rope.py refuses, and an activation
-models/activations.py does not run.
+stores; Mixtral's too), a `rope_scaling` models/rope.py refuses, an
+activation models/activations.py does not run, a `qwen2_moe` head_dim
+other than hidden_size / heads, and what models/moe.py refuses.
+`router_jitter_noise` and `output_router_logits` act only in training or
+on outputs the encoder drops, and are read as eval reads them: not at
+all.
 
 Parameter names are transformers' (`embed_tokens.weight`,
 `layers.{i}.input_layernorm.weight`,
@@ -84,7 +110,8 @@ Parameter names are transformers' (`embed_tokens.weight`,
 `layers.{i}.self_attn.{q,k}_norm.weight`,
 `layers.{i}.post_attention_layernorm.weight`,
 `layers.{i}.mlp.{gate,up,down}_proj.{weight,bias}`,
-`layers.{i}.mlp.gate_up_proj.weight`, `norm.weight`), so a checkpoint's
+`layers.{i}.mlp.gate_up_proj.weight`, models/moe.py's under
+`layers.{i}.block_sparse_moe.` or `layers.{i}.mlp.`, `norm.weight`), so a checkpoint's
 tensors load by name (models/checkpoint.py; Phi-3's fused projections
 stay fused, at the reference's product shapes).
 
@@ -99,10 +126,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from . import moe
 from .activations import activation
 from .rope import READS_STORED_HEAD_DIM, Rope, rope_type, rotate_half
 
-MODEL_TYPES = ("qwen3", "qwen2", "llama", "mistral", "gemma", "phi3")
+MODEL_TYPES = ("qwen3", "qwen2", "llama", "mistral", "gemma", "phi3", *moe.MODEL_TYPES)
 LAYER_TYPES = ("full_attention", "sliding_attention")
 # the widths a config must give (transformers' config names)
 CONFIG_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
@@ -113,6 +141,8 @@ _COMMON = {"hidden_act": "silu", "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
            "attention_bias": False, "mlp_bias": False, "layer_types": None}
 _QWEN = {"num_key_value_heads": 32, "max_position_embeddings": 32_768,
          "use_sliding_window": False, "sliding_window": 4096, "max_window_layers": 28}
+_QWEN_MOE = {**_QWEN, "decoder_sparse_step": 1, "norm_topk_prob": False, "mlp_only_layers": [],
+             "output_router_logits": False}
 DEFAULTS = {
     "qwen3": {**_COMMON, **_QWEN, "head_dim": 128},
     "qwen2": {**_COMMON, **_QWEN},
@@ -124,9 +154,21 @@ DEFAULTS = {
     "phi3": {**_COMMON, "rms_norm_eps": 1e-5, "max_position_embeddings": 4096,
              "original_max_position_embeddings": 4096, "partial_rotary_factor": 1.0,
              "sliding_window": None},
+    # MixtralConfig's, Qwen2MoeConfig's and Qwen3MoeConfig's
+    moe.MIXTRAL: {**_COMMON, "rms_norm_eps": 1e-5, "rope_theta": 1e6, "num_key_value_heads": 8,
+                  "max_position_embeddings": 131_072, "sliding_window": None,
+                  "num_local_experts": 8, "num_experts_per_tok": 2, "router_jitter_noise": 0.0,
+                  "output_router_logits": False},
+    moe.QWEN2_MOE: {**_COMMON, **_QWEN_MOE, "num_key_value_heads": 16, "num_experts": 60,
+                    "num_experts_per_tok": 4, "moe_intermediate_size": 1408,
+                    "shared_expert_intermediate_size": 5632, "qkv_bias": True},
+    moe.QWEN3_MOE: {**_COMMON, **_QWEN_MOE, "num_key_value_heads": 4, "num_experts": 128,
+                    "num_experts_per_tok": 8, "moe_intermediate_size": 768},
 }
 # families whose every layer slides when the config has a window
-_ALWAYS_SLIDING = ("mistral", "phi3")
+_ALWAYS_SLIDING = ("mistral", "phi3", moe.MIXTRAL)
+# Mistral's and Mixtral's configs store a head_dim of None
+_STORED_NONE_HEAD_DIM = ("mistral", moe.MIXTRAL)
 # the rope types Phi3Config renames to `longrope`
 _PHI3_LONGROPE = ("longrope", "su", "yarn")
 
@@ -149,6 +191,9 @@ def layer_types(kind: str, config: dict) -> tuple:
                              " sliding_window only under use_sliding_window, and transformers"
                              " raises on such a config")
         return types, window
+    if kind in (moe.QWEN2_MOE, moe.QWEN3_MOE):
+        window = config["sliding_window"] if config["use_sliding_window"] else None
+        return [LAYER_TYPES[window is not None]] * n, window
     # the other families' attention reads no layer_types (a Mistral or
     # Phi-3 window slides in every layer), but transformers' cache does,
     # and raises on a sliding entry with no sliding_window
@@ -168,6 +213,8 @@ def check_config(config: dict) -> dict:
     if kind not in MODEL_TYPES:
         raise ValueError(f"model_type `{kind}` is not one of {MODEL_TYPES}")
     config = {**DEFAULTS[kind], **config}
+    if kind in (moe.QWEN2_MOE, moe.QWEN3_MOE) and config["mlp_only_layers"] is None:
+        config["mlp_only_layers"] = []  # the configs' own default
     missing = [k for k in CONFIG_KEYS if k not in config]
     if missing:
         raise ValueError(f"the {kind} config lacks {missing}")
@@ -184,11 +231,15 @@ def check_config(config: dict) -> dict:
                          f" num_key_value_heads {kv}")
     if config["head_dim"] is None and config["hidden_size"] % heads:
         raise ValueError("hidden_size is not a multiple of num_attention_heads")
-    if kind == "mistral" and config["head_dim"] is None \
+    if kind in _STORED_NONE_HEAD_DIM and config["head_dim"] is None \
             and rope_type(config["rope_scaling"]) in READS_STORED_HEAD_DIM:
-        raise ValueError(f"rope_scaling {config['rope_scaling']} is not supported for a mistral"
-                         " config without head_dim: transformers' tables read the None"
-                         " MistralConfig stores, and raise")
+        raise ValueError(f"rope_scaling {config['rope_scaling']} is not supported for a {kind}"
+                         " config without head_dim: transformers' tables read the None its"
+                         " config stores, and raise")
+    if kind == moe.QWEN2_MOE and config["head_dim"] is not None \
+            and config["head_dim"] * heads != config["hidden_size"]:
+        raise ValueError(f"head_dim {config['head_dim']} is not supported for qwen2_moe: its"
+                         " attention raises unless head_dim x heads is hidden_size")
     head_dim = config["head_dim"] or config["hidden_size"] // heads
     # the tables hold the rotated width's frequencies twice over, so an odd
     # width rotates one channel more (Phi-3 runs that); a whole odd head
@@ -202,6 +253,8 @@ def check_config(config: dict) -> dict:
         config = {**config, "rope_scaling": phi3_rope_scaling(config)}
     Rope.from_config(config, float(config["rope_theta"]), rotary_dim)
     types, window = layer_types(kind, config)
+    if kind in moe.MODEL_TYPES:
+        moe.check_config(config)
     return {**config, "num_key_value_heads": kv, "head_dim": head_dim,
             "rotary_dim": rotary_dim, "layer_types": types, "window": window}
 
@@ -308,8 +361,13 @@ class Attention(nn.Module):
     per-head Q/K norm, None for none; `fused`: Phi-3's one `qkv_proj`).
     Gemma 3's and Gemma 2's stacks use it too."""
 
-    def __init__(self, c: dict, qkv_bias: bool, o_bias: bool, norm=None, fused: bool = False):
+    def __init__(self, c: dict, qkv_bias: bool, o_bias: bool, norm=None, fused: bool = False,
+                 zero_unseen: bool = True):
         super().__init__()
+        # zero a query's output where it sees no key (sdpa's), else leave
+        # the softmax's uniform average over the lowest scores (an additive
+        # mask's, Qwen2-MoE's on the CPU)
+        self.zero_unseen = zero_unseen
         h, d = c["hidden_size"], c["head_dim"]
         self.heads, self.kv_heads, self.head_dim = (c["num_attention_heads"],
                                                     c["num_key_value_heads"], d)
@@ -348,7 +406,9 @@ class Attention(nn.Module):
             v = v.repeat_interleave(groups, dim=1)
         scores = torch.matmul(q, k.transpose(2, 3)) * scale
         scores = scores.masked_fill(blocked, torch.finfo(scores.dtype).min)
-        probs = torch.softmax(scores, dim=-1).masked_fill(blocked, 0.0)
+        probs = torch.softmax(scores, dim=-1)
+        if self.zero_unseen:
+            probs = probs.masked_fill(blocked, 0.0)
         out = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, self.heads * self.head_dim)
         return self.o_proj(out)
 
@@ -386,27 +446,37 @@ class FusedGatedMLP(nn.Module):
 
 
 class _Layer(nn.Module):
-    def __init__(self, c: dict):
+    def __init__(self, c: dict, index: int):
         super().__init__()
         h, eps, kind = c["hidden_size"], c["rms_norm_eps"], c["model_type"]
-        biased = kind in ("qwen3", "llama", "gemma") and c["attention_bias"]
+        biased = kind in ("qwen3", "llama", "gemma", moe.QWEN3_MOE) and c["attention_bias"]
+        qkv_bias = kind == "qwen2" or biased or (kind == moe.QWEN2_MOE and c["qkv_bias"])
         norm = GemmaRMSNorm if kind == "gemma" else RMSNorm
         act = activation(c["hidden_act"])
         self.input_layernorm = norm(h, eps)
-        self.self_attn = Attention(c, kind == "qwen2" or biased, biased,
-                                   RMSNorm if kind == "qwen3" else None, fused=kind == "phi3")
+        self.self_attn = Attention(c, qkv_bias, biased,
+                                   RMSNorm if kind in ("qwen3", moe.QWEN3_MOE) else None,
+                                   fused=kind == "phi3", zero_unseen=kind != moe.QWEN2_MOE)
         self.post_attention_layernorm = norm(h, eps)
-        self.mlp = (FusedGatedMLP(c, act) if kind == "phi3" else
-                    GatedMLP(c, act, bias=kind == "llama" and c["mlp_bias"]))
+        # the feed-forward's name in the checkpoint: Mixtral's block_sparse_moe
+        self.ffn = "block_sparse_moe" if kind == moe.MIXTRAL else "mlp"
+        if kind in moe.MODEL_TYPES and moe.is_sparse(c, index):
+            ffn = moe.SparseMoeBlock(c, act)
+        elif kind == "phi3":
+            ffn = FusedGatedMLP(c, act)
+        else:
+            ffn = GatedMLP(c, act, bias=kind == "llama" and c["mlp_bias"])
+        setattr(self, self.ffn, ffn)
 
     def forward(self, x: torch.Tensor, blocked: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(self.input_layernorm(x), blocked, cos, sin, scale)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x + getattr(self, self.ffn)(self.post_attention_layernorm(x))
 
 
 class DecoderModel(nn.Module):
-    """A Qwen3, Qwen2, Llama, Mistral, Gemma or Phi-3 decoder stack, widths
+    """A Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Mixtral, Qwen2-MoE or
+    Qwen3-MoE decoder stack, widths
     from a transformers-style config dict (`config` holds its config's
     names, defaults filled in; `rope`, its rotary embedding)."""
 
@@ -416,7 +486,7 @@ class DecoderModel(nn.Module):
         self.config = config
         self.rope = Rope.from_config(config, float(config["rope_theta"]), config["rotary_dim"])
         self.embed_tokens = nn.Embedding(config["vocab_size"], config["hidden_size"])
-        self.layers = nn.ModuleList(_Layer(config) for _ in range(config["num_hidden_layers"]))
+        self.layers = nn.ModuleList(_Layer(config, i) for i in range(config["num_hidden_layers"]))
         norm = GemmaRMSNorm if config["model_type"] == "gemma" else RMSNorm
         self.norm = norm(config["hidden_size"], config["rms_norm_eps"])
 

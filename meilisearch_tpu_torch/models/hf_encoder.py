@@ -4,7 +4,8 @@ Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
 families, Longformer, ALBERT, RoFormer, ModernBERT, DeBERTa-v2,
 MobileBERT, SqueezeBERT, XLM, FlauBERT, XLNet) or decoder (Qwen3,
 Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2, Gemma 3, GPT-Neo, GPT-J,
-BLOOM) checkpoint pulled from the hub, tokenized,
+BLOOM, and the mixture-of-experts Mixtral, Qwen2-MoE and Qwen3-MoE)
+checkpoint pulled from the hub, tokenized,
 mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
 embeddings (LRU-cached upstream). Zero-egress deployments point `model`
@@ -36,7 +37,8 @@ models/modernbert.py's `ModernBertModel`, models/deberta_v2.py's
 models/squeezebert.py's `SqueezeBertModel`, models/xlm.py's `XLMModel`
 (XLM and FlauBERT),
 models/xlnet.py's `XLNetModel`, models/decoder.py's `DecoderModel`
-(Qwen3, Qwen2, Llama, Mistral, Gemma and Phi-3), models/gemma2.py's
+(Qwen3, Qwen2, Llama, Mistral, Gemma and Phi-3; Mixtral, Qwen2-MoE and
+Qwen3-MoE with models/moe.py's sparse block), models/gemma2.py's
 `Gemma2Model` (bge-multilingual-gemma2), models/gemma3.py's
 `Gemma3Model` (Gemma 3's text stack, EmbeddingGemma), models/gpt_neo.py's
 `GPTNeoModel` and models/gptj.py's `GPTJModel` (the SGPT embedders) or
@@ -75,7 +77,7 @@ import numpy as np
 import torch
 
 from ..ops.chain_keys import LaunchCounter
-from . import bloom, gpt_neo, gptj, longformer, squeezebert, xlnet
+from . import bloom, gpt_neo, gptj, longformer, moe, squeezebert, xlnet
 from .bert import RELATIVE_KEYS
 from .checkpoint import build_model, build_tokenizer, gives_token_types, load_checkpoint
 from .deberta_v2 import attention_span
@@ -171,6 +173,14 @@ class TextEncoder:
             per_text += 4 * L * L
             if kind != bloom.MODEL_TYPE:
                 per_text += 4 * heads * L * L
+        elif kind in moe.MODEL_TYPES:
+            # the sparse block's routed rows, up to num_experts_per_tok x L a
+            # text (all of them in one expert at worst): each expert's
+            # gathered input and output rows and its 2 x expert-wide
+            # activation; the shared expert's over every row; the logits
+            k, h = c["num_experts_per_tok"], c["hidden_size"]
+            per_text += 4 * L * (k * (2 * moe.expert_width(c) + 2 * h) + moe.num_experts(c)
+                                 + 2 * c.get("shared_expert_intermediate_size", 0))
         elif kind == squeezebert.MODEL_TYPE:
             # SqueezeBERT's channel-last copies around each LayerNorm and the
             # grouped products' copies of their inputs

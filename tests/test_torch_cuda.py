@@ -19,8 +19,9 @@ keys, the decoders (with scaled rotaries, sliding windows, MLP biases and
 other activations too), Gemma 3 and Llama from byte-fallback
 tokenizers, XLM and FlauBERT from their Moses tokenizers, Gemma 2,
 Gemma and Phi-3, Longformer, data2vec-text, XLM-RoBERTa-XL and BigBird,
-and GPT-Neo, GPT-J and BLOOM from GPT-2's and BLOOM's byte-level BPEs, on
-the card as the same checkpoint on the CPU."""
+GPT-Neo, GPT-J and BLOOM from GPT-2's and BLOOM's byte-level BPEs, and
+Mixtral, Qwen2-MoE and Qwen3-MoE from BF16 shards (under chip_smoke.py's
+routing rule), on the card as the same checkpoint on the CPU."""
 
 import sys
 
@@ -1531,4 +1532,124 @@ def test_gpt_neo_gptj_bloom_on_the_card_match_the_cpu(cuda_device, tmp_path, kin
     assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
     want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)
     assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
+# the MoE types at small widths, 2 layers, written as BF16 shards with
+# their index (safetensors for each type, pytorch_model.bin shards beside):
+# mixtral (8 experts, top 2, a 64-token window in every layer), qwen2_moe
+# (16 experts, top 4 unnormalized, a shared expert, a dense second layer),
+# qwen3_moe (32 experts, top 8 renormalized, Q/K norms, the sparse block
+# every second layer)
+P25_FAMILIES = {
+    "mixtral": {"model_type": "mixtral", "hidden_size": 512, "intermediate_size": 768,
+                "num_hidden_layers": 2, "num_attention_heads": 8, "num_key_value_heads": 2,
+                "num_local_experts": 8, "num_experts_per_tok": 2, "sliding_window": 64},
+    "qwen2_moe": {"model_type": "qwen2_moe", "hidden_size": 512, "intermediate_size": 768,
+                  "num_hidden_layers": 2, "num_attention_heads": 8, "num_key_value_heads": 8,
+                  "num_experts": 16, "num_experts_per_tok": 4, "moe_intermediate_size": 256,
+                  "shared_expert_intermediate_size": 512, "mlp_only_layers": [1]},
+    "qwen3_moe": {"model_type": "qwen3_moe", "hidden_size": 512, "intermediate_size": 768,
+                  "num_hidden_layers": 2, "num_attention_heads": 8, "num_key_value_heads": 2,
+                  "head_dim": 64, "num_experts": 32, "num_experts_per_tok": 8,
+                  "moe_intermediate_size": 128, "norm_topk_prob": True,
+                  "decoder_sparse_step": 2},
+}
+
+
+def _moe_checkpoint(path, kind, side, safetensors=True):
+    """`kind`'s checkpoint at P25_FAMILIES' widths, seeded torch weights
+    rounded to BF16, written as shards of at most 4 MB with their index,
+    beside a seeded BPE of its class (Llama-2's for mixtral, Qwen2's for
+    the others) padding on `side`."""
+    from meilisearch_tpu_torch.models import fixtures
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+
+    if kind == "mixtral":
+        spec = fixtures.llama_tokenizer_json(_enc_texts(200, 37), 1500, seed=37)
+        tok_config = fixtures.llama_tokenizer_config(spec, padding_side=side)
+    else:
+        spec = fixtures.qwen2_tokenizer_json(_enc_texts(200, 37), 1500, seed=37)
+        tok_config = fixtures.qwen2_tokenizer_config(spec, padding_side=side)
+    config = {**P25_FAMILIES[kind], "vocab_size": len(spec["model"]["vocab"])}
+    torch.manual_seed(38)
+    state = {k: v.to(torch.bfloat16) for k, v in new_model(config).state_dict().items()}
+    write_checkpoint(str(path), config, state, tokenizer_json=spec, tokenizer_config=tok_config,
+                     shard_bytes=1 << 22)
+    if not safetensors:  # the same tensors as pytorch_model.bin shards, read instead
+        from meilisearch_tpu_torch.models.checkpoint import write_shards
+
+        for f in path.iterdir():
+            if f.name.startswith("model"):
+                f.unlink()
+        write_shards(str(path), state, 1 << 22, safetensors=False)
+
+
+def _routed(card, host, texts):
+    """(card vectors, CPU vectors, texts held): each encoder's vectors of
+    `texts` with its gates' logits captured, a text whose experts differ
+    at a CPU margin under chip_smoke.ROUTE_MARGIN left out (one at or above
+    it raises: chip_smoke.routing_rule)."""
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    with chip_smoke.gate_log(card._model) as on_card:
+        got = card.encode(texts)
+    with chip_smoke.gate_log(host._model) as on_host:
+        want = host.encode(texts)
+    assert on_card and all(layers and layers[0].shape[0] == mask.numel()
+                           for mask, layers in on_card)  # the sparse blocks ran
+    rule = chip_smoke.routing_rule(on_card, on_host, card._model.config["num_experts_per_tok"],
+                                   "moe")
+    held = [t for t in range(len(texts)) if t not in rule["texts"]]
+    return got[held], want[held], held
+
+
+@pytest.mark.parametrize("side", ["right", "left"])
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+@pytest.mark.parametrize("kind", list(P25_FAMILIES))
+def test_moe_encoders_on_the_card_match_the_cpu(cuda_device, tmp_path, kind, pooling, side,
+                                                monkeypatch):
+    """Mixtral's, Qwen2-MoE's and Qwen3-MoE's sparse blocks on the card,
+    read from BF16 shards: short texts beside ones of 200 to 512 tokens,
+    padded right and left, in chunks of 8 (cut from the call's one batch
+    under forceCls with left padding), against the CPU within 1e-4
+    (ENC_TOL) on every text the routing rule holds (most of them)."""
+    from meilisearch_tpu_torch.models import hf_encoder, moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _moe_checkpoint(tmp_path, kind, side)
+    texts = _enc_texts(15, seed=39) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80), "",
+                                       "<s> Hello, world! 中文 \U0001F680"]
+    monkeypatch.setattr(hf_encoder, "CHUNK_TEXTS", 8)
+    card = hf_encoder.TextEncoder(str(tmp_path), pooling, device=cuda_device)
+    host = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None)
+    card._load()
+    host._load()
+    assert next(card._model.parameters()).is_cuda and card._tokenizer.padding_side == side
+    assert any(isinstance(m, moe.SparseMoeBlock) for m in card._model.modules())
+    got, want, held = _routed(card, host, texts)
+    assert len(held) >= len(texts) - 2
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
+def test_bin_shards_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """A Mixtral checkpoint as BF16 pytorch_model.bin shards and
+    pytorch_model.bin.index.json: the card's module holds the CPU's
+    weights bit for bit, and encodes as the CPU does (routing rule)."""
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _moe_checkpoint(tmp_path, "mixtral", "left", safetensors=False)
+    assert (tmp_path / "pytorch_model.bin.index.json").exists()
+    assert len(list(tmp_path.glob("pytorch_model-*-of-*.bin"))) > 1
+    card = hf_encoder.TextEncoder(str(tmp_path), "useModel", device=cuda_device)
+    host = hf_encoder.TextEncoder(str(tmp_path), "useModel", device=None)
+    card._load()
+    host._load()
+    for (name, a), (_name, b) in zip(card._model.state_dict().items(),
+                                     host._model.state_dict().items()):
+        assert torch.equal(a.cpu(), b), name
+    got, want, _held = _routed(card, host, _enc_texts(12, seed=40))
     assert float(np.abs(got - want).max()) <= 1e-4

@@ -34,7 +34,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CANDIDATES = ("gemma2", "gemma", "phi3", "longformer", "big_bird", "data2vec-text",
-              "xlm-roberta-xl", "gpt_neo", "gptj", "bloom")
+              "xlm-roberta-xl", "gpt_neo", "gptj", "bloom", "mixtral", "qwen2_moe", "qwen3_moe")
 SMALL = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
          "intermediate_size": 96, "max_position_embeddings": 512}
 # per type: what a 64-wide, 2-layer model needs besides SMALL
@@ -46,6 +46,11 @@ EXTRA = {
     "big_bird": {"block_size": 4, "num_random_blocks": 2},
     "gpt_neo": {"num_layers": 2, "attention_types": [[["global", "local"], 1]]},
     "gptj": {"rotary_dim": 8},
+    "mixtral": {"num_key_value_heads": 2, "num_local_experts": 4, "num_experts_per_tok": 2},
+    "qwen2_moe": {"num_key_value_heads": 2, "num_experts": 4, "num_experts_per_tok": 2,
+                  "moe_intermediate_size": 32, "shared_expert_intermediate_size": 64},
+    "qwen3_moe": {"num_key_value_heads": 2, "num_experts": 4, "num_experts_per_tok": 2,
+                  "moe_intermediate_size": 32},
 }
 # the inputs a type's published tokenizer_config.json names where its class
 # is the generic PreTrainedTokenizerFast (whose default gives token types):
