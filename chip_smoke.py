@@ -428,8 +428,28 @@ Phases, each fatal on failure:
      hybrid responses against the host pass, a query's forward, launches
      and experts hit against its weight-read bound over those experts,
      and one chunk against its float32 bound over the routed work.
+  26. BMRetriever path (hn5k-bmretriever410m-hf), after the earlier
+     phases' encoders are let go: a checkpoint at
+     BMRetriever/BMRetriever-410M's widths (EleutherAI/pythia-410m's
+     config.json as recalled: gpt_neox, 24 layers of 1,024, 16 heads of 64
+     with 16 rotated channels, intermediate 4,096, the parallel residual)
+     at its full depth, seeded weights and biases at 0.02 written as
+     GPTNeoXForCausalLM's pytorch_model.bin (`gpt_neox.` names,
+     `embed_out` and each layer's stale causal buffers, which the port's
+     mapping drops) beside a seeded 50,277-entry byte-level BPE in
+     GPT-NeoX-20B's layout (NFC, `<|padding|>` its pad), through its own
+     App as phase 11 over 5,000 documents: the encoder on the card against
+     the CPU within ENC_TOL on 86 texts, on phase 13's long texts and on a
+     batch padded right and then left under forceCls and mean pooling;
+     then a 2-layer checkpoint at BMRetriever-1B's widths (pythia-1b's:
+     2,048 wide, 8 heads of 256 with 64 rotated channels, intermediate
+     8,192) padded right and left under both poolings, card against CPU;
+     tokens/s and the host share, peak device memory, 256 hybrid
+     responses against the host pass, a query's forward and launches
+     against its weight-read bound, and one chunk against its float32
+     bound.
 Every phase prints its wall as it ends, and the walls are printed
-together after phase 25.
+together after phase 26.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. The run fails if any
@@ -1147,6 +1167,34 @@ P25_VARIANTS = {
 }
 P25_TEXT = ["<s> inside </s> <unk>", "Hello, world! x.y 你好。ok \U0001F680",
             "  two  spaces\ttab"]
+# phase 26 (hn5k-bmretriever410m-hf): BMRetriever/BMRetriever-410M's widths,
+# EleutherAI/pythia-410m's config.json as recalled, not read from a file
+# (gpt_neox: 24 layers of 1,024, 16 heads of 64 with 16 rotated channels at
+# rotary_pct 0.25, intermediate 4,096, gelu, the parallel residual, biases
+# on the fused QKV and dense, an untied 50,304-row embedding), at its full
+# depth; seeded weights and biases at 0.02, written as GPTNeoXForCausalLM's
+# pytorch_model.bin (`gpt_neox.` names, `embed_out`, and the stale causal
+# buffers older Pythia files hold), beside a seeded 50,277-entry byte-level
+# BPE in GPT-NeoX-20B's layout with `<|padding|>` as its pad (Pythia's
+# files name none; BMRetriever's own tokenizer_config.json is not at hand)
+BMRETRIEVER_410M_CONFIG = {
+    "model_type": "gpt_neox", "architectures": ["GPTNeoXForCausalLM"], "vocab_size": 50_304,
+    "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
+    "intermediate_size": 4096, "rotary_pct": 0.25, "rotary_emb_base": 10_000,
+    "max_position_embeddings": 2048, "use_parallel_residual": True, "layer_norm_eps": 1e-5,
+    "hidden_act": "gelu", "attention_bias": True, "tie_word_embeddings": False,
+    "bos_token_id": 0, "eos_token_id": 0, "initializer_range": 0.02}
+P26_DOCS, P26_SEED, P26_BIAS_STD = 5_000, 2060, 0.02
+P26_PIECES = 50_277  # GPT-NeoX-20B's tokenizer.json entries
+# BMRetriever/BMRetriever-1B's widths (EleutherAI/pythia-1b's, as recalled:
+# 2,048 wide, 8 heads of 256 with 64 rotated channels, intermediate 8,192)
+# cut to 2 of its 16 layers, card against CPU under both poolings on both
+# padding sides over the path's BPE
+P26_VARIANT = ("BMRetriever-1B at 2 of 16 layers", {
+    **BMRETRIEVER_410M_CONFIG, "hidden_size": 2048, "num_hidden_layers": 2,
+    "num_attention_heads": 8, "intermediate_size": 8192})
+P26_TEXT = ["<|endoftext|> inside <|padding|>", "wide      gaps and\ttabs  end",
+            "Café é 中文 \U0001F680 naïve"]
 # what Moses does to the encoder's texts: newlines and tabs dropped (two
 # words become one), French quotes and non-breaking spaces, elisions,
 # `No.` before a number, numbers with commas, multi-dots, a literal
@@ -1185,6 +1233,8 @@ P15_TEXT = ["x'Sy it'S we'LL don'T x'\u017fy", "<|endoftext|> inside <|im_start|
 # pad query that sees no key) beside long ones
 LEFT_PAD_TEXT = ["rust", "", "machine learning database for the cloud", "x'Sy 1234567",
                  "straße über " * 12, " ".join(["search engine"] * 60)]
+# phase 26's batch padded right and then left: GPT-2's and GPT-NeoX's specials
+P26_SIDES_TEXT = (*LEFT_PAD_TEXT, *P24_TEXT, *P26_TEXT)
 # each family's specials, written in and around words
 P14_CAMEMBERT_TEXT = ["<s>NOTUSED </s>NOTUSED <unk>NOTUSED", "x<mask>y  <mask>  z",
                       "Bonjour, le monde ! Café naïve, élève"]
@@ -4316,6 +4366,171 @@ def moe_phase(device, card: str, n_docs: int) -> dict:
     return out
 
 
+def bmretriever_spec() -> dict:
+    """Phase 26's 50,277-entry byte-level BPE in GPT-NeoX-20B's layout
+    (`<|endoftext|>` and `<|padding|>` at 0 and 1, the space runs from
+    50,254), its merges trained on BPE_TRAIN_DOCS of the phase's own texts."""
+    from meilisearch_tpu_torch.models.fixtures import (
+        GPT_NEOX_ADDED,
+        GPT_NEOX_HEAD,
+        gpt_neox_tokenizer_json,
+    )
+    from meilisearch_tpu_torch.utils.synthetic import generate_hackernews_like
+    from meilisearch_tpu_torch.vector.templates import render_document_template
+
+    searchable = set(VEC_SETTINGS["searchableAttributes"])
+    texts = [render_document_template(None, d, searchable)
+             for d in generate_hackernews_like(BPE_TRAIN_DOCS, seed=P26_SEED)]
+    spec = gpt_neox_tokenizer_json(texts + P11_TEXT + P11_CHECK_TEXT + P24_TEXT + P26_TEXT,
+                                   P26_PIECES, seed=P26_SEED)
+    vocab = spec["model"]["vocab"]
+    if len(vocab) != P26_PIECES or [vocab[t] for t in GPT_NEOX_HEAD] != [0, 1] \
+            or vocab[GPT_NEOX_ADDED[0]] != P26_PIECES - len(GPT_NEOX_ADDED):
+        raise AssertionError("the tokenizer is not laid out as GPT-NeoX-20B's")
+    return spec
+
+
+def write_p26_checkpoint(path: str, config: dict, seed: int, spec: dict) -> int:
+    """A checkpoint of `config` as GPTNeoXForCausalLM's pytorch_model.bin:
+    the module's seeded weights (biases at P26_BIAS_STD) under `gpt_neox.`,
+    a seeded `embed_out.weight`, and each layer's stale
+    `attention.bias` (the causal table over max_position_embeddings),
+    `attention.masked_bias` and `attention.rotary_emb.inv_freq`, beside
+    `spec` and GPTNeoXTokenizer's tokenizer_config.json (`<|padding|>` its
+    pad, right padding; `write_checkpoint`). Returns the tensors the
+    port's mapping must drop."""
+    import torch
+
+    from meilisearch_tpu_torch.models.checkpoint import write_checkpoint
+    from meilisearch_tpu_torch.models.gpt_neox import check_config
+
+    rotary = check_config(config)["rotary_dim"]
+    state = {f"gpt_neox.{k}": v for k, v in random_state_dict(config, seed, P26_BIAS_STD).items()}
+    g = torch.Generator().manual_seed(seed + 1)
+    state["embed_out.weight"] = torch.randn((config["vocab_size"], config["hidden_size"]),
+                                            generator=g) * BGE_INIT_STD
+    n = config["max_position_embeddings"]
+    causal = torch.tril(torch.ones((n, n), dtype=torch.bool)).view(1, 1, n, n)
+    inv_freq = 1.0 / (config["rotary_emb_base"]
+                      ** (torch.arange(0, rotary, 2, dtype=torch.int64).float() / rotary))
+    for i in range(config["num_hidden_layers"]):
+        at = f"gpt_neox.layers.{i}.attention."
+        state[at + "bias"] = causal
+        state[at + "masked_bias"] = torch.tensor(-1e9)
+        state[at + "rotary_emb.inv_freq"] = inv_freq
+    write_checkpoint(path, config, state, tokenizer_json=spec)
+    return 1 + 3 * config["num_hidden_layers"]
+
+
+def p26_widths(config: dict) -> tuple:
+    """(heads, head width, rotated channels) of a GPT-NeoX config, as
+    GPTNeoXAttention takes them (`int(head_size * rotary_pct)`)."""
+    heads = config["num_attention_heads"]
+    head = config["hidden_size"] // heads
+    return heads, head, int(head * config["rotary_pct"])
+
+
+def p26_long_check(path: str, device, label: str) -> float:
+    """The phase's checkpoint on phase 13's long texts in one batch
+    (`long_check`), after checking that the module reads the published
+    widths: GPT-NeoX's, heads of 64 with 16 rotated channels, the parallel
+    residual, a 3,072-wide fused QKV, all 24 layers."""
+    from meilisearch_tpu_torch.models.gpt_neox import GPTNeoXModel
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    enc = encoder(path, "useModel", device)
+    enc._load()
+    model, c = enc._model, enc._model.config
+    read = (type(model), c["head_dim"], c["rotary_dim"], c["use_parallel_residual"],
+            model.layers[0].attention.query_key_value.out_features, len(model.layers))
+    want = (GPTNeoXModel, *p26_widths(BMRETRIEVER_410M_CONFIG)[1:3], True,
+            3 * BMRETRIEVER_410M_CONFIG["hidden_size"],
+            BMRETRIEVER_410M_CONFIG["num_hidden_layers"])
+    if read != want:
+        raise AssertionError(f"{label}: the encoder reads {read}, not {want}")
+    return long_check(path, device, f"{label} {len(model.layers)} layers",
+                      texts=long_check_texts(P26_SEED))
+
+
+def p26_variant_check(path: str, device, label: str, spec: dict) -> float:
+    """P26_VARIANT's 2-layer checkpoint padded right and left under both
+    poolings (`sides_check`), card against CPU, after checking that the
+    module reads its widths; returns the largest error. Its encoders are
+    let go after, and `path`'s is loaded again for hf_path."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from meilisearch_tpu_torch.models.hf_encoder import encoder
+
+    t = time.perf_counter()
+    what, config = P26_VARIANT
+    with tempfile.TemporaryDirectory() as small:
+        write_p26_checkpoint(small, config, P26_SEED + 1, spec)
+        enc = encoder(small, "useModel", device)
+        enc._load()
+        c = enc._model.config
+        read = (c["num_attention_heads"], c["head_dim"], c["rotary_dim"], c["hidden_size"],
+                c["intermediate_size"], len(enc._model.layers))
+        want = (*p26_widths(config), config["hidden_size"], config["intermediate_size"],
+                config["num_hidden_layers"])
+        if read != want:
+            raise AssertionError(f"{what}: the encoder reads {read}, not {want}")
+        err = sides_check(small, device, f"{label} variant {what}", texts=P26_SIDES_TEXT)
+        encoder.cache_clear()
+        cpu_encoder.cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    say(f"{label} variant {what}: {time.perf_counter() - t:.3f} s, largest error {err:.3e}"
+        f" (bound {ENC_TOL:g})")
+    encoder(path, "useModel", device)._load()  # hf_path goes on with `path`'s, cached
+    return err
+
+
+def bmretriever_phase(device, card: str, n_docs: int) -> dict:
+    """Phase 26, hn5k-bmretriever410m-hf through its own App (`hf_path`)
+    with the long check, both padding sides and P26_VARIANT inside its
+    checks, once the earlier phases' encoders are let go."""
+    import gc
+
+    import torch
+
+    from meilisearch_tpu_torch.models import hf_encoder
+
+    t_phase = time.perf_counter()
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 26 starts with {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB allocated"
+        " on the card")
+    label = "BMRetriever-410M"
+    t0 = time.perf_counter()
+    spec = bmretriever_spec()
+    dropped = []
+
+    def write(path):
+        dropped.append(write_p26_checkpoint(path, BMRETRIEVER_410M_CONFIG, P26_SEED, spec))
+
+    say(f"{label} tokenizer ({len(spec['model']['vocab'])} entries,"
+        f" {len(spec['model']['merges'])} merges) built in {time.perf_counter() - t0:.3f} s;"
+        f" all {BMRETRIEVER_410M_CONFIG['num_hidden_layers']} layers")
+    out = hf_path(device, card, n_docs, label=label, index="bmr", write=write, seed=P26_SEED,
+                  queries=P11_TEXT, check_texts=P11_CHECK_TEXT + P24_TEXT + P26_TEXT,
+                  tokenizer="BPE", model_type="gpt_neox",
+                  checks=(p26_long_check, partial(sides_check, texts=P26_SIDES_TEXT),
+                          partial(p26_variant_check, spec=spec)))
+    say(f"{label}: the GPTNeoXForCausalLM file's {dropped[0]} tensors outside GPTNeoXModel"
+        " (`embed_out` and the stale causal buffers) dropped at load on both devices")
+    hf_encoder.encoder.cache_clear()
+    cpu_encoder.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 26 wall: {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def encoder_flops(model, n: int, L: int) -> float:
     """The float32 operations of one forward over n texts of L tokens: the
     Linear and Conv1d layers and XLNet's token projections (ALBERT's
@@ -5378,7 +5593,7 @@ def main() -> int:
             ("19", more_families_phase, P19_DOCS), ("20", moses_families_phase, P20_DOCS),
             ("21", bge_gemma2_phase, P21_DOCS), ("22", longformer_phase, P22_DOCS),
             ("23", bigbird_sparse_phase, P23_DOCS), ("24", sgpt_phase, P24_DOCS),
-            ("25", moe_phase, P25_DOCS)):
+            ("25", moe_phase, P25_DOCS), ("26", bmretriever_phase, P26_DOCS)):
         run(name, fn, device, card, n_docs)
     say(f"phase walls (s): {json.dumps(walls)}; the script from the first phase:"
         f" {time.perf_counter() - t_start:.3f} s")

@@ -681,7 +681,12 @@ class IndexScheduler:
                     )
                 except Exception:
                     pass
-            self._run_batch_tasks(tasks, batch)
+            outcomes = self._run_batch_tasks(tasks, batch)
+        # the bulk scope has committed the batch (its runs merged, the
+        # generation bumped): only now do its tasks read finished, so a
+        # caller that waited for one sees its write, and the warm-up below
+        # runs at the generation searches will read
+        self._finish_tasks(tasks, outcomes)
         batch.finished_at = now_iso()
         batch.progress = None  # progress views only exist while processing
         # build-side memory budget (reference BalancedCaches spill,
@@ -758,32 +763,42 @@ class IndexScheduler:
                 store.primary_key = primary_key
             return store
 
-    def _run_batch_tasks(self, tasks: list[Task], batch) -> None:
+    def _run_batch_tasks(self, tasks: list[Task], batch) -> list:
+        """Process each task of the batch; returns each one's outcome
+        (its status and the fields that go with it), which `_finish_tasks`
+        publishes once the batch has committed."""
         from ..index.store import AbortedProcessing
 
+        outcomes = []
         for i, task in enumerate(tasks):
             try:
                 if self._must_stop.is_set():
                     raise AbortedProcessing()
                 self._breakpoint("inside_process_batch")
                 self._process_task(task)
-                task.status = TaskStatus.SUCCEEDED
+                outcomes.append((TaskStatus.SUCCEEDED, {}))
                 batch.progress["steps"][0]["finished"] = i + 1
                 batch.progress["percentage"] = 100.0 * (i + 1) / len(tasks)
             except AbortedProcessing:
-                task.status = TaskStatus.CANCELED
-                task.canceled_by = self._abort_requested_by
+                outcomes.append((TaskStatus.CANCELED, {"canceled_by": self._abort_requested_by}))
             except EngineError as err:
-                task.status = TaskStatus.FAILED
-                task.error = err.to_json()
+                outcomes.append((TaskStatus.FAILED, {"error": err.to_json()}))
             except Exception as err:  # unexpected
-                task.status = TaskStatus.FAILED
-                task.error = {
+                outcomes.append((TaskStatus.FAILED, {"error": {
                     "message": str(err),
                     "code": "internal",
                     "type": "internal",
                     "link": "https://docs.meilisearch.com/errors#internal",
-                }
+                }}))
+        return outcomes
+
+    def _finish_tasks(self, tasks: list[Task], outcomes: list) -> None:
+        """Publish each task's outcome: its status, journal entry, callback
+        and webhooks."""
+        for task, (status, fields) in zip(tasks, outcomes):
+            task.status = status
+            for name, value in fields.items():
+                setattr(task, name, value)
             task.finished_at = now_iso()
             if self.journal is not None:
                 self.journal.log_finish(task)

@@ -3,8 +3,9 @@
 `RobertaTokenizerFast`, a Longformer one, `LongformerTokenizerFast`, the
 same class under another name, a ModernBERT or Llama-3 one,
 `PreTrainedTokenizerFast`, a Qwen2 or Qwen3 one, `Qwen2TokenizerFast`, a
-GPT-Neo or GPT-J one, `GPT2TokenizerFast`, and a BLOOM one,
-`BloomTokenizerFast`) and sentencepiece's with byte fallback
+GPT-Neo or GPT-J one, `GPT2TokenizerFast`, a BLOOM one,
+`BloomTokenizerFast`, and a GPT-NeoX one, Pythia's and BMRetriever's,
+`GPTNeoXTokenizerFast`) and sentencepiece's with byte fallback
 (what transformers' `LlamaConverter` and `GemmaConverter` write: Llama-2's,
 Mistral's, e5-mistral's and Phi-3's files, `LlamaTokenizerFast`, and
 Gemma's, bge-multilingual-gemma2's and EmbeddingGemma's,
@@ -31,10 +32,11 @@ and gives the same input ids and attention masks, on the host:
    `<mask>` given as a string `lstrip`; a GPT-2 class (`GPT2Tokenizer`,
    the default of `gpt_neo` and `gptj`) gives `GPT2TokenizerFast`'s
    (`<|endoftext|>` as unk, bos and eos, no pad: the reference refuses to
-   pad, and so does the port, unless tokenizer_config.json names one); a
-   BLOOM class (`BloomTokenizerFast`, the default of `bloom`) gives its
-   (`<unk>`, `<s>`, `</s>`, `<pad>`); a Qwen2 class (`Qwen2Tokenizer`,
-   the default of `qwen2` and `qwen3`) gives `Qwen2TokenizerFast`'s
+   pad, and so does the port, unless tokenizer_config.json names one), as
+   does a GPT-NeoX class (`GPTNeoXTokenizer(Fast)`, the default of
+   `gpt_neox`); a BLOOM class (`BloomTokenizerFast`, the default of
+   `bloom`) gives its (`<unk>`, `<s>`, `</s>`, `<pad>`); a Qwen2 class
+   (`Qwen2Tokenizer`, the default of `qwen2` and `qwen3`) gives `Qwen2TokenizerFast`'s
    (`<|endoftext|>` as unk, eos and pad, no bos); a Llama class
    (`LlamaTokenizer`, the default of `llama`, `mistral` and `phi3`) gives
    `LlamaTokenizerFast`'s (`<unk>`, `<s>`, `</s>`, no pad) and a Gemma
@@ -92,8 +94,10 @@ and gives the same input ids and attention masks, on the host:
    Gemma classes replace it, whatever the file says, with
    `update_post_processor`'s template: bos before the text when
    `add_bos_token` (default true), eos after it when `add_eos_token`
-   (default false). `GPT2TokenizerFast` keeps the file's (it reads
-   `add_bos_token` and does nothing with it).
+   (default false); `GPTNeoXTokenizerFast` does the same with both flags
+   false by default, so its file's post-processor never counts.
+   `GPT2TokenizerFast` keeps the file's (it reads `add_bos_token` and does
+   nothing with it).
 
 `legacy_spec` reads the older layout, `vocab.json` and `merges.txt` with
 no tokenizer.json, as transformers' `RobertaConverter` converts it, or,
@@ -145,13 +149,17 @@ LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
 GEMMA_CLASSES = ("GemmaTokenizer", "GemmaTokenizerFast")
 GPT2_CLASSES = ("GPT2Tokenizer", "GPT2TokenizerFast")
 BLOOM_CLASSES = ("BloomTokenizerFast",)
+# GPTNeoXTokenizerFast, under the name Pythia's files give (AutoTokenizer
+# adds `Fast`: the class has no slow one)
+GPT_NEOX_CLASSES = ("GPTNeoXTokenizer", "GPTNeoXTokenizerFast")
 _DEFAULT_CLASS = {"modernbert": "PreTrainedTokenizerFast", "qwen2": "Qwen2TokenizerFast",
                   "qwen3": "Qwen2TokenizerFast", "llama": "LlamaTokenizerFast",
                   "mistral": "LlamaTokenizerFast", "phi3": "LlamaTokenizerFast",
                   "gemma3_text": "GemmaTokenizerFast", "gemma2": "GemmaTokenizerFast",
                   "gemma": "GemmaTokenizerFast", "longformer": "LongformerTokenizerFast",
                   "gpt_neo": "GPT2TokenizerFast", "gptj": "GPT2TokenizerFast",
-                  "bloom": "BloomTokenizerFast", "mixtral": "LlamaTokenizerFast",
+                  "bloom": "BloomTokenizerFast", "gpt_neox": "GPTNeoXTokenizerFast",
+                  "mixtral": "LlamaTokenizerFast",
                   "qwen2_moe": "Qwen2TokenizerFast", "qwen3_moe": "Qwen2TokenizerFast"}
 # RobertaTokenizerFast's special tokens and their defaults
 _SPECIALS = {"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>", "sep_token": "</s>",
@@ -163,11 +171,17 @@ _QWEN2_SPECIALS = {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
 _LLAMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"}
 _GEMMA_SPECIALS = {"unk_token": "<unk>", "bos_token": "<bos>", "eos_token": "<eos>",
                    "pad_token": "<pad>"}
-# GPT2TokenizerFast's defaults (no pad) and BloomTokenizerFast's
+# GPT2TokenizerFast's defaults (no pad; GPTNeoXTokenizerFast's too) and
+# BloomTokenizerFast's
 _GPT2_SPECIALS = {"unk_token": "<|endoftext|>", "bos_token": "<|endoftext|>",
                   "eos_token": "<|endoftext|>"}
 _BLOOM_SPECIALS = {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
                    "pad_token": "<pad>"}
+# the classes whose `update_post_processor` replaces the file's template
+# with bos before the text under `add_bos_token` and eos after it under
+# `add_eos_token`: the two flags' defaults
+_REBUILT_TEMPLATES = {**dict.fromkeys(LLAMA_CLASSES + GEMMA_CLASSES, (True, False)),
+                      **dict.fromkeys(GPT_NEOX_CLASSES, (False, False))}
 # the Split pre-tokenizer patterns read, as tokenizer.json writes them
 # (Qwen2's, Llama-3's and BLOOM's)
 QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
@@ -402,10 +416,11 @@ def legacy_spec(path: str, config: Optional[dict] = None,
 def _class_specials(config: dict, model_type: Optional[str]) -> tuple:
     """(class name, its default special tokens) of the tokenizer class
     (tokenizer_config.json's, else the model type's); refuses a class that
-    is not a RoBERTa, Qwen2, Llama, Gemma, GPT-2, BLOOM or plain one."""
+    is not a RoBERTa, Qwen2, Llama, Gemma, GPT-2, BLOOM, GPT-NeoX or plain
+    one."""
     name = config.get("tokenizer_class") or _DEFAULT_CLASS.get(model_type, ROBERTA_CLASSES[0])
     read = (ROBERTA_CLASSES + QWEN2_CLASSES + LLAMA_CLASSES + GEMMA_CLASSES + GPT2_CLASSES
-            + BLOOM_CLASSES + PLAIN_CLASSES)
+            + BLOOM_CLASSES + GPT_NEOX_CLASSES + PLAIN_CLASSES)
     if name not in read:
         raise ValueError(f"tokenizer class `{name}` is not supported by the port's BPE tokenizer"
                          f" (it reads {', '.join(read)})")
@@ -415,7 +430,7 @@ def _class_specials(config: dict, model_type: Optional[str]) -> tuple:
         return name, _LLAMA_SPECIALS
     if name in GEMMA_CLASSES:
         return name, _GEMMA_SPECIALS
-    if name in GPT2_CLASSES:
+    if name in GPT2_CLASSES + GPT_NEOX_CLASSES:
         return name, _GPT2_SPECIALS
     if name in BLOOM_CLASSES:
         return name, _BLOOM_SPECIALS
@@ -523,11 +538,12 @@ class BPE:
 
         self._raw, self._normalized = matched(False), matched(True)
 
-        if spm_class:
+        if name in _REBUILT_TEMPLATES:
             # update_post_processor: the class's template, not the file's
             self.before, self.after = [], []
-            for key, flag, on, side in (("bos_token", "add_bos_token", True, self.before),
-                                        ("eos_token", "add_eos_token", False, self.after)):
+            bos_on, eos_on = _REBUILT_TEMPLATES[name]
+            for key, flag, on, side in (("bos_token", "add_bos_token", bos_on, self.before),
+                                        ("eos_token", "add_eos_token", eos_on, self.after)):
                 if config.get(flag, on):
                     token = _token_content(config.get(key, defaults.get(key)))
                     if token is None:

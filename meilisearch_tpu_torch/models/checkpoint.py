@@ -3,8 +3,8 @@ data2vec-text, XLM-RoBERTa-XL, DistilBERT, MPNet, ELECTRA, ERNIE,
 BertGeneration, RemBERT, Megatron-BERT, BigBird, Longformer, ALBERT,
 RoFormer, ModernBERT, DeBERTa-v2, MobileBERT, SqueezeBERT, XLM, FlauBERT,
 XLNet, Qwen3, Qwen2, Llama, Mistral, Gemma, Phi-3, Mixtral, Qwen2-MoE,
-Qwen3-MoE, Gemma 2, Gemma 3, GPT-Neo, GPT-J or BLOOM checkpoint directory
-without transformers.
+Qwen3-MoE, Gemma 2, Gemma 3, GPT-Neo, GPT-J, BLOOM or GPT-NeoX checkpoint
+directory without transformers.
 
 A directory as transformers' `save_pretrained` leaves it:
 - `config.json`: the model's type and widths (models/bert.py::CONFIG_KEYS,
@@ -23,7 +23,9 @@ A directory as transformers' `save_pretrained` leaves it:
   models/mobilebert.py's, models/squeezebert.py's, models/xlm.py's and
   models/xlnet.py's modules, and `gpt_neo`, `gptj` and `bloom` ones,
   under their own config names and attribute_map aliases, to
-  models/gpt_neo.py's, models/gptj.py's and models/bloom.py's);
+  models/gpt_neo.py's, models/gptj.py's and models/bloom.py's, and
+  `gpt_neox` ones, GPTNeoXConfig's defaults filled in, to
+  models/gpt_neox.py's);
 - the weights, in the order transformers' `from_pretrained` picks them:
   `model.safetensors`, parsed here (an 8-byte little-endian header
   length, a JSON header of dtype, shape and `data_offsets` per tensor,
@@ -37,8 +39,9 @@ A directory as transformers' `save_pretrained` leaves it:
   the model type's: `XLMTokenizer` for `xlm`, `FlaubertTokenizer` for
   `flaubert`, `LongformerTokenizerFast` for `longformer`,
   `BigBirdTokenizerFast` for `big_bird`, `GPT2TokenizerFast` for
-  `gpt_neo` and `gptj`, `BloomTokenizerFast` for `bloom`, which reads a
-  tokenizer.json only, `LlamaTokenizerFast` for `mixtral`,
+  `gpt_neo` and `gptj`, `BloomTokenizerFast` for `bloom` and
+  `GPTNeoXTokenizerFast` for `gpt_neox`, which read a tokenizer.json
+  only, `LlamaTokenizerFast` for `mixtral`,
   `Qwen2TokenizerFast` for `qwen2_moe` and `qwen3_moe`); XLM's and FlauBERT's read
   `vocab.json` and `merges.txt` through
   Moses and a `</w>` BPE (models/xlm_bpe.py), never as RoBERTa's
@@ -71,7 +74,8 @@ Checkpoint names map onto `BertModel`'s, `AlbertModel`'s,
 `RoFormerModel`'s, `ModernBertModel`'s, `DebertaV2Model`'s,
 `MobileBertModel`'s, `SqueezeBertModel`'s, `XLMModel`'s, `XLNetModel`'s,
 `DecoderModel`'s, `Gemma3Model`'s, `LongformerModel`'s, `GPTNeoModel`'s,
-`GPTJModel`'s and `BloomModel`'s (`hf_to_state_dict`): a `bert.` (BERT's,
+`GPTJModel`'s, `BloomModel`'s and `GPTNeoXModel`'s (`hf_to_state_dict`): a
+`gpt_neox.` (`GPTNeoXForCausalLM`'s), `bert.` (BERT's,
 Megatron-BERT's, BertGeneration's and BigBird's), `roberta.` (RoBERTa's,
 CamemBERT's and XLM-RoBERTa-XL's), `data2vec_text.`, `longformer.`,
 `distilbert.`, `mpnet.`, `electra.`, `ernie.`, `rembert.`, `albert.`,
@@ -88,10 +92,12 @@ the pre-training and language-model heads (`cls.`, `lm_head.`, `vocab_*`;
 `mask_predictions.` transformers ignores; ALBERT's `predictions.` and
 `sop_classifier.`; XLM's and FlauBERT's `pred_layer.` and
 `sequence_summary.`; XLNet's
-`lm_loss.`, `sequence_summary.` and `logits_proj.`) and the
+`lm_loss.`, `sequence_summary.` and `logits_proj.`; `GPTNeoXForCausalLM`'s
+`embed_out.`) and the
 `position_ids`, `token_type_ids` and `rotary_emb.inv_freq` buffers (and
 the causal `attn.bias` / `attn.masked_bias` buffers older GPT-J files
-hold, `attn.attention.bias` / `.masked_bias` in GPT-Neo's), and old
+hold, `attn.attention.bias` / `.masked_bias` in GPT-Neo's, `attention.bias`
+/ `.masked_bias` in GPT-NeoX's), and old
 `LayerNorm.gamma/beta` become `weight/bias`. DistilBERT's layers
 (`transformer.layer.N`: `attention.{q,k,v,out}_lin`, `sa_layer_norm`,
 `ffn.lin1`, `ffn.lin2`, `output_layer_norm`) take BERT's names
@@ -144,6 +150,7 @@ from . import (
     gemma2,
     gemma3,
     gpt_neo,
+    gpt_neox,
     gptj,
     longformer,
     mobilebert,
@@ -167,6 +174,7 @@ from .fixtures import (
     deberta_v2_tokenizer_config,
     gemma_tokenizer_config,
     gpt2_tokenizer_config,
+    gpt_neox_tokenizer_config,
     llama3_tokenizer_config,
     llama_tokenizer_config,
     longformer_tokenizer_config,
@@ -179,6 +187,7 @@ from .fixtures import (
 from .gemma2 import Gemma2Model
 from .gemma3 import Gemma3Model
 from .gpt_neo import GPTNeoModel
+from .gpt_neox import GPTNeoXModel
 from .gptj import GPTJModel
 from .longformer import LongformerModel
 from .mobilebert import MobileBertModel
@@ -206,14 +215,14 @@ WEIGHT_FILES = (("model.safetensors", False), ("model.safetensors.index.json", T
                 ("pytorch_model.bin", False), ("pytorch_model.bin.index.json", True))
 _PREFIXES = ("bert.", "roberta.", "distilbert.", "mpnet.", "electra.", "ernie.", "rembert.",
              "albert.", "roformer.", "deberta.", "model.", "mobilebert.", "longformer.",
-             "data2vec_text.")
+             "data2vec_text.", "gpt_neox.")
 # SqueezeBERT's, XLM's and XLNet's base-model prefix; DistilBERT's layers
 # (`transformer.layer.N.` over DistilBERT's leaves) keep it
 _TRANSFORMER = "transformer."
 _DROPPED = ("pooler.", "cls.", "lm_head.", "vocab_", "head.", "decoder.",
             "discriminator_predictions.", "generator_predictions.", "generator_lm_head.",
             "lm_predictions.", "mask_predictions.", "predictions.", "sop_classifier.",
-            "pred_layer.", "lm_loss.", "sequence_summary.", "logits_proj.",
+            "pred_layer.", "lm_loss.", "sequence_summary.", "logits_proj.", "embed_out.",
             "embeddings.position_ids", "embeddings.token_type_ids")
 # RemBERT's and ALBERT's name of the embeddings' projection -> the modules'
 _MAPPING_IN, _PROJECT = "encoder.embedding_hidden_mapping_in.", "embeddings_project."
@@ -226,19 +235,24 @@ _TYPE_TOKENIZERS = {xlm.MODEL_TYPE: "XLMTokenizer", xlm.FLAUBERT_TYPE: "Flaubert
                     longformer.MODEL_TYPE: "LongformerTokenizerFast",
                     bert.BIG_BIRD: "BigBirdTokenizerFast", gpt_neo.MODEL_TYPE: "GPT2TokenizerFast",
                     gptj.MODEL_TYPE: "GPT2TokenizerFast", bloom.MODEL_TYPE: "BloomTokenizerFast",
+                    gpt_neox.MODEL_TYPE: "GPTNeoXTokenizerFast",
                     "mixtral": "LlamaTokenizerFast", "qwen2_moe": "Qwen2TokenizerFast",
                     "qwen3_moe": "Qwen2TokenizerFast"}
 # tokenizer classes (without `Fast`) the port reads from one tokenizer
-# model only: Longformer's, GPT-2's and BLOOM's byte-level BPE, BigBird's
-# Unigram tokenizer.json
+# model only: Longformer's, GPT-2's, BLOOM's and GPT-NeoX's byte-level BPE,
+# BigBird's Unigram tokenizer.json
 _CLASS_MODELS = {"LongformerTokenizer": "BPE", "BigBirdTokenizer": "Unigram",
-                 "GPT2Tokenizer": "BPE", "BloomTokenizer": "BPE"}
+                 "GPT2Tokenizer": "BPE", "BloomTokenizer": "BPE", "GPTNeoXTokenizer": "BPE"}
 # tokenizer classes whose `model_input_names` leave out token_type_ids
 # (the others give them, PreTrainedTokenizerBase's default)
 _UNTYPED_TOKENIZERS = ("RobertaTokenizer", "XLMRobertaTokenizer", "CamembertTokenizer",
                        "DistilBertTokenizer", "MPNetTokenizer", "LlamaTokenizer",
                        "GemmaTokenizer", "Qwen2Tokenizer", "GPT2Tokenizer", "BartTokenizer",
-                       "LongformerTokenizer", "BigBirdTokenizer", "BloomTokenizer")
+                       "LongformerTokenizer", "BigBirdTokenizer", "BloomTokenizer",
+                       "GPTNeoXTokenizer")
+# tokenizer classes (without `Fast`) with no slow class: a fast one read
+# from a tokenizer.json only
+_JSON_ONLY = ("BloomTokenizer", "GPTNeoXTokenizer")
 # sentencepiece model files, which the port does not parse
 _SPM_FILES = ("spm.model", "sentencepiece.bpe.model", "sentencepiece.model")
 # DistilBERT's layer names -> BertModel's, inside `transformer.layer.N.`
@@ -336,7 +350,7 @@ _MODELS = {"modernbert": ModernBertModel, "deberta-v2": DebertaV2Model,
            squeezebert.MODEL_TYPE: SqueezeBertModel, xlm.MODEL_TYPE: XLMModel,
            xlm.FLAUBERT_TYPE: XLMModel, xlnet.MODEL_TYPE: XLNetModel,
            gpt_neo.MODEL_TYPE: GPTNeoModel, gptj.MODEL_TYPE: GPTJModel,
-           bloom.MODEL_TYPE: BloomModel}
+           bloom.MODEL_TYPE: BloomModel, gpt_neox.MODEL_TYPE: GPTNeoXModel}
 # (`gemma3`, the multimodal model, is refused by models/gemma3.py by name)
 _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check_config,
            longformer.MODEL_TYPE: longformer.check_config,
@@ -348,16 +362,19 @@ _CHECKS = {"modernbert": modernbert.check_config, "deberta-v2": deberta_v2.check
            squeezebert.MODEL_TYPE: squeezebert.check_config, xlm.MODEL_TYPE: xlm.check_config,
            xlm.FLAUBERT_TYPE: xlm.check_config, xlnet.MODEL_TYPE: xlnet.check_config,
            gpt_neo.MODEL_TYPE: gpt_neo.check_config, gptj.MODEL_TYPE: gptj.check_config,
-           bloom.MODEL_TYPE: bloom.check_config}
+           bloom.MODEL_TYPE: bloom.check_config, gpt_neox.MODEL_TYPE: gpt_neox.check_config}
 # model types whose modules fill in their config class's defaults
 _OWN_DEFAULTS = (mobilebert.MODEL_TYPE, squeezebert.MODEL_TYPE, xlm.MODEL_TYPE,
                  xlm.FLAUBERT_TYPE, xlnet.MODEL_TYPE)
 # the GPT families: their own defaults too, written as pytorch_model.bin
-# (the JAX package converts a model.safetensors to its Flax classes)
-_GPT_TYPES = (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE, bloom.MODEL_TYPE)
-# the stale causal buffers older GPT-Neo and GPT-J files hold
-_STALE = (".attn.attention.bias", ".attn.attention.masked_bias", ".attn.bias",
-          ".attn.masked_bias")
+# (the JAX package converts a model.safetensors to the Flax classes of the
+# first three; older Pythia files are .bin, with the stale buffers below)
+_GPT_TYPES = (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE, bloom.MODEL_TYPE, gpt_neox.MODEL_TYPE)
+# the stale causal buffers older GPT-Neo, GPT-J and GPT-NeoX files hold
+# (GPT-NeoX's `attention.rotary_emb.inv_freq` goes with every rotary's)
+_STALE = {gpt_neo.MODEL_TYPE: (".attn.attention.bias", ".attn.attention.masked_bias"),
+          gptj.MODEL_TYPE: (".attn.bias", ".attn.masked_bias"),
+          gpt_neox.MODEL_TYPE: (".attention.bias", ".attention.masked_bias")}
 # model types whose checkpoints the port writes as model.safetensors: those
 # published so, and those that have no Flax class (the JAX package's
 # encoder reads either file through its torch branch)
@@ -373,8 +390,9 @@ def check_config(config: dict) -> dict:
     `mistral`, `gemma` or `phi3` one by models/decoder.py, a `gemma3_text`
     (or `gemma3`) one by models/gemma3.py, a `gemma2` one by
     models/gemma2.py, a `longformer` one by models/longformer.py, a
-    `gpt_neo`, `gptj` or `bloom` one by models/gpt_neo.py, models/gptj.py
-    or models/bloom.py, any other by models/bert.py."""
+    `gpt_neo`, `gptj`, `bloom` or `gpt_neox` one by models/gpt_neo.py,
+    models/gptj.py, models/bloom.py or models/gpt_neox.py, any other by
+    models/bert.py."""
     return _CHECKS.get(config.get("model_type"), bert.check_config)(config)
 
 
@@ -384,8 +402,8 @@ def new_model(config: dict):
     `albert`, `RoFormerModel` for `roformer`, `DecoderModel` for
     the decoders, `Gemma3Model` for `gemma3_text`, `Gemma2Model` for
     `gemma2`, `LongformerModel` for `longformer`, `GPTNeoModel`,
-    `GPTJModel` and `BloomModel` for `gpt_neo`, `gptj` and `bloom`,
-    `BertModel` for the other families."""
+    `GPTJModel`, `BloomModel` and `GPTNeoXModel` for `gpt_neo`, `gptj`,
+    `bloom` and `gpt_neox`, `BertModel` for the other families."""
     return _MODELS.get(config.get("model_type"), BertModel)(config)
 
 
@@ -431,8 +449,8 @@ def hf_to_state_dict(named: dict, model_type: Optional[str] = None) -> dict:
     """A checkpoint's tensors (torch or numpy) under BertModel's (or
     AlbertModel's, RoFormerModel's, ModernBertModel's, DebertaV2Model's,
     ...) names, as float32 CPU tensors; `model_type` `xlm-roberta-xl`
-    renames its pre-norms by where they run, and `gpt_neo` and `gptj`
-    drop the stale causal buffers."""
+    renames its pre-norms by where they run, and `gpt_neo`, `gptj` and
+    `gpt_neox` drop the stale causal buffers."""
     out = {}
     for name, value in named.items():
         for prefix in _PREFIXES:
@@ -442,7 +460,7 @@ def hf_to_state_dict(named: dict, model_type: Optional[str] = None) -> dict:
             name = name[len(_TRANSFORMER):]
         if name.startswith(_DROPPED) or name.endswith("rotary_emb.inv_freq"):
             continue
-        if model_type in (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE) and name.endswith(_STALE):
+        if name.endswith(_STALE.get(model_type, ())):
             continue
         if name.startswith(_MAPPING_IN):
             name = _PROJECT + name[len(_MAPPING_IN):]
@@ -564,9 +582,9 @@ def load_checkpoint(path: str) -> Checkpoint:
     state = read_weights(path, config.get("model_type"))
     if config.get("model_type") == roformer.MODEL_TYPE:
         state = roformer.with_positions(config, state)
-    if tok_class == "BloomTokenizerFast" and not os.path.exists(
+    if (tok_class or "").removesuffix("Fast") in _JSON_ONLY and not os.path.exists(
             os.path.join(path, "tokenizer.json")):
-        raise ValueError(f"`{path}`'s tokenizer is BloomTokenizerFast, which reads a"
+        raise ValueError(f"`{path}`'s tokenizer is {tok_class}, which reads a"
                          " tokenizer.json only, and the directory has none")
     if tok_class in MOSES_CLASSES:
         files = [os.path.join(path, f) for f in ("vocab.json", "merges.txt")]
@@ -746,8 +764,9 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
     LlamaTokenizer's, fixtures.llama_tokenizer_config, and for
     `gemma3_text`, `gemma2` and `gemma` GemmaTokenizer's,
     fixtures.gemma_tokenizer_config, for `gpt_neo` and `gptj`
-    GPT2Tokenizer's, fixtures.gpt2_tokenizer_config, and for `bloom`
-    BloomTokenizerFast's, fixtures.bloom_tokenizer_config), or
+    GPT2Tokenizer's, fixtures.gpt2_tokenizer_config, for `bloom`
+    BloomTokenizerFast's, fixtures.bloom_tokenizer_config, and for
+    `gpt_neox` GPTNeoXTokenizer's, fixtures.gpt_neox_tokenizer_config), or
     `moses`, (vocab.json's dict, merges.txt's text), with XLMTokenizer's
     tokenizer_config.json (FlaubertTokenizer's for `flaubert`,
     fixtures.moses_tokenizer_config). With `shard_bytes`, the weights are
@@ -801,7 +820,8 @@ def write_checkpoint(path: str, config: dict, state_dict: dict, vocab: Optional[
                bert.BIG_BIRD: bigbird_tokenizer_config,
                gpt_neo.MODEL_TYPE: gpt2_tokenizer_config,
                gptj.MODEL_TYPE: gpt2_tokenizer_config,
-               bloom.MODEL_TYPE: bloom_tokenizer_config}.get(model_type)
+               bloom.MODEL_TYPE: bloom_tokenizer_config,
+               gpt_neox.MODEL_TYPE: gpt_neox_tokenizer_config}.get(model_type)
         if own is not None:
             tok_config = own(tokenizer_json)
         elif bpe:

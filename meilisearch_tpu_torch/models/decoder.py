@@ -241,14 +241,7 @@ def check_config(config: dict) -> dict:
         raise ValueError(f"head_dim {config['head_dim']} is not supported for qwen2_moe: its"
                          " attention raises unless head_dim x heads is hidden_size")
     head_dim = config["head_dim"] or config["hidden_size"] // heads
-    # the tables hold the rotated width's frequencies twice over, so an odd
-    # width rotates one channel more (Phi-3 runs that); a whole odd head
-    # has no channel to spare
-    rotary_dim = int(head_dim * factor)
-    if rotary_dim + rotary_dim % 2 > head_dim:
-        raise ValueError(f"head_dim {head_dim} does not hold the rotary tables' "
-                         f"{rotary_dim + rotary_dim % 2} channels (partial_rotary_factor"
-                         f" {factor}): transformers' rotary raises on it")
+    rotary_dim = rotary_width(head_dim, factor)
     if kind == "phi3":
         config = {**config, "rope_scaling": phi3_rope_scaling(config)}
     Rope.from_config(config, float(config["rope_theta"]), rotary_dim)
@@ -257,6 +250,21 @@ def check_config(config: dict) -> dict:
         moe.check_config(config)
     return {**config, "num_key_value_heads": kv, "head_dim": head_dim,
             "rotary_dim": rotary_dim, "layer_types": types, "window": window}
+
+
+def rotary_width(head_dim: int, factor: float, key: str = "partial_rotary_factor") -> int:
+    """The rotated channels of a head, `int(head_dim * factor)` (`factor`:
+    the config's `key`), as transformers' rotary tables take them. The
+    tables hold that width's frequencies twice over, so an odd width
+    rotates one channel more (Phi-3 and GPT-NeoX run that); a whole odd
+    head has no channel to spare, and a table wider than the head raises
+    ValueError, as transformers' rotary does."""
+    rotary_dim = int(head_dim * factor)
+    if rotary_dim + rotary_dim % 2 > head_dim:
+        raise ValueError(f"head_dim {head_dim} does not hold the rotary tables' "
+                         f"{rotary_dim + rotary_dim % 2} channels ({key} {factor}):"
+                         " transformers' rotary raises on it")
+    return rotary_dim
 
 
 def phi3_rope_scaling(config: dict) -> Optional[dict]:
@@ -404,13 +412,23 @@ class Attention(nn.Module):
         if groups > 1:
             k = k.repeat_interleave(groups, dim=1)
             v = v.repeat_interleave(groups, dim=1)
-        scores = torch.matmul(q, k.transpose(2, 3)) * scale
-        scores = scores.masked_fill(blocked, torch.finfo(scores.dtype).min)
-        probs = torch.softmax(scores, dim=-1)
-        if self.zero_unseen:
-            probs = probs.masked_fill(blocked, 0.0)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, self.heads * self.head_dim)
-        return self.o_proj(out)
+        return self.o_proj(attend(q, k, v, blocked, scale, self.zero_unseen))
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, blocked: torch.Tensor,
+           scale: torch.Tensor, zero_unseen: bool = True) -> torch.Tensor:
+    """Attention over (B, heads, L, d) Q, K and V under `blocked_keys`' mask:
+    scores Q K^T times `scale`, the blocked ones replaced by float32's
+    lowest, the softmax (its blocked probabilities zeroed with
+    `zero_unseen`, so a query that sees no key gives 0, as `sdpa` does),
+    times V. Returns (B, L, heads x d)."""
+    B, heads, L, d = q.shape
+    scores = torch.matmul(q, k.transpose(2, 3)) * scale
+    scores = scores.masked_fill(blocked, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1)
+    if zero_unseen:
+        probs = probs.masked_fill(blocked, 0.0)
+    return torch.matmul(probs, v).transpose(1, 2).reshape(B, L, heads * d)
 
 
 class GatedMLP(nn.Module):

@@ -620,14 +620,65 @@ def bloom_tokenizer_config(spec: dict, padding_side: Optional[str] = "left") -> 
     return config
 
 
-# ModernBERT's vocabulary extends GPT-NeoX's: two specials first, its
-# byte-level BPE, then (from id 50254) non-special added tokens: runs of
-# 24 down to 2 spaces and the placeholders of scrubbed personal data; then
+# GPT-NeoX-20B's vocabulary (Pythia's and BMRetriever's): two specials
+# first, its byte-level BPE, then (from id 50254) 23 non-special added
+# tokens, runs of 24 down to 2 spaces: 50,277 entries
+GPT_NEOX_HEAD = ("<|endoftext|>", "<|padding|>")
+GPT_NEOX_ADDED = tuple(" " * n for n in range(24, 1, -1))
+GPT_NEOX_EOS, GPT_NEOX_PAD = GPT_NEOX_HEAD
+
+
+def gpt_neox_tokenizer_json(texts: list, vocab_size: int, seed: int,
+                            n_trained: int = 4096) -> dict:
+    """A byte-level BPE tokenizer.json in GPT-NeoX-20B's layout:
+    GPT_NEOX_HEAD (special, not normalized), the 256 byte symbols, the
+    merges of `train_merges` over `texts`, then seeded merges up to the
+    first added token's id, then GPT_NEOX_ADDED (normalized, not special),
+    `vocab_size` entries in all (50,277 published); the NFC normalizer,
+    ByteLevel without prefix space, a ByteLevel post-processor (which the
+    class replaces)."""
+    vocab = {t: i for i, t in enumerate(GPT_NEOX_HEAD)}
+    for sym in bytes_to_unicode().values():
+        vocab[sym] = len(vocab)
+    merges = _grow_vocab(vocab, len(GPT_NEOX_HEAD), texts, vocab_size - len(GPT_NEOX_ADDED),
+                         seed, n_trained)
+    for t in GPT_NEOX_ADDED:
+        vocab[t] = len(vocab)
+    added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": t in GPT_NEOX_ADDED, "special": t in GPT_NEOX_HEAD}
+             for t in (*GPT_NEOX_HEAD, *GPT_NEOX_ADDED)]
+    post = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+            "use_regex": True}
+    return _bpe_spec(vocab, merges, added, {"type": "NFC"}, BYTE_LEVEL, post)
+
+
+def gpt_neox_tokenizer_config(spec: dict, pad_token: Optional[str] = GPT_NEOX_PAD,
+                              padding_side: Optional[str] = None, add_bos_token: bool = False,
+                              add_eos_token: bool = False) -> dict:
+    """The tokenizer_config.json Pythia's checkpoints publish beside such a
+    file, as recalled (class `GPTNeoXTokenizer`, `<|endoftext|>` as unk,
+    bos and eos, `add_bos_token` and `add_eos_token` false, no pad), with
+    `pad_token` (`<|padding|>` by default: batched embedding needs one;
+    None leaves it out), `padding_side` where given and the two flags."""
+    config = {"add_bos_token": add_bos_token, "add_eos_token": add_eos_token,
+              "add_prefix_space": False, "added_tokens_decoder": _added_decoder(spec),
+              "bos_token": GPT_NEOX_EOS, "clean_up_tokenization_spaces": True,
+              "eos_token": GPT_NEOX_EOS, "model_max_length": 1 << 60,
+              "tokenizer_class": "GPTNeoXTokenizer", "unk_token": GPT_NEOX_EOS}
+    if pad_token is not None:
+        config["pad_token"] = pad_token
+    if padding_side is not None:
+        config["padding_side"] = padding_side
+    return config
+
+
+# ModernBERT's vocabulary extends GPT-NeoX's: after GPT_NEOX_ADDED the
+# placeholders of scrubbed personal data (non-special too); then
 # ModernBERT's specials from id 50280 ([MASK] lstrip) and [unused] slots
 # up to its 50,368 entries
-MODERNBERT_HEAD = ("<|endoftext|>", "<|padding|>")
-MODERNBERT_ADDED = (*(" " * n for n in range(24, 1, -1)), "|||IP_ADDRESS|||",
-                    "|||EMAIL_ADDRESS|||", "|||PHONE_NUMBER|||")
+MODERNBERT_HEAD = GPT_NEOX_HEAD
+MODERNBERT_ADDED = (*GPT_NEOX_ADDED, "|||IP_ADDRESS|||", "|||EMAIL_ADDRESS|||",
+                    "|||PHONE_NUMBER|||")
 MODERNBERT_SPECIALS = ("[UNK]", "[CLS]", "[SEP]", "[PAD]", "[MASK]")
 
 

@@ -4,7 +4,7 @@ Reference behavior: milli vector/embedder/hf.rs — an encoder (BERT's
 families, Longformer, ALBERT, RoFormer, ModernBERT, DeBERTa-v2,
 MobileBERT, SqueezeBERT, XLM, FlauBERT, XLNet) or decoder (Qwen3,
 Qwen2, Llama, Mistral, Gemma, Phi-3, Gemma 2, Gemma 3, GPT-Neo, GPT-J,
-BLOOM, and the mixture-of-experts Mixtral, Qwen2-MoE and Qwen3-MoE)
+BLOOM, GPT-NeoX, and the mixture-of-experts Mixtral, Qwen2-MoE and Qwen3-MoE)
 checkpoint pulled from the hub, tokenized,
 mean/CLS-pooled, optionally L2-normalized;
 used for both indexing-time document embeddings and search-time query
@@ -21,8 +21,8 @@ merges.txt, models/xlm_bpe.py (Moses, models/moses.py, then a `</w>`
 BPE), or, for a Unigram tokenizer.json (XLM-R's, CamemBERT's,
 DeBERTa-v3's, ALBERT's, RemBERT's, XLNet's and BigBird's vocabularies),
 models/unigram.py, or, for
-a BPE (RoBERTa's and Longformer's, ModernBERT's, Qwen2's, Llama-3's, GPT-2's and
-BLOOM's byte-level one;
+a BPE (RoBERTa's and Longformer's, ModernBERT's, Qwen2's, Llama-3's, GPT-2's,
+BLOOM's and GPT-NeoX's byte-level one;
 Llama-2's, Mistral's, Phi-3's and Gemma's with byte fallback), models/bpe.py
 (WordPiece, Unigram and BPE with `tokenizers`' own Unicode tables,
 models/unicode.py), and models/bert.py's `BertModel` (BERT, RoBERTa,
@@ -41,19 +41,20 @@ models/xlnet.py's `XLNetModel`, models/decoder.py's `DecoderModel`
 Qwen3-MoE with models/moe.py's sparse block), models/gemma2.py's
 `Gemma2Model` (bge-multilingual-gemma2), models/gemma3.py's
 `Gemma3Model` (Gemma 3's text stack, EmbeddingGemma), models/gpt_neo.py's
-`GPTNeoModel` and models/gptj.py's `GPTJModel` (the SGPT embedders) or
-models/bloom.py's `BloomModel` (sgpt-bloom, udever-bloom) runs on the device
+`GPTNeoModel` and models/gptj.py's `GPTJModel` (the SGPT embedders),
+models/bloom.py's `BloomModel` (sgpt-bloom, udever-bloom) or
+models/gpt_neox.py's `GPTNeoXModel` (Pythia, the BMRetriever embedders) runs on the device
 under `torch.inference_mode()`. Pooling is the JAX package's (`forceCls`:
 the first token's state, a pad's under left padding, as there; otherwise
 the mean over the attention mask), and the result is L2-normalized in
 numpy exactly as there (under `forceCls` with left padding, under a
 `longrope` or `dynamic` rotary, for a block-sparse BigBird, and for
-GPT-Neo and GPT-J under left padding, every chunk of a call is padded to
+GPT-Neo, GPT-J and GPT-NeoX under left padding, every chunk of a call is padded to
 the call's longest text, as the JAX package pads its one batch: a pad's
 state can depend on how far it pads, those rotaries' frequencies on the
 padded length, BigBird's choice of sparse attention and its blocks'
-layout too, and GPT-Neo's and GPT-J's positions count from the padded
-start; the Llama and Gemma tokenizer classes pad on the left by
+layout too, and GPT-Neo's, GPT-J's and GPT-NeoX's positions count from
+the padded start; the Llama and Gemma tokenizer classes pad on the left by
 default, BLOOM's published files ask for it). The JAX
 package passes every output of its
 tokenizer to the torch model (`**tok`), token types included; the port
@@ -77,7 +78,7 @@ import numpy as np
 import torch
 
 from ..ops.chain_keys import LaunchCounter
-from . import bloom, gpt_neo, gptj, longformer, moe, squeezebert, xlnet
+from . import bloom, gpt_neo, gpt_neox, gptj, longformer, moe, squeezebert, xlnet
 from .bert import RELATIVE_KEYS
 from .checkpoint import build_model, build_tokenizer, gives_token_types, load_checkpoint
 from .deberta_v2 import attention_span
@@ -94,7 +95,7 @@ from .rope import BATCH_LENGTH_ROPES
 CHUNK_TEXTS = 256
 FORWARDS = LaunchCounter()  # encoder forward passes, any device
 # model types whose positions count from the padded start of the batch
-PADDED_POSITIONS = (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE)
+PADDED_POSITIONS = (gpt_neo.MODEL_TYPE, gptj.MODEL_TYPE, gpt_neox.MODEL_TYPE)
 
 
 class TextEncoder:
@@ -181,6 +182,12 @@ class TextEncoder:
             k, h = c["num_experts_per_tok"], c["hidden_size"]
             per_text += 4 * L * (k * (2 * moe.expert_width(c) + 2 * h) + moe.num_experts(c)
                                  + 2 * c.get("shared_expert_intermediate_size", 0))
+        elif kind == gpt_neox.MODEL_TYPE and c["use_parallel_residual"]:
+            # the parallel residual holds the attention's output and the
+            # MLP's input (its own LayerNorm of the layer's input) at once,
+            # two hidden-wide activations beside the six counted (its MLP is
+            # not gated: intermediate_size once, above)
+            per_text += 4 * L * 2 * c["hidden_size"]
         elif kind == squeezebert.MODEL_TYPE:
             # SqueezeBERT's channel-last copies around each LayerNorm and the
             # grouped products' copies of their inputs
@@ -259,7 +266,9 @@ class TextEncoder:
             # sparse past its threshold, and its blocks' layout (which block
             # is last, which blocks a row slides over) follows the padded
             # length: each chunk is cut from the call's one padded batch, as
-            # the JAX package pads
+            # the JAX package pads (GPT-NeoX's positions too, though its
+            # rotary is relative: a left pad's state and the real tokens'
+            # rounding move with them)
             t = time.perf_counter()
             whole = self.tokenize(texts)
             tokenize_s += time.perf_counter() - t

@@ -52,6 +52,7 @@ from ..ops.hamming import hamming_keyed, hamming_rows, topk_key
 # cost); not yet re-derived for the H100
 DEVICE_MIN_ROWS = 4096
 _RESIDENT_LOCK = threading.Lock()  # one upload of a matrix, however many callers
+_STORE_LOCKS = threading.Lock()  # makes each store's `_build_lock`
 FLOAT_LEGS = LaunchCounter()  # float-leg products issued on a torch device
 
 
@@ -73,6 +74,17 @@ def _pack_signs(matrix: np.ndarray) -> np.ndarray:
     )
 
 
+def _build_lock(store: IndexStore) -> threading.Lock:
+    """The store's lock around building a VectorSearcher's state."""
+    lock = getattr(store, "_vector_searcher_lock", None)
+    if lock is None:
+        with _STORE_LOCKS:
+            lock = getattr(store, "_vector_searcher_lock", None)
+            if lock is None:
+                lock = store._vector_searcher_lock = threading.Lock()
+    return lock
+
+
 class VectorSearcher:
     """Per-(index, embedder) exact/IVF search, on the store's device."""
 
@@ -80,6 +92,16 @@ class VectorSearcher:
         self.store = store
         self.embedder = embedder
         self.device = store.device
+        # one build of a generation's state, however many threads ask for it
+        # (the scheduler's warm-up, `App.warm_devices`, searches): each would
+        # otherwise start its own resident map, the last to finish would
+        # replace the others in the cache, and the uploads made into the
+        # others would be lost to the next searcher
+        with _build_lock(store):
+            self._build(store, embedder)
+
+    def _build(self, store: IndexStore, embedder: str) -> None:
+        self.generation = store.generation
         # cached on the store itself (an id(store)-keyed global dict would
         # serve stale matrices when a freed store's id is reused)
         caches = getattr(store, "_vector_searcher_cache", None)
@@ -87,7 +109,7 @@ class VectorSearcher:
             caches = {}
             store._vector_searcher_cache = caches
         cached = caches.get(embedder)
-        if cached and cached[0] == store.generation:
+        if cached and cached[0] == self.generation:
             (
                 self.docids,
                 self.matrix,
@@ -125,7 +147,7 @@ class VectorSearcher:
         self._ivf = self._build_ivf()
         self._device = {}  # residents: (name, device) -> (tensor, n)
         caches[embedder] = (
-            store.generation,
+            self.generation,
             (
                 self.docids,
                 self.matrix,
@@ -136,6 +158,13 @@ class VectorSearcher:
                 self._device,
             ),
         )
+
+    def on_device_legs(self) -> bool:
+        """Whether searches run the device legs over a resident matrix:
+        the store is bound to a device, the matrix has at least
+        DEVICE_MIN_ROWS rows and no IVF lists."""
+        return (self.device is not None and self.matrix.shape[0] >= DEVICE_MIN_ROWS
+                and self._ivf is None)
 
     # -- IVF --------------------------------------------------------------
 
@@ -232,12 +261,7 @@ class VectorSearcher:
         qn = np.linalg.norm(q)
         q = q / (qn if qn else 1.0)
 
-        if (
-            self.device is not None
-            and universe is None
-            and self._ivf is None
-            and self.matrix.shape[0] >= DEVICE_MIN_ROWS
-        ):
+        if universe is None and self.on_device_legs():
             with _counted():
                 pending = _device_topk_dispatch(self, q, k)
 
@@ -321,15 +345,25 @@ def _counted():
 def warm_vector_kernels(store: IndexStore) -> None:
     """Upload each embedder's matrix to the store's device OFF the serving
     path (and build the kernels: the first query would otherwise pay
-    both). Raises when an upload or a leg fails."""
+    both), for every embedder whose searches take the device legs
+    (`VectorSearcher.on_device_legs`). Raises when an upload or a leg
+    fails, or when such an embedder's matrix is not resident after it in
+    the state the next searcher of the same generation reads."""
     if store.device is None:
         return
     for name in store.settings.embedders or {}:
         s = VectorSearcher(store, name)
-        if s.matrix.shape[0] >= DEVICE_MIN_ROWS and s._ivf is None:
-            q = np.zeros(s.dim, np.float32)
-            q[0] = 1.0
-            s.search_async(q, 10)()
+        if not s.on_device_legs():
+            continue
+        q = np.zeros(s.dim, np.float32)
+        q[0] = 1.0
+        s.search_async(q, 10)()
+        generation, state = store._vector_searcher_cache[name]
+        if generation == s.generation and ("matrix", s.device) not in state[-1]:
+            raise RuntimeError(
+                f"index `{store.uid}`: embedder `{name}`'s matrix is not resident on"
+                f" {s.device} after its warm-up (generation {generation})"
+            )
 
 
 def _resident(searcher: VectorSearcher, name: str, host_array: np.ndarray, fill=0):

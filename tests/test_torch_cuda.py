@@ -19,8 +19,8 @@ keys, the decoders (with scaled rotaries, sliding windows, MLP biases and
 other activations too), Gemma 3 and Llama from byte-fallback
 tokenizers, XLM and FlauBERT from their Moses tokenizers, Gemma 2,
 Gemma and Phi-3, Longformer, data2vec-text, XLM-RoBERTa-XL and BigBird,
-GPT-Neo, GPT-J and BLOOM from GPT-2's and BLOOM's byte-level BPEs, and
-Mixtral, Qwen2-MoE and Qwen3-MoE from BF16 shards (under chip_smoke.py's
+GPT-Neo, GPT-J and BLOOM from GPT-2's and BLOOM's byte-level BPEs,
+GPT-NeoX from GPT-NeoX-20B's, and Mixtral, Qwen2-MoE and Qwen3-MoE from BF16 shards (under chip_smoke.py's
 routing rule), on the card as the same checkpoint on the CPU."""
 
 import sys
@@ -1528,6 +1528,48 @@ def test_gpt_neo_gptj_bloom_on_the_card_match_the_cpu(cuda_device, tmp_path, kin
     got = card.encode(texts)
     assert next(card._model.parameters()).is_cuda
     assert type(card._model).__name__ == module and card._tokenizer.padding_side == side
+    _ids, mask = card._tokenizer(texts, card.max_len)
+    assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
+    want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)
+    assert bool(np.isfinite(got).all())
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
+# BMRetriever-410M's widths (EleutherAI/pythia-410m's, as recalled: 1,024
+# wide, 16 heads of 64 with 16 rotated channels, intermediate 4,096) cut to
+# 2 layers, over a seeded byte-level BPE in GPT-NeoX-20B's layout
+P26_GPT_NEOX = {"model_type": "gpt_neox", "hidden_size": 1024, "num_hidden_layers": 2,
+                "num_attention_heads": 16, "intermediate_size": 4096, "rotary_pct": 0.25,
+                "max_position_embeddings": 2048}
+
+
+@pytest.mark.parametrize("parallel", [True, False])
+@pytest.mark.parametrize("side", ["right", "left"])
+@pytest.mark.parametrize("pooling", ["useModel", "forceCls"])
+def test_gpt_neox_on_the_card_matches_the_cpu(cuda_device, tmp_path, pooling, side, parallel,
+                                              monkeypatch):
+    """GPT-NeoX's per-head fused QKV, partial rotary and parallel (or
+    sequential) residual on the card: short texts beside ones of 200 to
+    512 tokens, padded right and left, in chunks of 8 (cut from the call's
+    one batch under left padding), against the CPU within 1e-4
+    (ENC_TOL)."""
+    from meilisearch_tpu_torch.models import fixtures, hf_encoder
+    from meilisearch_tpu_torch.models.checkpoint import new_model, write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = fixtures.gpt_neox_tokenizer_json(_enc_texts(200, 37), 1500, seed=37)
+    config = {**P26_GPT_NEOX, "vocab_size": len(spec["model"]["vocab"]),
+              "use_parallel_residual": parallel}
+    torch.manual_seed(38)
+    write_checkpoint(str(tmp_path), config, new_model(config).state_dict(), tokenizer_json=spec,
+                     tokenizer_config=fixtures.gpt_neox_tokenizer_config(spec, padding_side=side))
+    texts = _enc_texts(15, seed=39) + [" ".join(ENC_WORDS * 30), " ".join(ENC_WORDS * 80), "",
+                                       "<|endoftext|> Hello,   world! 中文 \U0001F680"]
+    monkeypatch.setattr(hf_encoder, "CHUNK_TEXTS", 8)
+    card = hf_encoder.TextEncoder(str(tmp_path), pooling, device=cuda_device)
+    got = card.encode(texts)
+    assert next(card._model.parameters()).is_cuda
+    assert type(card._model).__name__ == "GPTNeoXModel" and card._tokenizer.padding_side == side
     _ids, mask = card._tokenizer(texts, card.max_len)
     assert mask.shape[1] == 512 and int(mask.sum(1).min()) < 16
     want = hf_encoder.TextEncoder(str(tmp_path), pooling, device=None).encode(texts)

@@ -33,8 +33,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-CANDIDATES = ("gemma2", "gemma", "phi3", "longformer", "big_bird", "data2vec-text",
-              "xlm-roberta-xl", "gpt_neo", "gptj", "bloom", "mixtral", "qwen2_moe", "qwen3_moe")
+# ROADMAP queue 1 item 2: the types the reference embeds and the port still
+# refuses, in the queue's order
+CANDIDATES = ("bart", "falcon", "stablelm", "gpt2", "opt", "phi", "gpt_bigcode", "mpt",
+              "starcoder2", "olmo", "olmo2", "granite", "cohere", "exaone4", "olmoe",
+              "granitemoe", "phimoe", "dbrx", "deberta", "convbert", "nezha", "luke", "ibert",
+              "roc_bert")
 SMALL = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4,
          "intermediate_size": 96, "max_position_embeddings": 512}
 # per type: what a 64-wide, 2-layer model needs besides SMALL
